@@ -1,12 +1,13 @@
-"""Flax GPT parameters -> the port's GPTForCausalLM state dict.
+"""Flax parameters -> the port's state dicts.
 
-``gpt_params_from_flax(tree)`` takes the flax param tree of
-apex_example_tpu's GPTForCausalLM as nested dicts of numpy arrays (the
-caller turns jax arrays into numpy; this module imports no jax) and returns
-a state dict for ``GPTForCausalLM.load_state_dict``.  A flax Dense
-``kernel`` is [in, out]; it is TRANSPOSED into ``nn.Linear.weight``
-[out, in].  Embedding tables, LayerNorm ``scale``/``bias`` and ``lm_bias``
-carry over as they are.
+``gpt_params_from_flax(tree)`` and ``bert_params_from_flax(tree)`` take the
+flax param tree of apex_example_tpu's GPTForCausalLM / BertForMaskedLM as
+nested dicts of numpy arrays (the caller turns jax arrays into numpy; this
+module imports no jax) and return a state dict for the port model's
+``load_state_dict``.  A flax Dense ``kernel`` is [in, out]; it is
+TRANSPOSED into ``nn.Linear.weight`` [out, in].  Embedding tables,
+LayerNorm ``scale``/``bias``, ``lm_bias`` and ``mlm_bias`` carry over as
+they are.
 """
 
 from __future__ import annotations
@@ -31,17 +32,12 @@ def _node(tree: Mapping, path: str) -> Mapping:
     return tree
 
 
-def gpt_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    sd = {
-        "word_embeddings.weight": _tensor(
-            tree["word_embeddings"]["embedding"]),
-        "position_embeddings.weight": _tensor(
-            tree["position_embeddings"]["embedding"]),
-        "lm_bias": _tensor(tree["lm_bias"]),
-    }
-    for ln in ("embeddings_ln", "final_ln"):
-        sd[f"{ln}.scale"] = _tensor(tree[ln]["scale"])
-        sd[f"{ln}.bias"] = _tensor(tree[ln]["bias"])
+def _layers_from_flax(tree: Mapping, sd: Dict[str, torch.Tensor]) -> None:
+    """The shared post-LN layers ``layer_i`` and the embedding tables."""
+    sd["word_embeddings.weight"] = _tensor(
+        tree["word_embeddings"]["embedding"])
+    sd["position_embeddings.weight"] = _tensor(
+        tree["position_embeddings"]["embedding"])
     n_layers = sum(1 for k in tree if k.startswith("layer_"))
     for i in range(n_layers):
         layer = tree[f"layer_{i}"]
@@ -53,4 +49,29 @@ def gpt_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
         for ln in _NORMS:
             sd[f"layers.{i}.{ln}.scale"] = _tensor(layer[ln]["scale"])
             sd[f"layers.{i}.{ln}.bias"] = _tensor(layer[ln]["bias"])
+
+
+def _norms(tree: Mapping, names, sd: Dict[str, torch.Tensor]) -> None:
+    for ln in names:
+        sd[f"{ln}.scale"] = _tensor(tree[ln]["scale"])
+        sd[f"{ln}.bias"] = _tensor(tree[ln]["bias"])
+
+
+def gpt_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    sd = {"lm_bias": _tensor(tree["lm_bias"])}
+    _norms(tree, ("embeddings_ln", "final_ln"), sd)
+    _layers_from_flax(tree, sd)
+    return sd
+
+
+def bert_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """BertForMaskedLM: the GPT layout's embeddings and layers, plus
+    ``mlm_dense`` (transposed), ``mlm_ln`` and ``mlm_bias``; the decoder
+    is the word-embedding table itself."""
+    sd = {"mlm_bias": _tensor(tree["mlm_bias"]),
+          "mlm_dense.weight": _tensor(
+              tree["mlm_dense"]["kernel"]).T.contiguous(),
+          "mlm_dense.bias": _tensor(tree["mlm_dense"]["bias"])}
+    _norms(tree, ("embeddings_ln", "mlm_ln"), sd)
+    _layers_from_flax(tree, sd)
     return sd

@@ -1,0 +1,244 @@
+// LAMB stage 1 and stage 2 for Hopper (sm_90a), bound with ctypes.
+//
+// Replace apex_example_tpu/ops/fused_optim.py:137 `_lamb1_kernel` (launched
+// per leaf by `lamb_stage1_leaf`, :167 / :196) and :219 `_lamb2_kernel`
+// (`lamb_stage2_leaf`, :225 / :242), with the per-tensor trust ratio of
+// apex_example_tpu/optim/fused.py:135-136 computed on the card between them.
+//
+// Stage 1, per element (fp32 arithmetic, as at fused_optim.py:146-154):
+//   g' = g * gscale;  m = b1*m + (1-b1)*g';  v = b2*v + (1-b2)*g'*g'
+//   u  = (m*c1) / (sqrt(v*c2) + eps) + wd*p
+// m and v are updated in place (fp32), u goes to one flat fp32 buffer, and
+// per tensor ||p||^2 and ||u||^2 are summed; then per tensor
+//   ratio = (||p|| > 0 and ||u|| > 0) ? ||p|| / ||u|| : 1.
+// gscale is LAMB's global-norm clip, where(gnorm > max, max/(gnorm+1e-6), 1)
+// (optim/fused.py:120-124), computed by each block from the grad norm that
+// multi_tensor.cu left on the card: no host sync reads it.  The other
+// scalars (b1, b2, eps, wd, c1, c2, the clip bound, lr) are known on the
+// host before the step and arrive as kernel arguments.
+// Stage 2, per element: p -= (lr * ratio[t]) * u, p in place.
+//
+// Bound: bytes.  Stage 1 reads p, g, m, v and writes m, v, u: 28 bytes per
+// fp32 element, 3.07 GB for bert_base's 109.5 M, ~0.915 ms at 3.35 TB/s.
+// Stage 2 reads p and u and writes p: 12 bytes per element, ~0.39 ms.
+// Both do a few tens of operations per element, far below the fp32 rate.
+//
+// Design: the tensor-list launch of multi_tensor_apply.cuh.  Each list of
+// 201 tensors is one launch of one block per 64 Ki-element chunk, p, g, m, v
+// read once and m, v, u written once; the TPU kernel's across-grid SMEM
+// accumulators for the norms become per-chunk partials reduced per tensor
+// in chunk order (no float atomics, so the norms repeat bitwise).
+
+#include "multi_tensor_apply.cuh"
+
+namespace {
+
+using mta::Chunk;
+using mta::Table;
+
+struct Lamb1Args {
+  float beta1, beta2, eps, weight_decay, bias_c1, bias_c2, max_grad_norm;
+};
+
+// ptrs lists: 0 = p, 1 = g (dtype T), 2 = m, 3 = v (fp32).
+template <typename T>
+__global__ void __launch_bounds__(mta::kThreads)
+    lamb1_chunks_kernel(Table tab, Lamb1Args a,
+                        const float* __restrict__ gnorm, float* __restrict__ u,
+                        float* __restrict__ partial) {
+  __shared__ float smem[mta::kThreads / 32];
+  const Chunk k = mta::chunk_of(tab, blockIdx.x);
+  const long long n = tab.n_tensors;
+  const T* p = reinterpret_cast<const T*>(tab.ptrs[k.tensor]) + k.start;
+  const T* g = reinterpret_cast<const T*>(tab.ptrs[n + k.tensor]) + k.start;
+  float* m = reinterpret_cast<float*>(tab.ptrs[2 * n + k.tensor]) + k.start;
+  float* v = reinterpret_cast<float*>(tab.ptrs[3 * n + k.tensor]) + k.start;
+  float* ut = u + k.flat + k.start;
+
+  float gscale = 1.f;
+  if (gnorm != nullptr) {
+    const float gn = gnorm[0];
+    if (gn > a.max_grad_norm) gscale = a.max_grad_norm / (gn + 1e-6f);
+  }
+  const float b1 = a.beta1, b2 = a.beta2;
+  float pp = 0.f, uu = 0.f;
+  for (int base = threadIdx.x; base < k.len;
+       base += mta::kUnroll * mta::kThreads) {
+    float pf[mta::kUnroll], gf[mta::kUnroll], mf[mta::kUnroll],
+        vf[mta::kUnroll];
+#pragma unroll
+    for (int s = 0; s < mta::kUnroll; ++s) {
+      const int i = base + s * mta::kThreads;
+      if (i < k.len) {
+        pf[s] = mta::to_float(p[i]);
+        gf[s] = mta::to_float(g[i]);
+        mf[s] = m[i];
+        vf[s] = v[i];
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < mta::kUnroll; ++s) {
+      const int i = base + s * mta::kThreads;
+      if (i < k.len) {
+        const float gs = gf[s] * gscale;
+        const float mn = b1 * mf[s] + (1.f - b1) * gs;
+        const float vn = b2 * vf[s] + (1.f - b2) * gs * gs;
+        const float un = (mn * a.bias_c1) / (sqrtf(vn * a.bias_c2) + a.eps) +
+                         a.weight_decay * pf[s];
+        m[i] = mn;
+        v[i] = vn;
+        ut[i] = un;
+        pp += pf[s] * pf[s];
+        uu += un * un;
+      }
+    }
+  }
+  pp = mta::block_sum(pp, smem);
+  uu = mta::block_sum(uu, smem);
+  if (threadIdx.x == 0) {
+    partial[blockIdx.x] = pp;
+    partial[tab.n_chunks + blockIdx.x] = uu;
+  }
+}
+
+// sums[0 * n + t] = ||p_t||^2, sums[1 * n + t] = ||u_t||^2 -> ratio[t].
+__global__ void __launch_bounds__(256)
+    trust_ratio_kernel(const float* __restrict__ sums, int n_tensors,
+                       float* __restrict__ ratio) {
+  const int t = blockIdx.x * 256 + threadIdx.x;
+  if (t >= n_tensors) return;
+  const float w = sqrtf(sums[t]);
+  const float un = sqrtf(sums[n_tensors + t]);
+  ratio[t] = (w > 0.f && un > 0.f) ? w / un : 1.f;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(mta::kThreads)
+    lamb2_chunks_kernel(Table tab, const float* __restrict__ u,
+                        const float* __restrict__ ratio, float lr) {
+  const Chunk k = mta::chunk_of(tab, blockIdx.x);
+  T* p = reinterpret_cast<T*>(tab.ptrs[k.tensor]) + k.start;
+  const float* ut = u + k.flat + k.start;
+  const float scaled_lr = lr * ratio[k.tensor];
+  for (int base = threadIdx.x; base < k.len;
+       base += mta::kUnroll * mta::kThreads) {
+    float pf[mta::kUnroll], uf[mta::kUnroll];
+#pragma unroll
+    for (int s = 0; s < mta::kUnroll; ++s) {
+      const int i = base + s * mta::kThreads;
+      if (i < k.len) {
+        pf[s] = mta::to_float(p[i]);
+        uf[s] = ut[i];
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < mta::kUnroll; ++s) {
+      const int i = base + s * mta::kThreads;
+      if (i < k.len) p[i] = mta::from_float<T>(pf[s] - scaled_lr * uf[s]);
+    }
+  }
+}
+
+template <typename T>
+int run_stage1(const Table& tab, const Lamb1Args& a, const float* gnorm,
+               float* u, float* partial, float* sums, float* ratio,
+               cudaStream_t stream) {
+  if (tab.n_chunks > 0) {
+    lamb1_chunks_kernel<T><<<static_cast<unsigned>(tab.n_chunks),
+                             mta::kThreads, 0, stream>>>(tab, a, gnorm, u,
+                                                         partial);
+    int rc = static_cast<int>(cudaGetLastError());
+    if (rc != 0) return rc;
+  }
+  int rc = mta::launch_tensor_sums(tab, 2, partial, sums, stream);
+  if (rc != 0) return rc;
+  trust_ratio_kernel<<<static_cast<unsigned>((tab.n_tensors + 255) / 256),
+                       256, 0, stream>>>(sums, tab.n_tensors, ratio);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int run_stage2(const Table& tab, const float* u, const float* ratio, float lr,
+               cudaStream_t stream) {
+  if (tab.n_chunks == 0) return 0;
+  lamb2_chunks_kernel<T><<<static_cast<unsigned>(tab.n_chunks),
+                           mta::kThreads, 0, stream>>>(tab, u, ratio, lr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+Table make_table(const void* ptrs, const void* offsets,
+                 const void* chunk_tensor, const void* chunk_start,
+                 const void* tensor_chunk0, int n_tensors, int n_chunks) {
+  return Table{static_cast<const long long*>(ptrs),
+               static_cast<const long long*>(offsets),
+               static_cast<const long long*>(chunk_tensor),
+               static_cast<const long long*>(chunk_start),
+               static_cast<const long long*>(tensor_chunk0), n_tensors,
+               n_chunks};
+}
+
+}  // namespace
+
+// Stage 1 over a table of four lists (p, g, m, v).  gnorm: the device grad
+// norm, or null for no clip.  u: offsets[n_tensors] floats out.  partial:
+// 2 * n_chunks floats of scratch.  sums: 2 * n_tensors floats out (||p||^2
+// then ||u||^2).  ratio: n_tensors floats out.  dtype is p's and g's.
+// Argument errors are negative; a launch error is the cudaError_t value.
+extern "C" int apex_lamb_stage1(
+    const void* ptrs, const void* offsets, const void* chunk_tensor,
+    const void* chunk_start, const void* tensor_chunk0, int n_tensors,
+    int n_chunks, int dtype, float beta1, float beta2, float eps,
+    float weight_decay, float bias_c1, float bias_c2, float max_grad_norm,
+    const void* gnorm, void* u, void* partial, void* sums, void* ratio,
+    void* stream) {
+  if (n_tensors < 1 || n_chunks < 0) return -2;
+  const Table tab = make_table(ptrs, offsets, chunk_tensor, chunk_start,
+                               tensor_chunk0, n_tensors, n_chunks);
+  const Lamb1Args a{beta1, beta2, eps, weight_decay, bias_c1, bias_c2,
+                    max_grad_norm};
+  const float* gn = static_cast<const float*>(gnorm);
+  float* uo = static_cast<float*>(u);
+  float* pa = static_cast<float*>(partial);
+  float* su = static_cast<float*>(sums);
+  float* ra = static_cast<float*>(ratio);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return run_stage1<float>(tab, a, gn, uo, pa, su, ra, st);
+    case 1:
+      return run_stage1<__nv_bfloat16>(tab, a, gn, uo, pa, su, ra, st);
+    case 2:
+      return run_stage1<__half>(tab, a, gn, uo, pa, su, ra, st);
+    default:
+      return -1;
+  }
+}
+
+// Stage 2 over the same table (list 0 = p is updated in place).
+extern "C" int apex_lamb_stage2(const void* ptrs, const void* offsets,
+                                const void* chunk_tensor,
+                                const void* chunk_start,
+                                const void* tensor_chunk0, int n_tensors,
+                                int n_chunks, int dtype, const void* u,
+                                const void* ratio, float lr, void* stream) {
+  if (n_tensors < 1 || n_chunks < 0) return -2;
+  const Table tab = make_table(ptrs, offsets, chunk_tensor, chunk_start,
+                               tensor_chunk0, n_tensors, n_chunks);
+  const float* uo = static_cast<const float*>(u);
+  const float* ra = static_cast<const float*>(ratio);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return run_stage2<float>(tab, uo, ra, lr, st);
+    case 1:
+      return run_stage2<__nv_bfloat16>(tab, uo, ra, lr, st);
+    case 2:
+      return run_stage2<__half>(tab, uo, ra, lr, st);
+    default:
+      return -1;
+  }
+}
+
+extern "C" const char* apex_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,0 +1,142 @@
+// Tensor-list launches for Hopper (sm_90a): the pieces multi_tensor.cu and
+// fused_optim.cu share.
+//
+// apex's multi_tensor_apply cuts a LIST of tensors into fixed-size chunks
+// and covers the whole list in one launch: one block per chunk.  Here the
+// chunk table lives in device memory, built once on the host
+// (ops/multi_tensor.py TensorTable) from the tensors' addresses, which stay
+// put across steps:
+//
+//   ptrs[l * n_tensors + t]   address of tensor t of list l
+//   offsets[t]                flat element offset of tensor t (prefix sum of
+//                             numel; offsets[n_tensors] is the total)
+//   chunk_tensor[c]           the tensor chunk c belongs to
+//   chunk_start[c]            chunk c's first element inside that tensor
+//   tensor_chunk0[t]          tensor t's first chunk (tensor_chunk0[n] = C)
+//
+// Sums across blocks are never carried by float atomics: each block writes
+// its chunk's partial sum, and a second pass adds a tensor's partials in
+// chunk order.  Every reduction has a fixed shape, so two runs on the same
+// inputs give bitwise-identical sums.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace mta {
+
+constexpr int kChunk = 65536;   // elements per chunk (apex's chunk size)
+constexpr int kThreads = 512;   // threads per chunk block
+constexpr int kUnroll = 4;      // loads in flight per thread
+
+struct Table {
+  const long long* ptrs;
+  const long long* offsets;
+  const long long* chunk_tensor;
+  const long long* chunk_start;
+  const long long* tensor_chunk0;
+  int n_tensors;
+  int n_chunks;
+};
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float v) {
+  return __float2half_rn(v);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Sum over a whole block of kThreads threads, in a fixed order; thread 0
+// gets the total.  smem holds kThreads / 32 floats.
+__device__ __forceinline__ float block_sum(float v, float* smem) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  v = warp_sum(v);
+  if (lane == 0) smem[warp] = v;
+  __syncthreads();
+  v = 0.f;
+  if (warp == 0) {
+    v = lane < kThreads / 32 ? smem[lane] : 0.f;
+    v = warp_sum(v);
+  }
+  __syncthreads();  // smem is written again by the next reduction
+  return v;
+}
+
+// Chunk c of the table: its tensor, its first element inside that tensor,
+// its length and the tensor's flat offset.
+struct Chunk {
+  int tensor;
+  long long start;
+  int len;
+  long long flat;
+};
+
+__device__ __forceinline__ Chunk chunk_of(const Table& tab, int c) {
+  Chunk k;
+  k.tensor = static_cast<int>(tab.chunk_tensor[c]);
+  k.start = tab.chunk_start[c];
+  k.flat = tab.offsets[k.tensor];
+  const long long numel = tab.offsets[k.tensor + 1] - k.flat;
+  const long long left = numel - k.start;
+  k.len = static_cast<int>(left < kChunk ? left : kChunk);
+  return k;
+}
+
+// Second pass: per-tensor sums of K per-chunk partials (partial[k * C + c]),
+// one warp per tensor; lanes take the tensor's chunks in strides of 32 and
+// the warp adds them in a fixed tree.  out[k * n_tensors + t] = the sum.
+template <int K>
+__global__ void __launch_bounds__(256)
+    tensor_sums_kernel(Table tab, const float* __restrict__ partial,
+                       float* __restrict__ out) {
+  const int t = blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (t >= tab.n_tensors) return;
+  const int c0 = static_cast<int>(tab.tensor_chunk0[t]);
+  const int c1 = static_cast<int>(tab.tensor_chunk0[t + 1]);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    float s = 0.f;
+    for (int c = c0 + lane; c < c1; c += 32)
+      s += partial[static_cast<long long>(k) * tab.n_chunks + c];
+    s = warp_sum(s);
+    if (lane == 0) out[static_cast<long long>(k) * tab.n_tensors + t] = s;
+  }
+}
+
+inline int launch_tensor_sums(const Table& tab, int k, const float* partial,
+                              float* out, cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>((tab.n_tensors + 7) / 8);
+  if (k == 1)
+    tensor_sums_kernel<1><<<blocks, 256, 0, stream>>>(tab, partial, out);
+  else
+    tensor_sums_kernel<2><<<blocks, 256, 0, stream>>>(tab, partial, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace mta

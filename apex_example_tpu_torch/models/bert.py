@@ -1,11 +1,16 @@
-"""Post-LN transformer layers: port of apex_example_tpu/models/bert.py.
+"""BERT: port of apex_example_tpu/models/bert.py.
 
-``BertSelfAttention`` (:72) and ``BertLayer`` (:418) as GPT uses them:
-causal attention, either over the whole sequence (the dense path,
-:408-415) or as a step of block-paged slot decode (:187-327), and the dense
-GELU FFN (:497-501) with post-LN residuals (:468-469, :502-503).  The
-einsum attention core is ``_softmax_attention`` (:51): logits DIVIDED by
-sqrt(head_dim), masked with -1e9, softmax in fp32.
+``BertSelfAttention`` (:72) and ``BertLayer`` (:418): attention over the
+whole sequence (the dense path, :408-415), causal for GPT or bidirectional
+with an optional additive key mask for BERT, or causal as a step of
+block-paged slot decode (:187-327); the dense GELU FFN (:497-501) with
+post-LN residuals (:468-469, :502-503).  The einsum attention core is
+``_softmax_attention`` (:51): logits DIVIDED by sqrt(head_dim), a boolean
+mask as -1e9, an additive bias clamped at -1e9, softmax in fp32.
+``BertForMaskedLM`` (:508) is the encoder with the MLM head whose decoder
+is tied to the word embeddings; ``bert_base`` and ``bert_tiny`` build it.
+The flash-attention kernel stays off: the JAX package's "auto" takes it
+only at sequence 2048 and up (:33, :45-46).
 
 Paged slot decode.  Each layer owns one K and one V arena of shape
 ``[num_blocks, block_size, heads, head_dim]``; every batch row is a request
@@ -32,19 +37,25 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from apex_example_tpu_torch import resolve_device
 from apex_example_tpu_torch.normalization import FusedLayerNorm
 
 Arena = Tuple[torch.Tensor, torch.Tensor]      # (K, V), [NB, BS, H, D] each
 
 
 def _softmax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       bool_mask: Optional[torch.Tensor]) -> torch.Tensor:
+                       bool_mask: Optional[torch.Tensor],
+                       add_bias: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """q [B, Sq, H, D], k/v [B, Sk, H, D]; ``bool_mask`` broadcasts against
-    [B, H, Sq, Sk] (True = attend).  Returns [B, Sq, H, D]."""
+    [B, H, Sq, Sk] (True = attend), ``add_bias`` too (added, clamped at
+    -1e9 as at :67).  Returns [B, Sq, H, D]."""
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
     logits = logits / math.sqrt(q.shape[-1])    # a division, as at :62
     if bool_mask is not None:
         logits = logits.masked_fill(~bool_mask, -1e9)
+    if add_bias is not None:
+        logits = logits + add_bias.clamp_min(-1e9).float()
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
@@ -130,32 +141,43 @@ def paged_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 class BertSelfAttention(nn.Module):
-    """Causal self-attention with the JAX module's parameter names
-    (query, key, value, output)."""
+    """Self-attention with the JAX module's parameter names (query, key,
+    value, output); ``causal`` masks keys after the query (:104)."""
 
-    def __init__(self, hidden_size: int, num_heads: int, device=None):
+    def __init__(self, hidden_size: int, num_heads: int, device=None,
+                 causal: bool = False):
         super().__init__()
         if hidden_size % num_heads:
             raise ValueError(f"hidden {hidden_size} is not a multiple of "
                              f"{num_heads} heads")
         self.num_heads = num_heads
+        self.causal = causal
         self.query = nn.Linear(hidden_size, hidden_size, device=device)
         self.key = nn.Linear(hidden_size, hidden_size, device=device)
         self.value = nn.Linear(hidden_size, hidden_size, device=device)
         self.output = nn.Linear(hidden_size, hidden_size, device=device)
 
     def forward(self, x: torch.Tensor, arena: Optional[Arena] = None,
-                step: Optional[PagedStep] = None) -> torch.Tensor:
+                step: Optional[PagedStep] = None,
+                mask_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``mask_bias`` broadcasts against [B, H, L, L] (BERT passes
+        [B, 1, 1, L]); paged decode is causal and takes none."""
         B, L, d = x.shape
         h = self.num_heads
         q = self.query(x).view(B, L, h, d // h)
         k = self.key(x).view(B, L, h, d // h)
         v = self.value(x).view(B, L, h, d // h)
-        if step is None:
-            tri = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
-            ctx = _softmax_attention(q, k, v, tri[None, None])
-        else:
+        if step is not None:
+            if not self.causal or mask_bias is not None:
+                raise ValueError("paged decode is the causal path and takes "
+                                 "no mask")
             ctx = paged_attention(q, k, v, arena, step)
+        else:
+            tri = None
+            if self.causal:
+                tri = torch.ones(L, L, dtype=torch.bool,
+                                 device=x.device).tril()[None, None]
+            ctx = _softmax_attention(q, k, v, tri, mask_bias)
         return self.output(ctx.reshape(B, L, d))
 
 
@@ -163,9 +185,10 @@ class BertLayer(nn.Module):
     """Post-LN layer: x = LN(x + attn(x)); x = LN(x + FFN(x)), exact GELU."""
 
     def __init__(self, hidden_size: int, num_heads: int,
-                 intermediate_size: int, device=None):
+                 intermediate_size: int, device=None, causal: bool = False):
         super().__init__()
-        self.attention = BertSelfAttention(hidden_size, num_heads, device)
+        self.attention = BertSelfAttention(hidden_size, num_heads, device,
+                                           causal=causal)
         self.attention_ln = FusedLayerNorm(hidden_size, device=device)
         self.intermediate = nn.Linear(hidden_size, intermediate_size,
                                       device=device)
@@ -173,8 +196,106 @@ class BertLayer(nn.Module):
         self.output_ln = FusedLayerNorm(hidden_size, device=device)
 
     def forward(self, x: torch.Tensor, arena: Optional[Arena] = None,
-                step: Optional[PagedStep] = None) -> torch.Tensor:
-        x = self.attention_ln(x + self.attention(x, arena, step))
+                step: Optional[PagedStep] = None,
+                mask_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = self.attention_ln(x + self.attention(x, arena, step, mask_bias))
         y = self.output(F.gelu(self.intermediate(x), approximate="none"))
         return self.output_ln(x + y)
+
+
+class BertForMaskedLM(nn.Module):
+    """BERT encoder + MLM head with the decoder tied to the word embeddings
+    (:508, :546-637): word + position embeddings -> ``embeddings_ln`` -> N
+    post-LN layers -> ``mlm_dense`` -> exact GELU -> ``mlm_ln`` ->
+    ``x @ E^T + mlm_bias`` -> fp32 logits [B, L, vocab].  The tie is the one
+    ``word_embeddings.weight`` Parameter, read by both ends.
+
+    Weights: random from ``seed`` in the flax initializers' distributions
+    (see :func:`init_bert_weights`), or a flax tree through
+    convert.bert_params_from_flax."""
+
+    def __init__(self, vocab_size: int = 30522, hidden_size: int = 768,
+                 num_layers: int = 12, num_heads: int = 12,
+                 intermediate_size: int = 3072, max_position: int = 512,
+                 seed: int = 0, device="cuda"):
+        super().__init__()
+        self.vocab_size = vocab_size
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.num_heads = num_heads
+        self.max_position = max_position
+        # Built without storage, filled from the seeded generator on the
+        # host, then moved: the weights depend on the seed alone.
+        with torch.device("meta"):
+            self.word_embeddings = nn.Embedding(vocab_size, hidden_size)
+            self.position_embeddings = nn.Embedding(max_position,
+                                                    hidden_size)
+            self.embeddings_ln = FusedLayerNorm(hidden_size)
+            self.layers = nn.ModuleList(
+                BertLayer(hidden_size, num_heads, intermediate_size)
+                for _ in range(num_layers))
+            self.mlm_dense = nn.Linear(hidden_size, hidden_size)
+            self.mlm_ln = FusedLayerNorm(hidden_size)
+            self.mlm_bias = nn.Parameter(torch.zeros(vocab_size))
+        self.to_empty(device="cpu")
+        init_bert_weights(self, seed)
+        self.to(resolve_device(device))
+
+    def forward(self, input_ids: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """[B, L] token ids (and an optional [B, L] mask, > 0 = attend)
+        -> [B, L, vocab] fp32 logits."""
+        L = input_ids.shape[1]
+        pos = torch.arange(L, device=input_ids.device)[None, :]
+        x = self.word_embeddings(input_ids) + self.position_embeddings(pos)
+        x = self.embeddings_ln(x)
+        mask_bias = None
+        if attention_mask is not None:
+            mask_bias = torch.where(attention_mask[:, None, None, :] > 0,
+                                    0.0, -1e9).float()
+        for layer in self.layers:
+            x = layer(x, mask_bias=mask_bias)
+        x = F.gelu(self.mlm_dense(x), approximate="none")
+        x = self.mlm_ln(x)
+        return F.linear(x, self.word_embeddings.weight, self.mlm_bias).float()
+
+
+def init_bert_weights(model: nn.Module, seed: int) -> None:
+    """The flax initializers' distributions, drawn from a CPU generator
+    seeded with ``seed``: Dense kernels ``lecun_normal`` (a normal truncated
+    at two standard deviations, scaled to variance 1/fan_in), biases zero;
+    embeddings ``variance_scaling(1, fan_in, normal)`` over the feature
+    axis (std 1/sqrt(H)); LayerNorm scale one and bias zero.  The numbers
+    differ from jax.random's: tests convert flax weights instead."""
+    gen = torch.Generator().manual_seed(seed)
+    # std of a unit normal truncated to [-2, 2] (jax.nn.initializers)
+    trunc_std = 0.87962566103423978
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("scale"):
+                p.fill_(1.0)
+            elif name.endswith("bias"):
+                p.zero_()
+            elif "embeddings" in name:        # [V, H] table
+                p.normal_(0.0, 1.0 / math.sqrt(p.shape[1]), generator=gen)
+            else:                             # [out, in] Linear weight
+                std = 1.0 / math.sqrt(p.shape[1]) / trunc_std
+                nn.init.trunc_normal_(p, 0.0, std, -2.0 * std, 2.0 * std,
+                                      generator=gen)
+
+
+def bert_base(**kw) -> BertForMaskedLM:
+    return BertForMaskedLM(**kw)
+
+
+def bert_tiny(**kw) -> BertForMaskedLM:
+    """Test-scale configuration (same code path, CPU-friendly)."""
+    kw.setdefault("vocab_size", 256)
+    kw.setdefault("hidden_size", 64)
+    kw.setdefault("num_layers", 2)
+    kw.setdefault("num_heads", 4)
+    kw.setdefault("intermediate_size", 128)
+    kw.setdefault("max_position", 128)
+    return BertForMaskedLM(**kw)
 

@@ -47,7 +47,8 @@ class GPTForCausalLM(nn.Module):
                                                     hidden_size)
             self.embeddings_ln = FusedLayerNorm(hidden_size)
             self.layers = nn.ModuleList(
-                BertLayer(hidden_size, num_heads, intermediate_size)
+                BertLayer(hidden_size, num_heads, intermediate_size,
+                          causal=True)
                 for _ in range(num_layers))
             self.final_ln = FusedLayerNorm(hidden_size)
             self.lm_bias = nn.Parameter(torch.zeros(vocab_size))

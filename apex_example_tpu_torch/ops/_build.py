@@ -10,6 +10,12 @@ A library is built at first use into ``build/kernels/`` at the root of the
 checkout (listed in .gitignore), under a name that hashes its source and
 the compile flags: an edited source builds anew, an unchanged one loads
 from disk.  Nothing is compiled or loaded when a module is imported.
+
+Every library shares one calling convention: an entry point returns 0, a
+negative code for an argument it refused, or a positive ``cudaError_t``
+that the library's ``apex_cuda_error_string`` names; a dtype crosses as
+its code in ``DTYPE_CODES``.  ``raise_on`` turns a nonzero status into an
+exception.
 """
 
 from __future__ import annotations
@@ -21,12 +27,15 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Mapping
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}       # guarded-by: _lock
@@ -48,8 +57,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
+    """Where the library built from ``csrc/<name>.cu`` lives.  The name
+    hashes the source, every shared header in csrc/ and the flags."""
     source = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        source += header.read_bytes()
     digest = hashlib.sha256(
         source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
@@ -68,7 +80,8 @@ def build(names: Iterable[str]) -> Dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         started[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT,
                                           text=True), tmp, out)
@@ -93,5 +106,16 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             build([name])
             lib = ctypes.CDLL(str(library_path(name)))
+            lib.apex_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.apex_cuda_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         return lib
+
+
+def raise_on(rc: int, lib: ctypes.CDLL, what: str,
+             arg_errors: Mapping[int, str]) -> None:
+    """Raise for a nonzero status ``rc`` from an entry point of ``lib``:
+    ``arg_errors`` names the negative codes, the library the CUDA ones."""
+    if rc != 0:
+        why = arg_errors.get(rc) or lib.apex_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what} kernel launch failed ({rc}): {why}")

@@ -1,0 +1,163 @@
+"""LAMB stage 1 and stage 2: the hand-written Hopper kernels and their plain
+versions.
+
+Port of the LAMB part of apex_example_tpu/ops/fused_optim.py.
+``lamb_stage1_plain`` is the arithmetic of ``lamb_stage1_leaf`` (:167,
+plain branch :170-177; the Pallas ``_lamb1_kernel`` :137) and
+``lamb_stage2_plain`` that of ``lamb_stage2_leaf`` (:225, ``_lamb2_kernel``
+:219), one tensor at a time and returning new tensors, as in JAX.
+
+``lamb_stage1_cuda`` and ``lamb_stage2_cuda`` launch csrc/fused_optim.cu
+over a whole :class:`~apex_example_tpu_torch.ops.multi_tensor.TensorTable`
+of four lists (p, g, m, v) in one call each, updating in place: m and v in
+stage 1 (the JAX kernel aliases them, :207), p in stage 2 (:249).  Stage 1
+also leaves the per-tensor trust ratios on the card for stage 2
+(optim/fused.py:135-136), and takes the global-norm clip's scale from the
+grad norm on the card, so nothing between the two stages waits for the
+host.  u is fp32 whatever p's dtype (:203), in one flat buffer that the
+caller allocates once.
+
+Which one runs is the caller's choice by device (optim/fused.py): CPU
+tensors take the plain versions, CUDA tensors the kernels, and the kernels'
+wrappers raise on anything they cannot take.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from apex_example_tpu_torch.ops import _build
+from apex_example_tpu_torch.ops.multi_tensor import (ARG_ERRORS,
+                                                     TensorTable,
+                                                     check_table)
+
+
+def lamb_stage1_plain(p, g, m, v, *, beta1, beta2, eps, weight_decay,
+                      bias_c1, bias_c2, grad_scale=1.0):
+    """``(u, m', v', ||p||^2, ||u||^2)`` for one tensor, fp32 arithmetic;
+    u fp32, m' and v' in m's and v's dtypes.  ``1 - beta`` is taken in
+    fp32 too, as the kernels take it (at beta2 = 0.999 that differs from
+    the rounded exact value by 1.3e-5 relative)."""
+    pf, gf = p.float(), g.float() * grad_scale
+    mf, vf = m.float(), v.float()
+    b1, b2 = np.float32(beta1), np.float32(beta2)
+    mf = float(b1) * mf + float(np.float32(1.0) - b1) * gf
+    vf = float(b2) * vf + float(np.float32(1.0) - b2) * gf * gf
+    u = (mf * bias_c1) / (torch.sqrt(vf * bias_c2) + eps) + weight_decay * pf
+    return (u, mf.to(m.dtype), vf.to(v.dtype), (pf * pf).sum(),
+            (u * u).sum())
+
+
+def lamb_stage2_plain(p, update, scaled_lr):
+    """``p - scaled_lr * update`` in fp32, returned in p's dtype."""
+    return (p.float() - scaled_lr * update.float()).to(p.dtype)
+
+
+def trust_ratio_plain(p_sq: torch.Tensor, u_sq: torch.Tensor
+                      ) -> torch.Tensor:
+    """``||p|| / ||u||`` where both are positive, else 1 (optim/fused.py
+    :135-136; apex's lamb_stage_2)."""
+    w, u = torch.sqrt(p_sq), torch.sqrt(u_sq)
+    return torch.where((w > 0) & (u > 0), w / u, torch.ones_like(w))
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = _build.load("fused_optim")
+    lib.apex_lamb_stage1.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int] * 3 + [ctypes.c_float] * 7 + [ctypes.c_void_p] * 6
+    lib.apex_lamb_stage1.restype = ctypes.c_int
+    lib.apex_lamb_stage2.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p] * 2 + [ctypes.c_float,
+                                                     ctypes.c_void_p]
+    lib.apex_lamb_stage2.restype = ctypes.c_int
+    return lib
+
+
+def _check_lamb_table(table: TensorTable, u: torch.Tensor, who: str,
+                      n_lists: int) -> None:
+    if len(table.lists) != n_lists:
+        raise ValueError(f"{who} takes a table of {n_lists} lists, got "
+                         f"{len(table.lists)}")
+    if table.dtype(1 if n_lists > 1 else 0) != table.dtype(0):
+        raise TypeError(f"{who}: p and g must share a dtype")
+    for index in range(2, n_lists):
+        if table.dtype(index) != torch.float32:
+            raise TypeError(f"{who}: m and v must be float32")
+    if (u.dtype != torch.float32 or u.dim() != 1 or u.numel() != table.total
+            or not u.is_contiguous()):
+        raise ValueError(f"{who}: u must be a contiguous float32 buffer of "
+                         f"{table.total} elements")
+    if u.device != table.device:
+        raise ValueError(f"{who}: u lies on {u.device}, the tensors on "
+                         f"{table.device}")
+    check_table(table, 0, who)
+
+
+def lamb_stage1_cuda(table: TensorTable, u: torch.Tensor,
+                     gnorm: Optional[torch.Tensor], *, beta1: float,
+                     beta2: float, eps: float, weight_decay: float,
+                     bias_c1: float, bias_c2: float,
+                     max_grad_norm: float = 0.0
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stage 1 over a table of lists (p, g, m, v): m and v updated in place,
+    u filled, and ``(sums, ratio)`` returned: ``sums`` fp32 [2, T] holds
+    ||p||^2 and ||u||^2 per tensor, ``ratio`` fp32 [T] the trust ratios.
+    The gradient is scaled by where(gnorm > max_grad_norm,
+    max_grad_norm / (gnorm + 1e-6), 1), read from the 0-d device tensor
+    ``gnorm`` by the kernel; ``gnorm`` None means no clip.
+    ``lamb_stage1_cuda.launches`` counts the calls."""
+    _check_lamb_table(table, u, "lamb_stage1_cuda", 4)
+    if gnorm is not None and (gnorm.dtype != torch.float32
+                              or gnorm.numel() != 1
+                              or gnorm.device != table.device):
+        raise ValueError("gnorm must be one float32 on the tensors' device")
+    table.refresh()
+    dev = table.device
+    partial = torch.empty(2 * max(table.n_chunks, 1), dtype=torch.float32,
+                          device=dev)
+    sums = torch.empty(2, table.n_tensors, dtype=torch.float32, device=dev)
+    ratio = torch.empty(table.n_tensors, dtype=torch.float32, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        rc = lib.apex_lamb_stage1(
+            *table.args(), _build.DTYPE_CODES[table.dtype(0)], beta1, beta2,
+            eps,
+            weight_decay, bias_c1, bias_c2, max_grad_norm,
+            None if gnorm is None else gnorm.data_ptr(), u.data_ptr(),
+            partial.data_ptr(), sums.data_ptr(), ratio.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _build.raise_on(rc, lib, "lamb_stage1", ARG_ERRORS)
+    lamb_stage1_cuda.launches += 1
+    return sums, ratio
+
+
+lamb_stage1_cuda.launches = 0
+
+
+def lamb_stage2_cuda(table: TensorTable, u: torch.Tensor,
+                     ratio: torch.Tensor, lr: float) -> None:
+    """Stage 2 over list 0 (p) of ``table``: p -= (lr * ratio[t]) * u, in
+    place.  ``lamb_stage2_cuda.launches`` counts the calls."""
+    _check_lamb_table(table, u, "lamb_stage2_cuda", len(table.lists))
+    if (ratio.dtype != torch.float32 or ratio.numel() != table.n_tensors
+            or ratio.device != table.device):
+        raise ValueError(f"ratio must be float32 [{table.n_tensors}] on the "
+                         f"tensors' device")
+    table.refresh()
+    lib = _library()
+    with torch.cuda.device(table.device):
+        rc = lib.apex_lamb_stage2(
+            *table.args(), _build.DTYPE_CODES[table.dtype(0)], u.data_ptr(),
+            ratio.data_ptr(), float(lr),
+            torch.cuda.current_stream().cuda_stream)
+    _build.raise_on(rc, lib, "lamb_stage2", ARG_ERRORS)
+    lamb_stage2_cuda.launches += 1
+
+
+lamb_stage2_cuda.launches = 0

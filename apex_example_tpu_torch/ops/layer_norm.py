@@ -1,16 +1,22 @@
-"""LayerNorm forward: the hand-written Hopper kernel and its plain version.
+"""LayerNorm forward and backward: the hand-written Hopper kernels and
+their plain versions.
 
-Port of the forward half of apex_example_tpu/ops/layer_norm.py.
-``layer_norm_plain`` is the arithmetic of ``layer_norm_reference`` (:47)
-and of the Pallas ``_fwd_kernel`` (:66) in plain torch; ``layer_norm_cuda``
-launches csrc/layer_norm.cu, the kernel that replaces ``_fwd_kernel`` on
-the card (its source note states the bound and the design).
+Port of apex_example_tpu/ops/layer_norm.py.  ``layer_norm_plain`` is the
+arithmetic of ``layer_norm_reference`` (:47) and of the Pallas
+``_fwd_kernel`` (:66) in plain torch; ``layer_norm_bwd_plain`` that of the
+backward (:250-259, the Pallas ``_bwd_kernel`` :82).  ``layer_norm_cuda``
+and ``layer_norm_bwd_cuda`` launch csrc/layer_norm.cu, the kernels that
+replace them on the card (the source notes state the bounds and designs).
 
-``layer_norm_fwd`` chooses by where the tensor lies: a CPU tensor takes the
-plain version, a CUDA tensor the kernel, and the kernel's wrapper raises on
-anything it cannot take.  Nothing falls back from one to the other.
+``layer_norm_fwd`` / ``layer_norm_bwd`` choose by where the tensor lies: a
+CPU tensor takes the plain version, a CUDA tensor the kernel, and the
+kernel's wrapper raises on anything it cannot take.  Nothing falls back
+from one to the other.
 
-Forward only: the backward (``_bwd_kernel`` :82) waits for training.
+``LayerNormFunction`` is the ``torch.autograd.Function`` of the JAX
+``custom_vjp`` (:211-268): the forward saves ``(x, gamma, mean, rstd)``,
+the backward recomputes x_hat from them.  ``layer_norm`` goes through it,
+so gradients reach x, gamma and beta on either device.
 """
 
 from __future__ import annotations
@@ -24,11 +30,18 @@ import torch
 from apex_example_tpu_torch.ops import _build
 
 MAX_H = 8192            # the widest row the kernel takes (kMaxH)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _ARG_ERRORS = {-1: "unsupported dtype", -2: "hidden size out of range",
-               -3: "row count out of range"}
+               -3: "row count out of range", -4: "row groups out of range"}
+BWD_ROWS_PER_GROUP = 4  # rows one warp (or block) of the backward takes
+BWD_MAX_GROUPS = 1024   # rows of the backward's dgamma/dbeta workspace
 
 Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _acc(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the plain versions' arithmetic type: fp32, or fp64 for an
+    fp64 tensor (what gradcheck feeds them)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
 def layer_norm_plain(x: torch.Tensor, gamma: torch.Tensor,
@@ -36,11 +49,11 @@ def layer_norm_plain(x: torch.Tensor, gamma: torch.Tensor,
     """``(y, mean, rstd)`` over the last axis of a 2-D ``x``: the fp32
     mean, the fp32 variance of the centred row, ``rsqrt(var + eps)``; y in
     x's dtype, mean and rstd fp32 of shape (N,)."""
-    xf = x.float()
+    xf = _acc(x)
     mean = xf.mean(-1)
     xc = xf - mean[:, None]
     rstd = torch.rsqrt((xc * xc).mean(-1) + eps)
-    y = xc * rstd[:, None] * gamma.float() + beta.float()
+    y = xc * rstd[:, None] * gamma.to(xf.dtype) + beta.to(xf.dtype)
     return y.to(x.dtype), mean, rstd
 
 
@@ -51,7 +64,7 @@ def _check_args(x: torch.Tensor, gamma: torch.Tensor,
     if x.dim() != 2:
         raise ValueError(f"layer_norm_cuda takes (N, H) rows, got shape "
                          f"{tuple(x.shape)}")
-    if x.dtype not in _DTYPE_CODES:
+    if x.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"layer_norm_cuda takes float32, bfloat16 or "
                         f"float16 x, got {x.dtype}")
     n, h = x.shape
@@ -83,8 +96,10 @@ def _library() -> ctypes.CDLL:
         ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
         ctypes.c_void_p]
     lib.apex_layer_norm_fwd.restype = ctypes.c_int
-    lib.apex_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.apex_cuda_error_string.restype = ctypes.c_char_p
+    lib.apex_layer_norm_bwd.argtypes = [ctypes.c_void_p] * 9 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_void_p]
+    lib.apex_layer_norm_bwd.restype = ctypes.c_int
     return lib
 
 
@@ -105,10 +120,9 @@ def layer_norm_cuda(x: torch.Tensor, gamma: torch.Tensor,
         rc = lib.apex_layer_norm_fwd(
             x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
             mean.data_ptr(), rstd.data_ptr(), n, h, float(eps),
-            _DTYPE_CODES[x.dtype], torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        why = _ARG_ERRORS.get(rc) or lib.apex_cuda_error_string(rc).decode()
-        raise RuntimeError(f"layer_norm kernel launch failed ({rc}): {why}")
+            _build.DTYPE_CODES[x.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    _build.raise_on(rc, lib, "layer_norm", _ARG_ERRORS)
     layer_norm_cuda.launches += 1
     return y, mean, rstd
 
@@ -130,7 +144,120 @@ def layer_norm_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return y.reshape(shape), mean, rstd
 
 
+Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def layer_norm_bwd_plain(x: torch.Tensor, gamma: torch.Tensor,
+                         mean: torch.Tensor, rstd: torch.Tensor,
+                         dy: torch.Tensor) -> Grads:
+    """``(dx, dgamma, dbeta)`` for a 2-D ``x`` and ``dy`` from the saved
+    fp32 stats: dx in x's dtype, dgamma and dbeta fp32 of shape (H,)."""
+    xf = _acc(x)
+    dyf = dy.to(xf.dtype)
+    xhat = (xf - mean[:, None]) * rstd[:, None]
+    dg = (dyf * xhat).sum(0)
+    db = dyf.sum(0)
+    wdy = dyf * gamma.to(xf.dtype)
+    c1 = wdy.mean(-1, keepdim=True)
+    c2 = (wdy * xhat).mean(-1, keepdim=True)
+    dx = (rstd[:, None] * (wdy - c1 - xhat * c2)).to(x.dtype)
+    return dx, dg, db
+
+
+def _check_bwd_args(x: torch.Tensor, gamma: torch.Tensor,
+                    mean: torch.Tensor, rstd: torch.Tensor,
+                    dy: torch.Tensor) -> None:
+    """dy like x, the stats fp32 (N,), all on x's device and contiguous;
+    then the forward's checks on x and gamma, the device last."""
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"dy must match x ({x.dtype} {tuple(x.shape)}), "
+                         f"got {dy.dtype} {tuple(dy.shape)}")
+    for sname, st in (("mean", mean), ("rstd", rstd)):
+        if x.dim() != 2 or tuple(st.shape) != (x.shape[0],) \
+                or st.dtype != torch.float32:
+            raise ValueError(f"{sname} must be float32 of shape "
+                             f"(N,) for N = x.shape[0], got {st.dtype} "
+                             f"{tuple(st.shape)}")
+    for tname, t in (("dy", dy), ("mean", mean), ("rstd", rstd)):
+        if t.device != x.device:
+            raise ValueError(f"{tname} lies on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"layer_norm_bwd_cuda takes contiguous "
+                             f"tensors; {tname} is not")
+    _check_args(x, gamma, gamma)
+
+
+def bwd_groups(n: int) -> int:
+    """How many row groups the backward deals the rows to: one per
+    ``BWD_ROWS_PER_GROUP`` rows, at most ``BWD_MAX_GROUPS``."""
+    return max(1, min(-(-n // BWD_ROWS_PER_GROUP), BWD_MAX_GROUPS))
+
+
+def layer_norm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor,
+                        mean: torch.Tensor, rstd: torch.Tensor,
+                        dy: torch.Tensor) -> Grads:
+    """``(dx, dgamma, dbeta)`` like :func:`layer_norm_bwd_plain`, computed
+    by the CUDA kernel on PyTorch's current stream.
+    ``layer_norm_bwd_cuda.launches`` counts the calls that launched it."""
+    _check_bwd_args(x, gamma, mean, rstd, dy)
+    n, h = x.shape
+    dx = torch.empty_like(x)
+    dg = torch.empty(h, dtype=torch.float32, device=x.device)
+    db = torch.empty(h, dtype=torch.float32, device=x.device)
+    if n == 0:
+        return dx, dg.zero_(), db.zero_()
+    groups = bwd_groups(n)
+    ws = torch.empty(2 * groups * h, dtype=torch.float32, device=x.device)
+    lib = _library()
+    with torch.cuda.device(x.device):
+        rc = lib.apex_layer_norm_bwd(
+            x.data_ptr(), dy.data_ptr(), gamma.data_ptr(), mean.data_ptr(),
+            rstd.data_ptr(), dx.data_ptr(), dg.data_ptr(), db.data_ptr(),
+            ws.data_ptr(), n, h, groups, _build.DTYPE_CODES[x.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    _build.raise_on(rc, lib, "layer_norm backward", _ARG_ERRORS)
+    layer_norm_bwd_cuda.launches += 1
+    return dx, dg, db
+
+
+layer_norm_bwd_cuda.launches = 0
+
+
+def layer_norm_bwd(x: torch.Tensor, gamma: torch.Tensor, mean: torch.Tensor,
+                   rstd: torch.Tensor, dy: torch.Tensor) -> Grads:
+    """The backward of :func:`layer_norm_fwd` (``_layer_norm_bwd_vjp``
+    :240): dx shaped like x, dgamma and dbeta cast to gamma's dtype."""
+    shape = x.shape
+    x2d = x.reshape(-1, shape[-1])
+    dy2d = dy.reshape(-1, shape[-1])
+    if x2d.device.type == "cpu":
+        dx, dg, db = layer_norm_bwd_plain(x2d, gamma, mean, rstd, dy2d)
+    else:
+        dx, dg, db = layer_norm_bwd_cuda(x2d, gamma, mean, rstd,
+                                         dy2d.contiguous())
+    return dx.reshape(shape), dg.to(gamma.dtype), db.to(gamma.dtype)
+
+
+class LayerNormFunction(torch.autograd.Function):
+    """LayerNorm with its backward kernel: the JAX ``custom_vjp``
+    (:211-268).  Saves ``(x, gamma, mean, rstd)``; x_hat is recomputed in
+    the backward, never stored."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        y, mean, rstd = layer_norm_fwd(x, gamma, beta, eps)
+        ctx.save_for_backward(x, gamma, mean, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma, mean, rstd = ctx.saved_tensors
+        dx, dg, db = layer_norm_bwd(x, gamma, mean, rstd, dy)
+        return dx, dg, db, None
+
+
 def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
-    """Fused LayerNorm over the last axis; x (..., H), gamma/beta (H,)."""
-    return layer_norm_fwd(x, gamma, beta, eps)[0]
+    """Fused LayerNorm over the last axis; x (..., H), gamma/beta (H,).
+    Differentiable in x, gamma and beta through :class:`LayerNormFunction`."""
+    return LayerNormFunction.apply(x, gamma, beta, eps)

@@ -1,0 +1,178 @@
+"""Multi-tensor L2 norm: the hand-written Hopper kernel and its plain version.
+
+Port of the L2-norm part of apex_example_tpu/ops/multi_tensor.py.
+``sqsum_plain`` is the arithmetic of ``_sqsum_leaf`` (:235, the Pallas
+``_sqsum_kernel`` :203) in plain torch, and ``multi_tensor_l2norm_plain``
+that of ``multi_tensor_l2norm`` (:248): ``sqrt`` of the sum of the
+per-tensor sums of squares.  ``multi_tensor_l2norm_cuda`` launches
+csrc/multi_tensor.cu over a whole :class:`TensorTable` in one call, where
+the JAX package launches one kernel per leaf: from Python one call costs
+tens of microseconds, and an optimizer step over 201 tensors would pay it
+hundreds of times.
+
+``TensorTable`` is the device-side chunk table of
+csrc/multi_tensor_apply.cuh, built on the host once for lists of tensors
+whose storage stays put (an optimizer's params, grads and moments); it is
+rebuilt only when an address changes.
+
+Which one runs is the caller's choice by device (optim/fused.py): CPU
+tensors take the plain version, CUDA tensors the kernel, and the kernel's
+wrapper raises on anything it cannot take.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from apex_example_tpu_torch.ops import _build
+
+CHUNK = 65536           # elements per chunk (mta::kChunk)
+ARG_ERRORS = {-1: "unsupported dtype", -2: "bad table"}
+
+
+def chunk_table(numels: Sequence[int], chunk: int = CHUNK
+                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Host arrays of the chunk table: ``offsets`` [T+1] (prefix sums of
+    numel), ``chunk_tensor`` [C], ``chunk_start`` [C] (first element inside
+    the tensor) and ``tensor_chunk0`` [T+1] (first chunk of each tensor),
+    all int64.  Tensor t's chunks are ``tensor_chunk0[t]:tensor_chunk0[t+1]``
+    and cover its elements once, in order."""
+    numels = np.asarray(numels, np.int64)
+    per = -(-numels // chunk)
+    offsets = np.concatenate([[0], np.cumsum(numels)]).astype(np.int64)
+    tensor_chunk0 = np.concatenate([[0], np.cumsum(per)]).astype(np.int64)
+    chunk_tensor = np.repeat(np.arange(len(numels), dtype=np.int64), per)
+    chunk_start = (np.arange(int(tensor_chunk0[-1]), dtype=np.int64)
+                   - np.repeat(tensor_chunk0[:-1], per)) * chunk
+    return offsets, chunk_tensor, chunk_start, tensor_chunk0
+
+
+class TensorTable:
+    """Lists of tensors (each list T long, tensor t of every list with the
+    same number of elements, the tensors of one list of one dtype) and their
+    chunk table in one int64 device buffer: the addresses of every list,
+    then the four arrays of :func:`chunk_table`."""
+
+    def __init__(self, lists: Sequence[Sequence[torch.Tensor]]):
+        self.lists = [list(lst) for lst in lists]
+        if not self.lists or not self.lists[0]:
+            raise ValueError("TensorTable needs at least one tensor")
+        n = len(self.lists[0])
+        first = self.lists[0][0]
+        for lst in self.lists:
+            if len(lst) != n:
+                raise ValueError(f"every list must hold {n} tensors, one "
+                                 f"holds {len(lst)}")
+            if len({t.dtype for t in lst}) != 1:
+                raise TypeError("the tensors of one list must share a "
+                                "dtype")
+            for t, ref in zip(lst, self.lists[0]):
+                if t.numel() != ref.numel():
+                    raise ValueError("tensor t of every list must have the "
+                                     "same number of elements")
+                if t.device != first.device:
+                    raise ValueError(f"a tensor lies on {t.device}, another "
+                                     f"on {first.device}")
+                if not t.is_contiguous():
+                    raise ValueError("TensorTable takes contiguous tensors")
+        self.n_tensors = n
+        self.device = first.device
+        (self.offsets, chunk_tensor, chunk_start,
+         self.tensor_chunk0) = chunk_table([t.numel() for t in self.lists[0]])
+        self.n_chunks = len(chunk_tensor)
+        self.total = int(self.offsets[-1])
+        self._tail = np.concatenate([self.offsets, chunk_tensor, chunk_start,
+                                     self.tensor_chunk0])
+        self._ptrs: List[int] = []
+        self.buffer: Optional[torch.Tensor] = None
+        self.refresh()
+
+    def refresh(self) -> None:
+        """Rebuild the device buffer if any tensor's storage moved.  (The
+        old buffer may still be read by queued kernels: PyTorch's caching
+        allocator hands it out again only in stream order.)"""
+        ptrs = [t.data_ptr() for lst in self.lists for t in lst]
+        if ptrs == self._ptrs:
+            return
+        host = np.concatenate([np.asarray(ptrs, np.uint64).view(np.int64),
+                               self._tail])
+        self.buffer = torch.from_numpy(host).to(self.device)
+        self._ptrs = ptrs
+
+    def dtype(self, index: int) -> torch.dtype:
+        return self.lists[index][0].dtype
+
+    def args(self) -> list:
+        """The five table pointers of the C interface (the addresses of
+        every list, then the four arrays), then n_tensors and n_chunks."""
+        base = self.buffer.data_ptr()
+        n = self.n_tensors
+        at = len(self.lists) * n
+        starts = (0, at, at + n + 1, at + n + 1 + self.n_chunks,
+                  at + n + 1 + 2 * self.n_chunks)
+        return [base + 8 * s for s in starts] + [n, self.n_chunks]
+
+
+def sqsum_plain(x: torch.Tensor) -> torch.Tensor:
+    """fp32 sum of squares of one tensor (0-d)."""
+    xf = x.float()
+    return (xf * xf).sum()
+
+
+def multi_tensor_l2norm_plain(tensors: Sequence[torch.Tensor]
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(norm, sq)``: the global L2 norm (0-d fp32) and the per-tensor
+    sums of squares (fp32 [T])."""
+    sq = torch.stack([sqsum_plain(t) for t in tensors])
+    return torch.sqrt(sq.sum()), sq
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = _build.load("multi_tensor")
+    lib.apex_multi_tensor_sqsum.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
+    lib.apex_multi_tensor_sqsum.restype = ctypes.c_int
+    return lib
+
+
+def check_table(table: TensorTable, index: int, who: str) -> None:
+    """What every tensor-list kernel needs of its table: CUDA tensors of a
+    dtype the kernels take.  Raises before anything is built."""
+    if table.dtype(index) not in _build.DTYPE_CODES:
+        raise TypeError(f"{who} takes float32, bfloat16 or float16 "
+                        f"tensors, got {table.dtype(index)}")
+    if table.device.type != "cuda":
+        raise ValueError(f"{who} launches a CUDA kernel; the tensors lie on "
+                         f"{table.device}")
+
+
+def multi_tensor_l2norm_cuda(table: TensorTable, index: int = 0
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(norm, sq)`` like :func:`multi_tensor_l2norm_plain` over list
+    ``index`` of ``table``, in one call of the CUDA kernel on PyTorch's
+    current stream.  ``multi_tensor_l2norm_cuda.launches`` counts them."""
+    check_table(table, index, "multi_tensor_l2norm_cuda")
+    table.refresh()
+    dev = table.device
+    partial = torch.empty(max(table.n_chunks, 1), dtype=torch.float32,
+                          device=dev)
+    sq = torch.empty(table.n_tensors, dtype=torch.float32, device=dev)
+    norm = torch.empty((), dtype=torch.float32, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        rc = lib.apex_multi_tensor_sqsum(
+            *table.args(), index, _build.DTYPE_CODES[table.dtype(index)],
+            partial.data_ptr(), sq.data_ptr(), norm.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _build.raise_on(rc, lib, "multi_tensor_l2norm", ARG_ERRORS)
+    multi_tensor_l2norm_cuda.launches += 1
+    return norm, sq
+
+
+multi_tensor_l2norm_cuda.launches = 0

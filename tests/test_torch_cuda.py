@@ -10,14 +10,20 @@ has only the port's dependencies:
 (``--noconftest``: tests/conftest.py sets up jax for the JAX package's
 tests.)  Tolerances as in chip_smoke.py: fp32 1e-5; bf16 one bf16 ulp of
 the output plus 1e-5, since a result that cancels to near zero carries
-the fp32 rounding error of the affine step.
+the fp32 rounding error of the affine step; LayerNorm dgamma and dbeta
+rtol = atol = 1e-4 (sums over the rows in another order, some cancelling
+near zero); L2 norms and per-tensor sums rtol 1e-5; LAMB's m, v, u and p
+atol 1e-6, rtol 1e-5.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from apex_example_tpu_torch.ops import fused_optim as fo
 from apex_example_tpu_torch.ops import layer_norm as port_ln
+from apex_example_tpu_torch.ops import multi_tensor as mt
+from apex_example_tpu_torch.optim.fused import FusedLAMB
 
 FP32_TOL = 1e-5
 
@@ -73,3 +79,151 @@ def test_layer_norm_dispatch_takes_the_kernel_on_the_card(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         port_ln.layer_norm_cuda(x.reshape(12, 64).t().contiguous().t(), g,
                                 b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("n,h", [(4096, 768), (1000, 768), (37, 64),
+                                 (8, 8192), (5, 777), (3, 1)])
+def test_layer_norm_bwd_kernel_matches_plain(cuda_device, dtype, n, h):
+    gen = torch.Generator(device=cuda_device).manual_seed(n + h)
+    x = (torch.randn(n, h, device=cuda_device, generator=gen) * 2 + 0.5)
+    x = x.to(dtype)
+    g = torch.randn(h, device=cuda_device, generator=gen) * 0.2 + 1
+    b = torch.randn(h, device=cuda_device, generator=gen) * 0.2
+    dy = torch.randn(n, h, device=cuda_device, generator=gen).to(dtype)
+    _, mean, rstd = port_ln.layer_norm_plain(x, g, b)
+    launches = port_ln.layer_norm_bwd_cuda.launches
+    dx, dg, db = port_ln.layer_norm_bwd_cuda(x, g, mean, rstd, dy)
+    dx_p, dg_p, db_p = port_ln.layer_norm_bwd_plain(x, g, mean, rstd, dy)
+    torch.cuda.synchronize()
+    assert port_ln.layer_norm_bwd_cuda.launches == launches + 1
+    assert dx.dtype == dtype and dg.dtype == db.dtype == torch.float32
+    a, r = dx.float().cpu().numpy(), dx_p.float().cpu().numpy()
+    if dtype == torch.float32:
+        np.testing.assert_allclose(a, r, rtol=FP32_TOL, atol=FP32_TOL)
+    else:
+        assert np.all(np.abs(a - r) <= _bf16_tol(a, r))
+    for got, want in ((dg, dg_p), (db, db_p)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4)
+    again = port_ln.layer_norm_bwd_cuda(x, g, mean, rstd, dy)
+    assert all(torch.equal(u, w) for u, w in zip(again, (dx, dg, db)))
+
+
+@pytest.mark.cuda
+def test_layer_norm_autograd_runs_both_kernels(cuda_device):
+    x = torch.randn(2, 8, 64, device=cuda_device, requires_grad=True)
+    g = torch.ones(64, device=cuda_device, requires_grad=True)
+    b = torch.zeros(64, device=cuda_device, requires_grad=True)
+    fwd, bwd = port_ln.layer_norm_cuda.launches, \
+        port_ln.layer_norm_bwd_cuda.launches
+    (port_ln.layer_norm(x, g, b) ** 2).sum().backward()
+    assert port_ln.layer_norm_cuda.launches == fwd + 1
+    assert port_ln.layer_norm_bwd_cuda.launches == bwd + 1
+    xc, gc, bc = (t.detach().cpu().requires_grad_() for t in (x, g, b))
+    (port_ln.layer_norm(xc, gc, bc) ** 2).sum().backward()
+    for dev, cpu in ((x, xc), (g, gc), (b, bc)):
+        np.testing.assert_allclose(dev.grad.cpu().numpy(),
+                                   cpu.grad.numpy(), rtol=1e-4, atol=1e-4)
+
+
+def _lists(device, shapes, dtype=torch.float32, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda s, std: (torch.randn(s, device=device,       # noqa: E731
+                                      generator=gen) * std).to(dtype)
+    p = [rnd(s, 0.05) for s in shapes]
+    g = [rnd(s, 1e-2) for s in shapes]
+    m = [rnd(s, 1e-3).float() for s in shapes]
+    v = [torch.rand(s, device=device, generator=gen) * 1e-5
+         for s in shapes]
+    return p, g, m, v
+
+
+SHAPES = [(3000, 768), (768,), (1,), (65536,), (65537,), (513, 129), (7,)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_multi_tensor_l2norm_kernel_matches_plain(cuda_device, dtype):
+    p, _, _, _ = _lists(cuda_device, SHAPES, dtype)
+    table = mt.TensorTable([p])
+    launches = mt.multi_tensor_l2norm_cuda.launches
+    norm, sq = mt.multi_tensor_l2norm_cuda(table)
+    norm_p, sq_p = mt.multi_tensor_l2norm_plain(p)
+    torch.cuda.synchronize()
+    assert mt.multi_tensor_l2norm_cuda.launches == launches + 1
+    np.testing.assert_allclose(float(norm), float(norm_p), rtol=1e-5)
+    np.testing.assert_allclose(sq.cpu().numpy(), sq_p.cpu().numpy(),
+                               rtol=1e-5)
+    norm2, sq2 = mt.multi_tensor_l2norm_cuda(mt.TensorTable([p]))
+    assert torch.equal(norm, norm2) and torch.equal(sq, sq2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gnorm_scale", [None, 1.0, 1e-4])
+def test_lamb_stage_kernels_match_plain(cuda_device, gnorm_scale):
+    p, g, m, v = _lists(cuda_device, SHAPES, seed=1)
+    m0, v0, p0 = ([t.clone() for t in lst] for lst in (m, v, p))
+    table = mt.TensorTable([p, g, m, v])
+    u = torch.empty(table.total, device=cuda_device)
+    hyper = dict(beta1=0.9, beta2=0.999, eps=1e-6, weight_decay=0.01,
+                 bias_c1=1.0 / (1 - 0.9 ** 4), bias_c2=1.0 / (1 - 0.999 ** 4))
+    gnorm = None
+    if gnorm_scale is not None:
+        gnorm = mt.multi_tensor_l2norm_cuda(table, 1)[0] * gnorm_scale
+    sums, ratio = fo.lamb_stage1_cuda(table, u, gnorm, max_grad_norm=1.0,
+                                      **hyper)
+    gscale = 1.0 if gnorm is None else torch.where(
+        gnorm > 1.0, 1.0 / (gnorm + 1e-6), torch.ones_like(gnorm))
+    views = torch.split(u, [t.numel() for t in p])
+    psq, usq = [], []
+    for i in range(len(p)):
+        u_p, m_p, v_p, ps, us = fo.lamb_stage1_plain(
+            p0[i], g[i], m0[i], v0[i], grad_scale=gscale, **hyper)
+        psq.append(ps)
+        usq.append(us)
+        for got, want in ((m[i], m_p), (v[i], v_p),
+                          (views[i].view_as(p[i]), u_p)):
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                       rtol=1e-5, atol=1e-6)
+    psq, usq = torch.stack(psq), torch.stack(usq)
+    for got, want in ((sums[0], psq), (sums[1], usq),
+                      (ratio, fo.trust_ratio_plain(psq, usq))):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-5)
+    fo.lamb_stage2_cuda(table, u, ratio, 2e-3)
+    for i in range(len(p)):
+        want = fo.lamb_stage2_plain(p0[i], views[i].view_as(p0[i]),
+                                    2e-3 * ratio[i])
+        np.testing.assert_allclose(p[i].cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_fused_lamb_on_the_card_matches_the_cpu(cuda_device):
+    shapes = [(300, 64), (64,), (5,)]
+    gen = torch.Generator().manual_seed(3)
+    init = [torch.randn(s, generator=gen) for s in shapes]
+    grads = [[torch.randn(s, generator=gen) for s in shapes]
+             for _ in range(3)]
+    result = []
+    for device in ("cuda", "cpu"):
+        ps = [torch.nn.Parameter(t.clone().to(device)) for t in init]
+        opt = FusedLAMB(ps, lr=1e-2)
+        counts = (mt.multi_tensor_l2norm_cuda.launches,
+                  fo.lamb_stage1_cuda.launches, fo.lamb_stage2_cuda.launches)
+        for step in grads:
+            opt.zero_grad()
+            for p, gr in zip(ps, step):
+                p.grad.add_(gr.to(device))
+            opt.step()
+        now = (mt.multi_tensor_l2norm_cuda.launches,
+               fo.lamb_stage1_cuda.launches, fo.lamb_stage2_cuda.launches)
+        ran = [b - a for a, b in zip(counts, now)]
+        assert ran == ([3, 3, 3] if device == "cuda" else [0, 0, 0])
+        result.append([p.detach().cpu() for p in ps])
+    for a, b in zip(*result):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                   atol=1e-6)

@@ -74,7 +74,9 @@ def test_every_module_imports_with_jax_and_the_jax_package_poisoned(
         (pkg / "__init__.py").write_text(
             f"raise ImportError('the port imported {name}')\n")
     modules = _port_modules()
-    assert "apex_example_tpu_torch.serve.engine" in modules
+    for name in ("serve.engine", "train", "optim.fused", "engine",
+                 "ops.fused_optim", "ops.multi_tensor"):
+        assert f"apex_example_tpu_torch.{name}" in modules
     script = (
         "import importlib, sys\n"
         f"sys.path[:0] = [{str(tmp_path)!r}, {REPO!r}]\n"

@@ -14,8 +14,19 @@ larger than a bf16 ulp).
 The CUDA wrapper's argument checks run here on meta tensors: it must raise,
 never hand a tensor to the plain version, and build nothing.  The kernel
 itself runs only on the card: tests/test_torch_cuda.py and chip_smoke.py.
+
+The backward: ``LayerNormFunction`` on the CPU (``layer_norm_bwd_plain``)
+against ``jax.vjp`` of the JAX ``layer_norm``, whose backward runs the
+Pallas ``_bwd_kernel`` through the interpreter.  Tolerances: dx fp32 1e-5;
+dgamma and dbeta rtol 1e-4 with atol 1e-4 (sums over the rows in another
+order, and sums of O(1) terms that cancel near zero); bf16 dx one bf16 ulp
+plus 1e-5, as the forward.  ``gradcheck`` holds the plain backward against
+finite differences in float64.  And the repaired fault: on the card's
+route (meta tensors standing in for CUDA ones) the output carries a
+``grad_fn``, and the backward reaches x, gamma and beta.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -139,3 +150,151 @@ def test_dispatch_raises_instead_of_falling_back(monkeypatch):
     monkeypatch.setattr(port_ln, "layer_norm_plain", no_plain)
     with pytest.raises(ValueError, match="CUDA"):
         port_ln.layer_norm_fwd(_meta(4, 64), _meta(64), _meta(64))
+
+
+SUM_TOL = 1e-4
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h", [64, 128, 768])
+@pytest.mark.parametrize("n", [16, 37])
+def test_backward_matches_jax_vjp(dtype, h, n):
+    x, g, b = _inputs(n, h, seed=3 * h + n)
+    dy = np.random.RandomState(h - n).randn(n, h).astype(np.float32)
+    if dtype == "bfloat16":
+        x, dy = _bf16_round(x), _bf16_round(dy)
+    jx, jdy = (jnp.asarray(a).astype(dtype) for a in (x, dy))
+    _, vjp = jax.vjp(jax_layer_norm, jx, jnp.asarray(g), jnp.asarray(b))
+    want_dx, want_dg, want_db = vjp(jdy)
+
+    tx = torch.from_numpy(x).to(getattr(torch, dtype)).requires_grad_()
+    tg = torch.from_numpy(g).requires_grad_()
+    tb = torch.from_numpy(b).requires_grad_()
+    y = port_ln.layer_norm(tx, tg, tb)
+    assert y.grad_fn is not None
+    y.backward(torch.from_numpy(dy).to(tx.dtype))
+    assert tx.grad.dtype == tx.dtype and tg.grad.dtype == torch.float32
+    dx = tx.grad.float().numpy()
+    want_dx = np.asarray(want_dx.astype(jnp.float32))
+    if dtype == "float32":
+        np.testing.assert_allclose(dx, want_dx, rtol=FP32_TOL, atol=FP32_TOL)
+    else:
+        assert np.all(np.abs(dx - want_dx) <= _bf16_tol(dx, want_dx))
+    for got, want in ((tg.grad, want_dg), (tb.grad, want_db)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=SUM_TOL, atol=SUM_TOL)
+
+
+def test_backward_keeps_shape_through_3d_input():
+    x, g, b = _inputs(6, 64, seed=2)
+    tx = torch.from_numpy(x).reshape(2, 3, 64).requires_grad_()
+    tg = torch.from_numpy(g).requires_grad_()
+    tb = torch.from_numpy(b).requires_grad_()
+    (port_ln.layer_norm(tx, tg, tb) ** 2).sum().backward()
+    _, vjp = jax.vjp(lambda a, c, d: (jax_layer_norm(a, c, d) ** 2).sum(),
+                     jnp.asarray(x.reshape(2, 3, 64)), jnp.asarray(g),
+                     jnp.asarray(b))
+    for got, want in zip((tx.grad, tg.grad, tb.grad), vjp(1.0)):
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=SUM_TOL, atol=SUM_TOL)
+
+
+def test_gradcheck_plain_function_in_float64():
+    rs = np.random.RandomState(5)
+    x = torch.from_numpy(rs.randn(5, 12)).requires_grad_()
+    g = torch.from_numpy(rs.randn(12) * 0.3 + 1).requires_grad_()
+    b = torch.from_numpy(rs.randn(12) * 0.3).requires_grad_()
+    assert torch.autograd.gradcheck(
+        lambda a, c, d: port_ln.LayerNormFunction.apply(a, c, d, 1e-5),
+        (x, g, b), eps=1e-6, atol=1e-5, rtol=1e-4)
+
+
+def _fake_kernels(monkeypatch, calls):
+    """Meta-tensor stand-ins for the two kernel wrappers: what the card's
+    route returns, without a card."""
+    def fwd(x, g, b, eps=1e-5):
+        calls.append(("fwd", torch.is_grad_enabled()))
+        n = x.shape[0]
+        return (torch.empty_like(x), torch.empty(n, device=x.device),
+                torch.empty(n, device=x.device))
+
+    def bwd(x, g, mean, rstd, dy):
+        calls.append(("bwd", x.shape))
+        return (torch.empty_like(x), torch.empty_like(g),
+                torch.empty_like(g))
+    monkeypatch.setattr(port_ln, "layer_norm_cuda", fwd)
+    monkeypatch.setattr(port_ln, "layer_norm_bwd_cuda", bwd)
+
+
+def test_card_route_output_carries_the_gradient(monkeypatch):
+    """The fault repaired: the kernel's output had no grad_fn, so
+    gradients stopped at every LayerNorm on the card.  Through
+    LayerNormFunction they reach x, gamma and beta."""
+    calls = []
+    _fake_kernels(monkeypatch, calls)
+    x = _meta(2, 3, 64).requires_grad_()
+    g = _meta(64).requires_grad_()
+    b = _meta(64).requires_grad_()
+    y = port_ln.layer_norm(x, g, b)
+    assert y.requires_grad and y.grad_fn is not None
+    assert y.shape == x.shape
+    y.sum().backward()
+    assert calls == [("fwd", False), ("bwd", (6, 64))]
+    for t in (x, g, b):
+        assert t.grad is not None and t.grad.shape == t.shape
+
+
+def test_no_grad_serving_route_launches_no_backward(monkeypatch):
+    calls = []
+    _fake_kernels(monkeypatch, calls)
+    with torch.no_grad():
+        y = port_ln.layer_norm(_meta(4, 64), _meta(64), _meta(64))
+    assert not y.requires_grad
+    assert calls == [("fwd", False)]
+
+
+@pytest.mark.parametrize("args,err,match", [
+    ((_meta(8, 64, dtype=torch.float64), _meta(64), _meta(8), _meta(8),
+      _meta(8, 64, dtype=torch.float64)), TypeError, "float32"),
+    ((_meta(8, 64), _meta(64), _meta(8), _meta(8),
+      _meta(8, 64, dtype=torch.bfloat16)), ValueError, "dy must match"),
+    ((_meta(8, 64), _meta(64), _meta(8), _meta(8), _meta(8, 32)),
+     ValueError, "dy must match"),
+    ((_meta(8, 64), _meta(64), _meta(7), _meta(8), _meta(8, 64)),
+     ValueError, "mean must be"),
+    ((_meta(8, 64), _meta(64), _meta(8), _meta(8, dtype=torch.float16),
+      _meta(8, 64)), ValueError, "rstd must be"),
+    ((_meta(8, 64), _meta(64), _meta(8), _meta(8), _meta(64, 8).t()),
+     ValueError, "contiguous"),
+    ((_meta(8, 64), _meta(32), _meta(8), _meta(8), _meta(8, 64)),
+     ValueError, "gamma must be"),
+    ((_meta(8, 64), _meta(64), _meta(8), _meta(8), _meta(8, 64)),
+     ValueError, "CUDA"),
+])
+def test_bwd_wrapper_raises_on_what_it_cannot_take(monkeypatch, args, err,
+                                                   match):
+    def no_build(name):
+        raise AssertionError(f"argument checks must raise before {name} "
+                             "is built")
+    monkeypatch.setattr(_build, "load", no_build)
+    before = port_ln.layer_norm_bwd_cuda.launches
+    with pytest.raises(err, match=match):
+        port_ln.layer_norm_bwd_cuda(*args)
+    assert port_ln.layer_norm_bwd_cuda.launches == before
+
+
+def test_bwd_dispatch_raises_instead_of_falling_back(monkeypatch):
+    def no_plain(*a, **k):
+        raise AssertionError("plain backward ran for a non-CPU tensor")
+    monkeypatch.setattr(port_ln, "layer_norm_bwd_plain", no_plain)
+    with pytest.raises(ValueError, match="CUDA"):
+        port_ln.layer_norm_bwd(_meta(4, 64), _meta(64), _meta(4), _meta(4),
+                               _meta(4, 64))
+
+
+@pytest.mark.parametrize("n,groups", [(1, 1), (4, 1), (5, 2), (4096, 1024),
+                                      (10 ** 6, 1024)])
+def test_bwd_row_groups_cover_the_rows(n, groups):
+    assert port_ln.bwd_groups(n) == groups
+    assert 1 <= port_ln.bwd_groups(n) <= n
