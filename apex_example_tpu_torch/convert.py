@@ -1,13 +1,14 @@
 """Flax parameters -> the port's state dicts.
 
-``gpt_params_from_flax(tree)`` and ``bert_params_from_flax(tree)`` take the
-flax param tree of apex_example_tpu's GPTForCausalLM / BertForMaskedLM as
+``gpt_params_from_flax(tree)``, ``bert_params_from_flax(tree)`` and
+``txl_params_from_flax(tree)`` take the flax param tree of
+apex_example_tpu's GPTForCausalLM / BertForMaskedLM / TransformerXL as
 nested dicts of numpy arrays (the caller turns jax arrays into numpy; this
 module imports no jax) and return a state dict for the port model's
 ``load_state_dict``.  A flax Dense ``kernel`` is [in, out]; it is
 TRANSPOSED into ``nn.Linear.weight`` [out, in].  Embedding tables,
-LayerNorm ``scale``/``bias``, ``lm_bias`` and ``mlm_bias`` carry over as
-they are.
+LayerNorm ``scale``/``bias``, ``lm_bias``, ``mlm_bias`` and Transformer-XL's
+``u_bias``/``v_bias`` carry over as they are.
 """
 
 from __future__ import annotations
@@ -51,10 +52,11 @@ def _layers_from_flax(tree: Mapping, sd: Dict[str, torch.Tensor]) -> None:
             sd[f"layers.{i}.{ln}.bias"] = _tensor(layer[ln]["bias"])
 
 
-def _norms(tree: Mapping, names, sd: Dict[str, torch.Tensor]) -> None:
+def _norms(tree: Mapping, names, sd: Dict[str, torch.Tensor],
+           prefix: str = "") -> None:
     for ln in names:
-        sd[f"{ln}.scale"] = _tensor(tree[ln]["scale"])
-        sd[f"{ln}.bias"] = _tensor(tree[ln]["bias"])
+        sd[f"{prefix}{ln}.scale"] = _tensor(tree[ln]["scale"])
+        sd[f"{prefix}{ln}.bias"] = _tensor(tree[ln]["bias"])
 
 
 def gpt_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
@@ -74,4 +76,26 @@ def bert_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
           "mlm_dense.bias": _tensor(tree["mlm_dense"]["bias"])}
     _norms(tree, ("embeddings_ln", "mlm_ln"), sd)
     _layers_from_flax(tree, sd)
+    return sd
+
+
+def txl_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """TransformerXL: ``word_emb/embedding``; per layer ``attn/{q,k,v,r,o}``
+    (bias-free, transposed), ``attn/u_bias``, ``attn/v_bias``, ``attn_ln``,
+    ``ff1``, ``ff2`` (transposed, with biases) and ``ff_ln``."""
+    sd = {"word_emb.weight": _tensor(tree["word_emb"]["embedding"])}
+    n_layers = sum(1 for k in tree if k.startswith("layer_"))
+    for i in range(n_layers):
+        layer, name = tree[f"layer_{i}"], f"layers.{i}"
+        attn = layer["attn"]
+        for proj in ("q", "k", "v", "r", "o"):
+            sd[f"{name}.attn.{proj}.weight"] = _tensor(
+                attn[proj]["kernel"]).T.contiguous()
+        for bias in ("u_bias", "v_bias"):
+            sd[f"{name}.attn.{bias}"] = _tensor(attn[bias])
+        for ff in ("ff1", "ff2"):
+            sd[f"{name}.{ff}.weight"] = _tensor(
+                layer[ff]["kernel"]).T.contiguous()
+            sd[f"{name}.{ff}.bias"] = _tensor(layer[ff]["bias"])
+        _norms(layer, ("attn_ln", "ff_ln"), sd, f"{name}.")
     return sd

@@ -42,6 +42,19 @@ struct Table {
   int n_chunks;
 };
 
+// The Table of the five pointers of an entry point's C interface.
+inline Table make_table(const void* ptrs, const void* offsets,
+                        const void* chunk_tensor, const void* chunk_start,
+                        const void* tensor_chunk0, int n_tensors,
+                        int n_chunks) {
+  return Table{static_cast<const long long*>(ptrs),
+               static_cast<const long long*>(offsets),
+               static_cast<const long long*>(chunk_tensor),
+               static_cast<const long long*>(chunk_start),
+               static_cast<const long long*>(tensor_chunk0), n_tensors,
+               n_chunks};
+}
+
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
@@ -61,6 +74,39 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
 template <>
 __device__ __forceinline__ __half from_float<__half>(float v) {
   return __float2half_rn(v);
+}
+
+// Four neighbouring elements in one load or store: 16 bytes of fp32, 8 of
+// bf16 or fp16.  Callers check alignment first (aligned16).
+template <typename T>
+struct Vec4 {
+  using type = uint2;
+};
+template <>
+struct Vec4<float> {
+  using type = float4;
+};
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+template <typename T>
+__device__ __forceinline__ void load4(const T* p, float (&out)[4]) {
+  const typename Vec4<T>::type raw =
+      *reinterpret_cast<const typename Vec4<T>::type*>(p);
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int u = 0; u < 4; ++u) out[u] = to_float(e[u]);
+}
+
+template <typename T>
+__device__ __forceinline__ void store4(T* p, const float (&in)[4]) {
+  typename Vec4<T>::type raw;
+  T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+  for (int u = 0; u < 4; ++u) e[u] = from_float<T>(in[u]);
+  *reinterpret_cast<typename Vec4<T>::type*>(p) = raw;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -7,8 +7,10 @@ At O0 the JAX step's loss scaler is the identity (amp/scaler.py:57-60,
 ``grads_finite`` is the constant 1.  So one step here is forward ->
 loss -> backward -> optimizer step, with the metrics the JAX step reports:
 ``loss``, ``scale`` 1.0, ``grads_finite`` 1.0 and ``grad_norm``, the
-global norm of the grads before the clip (:272), taken from the L2-norm
-call the optimizer's clip makes, not from a second pass.
+global norm of the grads before any clip (:272).  FusedLAMB's step takes
+that norm for its own clip and returns it; an optimizer that takes none
+(FusedAdam's step returns None) is asked for it after its step, one
+L2-norm launch over the grads, which the step does not change.
 
 The JAX state is an immutable pytree that each step replaces; here the
 model and optimizer update in place and the step returns the same
@@ -55,6 +57,8 @@ def make_train_step(loss_fn: Callable = mlm_loss):
         loss = loss_fn(state.model(x), y)
         loss.backward()
         grad_norm = state.optimizer.step()
+        if grad_norm is None:
+            grad_norm = state.optimizer.grad_norm()
         state.step += 1
         metrics = {"loss": loss.detach(), "scale": 1.0,
                    "grads_finite": 1.0, "grad_norm": grad_norm}

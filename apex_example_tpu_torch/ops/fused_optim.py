@@ -1,7 +1,7 @@
-"""LAMB stage 1 and stage 2: the hand-written Hopper kernels and their plain
-versions.
+"""LAMB stage 1 and stage 2, and Adam: the hand-written Hopper kernels and
+their plain versions.
 
-Port of the LAMB part of apex_example_tpu/ops/fused_optim.py.
+Port of the LAMB and Adam parts of apex_example_tpu/ops/fused_optim.py.
 ``lamb_stage1_plain`` is the arithmetic of ``lamb_stage1_leaf`` (:167,
 plain branch :170-177; the Pallas ``_lamb1_kernel`` :137) and
 ``lamb_stage2_plain`` that of ``lamb_stage2_leaf`` (:225, ``_lamb2_kernel``
@@ -16,6 +16,12 @@ also leaves the per-tensor trust ratios on the card for stage 2
 grad norm on the card, so nothing between the two stages waits for the
 host.  u is fp32 whatever p's dtype (:203), in one flat buffer that the
 caller allocates once.
+
+``adam_update_plain`` is the arithmetic of the Pallas ``_adam_kernel``
+(:53; ``adam_update_leaf_reference`` :117 with its scalars in fp32, as the
+kernel receives them, :95-97).  ``adam_cuda`` launches csrc/fused_optim.cu
+over a table of (p, g, m, v) in one call and updates p, m and v in place;
+the JAX package launches one kernel per leaf (optim/fused.py:86-91).
 
 Which one runs is the caller's choice by device (optim/fused.py): CPU
 tensors take the plain versions, CUDA tensors the kernels, and the kernels'
@@ -58,6 +64,26 @@ def lamb_stage2_plain(p, update, scaled_lr):
     return (p.float() - scaled_lr * update.float()).to(p.dtype)
 
 
+def adam_update_plain(p, g, m, v, *, lr, beta1, beta2, eps, weight_decay,
+                      bias_c1, bias_c2, adam_w_mode: bool = True):
+    """``(p', m', v')`` for one tensor, fp32 arithmetic, in the dtypes of p,
+    m and v.  ``adam_w_mode`` True is AdamW (decay added to the update),
+    False classic Adam (decay folded into the gradient).  ``1 - beta`` is
+    taken in fp32, as in the kernels."""
+    pf, gf = p.float(), g.float()
+    mf, vf = m.float(), v.float()
+    b1, b2 = np.float32(beta1), np.float32(beta2)
+    if not adam_w_mode:
+        gf = gf + weight_decay * pf
+    mf = float(b1) * mf + float(np.float32(1.0) - b1) * gf
+    vf = float(b2) * vf + float(np.float32(1.0) - b2) * gf * gf
+    upd = (mf * bias_c1) / (torch.sqrt(vf * bias_c2) + eps)
+    if adam_w_mode:
+        upd = upd + weight_decay * pf
+    pf = pf - lr * upd
+    return pf.to(p.dtype), mf.to(m.dtype), vf.to(v.dtype)
+
+
 def trust_ratio_plain(p_sq: torch.Tensor, u_sq: torch.Tensor
                       ) -> torch.Tensor:
     """``||p|| / ||u||`` where both are positive, else 1 (optim/fused.py
@@ -76,11 +102,15 @@ def _library() -> ctypes.CDLL:
         ctypes.c_int] * 3 + [ctypes.c_void_p] * 2 + [ctypes.c_float,
                                                      ctypes.c_void_p]
     lib.apex_lamb_stage2.restype = ctypes.c_int
+    lib.apex_adam.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+        ctypes.c_float] * 7 + [ctypes.c_int, ctypes.c_void_p]
+    lib.apex_adam.restype = ctypes.c_int
     return lib
 
 
-def _check_lamb_table(table: TensorTable, u: torch.Tensor, who: str,
-                      n_lists: int) -> None:
+def _check_optim_table(table: TensorTable, who: str, n_lists: int) -> None:
+    """A table of ``n_lists`` lists (p, g, m, v or a prefix): p and g of
+    one dtype, m and v float32."""
     if len(table.lists) != n_lists:
         raise ValueError(f"{who} takes a table of {n_lists} lists, got "
                          f"{len(table.lists)}")
@@ -89,6 +119,11 @@ def _check_lamb_table(table: TensorTable, u: torch.Tensor, who: str,
     for index in range(2, n_lists):
         if table.dtype(index) != torch.float32:
             raise TypeError(f"{who}: m and v must be float32")
+
+
+def _check_lamb_table(table: TensorTable, u: torch.Tensor, who: str,
+                      n_lists: int) -> None:
+    _check_optim_table(table, who, n_lists)
     if (u.dtype != torch.float32 or u.dim() != 1 or u.numel() != table.total
             or not u.is_contiguous()):
         raise ValueError(f"{who}: u must be a contiguous float32 buffer of "
@@ -161,3 +196,25 @@ def lamb_stage2_cuda(table: TensorTable, u: torch.Tensor,
 
 
 lamb_stage2_cuda.launches = 0
+
+
+def adam_cuda(table: TensorTable, *, lr: float, beta1: float, beta2: float,
+              eps: float, weight_decay: float, bias_c1: float,
+              bias_c2: float, adam_w_mode: bool = True) -> None:
+    """Adam over a table of four lists (p, g, m, v), p, m and v updated in
+    place, in one call of the CUDA kernel.  ``adam_cuda.launches`` counts
+    the calls."""
+    _check_optim_table(table, "adam_cuda", 4)
+    check_table(table, 0, "adam_cuda")
+    table.refresh()
+    lib = _library()
+    with torch.cuda.device(table.device):
+        rc = lib.apex_adam(
+            *table.args(), _build.DTYPE_CODES[table.dtype(0)], float(lr),
+            beta1, beta2, eps, weight_decay, bias_c1, bias_c2,
+            int(bool(adam_w_mode)), torch.cuda.current_stream().cuda_stream)
+    _build.raise_on(rc, lib, "adam", ARG_ERRORS)
+    adam_cuda.launches += 1
+
+
+adam_cuda.launches = 0

@@ -1,14 +1,23 @@
-"""Multi-tensor L2 norm: the hand-written Hopper kernel and its plain version.
+"""Multi-tensor L2 norm, scale and global-norm clip: the hand-written
+Hopper kernels and their plain versions.
 
-Port of the L2-norm part of apex_example_tpu/ops/multi_tensor.py.
-``sqsum_plain`` is the arithmetic of ``_sqsum_leaf`` (:235, the Pallas
-``_sqsum_kernel`` :203) in plain torch, and ``multi_tensor_l2norm_plain``
-that of ``multi_tensor_l2norm`` (:248): ``sqrt`` of the sum of the
-per-tensor sums of squares.  ``multi_tensor_l2norm_cuda`` launches
-csrc/multi_tensor.cu over a whole :class:`TensorTable` in one call, where
-the JAX package launches one kernel per leaf: from Python one call costs
-tens of microseconds, and an optimizer step over 201 tensors would pay it
-hundreds of times.
+Port of apex_example_tpu/ops/multi_tensor.py.  ``sqsum_plain`` is the
+arithmetic of ``_sqsum_leaf`` (:235, the Pallas ``_sqsum_kernel`` :203) in
+plain torch, and ``multi_tensor_l2norm_plain`` that of
+``multi_tensor_l2norm`` (:248): ``sqrt`` of the sum of the per-tensor sums
+of squares.  ``multi_tensor_scale_plain`` is ``multi_tensor_scale`` (:125,
+the Pallas ``_scale_kernel`` :79): ``y = (x.float() * s).to(x.dtype)`` and
+a flag that no INPUT element is inf or nan, whatever the scale.
+``clip_grad_norm_plain`` is ``clip_grad_norm`` (:265): the global norm,
+then every grad scaled by ``min(1, max_norm / (norm + eps))`` in fp32.
+
+``multi_tensor_l2norm_cuda`` and ``multi_tensor_scale_cuda`` launch
+csrc/multi_tensor.cu over a whole :class:`TensorTable` in one call each,
+where the JAX package launches one kernel per leaf: from Python one call
+costs tens of microseconds, and an optimizer step over 241 tensors would
+pay it hundreds of times.  ``clip_grad_norm_cuda`` is the two of them over
+one table: the scale kernel reads the norm on the card, so nothing between
+them waits for the host.
 
 ``TensorTable`` is the device-side chunk table of
 csrc/multi_tensor_apply.cuh, built on the host once for lists of tensors
@@ -138,6 +147,11 @@ def _library() -> ctypes.CDLL:
     lib.apex_multi_tensor_sqsum.argtypes = [ctypes.c_void_p] * 5 + [
         ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
     lib.apex_multi_tensor_sqsum.restype = ctypes.c_int
+    lib.apex_multi_tensor_scale.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p,
+                             ctypes.c_float, ctypes.c_float,
+                             ctypes.c_void_p, ctypes.c_void_p]
+    lib.apex_multi_tensor_scale.restype = ctypes.c_int
     return lib
 
 
@@ -176,3 +190,90 @@ def multi_tensor_l2norm_cuda(table: TensorTable, index: int = 0
 
 
 multi_tensor_l2norm_cuda.launches = 0
+
+
+def multi_tensor_scale_plain(tensors: Sequence[torch.Tensor], scale
+                             ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """``(outs, all_finite)``: each tensor times ``scale`` (a float or a
+    0-d tensor) in fp32, returned in its own dtype, and a 0-d bool that is
+    True when no input element is inf or nan."""
+    s = torch.as_tensor(scale, dtype=torch.float32)
+    outs = [(t.float() * s).to(t.dtype) for t in tensors]
+    if not tensors:
+        return outs, torch.tensor(True)
+    return outs, torch.stack([torch.isfinite(t).all() for t in tensors]).all()
+
+
+def clip_scale_plain(norm: torch.Tensor, max_norm: float,
+                     eps: float = 1e-6) -> torch.Tensor:
+    """``min(1, max_norm / (norm + eps))`` in fp32 (0-d), NaN propagating
+    as in ``jnp.minimum``."""
+    ratio = torch.full_like(norm, max_norm) / (norm + eps)
+    return torch.minimum(ratio, torch.ones_like(ratio))
+
+
+def clip_grad_norm_plain(grads: Sequence[torch.Tensor], max_norm: float,
+                         eps: float = 1e-6) -> torch.Tensor:
+    """Clip ``grads`` in place to the global norm ``max_norm``; returns the
+    norm before the clip (0-d fp32)."""
+    total, _ = multi_tensor_l2norm_plain(grads)
+    outs, _ = multi_tensor_scale_plain(grads,
+                                       clip_scale_plain(total, max_norm, eps))
+    with torch.no_grad():
+        for g, out in zip(grads, outs):
+            g.copy_(out)
+    return total
+
+
+def multi_tensor_scale_cuda(table: TensorTable, in_index: int,
+                            out_index: int, scale: Optional[float] = None,
+                            *, norm: Optional[torch.Tensor] = None,
+                            max_norm: float = 0.0, eps: float = 1e-6
+                            ) -> torch.Tensor:
+    """List ``out_index`` of ``table`` = list ``in_index`` times s, in one
+    call of the CUDA kernel (the same index: in place).  s is the host
+    float ``scale``, or, given the 0-d device tensor ``norm``, the clip
+    scale ``min(1, max_norm / (norm + eps))`` that the kernel computes on
+    the card.  Returns a 0-d int32 on the card: 1 when some input element
+    is inf or nan, else 0.  ``multi_tensor_scale_cuda.launches`` counts the
+    calls."""
+    who = "multi_tensor_scale_cuda"
+    if (scale is None) == (norm is None):
+        raise ValueError(f"{who} takes a host scale or a device norm, not "
+                         f"both or neither")
+    if table.dtype(out_index) != table.dtype(in_index):
+        raise TypeError(f"{who}: the in and out lists must share a dtype")
+    if norm is not None and (norm.dtype != torch.float32
+                             or norm.numel() != 1
+                             or norm.device != table.device):
+        raise ValueError("norm must be one float32 on the tensors' device")
+    check_table(table, in_index, who)
+    table.refresh()
+    flag = torch.empty((), dtype=torch.int32, device=table.device)
+    lib = _library()
+    with torch.cuda.device(table.device):
+        rc = lib.apex_multi_tensor_scale(
+            *table.args(), in_index, out_index,
+            _build.DTYPE_CODES[table.dtype(in_index)],
+            0.0 if scale is None else float(scale),
+            None if norm is None else norm.data_ptr(), float(max_norm),
+            float(eps), flag.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _build.raise_on(rc, lib, "multi_tensor_scale", ARG_ERRORS)
+    multi_tensor_scale_cuda.launches += 1
+    return flag
+
+
+multi_tensor_scale_cuda.launches = 0
+
+
+def clip_grad_norm_cuda(table: TensorTable, max_norm: float,
+                        index: int = 1, eps: float = 1e-6) -> torch.Tensor:
+    """Clip list ``index`` of ``table`` in place to the global norm
+    ``max_norm``: one L2-norm call, then one scale call that reads the norm
+    on the card.  Returns the norm before the clip (0-d fp32, on the
+    card)."""
+    total, _ = multi_tensor_l2norm_cuda(table, index)
+    multi_tensor_scale_cuda(table, index, index, norm=total,
+                            max_norm=max_norm, eps=eps)
+    return total

@@ -12,21 +12,23 @@ Phases, one or more lines each:
              register/spill report.
 3. kernels — each kernel against its plain PyTorch version on the card.
              LayerNorm forward at the serving shape (slots * block_size
-             rows x 768) and the training shape (4096 x 768), each in fp32
-             and bf16, at a ragged row count, at H = 64, at an odd H and at
-             H = 8192: fp32 atol = rtol = 1e-5; bf16 one bf16 ulp of the
-             output plus 1e-5 (the fp32 rounding of a result that cancels
-             to near zero).  LayerNorm backward at the
-             training shape (4096 x 768) in fp32 and bf16, at 1000 rows, at
-             H = 64, at an odd H and at H = 8192: dx as the forward's y;
-             dgamma and dbeta rtol = atol = 1e-4 (sums over thousands of
-             O(1) rows in another order; atol for sums that cancel near
-             zero).  The multi-tensor L2 norm and LAMB stages 1 and 2 over
-             201 tensors shaped like bert_base's parameters: norms rtol
-             1e-5; m, v, u and p atol 1e-6, rtol 1e-5.  dgamma and the norms
-             must repeat bitwise on a second call.  Then each kernel's, its
-             plain version's and (where one exists) a PyTorch call's
-             median device time, beside the kernel's bound.
+             rows x 768) and the three training paths' shapes (bert 4096
+             x 768, transformer_xl 6144 x 410, gpt 8192 x 768), each in
+             fp32 and bf16, at a ragged row count, at H = 64, at an odd H
+             and at H = 8192: fp32 atol = rtol = 1e-5; bf16 one bf16 ulp of
+             the output plus 1e-5 (the fp32 rounding of a result that
+             cancels to near zero).  LayerNorm backward at the three
+             training shapes in fp32 and bf16, at 1000 rows, at H = 64, at
+             an odd H and at H = 8192: dx as the forward's y; dgamma and
+             dbeta rtol = atol = 1e-4 (sums over thousands of O(1) rows in
+             another order; atol for sums that cancel near zero).  The
+             multi-tensor L2 norm and LAMB stages 1 and 2 over 201 tensors
+             shaped like bert_base's parameters: norms rtol 1e-5; m, v, u
+             and p atol 1e-6, rtol 1e-5.  dgamma and the norms must repeat
+             bitwise on a second call.  Then each kernel's, its plain
+             version's and (where one exists) a PyTorch call's median
+             device time, beside the kernel's bound; the LayerNorm kernels'
+             at transformer_xl's 6144 x 410 too.
 4. main    — gpt_base at full width (random weights from seed 0) served
              through the port's run_serve on cuda: 32 requests with a
              shared prefix through 8 slots of a block-paged cache.  Every
@@ -49,6 +51,51 @@ Phases, one or more lines each:
              launched the kernels (26, 26, 1, 1, 1) and the CPU's none.
 6. profile — torch.profiler over three more bert_base steps: device time
              by kernel group and the device's idle share (informational).
+7. optim   — Adam (fused_optim.cu) against its plain version over the 241
+             tensors of transformer_xl's parameters (150.9 M elements) in
+             fp32 and with bf16 p and g, in both adam_w_mode branches, over
+             the 199 tensors of gpt_base's (109.3 M elements) in fp32, and
+             over small odd lists (1 element, 65,537, mixed sizes, views
+             off 16-byte alignment): p, m and v within rtol 1e-5 plus atol
+             1e-6 of the tensor's largest magnitude (fp32 arithmetic up to
+             fused multiply-adds); bf16 p within one bf16 ulp plus 1e-5.
+             The L2 norm over the 241 tensors: rtol 1e-5.  The scale
+             (multi_tensor.cu) over the same 241 tensors with a host scale,
+             with the clip scale read from the device norm below and above
+             max_norm, and with an inf and a nan planted: the outputs equal
+             the plain version's exactly and the int32 flag is 1 exactly
+             when an input is not finite.  Then each kernel's, its plain
+             version's and a PyTorch call's median device time
+             (torch._fused_adamw_, torch._amp_foreach_non_finite_check_and_
+             unscale_, each checked against the kernel first), beside the
+             kernel's bound.
+8. txl     — transformer_xl at C5's published widths (vocab 267,735,
+             d_model 410, 16 layers, 10 heads, d_inner 2100, mem_len 150;
+             random weights from seed 0) trained through train.main on
+             cuda: batch 32 x 192, 20 steps of FusedAdam (lr 2.5e-4) after
+             the clip to global norm 0.25, the memory carried.  Every loss
+             finite, the mean of steps 16-20 below that of steps 1-5, and
+             each step launching the LayerNorm forward and backward 32
+             times each, the L2 norm, the scale and Adam once each and
+             LAMB never.  Then one step of the same weights on one 2 x 192
+             batch on the card and on the CPU: loss rtol 1e-5, grad norm
+             (before the clip) rtol 1e-4, the new memory rtol and atol
+             1e-4; a ReLU input within fp32 rounding of zero passes on
+             one device only and moves the grads below it by ~1e-3 of
+             their norm.  The run measures that floor: the CPU's step
+             against one with the embedding scaled by 1 + 1e-6.  Each kind
+             of parameter's clipped grads within 3 x the floor's relative
+             difference for that kind; since Adam's first step moves an
+             element by about lr whatever its gradient's size, every
+             parameter element within 2 lr + 1e-5, and no more than 3 x
+             the floor's count of elements beyond 1e-5; the card's step
+             launching the kernels (32, 32, 1, 1, 1) and the CPU's none.
+9. gpt     — gpt_base trained through train.main on cuda: batch 64 x 128,
+             10 steps of FusedAdam (lr 1e-4, weight decay 0.01): losses
+             finite and falling, each step launching the LayerNorm forward
+             and backward 26 times each, the L2 norm (the step's grad_norm)
+             and Adam once each, the scale and LAMB never.
+10. profile — torch.profiler over three transformer_xl steps, as in 6.
 
 Then one JSON line per the port's kernel table ({"kernels": [...]}) and,
 last, {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
@@ -63,6 +110,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -75,12 +123,24 @@ SOURCES = ["layer_norm", "multi_tensor", "fused_optim"]
 SUM_TOL = 1e-4            # dgamma, dbeta: rtol and atol
 NORM_TOL = 1e-5           # L2 norms, ||p||^2, ||u||^2, ratios: rtol
 STATE_ATOL, STATE_RTOL = 1e-6, 1e-5     # m, v, u, p after a LAMB stage
+FLOOR_X = 3               # TXL card-vs-CPU limits, in multiples of the floor
 TRAIN_ROWS = 32 * 128     # LayerNorm rows of the train phase's steps
+TXL_ROWS, TXL_H = 32 * 192, 410     # the txl phase's LayerNorm shape
+GPT_ROWS = 64 * 128       # the gpt phase's LayerNorm rows (H = 768)
 TRAIN_ARGS = ["--device", "cuda", "--arch", "bert_base",
               "--batch-size", "32", "--seq-len", "128", "--epochs", "1",
               "--steps-per-epoch", "20", "--opt", "lamb", "--lr", "1e-3",
               "--warmup-steps", "5", "--lr-schedule", "poly",
               "--weight-decay", "0.01", "--seed", "0", "--print-freq", "5"]
+TXL_ARGS = ["--device", "cuda", "--arch", "transformer_xl",
+            "--vocab-size", "267735", "--batch-size", "32", "--seq-len",
+            "192", "--epochs", "1", "--steps-per-epoch", "20", "--opt",
+            "adam", "--lr", "2.5e-4", "--weight-decay", "0",
+            "--max-grad-norm", "0.25", "--seed", "0", "--print-freq", "5"]
+GPT_ARGS = ["--device", "cuda", "--arch", "gpt_base", "--batch-size", "64",
+            "--seq-len", "128", "--epochs", "1", "--steps-per-epoch", "10",
+            "--opt", "adam", "--lr", "1e-4", "--weight-decay", "0.01",
+            "--seed", "0", "--print-freq", "5"]
 SERVE_ARGS = ["--device", "cuda", "--arch", "gpt_base",
               "--slots", str(SLOTS), "--max-len", "512",
               "--block-size", str(BLOCK), "--requests", "32",
@@ -178,8 +238,13 @@ def phase_kernels(ln):
              (TRAIN_ROWS, 768, torch.float32),
              (TRAIN_ROWS, 768, torch.bfloat16),
              (1000, 768, torch.float32), (1000, 768, torch.bfloat16),
+             (TXL_ROWS, TXL_H, torch.float32),
+             (TXL_ROWS, TXL_H, torch.bfloat16),
+             (GPT_ROWS, 768, torch.float32), (GPT_ROWS, 768, torch.bfloat16),
              (path_rows, 64, torch.float32), (path_rows, 64, torch.bfloat16),
              (37, 777, torch.float32), (64, 8192, torch.float32)]
+    path_shapes = {(path_rows, 768), (TRAIN_ROWS, 768), (TXL_ROWS, TXL_H),
+                   (GPT_ROWS, 768)}
     path_err = 0.0
     for n, h, dtype in cases:
         x = (torch.randn(n, h, device=dev, generator=gen) * 2 + 0.5).to(dtype)
@@ -213,12 +278,12 @@ def phase_kernels(ln):
         if not (ok and stat_ok):
             raise SystemExit(f"layer_norm kernel disagrees with its plain "
                              f"version at {n}x{h} {dtype}")
-        if h == 768 and dtype == torch.float32 and n in (path_rows,
-                                                         TRAIN_ROWS):
+        if dtype == torch.float32 and (n, h) in path_shapes:
             path_err = max(path_err, max_err)
 
-    for n in (TRAIN_ROWS, path_rows):     # the serving shape's row last
-        h = 768
+    by_shape = {}
+    # the serving shape last: its times are the row's
+    for n, h in ((TRAIN_ROWS, 768), (TXL_ROWS, TXL_H), (path_rows, 768)):
         x = torch.randn(n, h, device=dev, generator=gen)
         g = torch.randn(h, device=dev, generator=gen) * 0.2 + 1
         b = torch.randn(h, device=dev, generator=gen) * 0.2
@@ -236,12 +301,16 @@ def phase_kernels(ln):
               f"F.layer_norm {ms['library']:.5f} ms  bound {bound_ms:.6f} ms "
               f"({nbytes} bytes over 3.35 TB/s)  per call from Python "
               f"{call_ms:.5f} ms")
+        by_shape[f"{n}x{h}"] = {"ms": ms["kernel"], "plain_ms": ms["plain"],
+                                "bound_ms": bound_ms,
+                                "library_ms": ms["library"]}
     return {"name": "layer_norm_fwd", "route": "cuda",
             "source": "apex_example_tpu_torch/csrc/layer_norm.cu",
             "replaces": "apex_example_tpu/ops/layer_norm.py:66",
             "max_abs_err": path_err, "ms": ms["kernel"],
             "plain_ms": ms["plain"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": ms["library"]}
+            "bound_by": bound_by, "library_ms": ms["library"],
+            "by_shape": by_shape}
 
 
 def phase_ln_bwd(ln):
@@ -251,10 +320,14 @@ def phase_ln_bwd(ln):
     gen = torch.Generator(device=dev).manual_seed(1)
     cases = [(TRAIN_ROWS, 768, torch.float32),
              (TRAIN_ROWS, 768, torch.bfloat16),
+             (TXL_ROWS, TXL_H, torch.float32),
+             (TXL_ROWS, TXL_H, torch.bfloat16),
+             (GPT_ROWS, 768, torch.float32), (GPT_ROWS, 768, torch.bfloat16),
              (1000, 768, torch.float32), (1000, 768, torch.bfloat16),
              (TRAIN_ROWS, 64, torch.float32), (37, 777, torch.float32),
              (64, 8192, torch.float32), (64, 8192, torch.bfloat16)]
-    path_err = None
+    path_shapes = {(TRAIN_ROWS, 768), (TXL_ROWS, TXL_H), (GPT_ROWS, 768)}
+    path_err = 0.0
     for n, h, dtype in cases:
         x = (torch.randn(n, h, device=dev, generator=gen) * 2 + 0.5).to(dtype)
         g = torch.randn(h, device=dev, generator=gen) * 0.2 + 1
@@ -280,8 +353,9 @@ def phase_ln_bwd(ln):
         if not ok:
             raise SystemExit(f"layer_norm backward kernel disagrees with its "
                              f"plain version at {n}x{h} {dtype}")
+        if dtype == torch.float32 and (n, h) in path_shapes:
+            path_err = max(path_err, dx_err, dg_err, db_err)
         if (n, h, dtype) == (TRAIN_ROWS, 768, torch.float32):
-            path_err = max(dx_err, dg_err, db_err)
             again = ln.layer_norm_bwd_cuda(x, g, mean, rstd, dy)
             same = all(torch.equal(u, w) for u, w in
                        zip(again, (dx, dg, db)))
@@ -291,33 +365,39 @@ def phase_ln_bwd(ln):
                 raise SystemExit("layer_norm backward kernel does not "
                                  "repeat bitwise")
 
-    n, h = TRAIN_ROWS, 768
-    x = torch.randn(n, h, device=dev, generator=gen)
-    g = torch.randn(h, device=dev, generator=gen) * 0.2 + 1
-    b = torch.randn(h, device=dev, generator=gen) * 0.2
-    dy = torch.randn(n, h, device=dev, generator=gen)
-    _, mean, rstd = ln.layer_norm_plain(x, g, b)
-    kernel = lambda: ln.layer_norm_bwd_cuda(x, g, mean, rstd, dy)  # noqa
-    plain = lambda: ln.layer_norm_bwd_plain(x, g, mean, rstd, dy)  # noqa
-    library = lambda: torch.ops.aten.native_layer_norm_backward(    # noqa
-        dy, x, [h], mean[:, None], rstd[:, None], g, b,
-        [True, True, True])
-    ms = {name: _device_ms(fn) for name, fn in
-          (("kernel", kernel), ("plain", plain), ("library", library))}
-    call_ms = _call_ms(kernel)
-    nbytes = n * h * 4 * 3 + 3 * h * 4 + 8 * n
-    bound_ms, bound_by = _bound(nbytes, 15 * n * h)
-    print(f"kernels: layer_norm_bwd {n}x{h} float32 device time: kernel "
-          f"{ms['kernel']:.5f} ms  plain {ms['plain']:.5f} ms  "
-          f"native_layer_norm_backward {ms['library']:.5f} ms  bound "
-          f"{bound_ms:.6f} ms ({nbytes} bytes over 3.35 TB/s)  per call "
-          f"from Python {call_ms:.5f} ms")
+    by_shape = {}
+    # the train phase's shape last: its times are the row's
+    for n, h in ((TXL_ROWS, TXL_H), (TRAIN_ROWS, 768)):
+        x = torch.randn(n, h, device=dev, generator=gen)
+        g = torch.randn(h, device=dev, generator=gen) * 0.2 + 1
+        b = torch.randn(h, device=dev, generator=gen) * 0.2
+        dy = torch.randn(n, h, device=dev, generator=gen)
+        _, mean, rstd = ln.layer_norm_plain(x, g, b)
+        kernel = lambda: ln.layer_norm_bwd_cuda(x, g, mean, rstd, dy)  # noqa
+        plain = lambda: ln.layer_norm_bwd_plain(x, g, mean, rstd, dy)  # noqa
+        library = lambda: torch.ops.aten.native_layer_norm_backward(  # noqa
+            dy, x, [h], mean[:, None], rstd[:, None], g, b,
+            [True, True, True])
+        ms = {name: _device_ms(fn) for name, fn in
+              (("kernel", kernel), ("plain", plain), ("library", library))}
+        call_ms = _call_ms(kernel)
+        nbytes = n * h * 4 * 3 + 3 * h * 4 + 8 * n
+        bound_ms, bound_by = _bound(nbytes, 15 * n * h)
+        print(f"kernels: layer_norm_bwd {n}x{h} float32 device time: kernel "
+              f"{ms['kernel']:.5f} ms  plain {ms['plain']:.5f} ms  "
+              f"native_layer_norm_backward {ms['library']:.5f} ms  bound "
+              f"{bound_ms:.6f} ms ({nbytes} bytes over 3.35 TB/s)  per call "
+              f"from Python {call_ms:.5f} ms")
+        by_shape[f"{n}x{h}"] = {"ms": ms["kernel"], "plain_ms": ms["plain"],
+                                "bound_ms": bound_ms,
+                                "library_ms": ms["library"]}
     return {"name": "layer_norm_bwd", "route": "cuda",
             "source": "apex_example_tpu_torch/csrc/layer_norm.cu",
             "replaces": "apex_example_tpu/ops/layer_norm.py:82",
             "max_abs_err": path_err, "ms": ms["kernel"],
             "plain_ms": ms["plain"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": ms["library"]}
+            "bound_by": bound_by, "library_ms": ms["library"],
+            "by_shape": by_shape}
 
 
 def _bert_base_shapes():
@@ -495,6 +575,304 @@ def phase_optim_kernels(mt, fo):
     return rows
 
 
+def _txl_shapes(V=267735, d=410, layers=16, heads=10, inner=2100):
+    """transformer_xl's parameter shapes, in named_parameters order: 241
+    tensors, 150,850,870 elements."""
+    shapes = [(V, d)]
+    for _ in range(layers):
+        shapes += [(heads, d // heads)] * 2 + [(d, d)] * 5 + [
+            (d,), (d,), (inner, d), (inner,), (d, inner), (d,), (d,), (d,)]
+    return shapes
+
+
+def _gpt_shapes(V=30522, H=768, F=3072, L=12, P=1024):
+    """gpt_base's parameter shapes, in named_parameters order: 199
+    tensors, 109,315,386 elements."""
+    shapes = [(V,), (V, H), (P, H), (H,), (H,)]
+    for _ in range(L):
+        shapes += [(H, H), (H,)] * 4 + [(H,), (H,), (F, H), (F,), (H, F),
+                                        (H,), (H,), (H,)]
+    return shapes + [(H,), (H,)]
+
+
+def _close_scaled(got, want, rtol):
+    """max |got - want| and whether every element is within rtol * |want|
+    plus 1e-6 of the tensor's largest |want| (the rounding of sums that
+    cancel near zero)."""
+    return _close(got, want, rtol, 1e-6 * float(want.abs().max()))
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` 4 bytes past 16-byte alignment, so the
+    kernels take their scalar path."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view_as(t)
+    view.copy_(t)
+    return view
+
+
+def _adam_lists(shapes, dtype, gen):
+    dev = torch.device("cuda")
+    rnd = lambda s, std: torch.randn(s, device=dev,            # noqa: E731
+                                     generator=gen) * std
+    p = [rnd(s, 0.05).to(dtype) for s in shapes]
+    g = [rnd(s, 1e-4).to(dtype) for s in shapes]
+    m = [rnd(s, 1e-5) for s in shapes]
+    v = [torch.rand(s, device=dev, generator=gen) * 1e-8 for s in shapes]
+    return p, g, m, v
+
+
+def _check_adam(fo, mt, lists, hyper, what):
+    """Adam's kernel over ``lists`` against its plain version; returns the
+    largest |dp|, |dm|, |dv|."""
+    p, g, m, v = lists
+    p0, m0, v0 = ([t.clone() for t in lst] for lst in (p, m, v))
+    fo.adam_cuda(mt.TensorTable([p, g, m, v]), **hyper)
+    errs, ok = [0.0, 0.0, 0.0], True
+    for i in range(len(p)):
+        want = fo.adam_update_plain(p0[i], g[i], m0[i], v0[i], **hyper)
+        for j, (got, w) in enumerate(zip((p[i], m[i], v[i]), want)):
+            if got.dtype == torch.float32:
+                e, o = _close_scaled(got, w, 1e-5)
+            else:               # bf16 p: one bf16 ulp (plus 1e-5)
+                a, b = got.float(), w.float()
+                e = float((a - b).abs().max())
+                o = bool(((a - b).abs() <= _bf16_tol(a, b)).all())
+            errs[j] = max(errs[j], e)
+            ok = ok and o
+    torch.cuda.synchronize()
+    print(f"kernels: adam {what}: max|dp| {errs[0]:.3g}  max|dm| "
+          f"{errs[1]:.3g}  max|dv| {errs[2]:.3g}  "
+          f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise SystemExit(f"adam kernel disagrees with its plain version "
+                         f"({what})")
+    return max(errs)
+
+
+def phase_adam(mt, fo):
+    """Adam over transformer_xl-shaped tensors and small odd lists against
+    its plain version; its, the plain version's and torch._fused_adamw_'s
+    times."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    shapes = _txl_shapes()
+    numel = sum(math.prod(s) for s in shapes)
+    print(f"kernels: transformer_xl parameter lists: {len(shapes)} tensors, "
+          f"{numel} elements")
+    step = 5
+    hyper = dict(lr=2.5e-4, beta1=0.9, beta2=0.999, eps=1e-8,
+                 weight_decay=0.01, bias_c1=1.0 / (1 - 0.9 ** step),
+                 bias_c2=1.0 / (1 - 0.999 ** step))
+    path_err = _check_adam(fo, mt, _adam_lists(shapes, torch.float32, gen),
+                           dict(hyper, adam_w_mode=True),
+                           f"adamw fp32, {len(shapes)} tensors")
+    _check_adam(fo, mt, _adam_lists(shapes, torch.float32, gen),
+                dict(hyper, adam_w_mode=False),
+                f"adam fp32, {len(shapes)} tensors")
+    _check_adam(fo, mt, _adam_lists(shapes, torch.bfloat16, gen),
+                dict(hyper, adam_w_mode=True),
+                f"adamw bf16 p and g, {len(shapes)} tensors")
+    gpt = _gpt_shapes()         # the gpt phase's lr and decay
+    path_err = max(path_err, _check_adam(
+        fo, mt, _adam_lists(gpt, torch.float32, gen),
+        dict(hyper, lr=1e-4, adam_w_mode=True),
+        f"adamw fp32, gpt_base's {len(gpt)} tensors "
+        f"({sum(math.prod(s) for s in gpt)} elements)"))
+    odd = [(1,), (65537,), (3, 5), (7,), (65536,), (513, 129), (2,)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for mode in (True, False):
+            lists = _adam_lists(odd, dtype, gen)
+            _check_adam(fo, mt, lists, dict(hyper, adam_w_mode=mode),
+                        f"small odd list {str(dtype)[6:]} "
+                        f"adam_w_mode={mode}")
+            lists = [[_misaligned(t) for t in lst] for lst in
+                     _adam_lists(odd, dtype, gen)]
+            _check_adam(fo, mt, lists, dict(hyper, adam_w_mode=mode),
+                        f"misaligned odd list {str(dtype)[6:]} "
+                        f"adam_w_mode={mode}")
+
+    # the timed lists, and torch._fused_adamw_ on copies of them
+    p, g, m, v = _adam_lists(shapes, torch.float32, gen)
+    lib = [[t.clone() for t in lst] for lst in (p, g, m, v)]
+    table = mt.TensorTable([p, g, m, v])
+    hw = dict(hyper, adam_w_mode=True)
+    steps = [torch.full((), float(step), device=dev) for _ in p]
+
+    def library():
+        torch._fused_adamw_(*lib, [], steps, lr=hyper["lr"],
+                            beta1=hyper["beta1"], beta2=hyper["beta2"],
+                            weight_decay=hyper["weight_decay"],
+                            eps=hyper["eps"], amsgrad=False,
+                            maximize=False)
+
+    fo.adam_cuda(table, **hw)
+    library()
+    torch.cuda.synchronize()
+    errs = [max(_close_scaled(a, b, 1e-4)[0] for a, b in zip(x, y))
+            for x, y in ((lib[0], p), (lib[2], m), (lib[3], v))]
+    lib_ok = all(_close_scaled(a, b, 1e-4)[1]
+                 for x, y in ((lib[0], p), (lib[2], m), (lib[3], v))
+                 for a, b in zip(x, y))
+    print(f"kernels: adam library call torch._fused_adamw_ against the "
+          f"kernel after one step: max|dp| {errs[0]:.3g}  max|dm| "
+          f"{errs[1]:.3g}  max|dv| {errs[2]:.3g} (rtol 1e-4)  "
+          f"{'ok' if lib_ok else 'MISMATCH'}")
+    if not lib_ok:
+        raise SystemExit("torch._fused_adamw_ does not compute adam's "
+                         "function")
+
+    def plain():
+        for i in range(len(p)):
+            fo.adam_update_plain(p[i], g[i], m[i], v[i], **hw)
+
+    k_ms = _device_ms(lambda: fo.adam_cuda(table, **hw), reps=100, warmup=5)
+    p_ms = _device_ms(plain, reps=10, warmup=2)
+    l_ms = _device_ms(library, reps=100, warmup=5)
+    call_ms = _call_ms(lambda: fo.adam_cuda(table, **hw), reps=100,
+                       warmup=5)
+    nbytes = 28 * numel
+    bound_ms, bound_by = _bound(nbytes, 15 * numel)
+    print(f"kernels: adam over {len(p)} tensors device time: kernel "
+          f"{k_ms:.5f} ms  plain {p_ms:.5f} ms  torch._fused_adamw_ "
+          f"{l_ms:.5f} ms  bound {bound_ms:.6f} ms ({nbytes} bytes over "
+          f"3.35 TB/s)  per call from Python {call_ms:.5f} ms")
+    return {"name": "adam", "route": "cuda",
+            "source": "apex_example_tpu_torch/csrc/fused_optim.cu",
+            "replaces": "apex_example_tpu/ops/fused_optim.py:53",
+            "max_abs_err": path_err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": l_ms}
+
+
+def _same(got, want):
+    """Elementwise equality, NaN equal to NaN."""
+    return bool(((got == want) | (got.isnan() & want.isnan())).all())
+
+
+def _finite_err(got, want):
+    """max |got - want| over the elements finite in both."""
+    both = got.isfinite() & want.isfinite()
+    if not both.any():
+        return 0.0
+    return float((got[both].double() - want[both].double()).abs().max())
+
+
+def phase_scale(mt):
+    """The L2 norm of transformer_xl-shaped grads against its plain
+    version; the scale over them against its plain version: a host scale,
+    the clip scale from the device norm below and above max_norm, an inf
+    and a nan planted; then its, the plain version's and
+    torch._amp_foreach_non_finite_check_and_unscale_'s times.  Returns the
+    scale's row and the L2 norm's largest error."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    shapes = _txl_shapes()
+    numel = sum(math.prod(s) for s in shapes)
+    x = [torch.randn(s, device=dev, generator=gen) * 1e-3 for s in shapes]
+    out = [torch.empty_like(t) for t in x]
+    norm, sq = mt.multi_tensor_l2norm_cuda(mt.TensorTable([x]))
+    norm_p, sq_p = mt.multi_tensor_l2norm_plain(x)
+    torch.cuda.synchronize()
+    n_err, n_ok = _close(norm, norm_p, NORM_TOL, 0.0)
+    s_err, s_ok = _close(sq, sq_p, NORM_TOL, 0.0)
+    print(f"kernels: multi_tensor_l2norm over {len(x)} tensors: norm "
+          f"{float(norm):.6f} (plain {float(norm_p):.6f}) max|dnorm| "
+          f"{n_err:.3g} max|dsq| {s_err:.3g} (rtol {NORM_TOL:g})  "
+          f"{'ok' if n_ok and s_ok else 'MISMATCH'}")
+    if not (n_ok and s_ok):
+        raise SystemExit("multi_tensor_l2norm kernel disagrees with its "
+                         "plain version over transformer_xl's tensors")
+    scale_err = 0.0
+    cases = [("host scale 0.37", None, dict(scale=0.37)),
+             ("clip above max_norm", None,
+              dict(norm=norm, max_norm=0.25 * float(norm))),
+             ("clip below max_norm", None,
+              dict(norm=norm, max_norm=4.0 * float(norm))),
+             ("inf planted", float("inf"), dict(scale=0.37)),
+             ("nan planted", float("nan"), dict(scale=0.37)),
+             ("clean again", None, dict(scale=0.37))]
+    for what, planted, kw in cases:
+        if planted is not None:
+            x[0][123, 5] = planted
+        flag = mt.multi_tensor_scale_cuda(mt.TensorTable([x, out]), 0, 1,
+                                          **kw)
+        s = kw.get("scale")
+        if s is None:
+            s = mt.clip_scale_plain(kw["norm"], kw["max_norm"])
+        want, finite = mt.multi_tensor_scale_plain(x, s)
+        torch.cuda.synchronize()
+        same = all(_same(a, b) for a, b in zip(out, want))
+        scale_err = max([scale_err] + [_finite_err(a, b)
+                                       for a, b in zip(out, want)])
+        flag_ok = int(flag) == int(not bool(finite)) == int(
+            planted is not None)
+        print(f"kernels: multi_tensor_scale {what} (scale {float(s):.6g}): "
+              f"outputs equal to the plain version's: {same}  flag "
+              f"{int(flag)} (plain all_finite {bool(finite)})  "
+              f"{'ok' if same and flag_ok else 'MISMATCH'}")
+        if not (same and flag_ok):
+            raise SystemExit(f"multi_tensor_scale kernel disagrees with "
+                             f"its plain version ({what})")
+        if planted is not None:
+            x[0][123, 5] = 0.0
+    odd = [torch.randn(s, device=dev, generator=gen)
+           for s in [(1,), (65537,), (3, 5), (7,), (513, 129)]]
+    for name, lst in (("small odd list", odd),
+                      ("misaligned odd list", [_misaligned(t) for t in odd])):
+        o = [torch.empty_like(t) for t in lst]
+        flag = mt.multi_tensor_scale_cuda(mt.TensorTable([lst, o]), 0, 1,
+                                          0.37)
+        want, _ = mt.multi_tensor_scale_plain(lst, 0.37)
+        ok = int(flag) == 0 and all(torch.equal(a, b)
+                                    for a, b in zip(o, want))
+        scale_err = max([scale_err] + [_finite_err(a, b)
+                                       for a, b in zip(o, want)])
+        print(f"kernels: multi_tensor_scale {name}: "
+              f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise SystemExit(f"multi_tensor_scale kernel disagrees with its "
+                             f"plain version ({name})")
+
+    # in place at scale 1 for the times, so the data stay as they are;
+    # the library call first checked against the kernel at 0.37 on copies
+    lib = [t.clone() for t in x]
+    found = torch.zeros((), device=dev)
+    inv = torch.full((), 0.37, device=dev)
+    torch._amp_foreach_non_finite_check_and_unscale_(lib, found, inv)
+    mt.multi_tensor_scale_cuda(mt.TensorTable([x, out]), 0, 1, 0.37)
+    torch.cuda.synchronize()
+    lib_ok = float(found) == 0.0 and all(_close(a, b, 1e-6, 0.0)[1]
+                                         for a, b in zip(lib, out))
+    print(f"kernels: multi_tensor_scale library call "
+          f"torch._amp_foreach_non_finite_check_and_unscale_ against the "
+          f"kernel (rtol 1e-6): {'ok' if lib_ok else 'MISMATCH'}")
+    if not lib_ok:
+        raise SystemExit("torch._amp_foreach_non_finite_check_and_unscale_ "
+                         "does not compute multi_tensor_scale's function")
+    inv.fill_(1.0)
+    table = mt.TensorTable([x])
+    kernel = lambda: mt.multi_tensor_scale_cuda(table, 0, 0, 1.0)  # noqa
+    k_ms = _device_ms(kernel, reps=100, warmup=5)
+    p_ms = _device_ms(lambda: mt.multi_tensor_scale_plain(x, 1.0), reps=10,
+                      warmup=2)
+    l_ms = _device_ms(lambda: torch._amp_foreach_non_finite_check_and_unscale_(
+        x, found, inv), reps=100, warmup=5)
+    call_ms = _call_ms(kernel, reps=100, warmup=5)
+    nbytes = 8 * numel
+    bound_ms, bound_by = _bound(nbytes, 2 * numel)
+    print(f"kernels: multi_tensor_scale over {len(x)} tensors device time: "
+          f"kernel {k_ms:.5f} ms  plain {p_ms:.5f} ms  "
+          f"torch._amp_foreach_non_finite_check_and_unscale_ {l_ms:.5f} ms  "
+          f"bound {bound_ms:.6f} ms ({nbytes} bytes over 3.35 TB/s)  per "
+          f"call from Python {call_ms:.5f} ms")
+    return {"name": "multi_tensor_scale", "route": "cuda",
+            "source": "apex_example_tpu_torch/csrc/multi_tensor.cu",
+            "replaces": "apex_example_tpu/ops/multi_tensor.py:79",
+            "max_abs_err": scale_err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": l_ms}, max(n_err, s_err)
+
+
 def _zero_counts(counted):
     for fn in counted.values():
         fn.launches = 0
@@ -559,12 +937,12 @@ def phase_main(cli, gpt_base, counted):
     return counts
 
 
-def phase_train(train, counted):
-    """bert_base MLM through the port's trainer: finite, falling loss and
-    the kernels' launch counts per step."""
-    path = os.path.join(ROOT, "build", "chip_smoke_train.jsonl")
-    args = train.build_parser().parse_args(
-        TRAIN_ARGS + ["--metrics-jsonl", path])
+def phase_train(train, counted, label, argv, per_step):
+    """A model trained through the port's trainer: finite, falling loss
+    (the mean of the last five steps below that of the first five) and
+    ``per_step`` launches of each kernel a step, none of the others."""
+    path = os.path.join(ROOT, "build", f"chip_smoke_{label}.jsonl")
+    args = train.build_parser().parse_args(argv + ["--metrics-jsonl", path])
     torch.cuda.reset_peak_memory_stats()
     _zero_counts(counted)
     t0 = time.perf_counter()
@@ -581,25 +959,26 @@ def phase_train(train, counted):
     times = [r["step_time_ms"] for r in steps]
     steady = statistics.median(times[1:]) if n > 1 else float("nan")
     tokens = args.batch_size * args.seq_len
-    print(f"train: bert_base {n} steps  loss first/last {losses[0]:.4f}/"
+    ppl = (f"  ppl first/last {steps[0]['ppl']:.1f}/{steps[-1]['ppl']:.1f}"
+           if steps and "ppl" in steps[0] else "")
+    print(f"{label}: {args.arch} {n} steps  loss first/last {losses[0]:.4f}/"
           f"{losses[-1]:.4f}  mean steps 1-5 "
-          f"{statistics.fmean(losses[:5]):.4f}  mean steps 16-20 "
-          f"{statistics.fmean(losses[-5:]):.4f}")
-    print(f"train: step time median {steady:.2f} ms (steps 2-{n})  first "
+          f"{statistics.fmean(losses[:5]):.4f}  mean steps {n - 4}-{n} "
+          f"{statistics.fmean(losses[-5:]):.4f}{ppl}  grad norm first/last "
+          f"{steps[0]['grad_norm']:.4f}/{steps[-1]['grad_norm']:.4f}")
+    print(f"{label}: step time median {steady:.2f} ms (steps 2-{n})  first "
           f"step {times[0]:.2f} ms  tokens/s {tokens / steady * 1e3:.1f}  "
           f"wall {wall:.1f} s  max memory {peak_gib:.2f} GiB")
-    per_layer_norms = 2 * 12 + 2
-    want = {"layer_norm_fwd": per_layer_norms * n,
-            "layer_norm_bwd": per_layer_norms * n,
-            "multi_tensor_l2norm": n, "lamb_stage1": n, "lamb_stage2": n}
-    print(f"train: launches {counts} (want {want})")
-    if rc != 0 or n != 20:
-        raise SystemExit(f"training run: rc {rc}, {n} step records (want "
-                         f"20)")
+    want = dict.fromkeys(counted, 0)
+    want.update({k: v * n for k, v in per_step.items()})
+    print(f"{label}: launches {counts} (want {want})")
+    if rc != 0 or n != args.steps_per_epoch:
+        raise SystemExit(f"{label} run: rc {rc}, {n} step records (want "
+                         f"{args.steps_per_epoch})")
     if not all(math.isfinite(x) for x in losses):
-        raise SystemExit(f"training loss is not finite: {losses}")
+        raise SystemExit(f"{label} loss is not finite: {losses}")
     if not statistics.fmean(losses[-5:]) < statistics.fmean(losses[:5]):
-        raise SystemExit("training loss did not fall over 20 steps")
+        raise SystemExit(f"{label} loss did not fall over {n} steps")
     if counts != want:
         raise SystemExit(f"kernel launches per step off: {counts}")
     return counts
@@ -612,6 +991,8 @@ KERNEL_GROUPS = (            # device-time categories, first match wins
                                      "tensor_sums")),
     ("ported: lamb stages", ("lamb1_chunks", "trust_ratio",
                              "lamb2_chunks")),
+    ("ported: adam", ("adam_chunks",)),
+    ("ported: multi_tensor_scale", ("scale_chunks",)),
     ("matrix products", ("gemm", "cutlass", "xmma", "cublas")),
     ("softmax", ("softmax",)),
     ("embedding", ("embedding",)),
@@ -628,30 +1009,36 @@ def _group(name):
     return "other elementwise"
 
 
-def phase_profile(train, steps=3):
-    """torch.profiler over a few bert_base train steps: device time by
-    kernel group, and the share of the window the device sat idle."""
+def phase_profile(train, argv, steps=3):
+    """torch.profiler over a few train steps of the model ``argv`` names:
+    device time by kernel group, and the share of the window the device sat
+    idle."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from apex_example_tpu_torch.engine import (create_train_state,
-                                               make_train_step)
-    from apex_example_tpu_torch.workloads import mlm_loss
-    args = train.build_parser().parse_args(TRAIN_ARGS)
+    from apex_example_tpu_torch.engine import create_train_state
+    args = train.build_parser().parse_args(argv)
     model = train.build_model(args, "cuda")
     state = create_train_state(model, train.build_optimizer(
         args, model.parameters()))
-    step_fn = make_train_step(mlm_loss)
+    step_fn, mems = _step_fn(train, args, model)
     batches = [train.batch_fn(args, model.vocab_size, i, "cuda")
                for i in range(steps + 2)]
+
+    def run(state, mems, batch):
+        if mems is None:
+            return step_fn(state, batch) + (None,)
+        state, mems, metrics = step_fn(state, mems, batch)
+        return state, metrics, mems
+
     for b in batches[:2]:
-        state, _ = step_fn(state, b)
+        state, _, mems = run(state, mems, b)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for b in batches[2:]:
-            state, metrics = step_fn(state, b)
+            state, metrics, mems = run(state, mems, b)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
@@ -669,7 +1056,7 @@ def phase_profile(train, steps=3):
         by_name[name] = by_name.get(name, 0.0) + (b - a)
     window = spans[-1][1] - spans[0][0]
     total = sum(by_group.values())
-    print(f"profile: {steps} bert_base steps: host wall {wall_ms:.2f} ms "
+    print(f"profile: {steps} {args.arch} steps: host wall {wall_ms:.2f} ms "
           f"({wall_ms / steps:.2f} ms a step)  device window "
           f"{window / 1e3:.2f} ms  device busy {busy / 1e3:.2f} ms  idle "
           f"share {1 - busy / window:.4f}  {len(spans)} device events "
@@ -680,61 +1067,162 @@ def phase_profile(train, steps=3):
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"profile:   top kernel {us / 1e3 / steps:8.3f} ms a step  "
               f"{name[:90]}")
+    del state, model
+    torch.cuda.empty_cache()
 
 
-def one_step(train, args, dev, batch):
-    """One train step of freshly built weights on ``dev``: (loss, grad
-    norm, parameters after the step on the CPU, largest update)."""
-    from apex_example_tpu_torch.engine import (create_train_state,
-                                               make_train_step)
-    from apex_example_tpu_torch.workloads import mlm_loss
+def _step_fn(train, args, model):
+    """The trainer's step for ``args`` and the memory it starts from (None
+    but for Transformer-XL)."""
+    from apex_example_tpu_torch.engine import make_train_step
+    from apex_example_tpu_torch.workloads import (lm_loss,
+                                                  make_txl_train_step,
+                                                  mlm_loss)
+    if train.is_txl(args):
+        return (make_txl_train_step(args.max_grad_norm),
+                model.init_mems(args.batch_size))
+    return make_train_step(mlm_loss if args.arch.startswith("bert")
+                           else lm_loss), None
+
+
+def one_step(train, args, dev, batch, perturb=0.0):
+    """One train step of freshly built weights on ``dev`` (the first
+    parameter, the word embedding, scaled by 1 + ``perturb``); ``batch`` is
+    the step's numpy arrays.  Returns (loss, grad norm, parameters after
+    the step, largest update, the new memory or None, the clipped grads),
+    the tensors on the CPU."""
+    from apex_example_tpu_torch.engine import create_train_state
     model = train.build_model(args, dev)
+    if perturb:
+        with torch.no_grad():
+            next(model.parameters()).mul_(1.0 + perturb)
     init = {k: p.detach().to("cpu", copy=True)
             for k, p in model.named_parameters()}
     opt = train.build_optimizer(args, model.parameters())
     state = create_train_state(model, opt)
-    ids, labels, w = (torch.from_numpy(a).to(dev) for a in batch)
-    state, metrics = make_train_step(mlm_loss)(state, (ids, (labels, w)))
+    step_fn, mems = _step_fn(train, args, model)
+    arrays = [torch.from_numpy(a).to(dev) for a in batch]
+    if mems is None:
+        ids, *target = arrays
+        target = tuple(target) if len(target) > 1 else target[0]
+        state, metrics = step_fn(state, (ids, target))
+    else:
+        mems = model.init_mems(len(batch[0]))
+        state, mems, metrics = step_fn(state, mems, tuple(arrays))
+        mems = mems.cpu()
     loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
     params = {k: p.detach().cpu() for k, p in model.named_parameters()}
     update = max(float((params[k] - init[k]).abs().max()) for k in init)
-    return loss, gnorm, params, update
+    grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+    return loss, gnorm, params, update, mems, grads
 
 
-def phase_cross_check(train, counted):
-    """One step of the same weights on one 2 x 128 batch, on the card
-    (the kernels) and on the CPU (the plain versions)."""
-    from apex_example_tpu_torch.data.synthetic import mlm_batch
-    args = train.build_parser().parse_args(TRAIN_ARGS)
-    batch = mlm_batch(0, batch_size=2, seq_len=128, vocab_size=30522,
-                      mask_token_id=30521, seed=0)
+def _grad_differences(grads, above, params):
+    """By kind of parameter (its name without the layer index): |card -
+    CPU| / |CPU| and |floor - CPU| / |CPU| over the clipped grads, the
+    elements beyond 1e-5 after the step, and the elements."""
+    sums = {}
+    for k, g in grads["cpu"].items():
+        name = ".".join(w for w in k.split(".") if not w.isdigit())
+        acc = sums.setdefault(name, [0.0, 0.0, 0.0, 0, 0])
+        acc[0] += float(((grads["cuda"][k] - g) ** 2).sum())
+        acc[1] += float(((grads["floor"][k] - g) ** 2).sum())
+        acc[2] += float((g ** 2).sum())
+        acc[3] += above[k]
+        acc[4] += params[k].numel()
+    return {n: (math.sqrt(a / max(n2, 1e-30)), math.sqrt(b / max(n2, 1e-30)),
+                c, e) for n, (a, b, n2, c, e) in sums.items()}
+
+
+def phase_cross_check(train, counted, label, argv, batch, want,
+                      mems_tol=None, flip_lr=None):
+    """One step of the same weights on one small batch, on the card (the
+    kernels, launched ``want`` times) and on the CPU (the plain versions,
+    no launch): loss rtol 1e-5, grad norm rtol 1e-4, every parameter atol
+    1e-5 and, with ``mems_tol``, the new memory within it (rtol = atol).
+
+    ``flip_lr`` (a ReLU model trained with Adam): a ReLU input within fp32
+    rounding of zero passes on one device and not on the other; that
+    moves the gradients of everything below it by ~1e-3 of their norm.
+    The run measures this floor on the CPU alone, against a step whose
+    word embedding is scaled by 1 + 1e-6, and the limits are FLOOR_X
+    times it: each kind of parameter's clipped grads within FLOOR_X times
+    the floor's relative difference for that kind; and since Adam's first
+    step moves an element by lr * g / (|g| + eps), about lr whatever g's
+    size, an element whose small gradient changes sign moves 2 lr: every
+    parameter element within 2 lr + 1e-5, and no more than FLOOR_X times
+    as many elements beyond 1e-5 as the floor's step has."""
+    args = train.build_parser().parse_args(argv)
     got = {}
+    full = dict.fromkeys(counted, 0)
+    full.update(want)
     for dev in ("cuda", "cpu"):
         t0 = time.perf_counter()
         _zero_counts(counted)
         got[dev] = one_step(train, args, dev, batch)
-        loss, gnorm, _, update = got[dev]
+        loss, gnorm, _, update, _, _ = got[dev]
         counts = _counts(counted)
-        print(f"train: cross-check on {dev}: loss {loss!r} grad norm "
+        print(f"{label}: cross-check on {dev}: loss {loss!r} grad norm "
               f"{gnorm!r} largest update {update:.3g}  kernel launches "
               f"{counts}  ({time.perf_counter() - t0:.1f} s)")
-        want = {"layer_norm_fwd": 26, "layer_norm_bwd": 26,
-                "multi_tensor_l2norm": 1, "lamb_stage1": 1, "lamb_stage2": 1}
-        if counts != (want if dev == "cuda" else dict.fromkeys(want, 0)):
+        if counts != (full if dev == "cuda" else dict.fromkeys(full, 0)):
             raise SystemExit(f"the {dev} step launched {counts}")
         torch.cuda.empty_cache()
-    (l_g, n_g, p_g, _), (l_c, n_c, p_c, _) = got["cuda"], got["cpu"]
-    p_err = max(float((p_g[k] - p_c[k]).abs().max()) for k in p_c)
+    (l_g, n_g, p_g, _, m_g, g_g), (l_c, n_c, p_c, _, m_c, g_c) = \
+        got["cuda"], got["cpu"]
+    p_errs = {k: float((p_g[k] - p_c[k]).abs().max()) for k in p_c}
+    p_err = max(p_errs.values())
+    above = {k: int(((p_g[k] - p_c[k]).abs() > 1e-5).sum()) for k in p_c}
+    n_above, n_all = sum(above.values()), sum(t.numel() for t in p_c.values())
+    worst = sorted(p_errs, key=p_errs.get, reverse=True)[:3]
+
+    def where(k):
+        far = (p_g[k] - p_c[k]).abs() > 1e-5
+        rows = (f" in {int(far.any(1).sum())} rows"
+                if far.dim() == 2 and far.any() else "")
+        return f"{k} {p_errs[k]:.3g} ({above[k]} of {p_c[k].numel()}{rows})"
+    print(f"{label}: {n_above} of {n_all} parameter elements differ by more "
+          f"than 1e-5; largest in " + ", ".join(where(k) for k in worst))
     l_ok = abs(l_g - l_c) <= 1e-5 * abs(l_c)
     n_ok = abs(n_g - n_c) <= 1e-4 * abs(n_c)
-    p_ok = p_err <= 1e-5
-    print(f"train: card vs CPU after one step: |dloss| {abs(l_g - l_c):.3g} "
-          f"(rtol 1e-5)  |dgrad norm| {abs(n_g - n_c):.3g} (rtol 1e-4)  "
-          f"max|dparam| {p_err:.3g} (atol 1e-5)  "
-          f"{'ok' if l_ok and n_ok and p_ok else 'MISMATCH'}")
-    if not (l_ok and n_ok and p_ok):
-        raise SystemExit("the card's first training step disagrees with "
-                         "the CPU's")
+    if flip_lr is None:
+        p_ok, p_txt = p_err <= 1e-5, "atol 1e-5"
+    else:
+        t0 = time.perf_counter()
+        _, _, p_f, _, _, g_f = one_step(train, args, "cpu", batch,
+                                        perturb=1e-6)
+        n_floor = sum(int(((p_f[k] - p_c[k]).abs() > 1e-5).sum())
+                      for k in p_c)
+        f_err = max(float((p_f[k] - p_c[k]).abs().max()) for k in p_c)
+        kinds = _grad_differences(
+            {"cuda": g_g, "cpu": g_c, "floor": g_f}, above, p_c)
+        print(f"{label}: the floor, CPU vs CPU with the embedding x (1 + "
+              f"1e-6): {n_floor} of {n_all} parameter elements differ by "
+              f"more than 1e-5, max|dparam| {f_err:.3g} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        print(f"{label}: by kind of parameter, |grad difference| / |grad| "
+              f"card vs CPU, the floor's, card over floor, and elements "
+              f"beyond 1e-5: " + "; ".join(
+                  f"{n} {a:.2e} {b:.2e} {a / max(b, 1e-30):.2f} {c}/{e}"
+                  for n, (a, b, c, e) in kinds.items()))
+        p_ok = (p_err <= 2 * flip_lr + 1e-5
+                and n_above <= FLOOR_X * n_floor
+                and all(a <= FLOOR_X * b for a, b, _, _ in kinds.values()))
+        p_txt = (f"atol 1e-5, or 2 lr + 1e-5 for at most {FLOOR_X} x the "
+                 f"floor's {n_floor} elements; each kind's grads within "
+                 f"{FLOOR_X} x the floor's difference")
+    m_txt, m_ok = "", True
+    if mems_tol is not None:
+        m_err, m_ok = _close(m_g, m_c, mems_tol, mems_tol)
+        m_txt = f"  max|dmems| {m_err:.3g} (rtol = atol {mems_tol:g})"
+    print(f"{label}: card vs CPU after one step: |dloss| "
+          f"{abs(l_g - l_c):.3g} (rtol 1e-5)  |dgrad norm| "
+          f"{abs(n_g - n_c):.3g} (rtol 1e-4)  max|dparam| {p_err:.3g} "
+          f"({p_txt}){m_txt}  "
+          f"{'ok' if l_ok and n_ok and p_ok and m_ok else 'MISMATCH'}")
+    if not (l_ok and n_ok and p_ok and m_ok):
+        raise SystemExit(f"the card's first {label} step disagrees with "
+                         f"the CPU's")
 
 
 def main() -> int:
@@ -744,6 +1232,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     from apex_example_tpu_torch import train
+    from apex_example_tpu_torch.data.synthetic import lm_batch, mlm_batch
     from apex_example_tpu_torch.models.gpt import gpt_base
     from apex_example_tpu_torch.ops import _build
     from apex_example_tpu_torch.ops import fused_optim as fo
@@ -755,15 +1244,44 @@ def main() -> int:
                "layer_norm_bwd": ln.layer_norm_bwd_cuda,
                "multi_tensor_l2norm": mt.multi_tensor_l2norm_cuda,
                "lamb_stage1": fo.lamb_stage1_cuda,
-               "lamb_stage2": fo.lamb_stage2_cuda}
+               "lamb_stage2": fo.lamb_stage2_cuda,
+               "adam": fo.adam_cuda,
+               "multi_tensor_scale": mt.multi_tensor_scale_cuda}
+    bert_step = {"layer_norm_fwd": 26, "layer_norm_bwd": 26,
+                 "multi_tensor_l2norm": 1, "lamb_stage1": 1,
+                 "lamb_stage2": 1}
+    txl_step = {"layer_norm_fwd": 32, "layer_norm_bwd": 32,
+                "multi_tensor_l2norm": 1, "multi_tensor_scale": 1,
+                "adam": 1}
+    gpt_step = {"layer_norm_fwd": 26, "layer_norm_bwd": 26,
+                "multi_tensor_l2norm": 1, "adam": 1}
     phase_env()
     phase_build(_build)
     rows = [phase_kernels(ln), phase_ln_bwd(ln)]
     rows += phase_optim_kernels(mt, fo)
+    rows.append(phase_adam(mt, fo))
+    scale_row, l2_err = phase_scale(mt)
+    rows.append(scale_row)
+    l2_row = next(r for r in rows if r["name"] == "multi_tensor_l2norm")
+    l2_row["max_abs_err"] = max(l2_row["max_abs_err"], l2_err)
+    torch.cuda.empty_cache()
     by_path = {"serve": phase_main(cli, gpt_base, counted),
-               "train": phase_train(train, counted)}
-    phase_cross_check(train, counted)
-    phase_profile(train)
+               "train": phase_train(train, counted, "train", TRAIN_ARGS,
+                                    bert_step)}
+    phase_cross_check(train, counted, "train", TRAIN_ARGS, mlm_batch(
+        0, batch_size=2, seq_len=128, vocab_size=30522, mask_token_id=30521,
+        seed=0), bert_step)
+    phase_profile(train, TRAIN_ARGS)
+    by_path["txl"] = phase_train(train, counted, "txl", TXL_ARGS, txl_step)
+    torch.cuda.empty_cache()
+    toks = lm_batch(0, batch_size=2, seq_len=192, vocab_size=267735, seed=0)
+    phase_cross_check(train, counted, "txl", TXL_ARGS,
+                      (np.ascontiguousarray(toks[:, :-1]),
+                       np.ascontiguousarray(toks[:, 1:])), txl_step,
+                      mems_tol=1e-4, flip_lr=2.5e-4)
+    by_path["gpt"] = phase_train(train, counted, "gpt", GPT_ARGS, gpt_step)
+    torch.cuda.empty_cache()
+    phase_profile(train, TXL_ARGS)
     for row in rows:
         row["launches_by_path"] = {k: v[row["name"]]
                                    for k, v in by_path.items()}

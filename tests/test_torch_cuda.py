@@ -13,7 +13,10 @@ the output plus 1e-5, since a result that cancels to near zero carries
 the fp32 rounding error of the affine step; LayerNorm dgamma and dbeta
 rtol = atol = 1e-4 (sums over the rows in another order, some cancelling
 near zero); L2 norms and per-tensor sums rtol 1e-5; LAMB's m, v, u and p
-atol 1e-6, rtol 1e-5.
+atol 1e-6, rtol 1e-5; Adam's p, m and v the same (fp32: the same
+arithmetic, up to the compiler's fused multiply-adds; bf16 p: one bf16
+ulp of p plus 1e-6); the scale kernel exactly (one fp32 product, then the
+same rounding) and its non-finite flag exactly.
 """
 
 import numpy as np
@@ -23,7 +26,7 @@ import torch
 from apex_example_tpu_torch.ops import fused_optim as fo
 from apex_example_tpu_torch.ops import layer_norm as port_ln
 from apex_example_tpu_torch.ops import multi_tensor as mt
-from apex_example_tpu_torch.optim.fused import FusedLAMB
+from apex_example_tpu_torch.optim.fused import FusedAdam, FusedLAMB
 
 FP32_TOL = 1e-5
 
@@ -43,8 +46,8 @@ def _bf16_tol(a, b):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
-@pytest.mark.parametrize("n,h", [(128, 768), (1000, 768), (37, 64),
-                                 (8, 8192), (5, 777), (3, 1)])
+@pytest.mark.parametrize("n,h", [(128, 768), (1000, 768), (6144, 410),
+                                 (37, 64), (8, 8192), (5, 777), (3, 1)])
 def test_layer_norm_kernel_matches_plain(cuda_device, dtype, n, h):
     gen = torch.Generator(device=cuda_device).manual_seed(n * h)
     x = (torch.randn(n, h, device=cuda_device, generator=gen) * 2 + 0.5)
@@ -84,8 +87,8 @@ def test_layer_norm_dispatch_takes_the_kernel_on_the_card(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
-@pytest.mark.parametrize("n,h", [(4096, 768), (1000, 768), (37, 64),
-                                 (8, 8192), (5, 777), (3, 1)])
+@pytest.mark.parametrize("n,h", [(4096, 768), (1000, 768), (6144, 410),
+                                 (37, 64), (8, 8192), (5, 777), (3, 1)])
 def test_layer_norm_bwd_kernel_matches_plain(cuda_device, dtype, n, h):
     gen = torch.Generator(device=cuda_device).manual_seed(n + h)
     x = (torch.randn(n, h, device=cuda_device, generator=gen) * 2 + 0.5)
@@ -225,5 +228,122 @@ def test_fused_lamb_on_the_card_matches_the_cpu(cuda_device):
         assert ran == ([3, 3, 3] if device == "cuda" else [0, 0, 0])
         result.append([p.detach().cpu() for p in ps])
     for a, b in zip(*result):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                   atol=1e-6)
+
+
+def _misaligned(t):
+    """A contiguous view of ``t`` whose address is 4 bytes past 16-byte
+    alignment: the kernels' scalar path."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view_as(t)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("adam_w_mode", [True, False])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_adam_kernel_matches_plain(cuda_device, dtype, adam_w_mode,
+                                   misaligned):
+    p, g, m, v = _lists(cuda_device, SHAPES, dtype, seed=4)
+    if misaligned:
+        p, g, m, v = ([_misaligned(t) for t in lst] for lst in (p, g, m, v))
+    p0, m0, v0 = ([t.clone() for t in lst] for lst in (p, m, v))
+    hyper = dict(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8,
+                 weight_decay=0.01, bias_c1=1.0 / (1 - 0.9 ** 5),
+                 bias_c2=1.0 / (1 - 0.999 ** 5), adam_w_mode=adam_w_mode)
+    launches = fo.adam_cuda.launches
+    fo.adam_cuda(mt.TensorTable([p, g, m, v]), **hyper)
+    torch.cuda.synchronize()
+    assert fo.adam_cuda.launches == launches + 1
+    for i in range(len(p)):
+        p_p, m_p, v_p = fo.adam_update_plain(p0[i], g[i], m0[i], v0[i],
+                                             **hyper)
+        assert p[i].dtype == dtype and m[i].dtype == torch.float32
+        for got, want in ((m[i], m_p), (v[i], v_p)):
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                       rtol=1e-5, atol=1e-6)
+        a, r = p[i].float().cpu().numpy(), p_p.float().cpu().numpy()
+        if dtype == torch.float32:
+            np.testing.assert_allclose(a, r, rtol=1e-5, atol=1e-6)
+        else:
+            assert np.all(np.abs(a - r) <= _bf16_tol(a, r) - FP32_TOL + 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("planted", [None, float("inf"), float("nan")])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_scale_kernel_matches_plain(cuda_device, dtype, planted,
+                                    misaligned):
+    x = _lists(cuda_device, SHAPES, dtype, seed=5)[1]
+    if planted is not None:
+        x[4][65536] = planted            # the second chunk of 65,537
+    if misaligned:
+        x = [_misaligned(t) for t in x]
+    want, finite = mt.multi_tensor_scale_plain(x, 0.37)
+    out = [torch.empty_like(t) for t in x]
+    launches = mt.multi_tensor_scale_cuda.launches
+    flag = mt.multi_tensor_scale_cuda(mt.TensorTable([x, out]), 0, 1, 0.37)
+    torch.cuda.synchronize()
+    assert mt.multi_tensor_scale_cuda.launches == launches + 1
+    assert flag.dtype == torch.int32 and int(flag) == int(not bool(finite))
+    assert int(flag) == (planted is not None)
+    for got, w in zip(out, want):
+        np.testing.assert_array_equal(got.float().cpu().numpy(),
+                                      w.float().cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_norm", [1e-3, 1e3])
+def test_clip_kernels_match_plain_in_place(cuda_device, max_norm):
+    g = _lists(cuda_device, SHAPES, seed=6)[1]
+    g_p = [t.clone() for t in g]
+    l2, sc = mt.multi_tensor_l2norm_cuda.launches, \
+        mt.multi_tensor_scale_cuda.launches
+    norm = mt.clip_grad_norm_cuda(mt.TensorTable([g]), max_norm, index=0)
+    norm_p = mt.clip_grad_norm_plain(g_p, max_norm)
+    torch.cuda.synchronize()
+    assert (mt.multi_tensor_l2norm_cuda.launches - l2,
+            mt.multi_tensor_scale_cuda.launches - sc) == (1, 1)
+    np.testing.assert_allclose(float(norm), float(norm_p), rtol=1e-5)
+    assert (float(norm) > max_norm) == (max_norm == 1e-3)
+    for got, want in zip(g, g_p):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("adam_w_mode", [True, False])
+def test_fused_adam_with_clip_on_the_card_matches_the_cpu(cuda_device,
+                                                          adam_w_mode):
+    shapes = [(300, 64), (64,), (5,)]
+    gen = torch.Generator().manual_seed(7)
+    init = [torch.randn(s, generator=gen) for s in shapes]
+    grads = [[torch.randn(s, generator=gen) for s in shapes]
+             for _ in range(3)]
+    result = []
+    for device in ("cuda", "cpu"):
+        ps = [torch.nn.Parameter(t.clone().to(device)) for t in init]
+        opt = FusedAdam(ps, lr=1e-2, weight_decay=0.01,
+                        adam_w_mode=adam_w_mode)
+        counted = (mt.multi_tensor_l2norm_cuda, mt.multi_tensor_scale_cuda,
+                   fo.adam_cuda)
+        before = [fn.launches for fn in counted]
+        norms = []
+        for step in grads:
+            opt.zero_grad()
+            for p, gr in zip(ps, step):
+                p.grad.add_(gr.to(device))
+            norms.append(float(opt.clip_grad_norm(1.0)))
+            assert opt.step() is None
+        ran = [fn.launches - b for fn, b in zip(counted, before)]
+        assert ran == ([3, 3, 3] if device == "cuda" else [0, 0, 0])
+        result.append(([p.detach().cpu() for p in ps], norms))
+    (p_gpu, n_gpu), (p_cpu, n_cpu) = result
+    np.testing.assert_allclose(n_gpu, n_cpu, rtol=1e-5)
+    for a, b in zip(p_gpu, p_cpu):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
                                    atol=1e-6)

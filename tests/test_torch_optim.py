@@ -1,16 +1,19 @@
-"""The port's L2 norm, LAMB stages, FusedLAMB and schedules held against
-the JAX package's.
+"""The port's L2 norm, scale, clip, Adam and LAMB, FusedAdam, FusedLAMB and
+schedules held against the JAX package's.
 
 The JAX side runs as its own tests run it: tests/conftest.py puts Pallas in
-interpret mode, so ``_sqsum_leaf``, ``lamb_stage1_leaf`` and
-``lamb_stage2_leaf`` run the Pallas ``_sqsum_kernel``, ``_lamb1_kernel``
-and ``_lamb2_kernel`` through the interpreter.  Inputs come from numpy with
-a fixed seed and go to both sides.  Tolerances: sums of squares and norms
-rtol 1e-5 (fp32 sums in another order); u, m, v and p 1e-6 (the same fp32
-arithmetic element by element); FusedLAMB's p, m and v after three steps
-1e-6.  The CUDA wrappers' refusals run here on meta tensors: they raise,
-never hand the tensors to a plain version, and build nothing.  The kernels
-themselves run on the card: tests/test_torch_cuda.py and chip_smoke.py.
+interpret mode, so ``_sqsum_leaf``, ``multi_tensor_scale``,
+``adam_update_leaf``, ``lamb_stage1_leaf`` and ``lamb_stage2_leaf`` run
+the Pallas ``_sqsum_kernel``, ``_scale_kernel``, ``_adam_kernel``,
+``_lamb1_kernel`` and ``_lamb2_kernel`` through the interpreter.  Inputs
+come from numpy with a fixed seed and go to both sides.  Tolerances: sums
+of squares and norms rtol 1e-5 (fp32 sums in another order); the scale's
+outputs exactly (one fp32 product each, then the same rounding); u, m, v
+and p 1e-6 (the same fp32 arithmetic element by element); FusedLAMB's and
+FusedAdam's p, m and v after three steps 1e-6; clipped grads 1e-6.  The
+CUDA wrappers' refusals run here on meta tensors: they raise, never hand
+the tensors to a plain version, and build nothing.  The kernels themselves
+run on the card: tests/test_torch_cuda.py and chip_smoke.py.
 """
 
 import jax.numpy as jnp
@@ -18,10 +21,14 @@ import numpy as np
 import pytest
 import torch
 
-from apex_example_tpu.ops.fused_optim import (lamb_stage1_leaf,
+from apex_example_tpu.ops.fused_optim import (adam_update_leaf,
+                                              lamb_stage1_leaf,
                                               lamb_stage2_leaf)
 from apex_example_tpu.ops.multi_tensor import (
-    _sqsum_leaf, multi_tensor_l2norm as jax_l2norm)
+    _sqsum_leaf, clip_grad_norm as jax_clip_grad_norm,
+    multi_tensor_l2norm as jax_l2norm,
+    multi_tensor_scale as jax_multi_tensor_scale)
+from apex_example_tpu.optim.fused import FusedAdam as JaxAdam
 from apex_example_tpu.optim.fused import FusedLAMB as JaxLAMB
 from apex_example_tpu.optim.fused import \
     lamb_step_scalars as jax_step_scalars
@@ -151,8 +158,15 @@ def test_step_scalars_match_jax():
                                    rtol=1e-7)
 
 
-def test_grads_are_allocated_once_and_zeroed_in_place():
-    ps, popt = _port_lamb(_arrays(4), 1e-3)
+def _port_adam(params, lr):
+    ps = [torch.nn.Parameter(torch.from_numpy(a.copy()))
+          for a in params.values()]
+    return ps, fused.FusedAdam(ps, lr=lr, weight_decay=0.01)
+
+
+@pytest.mark.parametrize("make", [_port_lamb, _port_adam])
+def test_grads_are_allocated_once_and_zeroed_in_place(make):
+    ps, popt = make(_arrays(4), 1e-3)
     ptrs = [p.grad.data_ptr() for p in ps]
     for p in ps:
         p.grad.fill_(1.0)
@@ -164,15 +178,16 @@ def test_grads_are_allocated_once_and_zeroed_in_place():
     assert [p.grad.data_ptr() for p in ps] == ptrs     # accumulated in place
 
 
-def test_state_dict_round_trip():
+@pytest.mark.parametrize("make", [_port_lamb, _port_adam])
+def test_state_dict_round_trip(make):
     params = _arrays(5)
-    ps, popt = _port_lamb(params, 1e-2)
+    ps, popt = make(params, 1e-2)
     for step in range(2):
         for p, a in zip(ps, _arrays(20 + step).values()):
             p.grad.copy_(torch.from_numpy(a))
         popt.step()
     saved = popt.state_dict()
-    ps2, popt2 = _port_lamb(params, 1e-2)
+    ps2, popt2 = make(params, 1e-2)
     mu_ptrs = [m.data_ptr() for m in popt2.mu]
     popt2.load_state_dict(saved)
     assert popt2.step_count == 2
@@ -203,6 +218,118 @@ def test_schedules_match_jax(name):
             got(step), float(want(jnp.asarray(step, jnp.int32))),
             rtol=1e-6, atol=1e-9)
     assert build_schedule("const", 0.1, 20) == 0.1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("planted", [None, np.inf, -np.inf, np.nan])
+def test_multi_tensor_scale_plain_matches_jax(dtype, planted):
+    arrays = _arrays(6)
+    if planted is not None:
+        arrays["b_bias"][17] = planted
+    jtree = {k: jnp.asarray(a, dtype) for k, a in arrays.items()}
+    want, want_finite = jax_multi_tensor_scale(jtree, 0.37)
+    tdtype = getattr(torch, dtype)
+    outs, finite = mt.multi_tensor_scale_plain(
+        [torch.from_numpy(a).to(tdtype) for a in arrays.values()], 0.37)
+    assert bool(finite) == bool(want_finite) == (planted is None)
+    for got, k in zip(outs, arrays):
+        assert got.dtype == tdtype
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      np.asarray(want[k], np.float32))
+
+
+@pytest.mark.parametrize("max_norm", [1e3, 0.25])
+def test_clip_grad_norm_plain_matches_jax(max_norm):
+    arrays = _arrays(7)
+    want, want_norm = jax_clip_grad_norm(
+        {k: jnp.asarray(a) for k, a in arrays.items()}, max_norm)
+    grads = [torch.from_numpy(a.copy()) for a in arrays.values()]
+    norm = mt.clip_grad_norm_plain(grads, max_norm)
+    np.testing.assert_allclose(float(norm), float(want_norm), rtol=NORM_TOL)
+    assert (float(norm) > max_norm) == (max_norm == 0.25)
+    for got, k in zip(grads, arrays):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want[k]),
+                                   rtol=STATE_TOL, atol=STATE_TOL)
+    if max_norm > float(norm):          # below the limit: unchanged
+        for got, a in zip(grads, arrays.values()):
+            np.testing.assert_array_equal(got.numpy(), a)
+
+
+def test_clip_scale_plain_propagates_nan():
+    assert torch.isnan(mt.clip_scale_plain(torch.tensor(float("nan")), 1.0))
+    assert float(mt.clip_scale_plain(torch.tensor(float("inf")), 1.0)) == 0.0
+
+
+@pytest.mark.parametrize("adam_w_mode", [True, False])
+def test_adam_update_plain_matches_jax_kernel(adam_w_mode):
+    rs = np.random.RandomState(8)
+    p, g, m = (rs.randn(6, 140).astype(np.float32) for _ in range(3))
+    v = rs.rand(6, 140).astype(np.float32)
+    hyper = dict(lr=3e-3, beta1=0.9, beta2=0.999, eps=1e-8,
+                 weight_decay=0.01, bias_c1=1.0 / (1 - 0.9 ** 3),
+                 bias_c2=1.0 / (1 - 0.999 ** 3), adam_w_mode=adam_w_mode)
+    want = adam_update_leaf(*(jnp.asarray(a) for a in (p, g, m, v)),
+                            **hyper)
+    got = fo.adam_update_plain(*(torch.from_numpy(a) for a in (p, g, m, v)),
+                               **hyper)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
+                                   atol=STATE_TOL)
+
+
+@pytest.mark.parametrize("adam_w_mode", [True, False])
+def test_fused_adam_three_steps_match_jax(adam_w_mode):
+    params = _arrays(9)
+    jlr = jax_build_schedule("cosine", 1e-2, 6, warmup_steps=2)
+    plr = build_schedule("cosine", 1e-2, 6, warmup_steps=2)
+    jopt = JaxAdam(lr=jlr, weight_decay=0.05, adam_w_mode=adam_w_mode)
+    jparams = {k: jnp.asarray(a) for k, a in params.items()}
+    jstate = jopt.init(jparams)
+    ps = [torch.nn.Parameter(torch.from_numpy(a.copy()))
+          for a in params.values()]
+    popt = fused.FusedAdam(ps, lr=plr, weight_decay=0.05,
+                           adam_w_mode=adam_w_mode)
+    for step in range(3):
+        grads = _arrays(40 + step, scale=0.1)
+        jparams, jstate = jopt.apply({k: jnp.asarray(a) for k, a in
+                                      grads.items()}, jstate, jparams)
+        popt.zero_grad()
+        for p, a in zip(ps, grads.values()):
+            p.grad.add_(torch.from_numpy(a))
+        assert popt.step() is None
+        np.testing.assert_allclose(
+            float(popt.grad_norm()),
+            np.sqrt(sum((a.astype(np.float64) ** 2).sum()
+                        for a in grads.values())), rtol=NORM_TOL)
+    assert popt.step_count == int(jstate.step) == 3
+    for i, k in enumerate(params):
+        for got, want in ((ps[i], jparams[k]), (popt.mu[i], jstate.mu[k]),
+                          (popt.nu[i], jstate.nu[k])):
+            np.testing.assert_allclose(got.detach().numpy(),
+                                       np.asarray(want), rtol=STATE_TOL,
+                                       atol=STATE_TOL)
+
+
+def test_fused_adam_refuses_amsgrad():
+    with pytest.raises(ValueError, match="amsgrad"):
+        fused.FusedAdam([torch.nn.Parameter(torch.zeros(2))], amsgrad=True)
+
+
+def test_optimizer_clip_is_the_plain_clip_on_the_cpu():
+    arrays = _arrays(12, scale=3.0)
+    ps = [torch.nn.Parameter(torch.from_numpy(a.copy()))
+          for a in arrays.values()]
+    popt = fused.FusedAdam(ps)
+    for p, a in zip(ps, arrays.values()):
+        p.grad.copy_(torch.from_numpy(a))
+    norm = popt.clip_grad_norm(0.5)
+    want = [torch.from_numpy(a.copy()) for a in arrays.values()]
+    want_norm = mt.clip_grad_norm_plain(want, 0.5)
+    assert float(norm) == float(want_norm) > 0.5
+    for p, w in zip(ps, want):
+        assert torch.equal(p.grad, w)
+    np.testing.assert_allclose(float(popt.grad_norm()), 0.5, rtol=NORM_TOL)
 
 
 @pytest.mark.parametrize("numels", [[1], [0, 5], [65536, 65537, 3],
@@ -311,3 +438,64 @@ def test_fused_lamb_off_the_cpu_takes_the_kernels_or_raises(no_build,
     assert all(p.grad is not None for p in ps)
     with pytest.raises(ValueError, match="CUDA"):
         opt.step()
+
+
+@pytest.mark.parametrize("call,err,match", [
+    (lambda t: mt.multi_tensor_scale_cuda(t, 0, 0, 0.5), ValueError, "CUDA"),
+    (lambda t: mt.multi_tensor_scale_cuda(t, 0, 1, 0.5), TypeError,
+     "share a dtype"),
+    (lambda t: mt.multi_tensor_scale_cuda(t, 0, 0), ValueError,
+     "neither"),
+    (lambda t: mt.multi_tensor_scale_cuda(t, 0, 0, 0.5, norm=_meta(())),
+     ValueError, "not both"),
+    (lambda t: mt.multi_tensor_scale_cuda(t, 0, 0, norm=_meta(2)),
+     ValueError, "norm must be"),
+    (lambda t: mt.clip_grad_norm_cuda(t, 1.0, index=0), ValueError, "CUDA"),
+])
+def test_scale_wrapper_raises_instead_of_falling_back(no_build, monkeypatch,
+                                                      call, err, match):
+    def no_plain(*a, **k):
+        raise AssertionError("plain version ran for a non-CPU tensor")
+    for name in ("multi_tensor_scale_plain", "clip_grad_norm_plain",
+                 "multi_tensor_l2norm_plain"):
+        monkeypatch.setattr(mt, name, no_plain)
+    table = mt.TensorTable([[_meta(4), _meta(3, 3)],
+                            [_meta(4, dtype=torch.bfloat16),
+                             _meta(3, 3, dtype=torch.bfloat16)]])
+    before = (mt.multi_tensor_scale_cuda.launches,
+              mt.multi_tensor_l2norm_cuda.launches)
+    with pytest.raises(err, match=match):
+        call(table)
+    assert (mt.multi_tensor_scale_cuda.launches,
+            mt.multi_tensor_l2norm_cuda.launches) == before
+
+
+@pytest.mark.parametrize("make,err,match", [
+    (lambda: _meta_table(torch.float64), TypeError, "float32"),
+    (lambda: _meta_table(m_dtype=torch.bfloat16), TypeError, "m and v"),
+    (lambda: mt.TensorTable(_meta_table().lists[:3]), ValueError,
+     "4 lists"),
+    (lambda: _meta_table(), ValueError, "CUDA"),
+])
+def test_adam_wrapper_raises_on_what_it_cannot_take(no_build, make, err,
+                                                    match):
+    before = fo.adam_cuda.launches
+    with pytest.raises(err, match=match):
+        fo.adam_cuda(make(), lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8,
+                     weight_decay=0.0, bias_c1=1.0, bias_c2=1.0)
+    assert fo.adam_cuda.launches == before
+
+
+def test_fused_adam_off_the_cpu_takes_the_kernels_or_raises(no_build,
+                                                            monkeypatch):
+    def no_plain(*a, **k):
+        raise AssertionError("plain Adam ran for non-CPU parameters")
+    for name in ("adam_update_plain", "clip_grad_norm_plain",
+                 "multi_tensor_l2norm_plain"):
+        monkeypatch.setattr(fused, name, no_plain)
+    ps = [torch.nn.Parameter(_meta(4, 4)), torch.nn.Parameter(_meta(4))]
+    opt = fused.FusedAdam(ps)
+    assert opt.table is not None and all(p.grad is not None for p in ps)
+    for call in (opt.step, opt.grad_norm, lambda: opt.clip_grad_norm(1.0)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
