@@ -9,6 +9,13 @@ module imports no jax) and return a state dict for the port model's
 TRANSPOSED into ``nn.Linear.weight`` [out, in].  Embedding tables,
 LayerNorm ``scale``/``bias``, ``lm_bias``, ``mlm_bias`` and Transformer-XL's
 ``u_bias``/``v_bias`` carry over as they are.
+
+``resnet_params_from_flax(params, batch_stats)`` does the same for the
+ResNet (models/resnet.py, whose submodules carry the flax names): a conv
+``kernel`` [kh, kw, in, out] (HWIO) becomes ``weight`` [out, in, kh, kw]
+(OIHW), the Dense ``fc`` kernel is transposed into ``fc.weight``, BatchNorm
+``scale``/``bias`` are parameters and the batch statistics ``mean``/``var``
+buffers of the same names.
 """
 
 from __future__ import annotations
@@ -98,4 +105,30 @@ def txl_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
                 layer[ff]["kernel"]).T.contiguous()
             sd[f"{name}.{ff}.bias"] = _tensor(layer[ff]["bias"])
         _norms(layer, ("attn_ln", "ff_ln"), sd, f"{name}.")
+    return sd
+
+
+def _flatten(tree: Mapping, prefix: str = ""):
+    for key, value in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(value, Mapping):
+            yield from _flatten(value, path + ".")
+        else:
+            yield path, value
+
+
+def resnet_params_from_flax(params: Mapping, batch_stats: Mapping = None
+                            ) -> Dict[str, torch.Tensor]:
+    """State dict of the port's ResNet from the flax ``params`` and
+    ``batch_stats`` trees (numpy leaves), fp32."""
+    sd = {}
+    for path, leaf in _flatten(params):
+        module, _, name = path.rpartition(".")
+        t = _tensor(leaf)
+        if name == "kernel":
+            name = "weight"
+            t = (t.permute(3, 2, 0, 1) if t.dim() == 4 else t.T)
+        sd[f"{module}.{name}"] = t.contiguous()
+    for path, leaf in _flatten(batch_stats or {}):
+        sd[path] = _tensor(leaf)
     return sd

@@ -26,7 +26,12 @@
 // inf or nan, whatever the scale.  s is a host float, or the clip scale
 // min(1, max_norm / (norm + eps)) of `clip_grad_norm` (:265-272), which each
 // block computes from the global norm the sum-of-squares launch left on the
-// card: no host sync sits between the norm and the scale.
+// card: no host sync sits between the norm and the scale.  For the loss
+// scaler's unscale (amp/scaler.py, port of amp/scaler.py:90-111) s is read
+// from the card (1 / scale, the dynamic scale never crosses to the host)
+// and the flag is raised by a non-finite OUTPUT element, as the JAX
+// package's all_finite of the unscaled grads: that covers the inputs that
+// are inf or nan and a product that overflows the grads' dtype.
 //
 // Bound: bytes.  x read once and y written once, 8 bytes per fp32 element:
 // Transformer-XL's 150.9 M grads are 1.21 GB, ~0.36 ms at 3.35 TB/s.
@@ -46,10 +51,12 @@ namespace {
 using mta::Chunk;
 using mta::Table;
 
-// Scale of one launch: the host value, or the clip scale from the device
-// norm.  NaN propagates, as jnp.minimum does.
-__device__ __forceinline__ float scale_of(float scale, const float* norm,
-                                          float max_norm, float eps) {
+// Scale of one launch: the host value, the value on the card, or the clip
+// scale from the device norm.  NaN propagates, as jnp.minimum does.
+__device__ __forceinline__ float scale_of(float scale, const float* scale_dev,
+                                          const float* norm, float max_norm,
+                                          float eps) {
+  if (scale_dev != nullptr) return scale_dev[0];
   if (norm == nullptr) return scale;
   const float r = max_norm / (norm[0] + eps);
   return r > 1.f ? 1.f : r;
@@ -58,14 +65,15 @@ __device__ __forceinline__ float scale_of(float scale, const float* norm,
 template <typename T>
 __global__ void __launch_bounds__(mta::kThreads)
     scale_chunks_kernel(Table tab, int in_list, int out_list, float scale,
+                        const float* __restrict__ scale_dev,
                         const float* __restrict__ norm, float max_norm,
-                        float eps, int* __restrict__ flag) {
+                        float eps, int flag_output, int* __restrict__ flag) {
   const Chunk k = mta::chunk_of(tab, blockIdx.x);
   const long long n = tab.n_tensors;
   const T* x =
       reinterpret_cast<const T*>(tab.ptrs[in_list * n + k.tensor]) + k.start;
   T* y = reinterpret_cast<T*>(tab.ptrs[out_list * n + k.tensor]) + k.start;
-  const float s = scale_of(scale, norm, max_norm, eps);
+  const float s = scale_of(scale, scale_dev, norm, max_norm, eps);
   bool bad = false;
   int i = threadIdx.x;
   if (mta::aligned16(x) && mta::aligned16(y)) {
@@ -75,8 +83,10 @@ __global__ void __launch_bounds__(mta::kThreads)
       mta::load4(x + 4 * i, v);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        bad |= !isfinite(v[u]);
+        if (!flag_output) bad |= !isfinite(v[u]);
         v[u] *= s;
+        if (flag_output)
+          bad |= !isfinite(mta::to_float(mta::from_float<T>(v[u])));
       }
       mta::store4(y + 4 * i, v);
     }
@@ -84,8 +94,9 @@ __global__ void __launch_bounds__(mta::kThreads)
   }
   for (; i < k.len; i += mta::kThreads) {
     const float v = mta::to_float(x[i]);
-    bad |= !isfinite(v);
-    y[i] = mta::from_float<T>(v * s);
+    const T out = mta::from_float<T>(v * s);
+    bad |= !isfinite(flag_output ? mta::to_float(out) : v);
+    y[i] = out;
   }
   if (__syncthreads_or(bad) && threadIdx.x == 0) atomicOr(flag, 1);
 }
@@ -144,13 +155,14 @@ int run(const Table& tab, int list, float* partial, float* sq, float* norm,
 
 template <typename T>
 int run_scale(const Table& tab, int in_list, int out_list, float scale,
-              const float* norm, float max_norm, float eps, int* flag,
-              cudaStream_t stream) {
+              const float* scale_dev, const float* norm, float max_norm,
+              float eps, int flag_output, int* flag, cudaStream_t stream) {
   int rc = static_cast<int>(cudaMemsetAsync(flag, 0, sizeof(int), stream));
   if (rc != 0 || tab.n_chunks == 0) return rc;
   scale_chunks_kernel<T><<<static_cast<unsigned>(tab.n_chunks),
                            mta::kThreads, 0, stream>>>(
-      tab, in_list, out_list, scale, norm, max_norm, eps, flag);
+      tab, in_list, out_list, scale, scale_dev, norm, max_norm, eps,
+      flag_output, flag);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -185,31 +197,35 @@ extern "C" int apex_multi_tensor_sqsum(
 }
 
 // y = x * s from list in_list to list out_list of the table (the same list:
-// in place), both of dtype `dtype`.  s = scale, or, when norm is not null,
-// min(1, max_norm / (norm[0] + eps)) read on the card.  flag: one int32
-// out, 1 when some input element is inf or nan, else 0.
+// in place), both of dtype `dtype`.  s = scale_dev[0] when scale_dev is not
+// null, else min(1, max_norm / (norm[0] + eps)) read on the card when norm
+// is not null, else scale.  flag: one int32 out, 1 when some input element
+// (flag_output 0) or some output element (flag_output 1) is inf or nan,
+// else 0.
 extern "C" int apex_multi_tensor_scale(
     const void* ptrs, const void* offsets, const void* chunk_tensor,
     const void* chunk_start, const void* tensor_chunk0, int n_tensors,
     int n_chunks, int in_list, int out_list, int dtype, float scale,
-    const void* norm, float max_norm, float eps, void* flag, void* stream) {
+    const void* scale_dev, const void* norm, float max_norm, float eps,
+    int flag_output, void* flag, void* stream) {
   if (n_tensors < 1 || n_chunks < 0 || in_list < 0 || out_list < 0)
     return -2;
   const Table tab = mta::make_table(ptrs, offsets, chunk_tensor, chunk_start,
                                     tensor_chunk0, n_tensors, n_chunks);
+  const float* sd = static_cast<const float*>(scale_dev);
   const float* nm = static_cast<const float*>(norm);
   int* fl = static_cast<int*>(flag);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return run_scale<float>(tab, in_list, out_list, scale, nm, max_norm,
-                              eps, fl, st);
+      return run_scale<float>(tab, in_list, out_list, scale, sd, nm,
+                              max_norm, eps, flag_output, fl, st);
     case 1:
-      return run_scale<__nv_bfloat16>(tab, in_list, out_list, scale, nm,
-                                      max_norm, eps, fl, st);
+      return run_scale<__nv_bfloat16>(tab, in_list, out_list, scale, sd, nm,
+                                      max_norm, eps, flag_output, fl, st);
     case 2:
-      return run_scale<__half>(tab, in_list, out_list, scale, nm, max_norm,
-                               eps, fl, st);
+      return run_scale<__half>(tab, in_list, out_list, scale, sd, nm,
+                               max_norm, eps, flag_output, fl, st);
     default:
       return -1;
   }

@@ -1,19 +1,29 @@
-"""The single-device train step: port of apex_example_tpu/engine.py
-(``TrainState`` :48, ``create_train_state`` :57, ``make_train_step`` :106)
-at amp O0, one microbatch, no DDP.
+"""The single-device train and eval steps: port of
+apex_example_tpu/engine.py (``TrainState`` :48, ``create_train_state`` :57,
+``cross_entropy_loss`` :84, ``make_train_step`` :106, ``make_eval_step``
+:299), one microbatch, no DDP.
 
-At O0 the JAX step's loss scaler is the identity (amp/scaler.py:57-60,
-73-78, 101-103): the loss is not scaled, the grads are not unscaled, and
-``grads_finite`` is the constant 1.  So one step here is forward ->
-loss -> backward -> optimizer step, with the metrics the JAX step reports:
-``loss``, ``scale`` 1.0, ``grads_finite`` 1.0 and ``grad_norm``, the
-global norm of the grads before any clip (:272).  FusedLAMB's step takes
-that norm for its own clip and returns it; an optimizer that takes none
-(FusedAdam's step returns None) is asked for it after its step, one
-L2-norm launch over the grads, which the step does not change.
+One step follows the JAX step's amp protocol (:160-291): zero the grads ->
+forward -> loss -> ``scale_loss`` -> backward -> ``unscale_grads`` (the
+multi-tensor scale kernel over the optimizer's grads, and its int32
+non-finite flag on the card) -> the optimizer step -> ``update_scaler``.
+With the identity scaler (a static scale of 1.0: O0, and O1-O3 in bf16)
+the scale and unscale do nothing and launch nothing.  Under dynamic
+scaling a non-finite grad skips the step the way the JAX step selects the
+old params and the whole old optimizer state (:250-257): the optimizer
+takes the flag as apex's ``noop_flag`` (FusedSGD, optim/fused.py) and
+leaves the parameters, its buffers and its step count untouched; the
+scale halves.  Nothing in the step reads a device value on the host.  BN
+running statistics are not rolled back, as in JAX and apex.
+
+Metrics, as the JAX step's: ``loss``, ``scale`` (after the update),
+``grads_finite``, ``grad_norm`` (the global norm of the unscaled grads:
+FusedLAMB's step takes it for its clip; for the others it is one L2-norm
+launch after the step, which leaves the grads as they are) and, where the
+labels are one tensor of classes, ``top1`` (percent of the batch).
 
 The JAX state is an immutable pytree that each step replaces; here the
-model and optimizer update in place and the step returns the same
+model, optimizer and scaler update in place and the step returns the same
 ``TrainState`` with its counter advanced.  The grads are zeroed in place
 before each backward, so their storage stays where the optimizer's device
 table points.
@@ -22,46 +32,110 @@ table points.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
-from apex_example_tpu_torch.workloads import mlm_loss
+from apex_example_tpu_torch import amp
+from apex_example_tpu_torch.amp.policy import Policy
+from apex_example_tpu_torch.amp.scaler import ScalerState
+from apex_example_tpu_torch.ops.xentropy import softmax_cross_entropy
+from apex_example_tpu_torch.utils.meters import accuracy
 
 
 @dataclass
 class TrainState:
     """What the step carries: the step count, the model (its parameters
-    are the fp32 master weights at O0) and the optimizer with its state."""
+    are the master weights, fp32 but under O3), the optimizer with its
+    state, the precision policy and the loss scaler."""
     step: int
     model: nn.Module
     optimizer: Any
+    policy: Policy
+    scaler: ScalerState
 
 
-def create_train_state(model: nn.Module, optimizer) -> TrainState:
-    """Pair a model with an optimizer built over its parameters."""
+def create_train_state(model: nn.Module, optimizer,
+                       policy: Optional[Policy] = None,
+                       scaler: Optional[ScalerState] = None) -> TrainState:
+    """Pair a model with an optimizer built over its parameters, a policy
+    (default O0) and its scaler (default ``amp.make_scaler(policy)`` on the
+    parameters' device).  fp32 matrix products and convolutions run in
+    full fp32, without TF32, on the card; cuDNN picks its convolution
+    algorithms by timing them (``cudnn.benchmark``) at each new shape."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return TrainState(step=0, model=model, optimizer=optimizer)
+    torch.backends.cudnn.benchmark = True
+    policy = policy or amp.get_policy("O0")
+    if scaler is None:
+        scaler = amp.make_scaler(policy, device=optimizer.device)
+    return TrainState(step=0, model=model, optimizer=optimizer,
+                      policy=policy, scaler=scaler)
 
 
-def make_train_step(loss_fn: Callable = mlm_loss):
+def cross_entropy_loss(logits: torch.Tensor,
+                       labels: torch.Tensor) -> torch.Tensor:
+    """Mean softmax cross-entropy on fp32 logits."""
+    return softmax_cross_entropy(logits.float(), labels).mean()
+
+
+def batch_top1(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Percent of the batch whose argmax is the label (:294)."""
+    return (logits.argmax(-1) == y).float().mean() * 100.0
+
+
+def make_train_step(loss_fn: Callable = cross_entropy_loss,
+                    compute_accuracy: bool = True):
     """``train_step(state, (x, y)) -> (state, metrics)``; ``y`` is what
     ``loss_fn(logits, y)`` takes (for MLM, (labels, weights))."""
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         x, y = batch
+        opt, scaler = state.optimizer, state.scaler
+        if scaler.dynamic and not getattr(opt, "skips_on_flag", False):
+            raise ValueError(
+                f"dynamic loss scaling skips a step through the optimizer's "
+                f"noop flag, which {type(opt).__name__} does not take yet; "
+                f"use FusedSGD or a static --loss-scale")
         state.model.train()
-        state.optimizer.zero_grad()
-        loss = loss_fn(state.model(x), y)
-        loss.backward()
-        grad_norm = state.optimizer.step()
+        opt.zero_grad()
+        logits = state.model(x)
+        loss = loss_fn(logits, y)
+        amp.scale_loss(loss, scaler).backward()
+        found_inf = amp.unscale_grads(opt, scaler)
+        if found_inf is None:
+            grad_norm = opt.step()
+        else:
+            grad_norm = opt.step(noop_flag=found_inf)
         if grad_norm is None:
-            grad_norm = state.optimizer.grad_norm()
+            grad_norm = opt.grad_norm()
+        state.scaler = amp.update_scaler(scaler, found_inf)
         state.step += 1
-        metrics = {"loss": loss.detach(), "scale": 1.0,
-                   "grads_finite": 1.0, "grad_norm": grad_norm}
+        metrics = {"loss": loss.detach(), "scale": state.scaler.scale,
+                   "grads_finite": (1.0 if found_inf is None
+                                    else (found_inf == 0).float()),
+                   "grad_norm": grad_norm}
+        if compute_accuracy and torch.is_tensor(y):
+            metrics["top1"] = batch_top1(logits.detach(), y)
         return state, metrics
 
     return train_step
+
+
+def make_eval_step(loss_fn: Callable = cross_entropy_loss):
+    """``eval_step(state, (x, y)) -> metrics``: the model in eval mode
+    (BatchNorm on its running statistics), ``loss`` and the reference
+    harness's ``top1`` and ``top5`` (utils/meters.accuracy)."""
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch) -> Dict:
+        x, y = batch
+        state.model.eval()
+        logits = state.model(x)
+        loss = loss_fn(logits, y)
+        k5 = min(5, logits.shape[-1])
+        top1, top5 = accuracy(logits, y, topk=(1, k5))
+        return {"loss": loss, "top1": top1, "top5": top5}
+
+    return eval_step

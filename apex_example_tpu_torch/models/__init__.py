@@ -1,1 +1,1 @@
-"""Models of the port (GPT on post-LN BERT layers)."""
+"""Models of the port (GPT on post-LN BERT layers, Transformer-XL, ResNet)."""

@@ -113,7 +113,7 @@ class TelemetryEmitter:
             "loss": values.get("loss", 0.0),
             "scale": values.get("scale", 1.0),
         }
-        for key in ("grad_norm", "grads_finite", "ppl", "lr"):
+        for key in ("grad_norm", "grads_finite", "top1", "ppl", "lr"):
             if key in values:
                 rec[key] = values[key]
         if self.memory_every and (self._steps - 1) % self.memory_every == 0:

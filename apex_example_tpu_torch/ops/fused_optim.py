@@ -23,6 +23,13 @@ kernel receives them, :95-97).  ``adam_cuda`` launches csrc/fused_optim.cu
 over a table of (p, g, m, v) in one call and updates p, m and v in place;
 the JAX package launches one kernel per leaf (optim/fused.py:86-91).
 
+``sgd_update_plain`` is the arithmetic of the Pallas ``_sgd_kernel`` (:259;
+``sgd_update_leaf`` :331 with its scalars in fp32, as the kernel receives
+them, :352-353).  ``sgd_cuda`` launches csrc/fused_optim.cu over a table of
+(p, g, buf) in one call and updates p and buf in place; it can read the
+learning rate from the card and skip the whole step on apex's
+``noop_flag``, an int32 on the card (the loss scaler's non-finite flag).
+
 Which one runs is the caller's choice by device (optim/fused.py): CPU
 tensors take the plain versions, CUDA tensors the kernels, and the kernels'
 wrappers raise on anything they cannot take.
@@ -84,6 +91,26 @@ def adam_update_plain(p, g, m, v, *, lr, beta1, beta2, eps, weight_decay,
     return pf.to(p.dtype), mf.to(m.dtype), vf.to(v.dtype)
 
 
+def sgd_update_plain(p, g, buf, *, lr, momentum, weight_decay,
+                     dampening=0.0, nesterov=False, first_step=False):
+    """``(p', buf')`` for one tensor, fp32 arithmetic with fp32 scalars, in
+    the dtypes of p and buf: ``g += wd p``; ``buf = g`` on the first step,
+    else ``momentum buf + (1 - dampening) g``; ``p -= lr (g + momentum buf)``
+    with Nesterov, else ``p -= lr buf``.  ``lr`` is a float or a
+    one-element fp32 tensor."""
+    pf, gf = p.float(), g.float()
+    mom, wd = float(np.float32(momentum)), float(np.float32(weight_decay))
+    gf = gf + wd * pf
+    if first_step:
+        nb = gf
+    else:
+        damp = float(np.float32(1.0) - np.float32(dampening))
+        nb = mom * buf.float() + damp * gf
+    step_dir = gf + mom * nb if nesterov else nb
+    lr = lr if torch.is_tensor(lr) else float(np.float32(lr))
+    return (pf - lr * step_dir).to(p.dtype), nb.to(buf.dtype)
+
+
 def trust_ratio_plain(p_sq: torch.Tensor, u_sq: torch.Tensor
                       ) -> torch.Tensor:
     """``||p|| / ||u||`` where both are positive, else 1 (optim/fused.py
@@ -105,6 +132,9 @@ def _library() -> ctypes.CDLL:
     lib.apex_adam.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
         ctypes.c_float] * 7 + [ctypes.c_int, ctypes.c_void_p]
     lib.apex_adam.restype = ctypes.c_int
+    lib.apex_sgd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+        ctypes.c_float] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+    lib.apex_sgd.restype = ctypes.c_int
     return lib
 
 
@@ -218,3 +248,47 @@ def adam_cuda(table: TensorTable, *, lr: float, beta1: float, beta2: float,
 
 
 adam_cuda.launches = 0
+
+
+def _check_device_scalar(t: Optional[torch.Tensor], name: str, dtype,
+                         table: TensorTable) -> None:
+    if t is not None and (t.dtype != dtype or t.numel() != 1
+                          or t.device != table.device):
+        raise ValueError(f"{name} must be one {dtype} on the tensors' "
+                         f"device")
+
+
+def sgd_cuda(table: TensorTable, *, lr: float, momentum: float,
+             weight_decay: float, dampening: float = 0.0,
+             nesterov: bool = False, first_step: bool = False,
+             lr_t: Optional[torch.Tensor] = None,
+             noop_flag: Optional[torch.Tensor] = None) -> None:
+    """Momentum SGD over a table of three lists (p, g, buf), p and buf
+    updated in place, in one call of the CUDA kernel.  ``lr_t``: a
+    one-element fp32 tensor on the card read in place of ``lr``;
+    ``noop_flag``: a one-element int32 on the card, nonzero to leave p and
+    buf untouched.  ``sgd_cuda.launches`` counts the calls."""
+    if len(table.lists) != 3:
+        raise ValueError(f"sgd_cuda takes a table of 3 lists, got "
+                         f"{len(table.lists)}")
+    if table.dtype(1) != table.dtype(0):
+        raise TypeError("sgd_cuda: p and g must share a dtype")
+    if table.dtype(2) != torch.float32:
+        raise TypeError("sgd_cuda: the momentum buffers must be float32")
+    _check_device_scalar(lr_t, "lr_t", torch.float32, table)
+    _check_device_scalar(noop_flag, "noop_flag", torch.int32, table)
+    check_table(table, 0, "sgd_cuda")
+    table.refresh()
+    lib = _library()
+    with torch.cuda.device(table.device):
+        rc = lib.apex_sgd(
+            *table.args(), _build.DTYPE_CODES[table.dtype(0)], float(lr),
+            momentum, weight_decay, dampening, int(bool(nesterov)),
+            int(bool(first_step)), None if lr_t is None else lr_t.data_ptr(),
+            None if noop_flag is None else noop_flag.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _build.raise_on(rc, lib, "sgd", ARG_ERRORS)
+    sgd_cuda.launches += 1
+
+
+sgd_cuda.launches = 0

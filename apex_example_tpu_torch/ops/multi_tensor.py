@@ -149,7 +149,8 @@ def _library() -> ctypes.CDLL:
     lib.apex_multi_tensor_sqsum.restype = ctypes.c_int
     lib.apex_multi_tensor_scale.argtypes = [ctypes.c_void_p] * 5 + [
         ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p,
-                             ctypes.c_float, ctypes.c_float,
+                             ctypes.c_void_p, ctypes.c_float,
+                             ctypes.c_float, ctypes.c_int,
                              ctypes.c_void_p, ctypes.c_void_p]
     lib.apex_multi_tensor_scale.restype = ctypes.c_int
     return lib
@@ -192,16 +193,19 @@ def multi_tensor_l2norm_cuda(table: TensorTable, index: int = 0
 multi_tensor_l2norm_cuda.launches = 0
 
 
-def multi_tensor_scale_plain(tensors: Sequence[torch.Tensor], scale
+def multi_tensor_scale_plain(tensors: Sequence[torch.Tensor], scale,
+                             flag_output: bool = False
                              ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """``(outs, all_finite)``: each tensor times ``scale`` (a float or a
     0-d tensor) in fp32, returned in its own dtype, and a 0-d bool that is
-    True when no input element is inf or nan."""
+    True when no input element (``flag_output``: no output element) is inf
+    or nan."""
     s = torch.as_tensor(scale, dtype=torch.float32)
     outs = [(t.float() * s).to(t.dtype) for t in tensors]
     if not tensors:
         return outs, torch.tensor(True)
-    return outs, torch.stack([torch.isfinite(t).all() for t in tensors]).all()
+    checked = outs if flag_output else tensors
+    return outs, torch.stack([torch.isfinite(t).all() for t in checked]).all()
 
 
 def clip_scale_plain(norm: torch.Tensor, max_norm: float,
@@ -227,26 +231,29 @@ def clip_grad_norm_plain(grads: Sequence[torch.Tensor], max_norm: float,
 
 def multi_tensor_scale_cuda(table: TensorTable, in_index: int,
                             out_index: int, scale: Optional[float] = None,
-                            *, norm: Optional[torch.Tensor] = None,
-                            max_norm: float = 0.0, eps: float = 1e-6
-                            ) -> torch.Tensor:
+                            *, scale_t: Optional[torch.Tensor] = None,
+                            norm: Optional[torch.Tensor] = None,
+                            max_norm: float = 0.0, eps: float = 1e-6,
+                            flag_output: bool = False) -> torch.Tensor:
     """List ``out_index`` of ``table`` = list ``in_index`` times s, in one
     call of the CUDA kernel (the same index: in place).  s is the host
-    float ``scale``, or, given the 0-d device tensor ``norm``, the clip
-    scale ``min(1, max_norm / (norm + eps))`` that the kernel computes on
-    the card.  Returns a 0-d int32 on the card: 1 when some input element
-    is inf or nan, else 0.  ``multi_tensor_scale_cuda.launches`` counts the
-    calls."""
+    float ``scale``, or the 0-d device tensor ``scale_t`` read on the card,
+    or, given the 0-d device tensor ``norm``, the clip scale
+    ``min(1, max_norm / (norm + eps))`` that the kernel computes on the
+    card.  Returns a 0-d int32 on the card: 1 when some input element
+    (``flag_output``: some output element) is inf or nan, else 0.
+    ``multi_tensor_scale_cuda.launches`` counts the calls."""
     who = "multi_tensor_scale_cuda"
-    if (scale is None) == (norm is None):
-        raise ValueError(f"{who} takes a host scale or a device norm, not "
-                         f"both or neither")
+    if sum(v is not None for v in (scale, scale_t, norm)) != 1:
+        raise ValueError(f"{who} takes one of a host scale, a device scale "
+                         f"and a device norm: not both or neither")
     if table.dtype(out_index) != table.dtype(in_index):
         raise TypeError(f"{who}: the in and out lists must share a dtype")
-    if norm is not None and (norm.dtype != torch.float32
-                             or norm.numel() != 1
-                             or norm.device != table.device):
-        raise ValueError("norm must be one float32 on the tensors' device")
+    for name, t in (("scale_t", scale_t), ("norm", norm)):
+        if t is not None and (t.dtype != torch.float32 or t.numel() != 1
+                              or t.device != table.device):
+            raise ValueError(f"{name} must be one float32 on the tensors' "
+                             f"device")
     check_table(table, in_index, who)
     table.refresh()
     flag = torch.empty((), dtype=torch.int32, device=table.device)
@@ -256,8 +263,9 @@ def multi_tensor_scale_cuda(table: TensorTable, in_index: int,
             *table.args(), in_index, out_index,
             _build.DTYPE_CODES[table.dtype(in_index)],
             0.0 if scale is None else float(scale),
+            None if scale_t is None else scale_t.data_ptr(),
             None if norm is None else norm.data_ptr(), float(max_norm),
-            float(eps), flag.data_ptr(),
+            float(eps), int(flag_output), flag.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _build.raise_on(rc, lib, "multi_tensor_scale", ARG_ERRORS)
     multi_tensor_scale_cuda.launches += 1

@@ -1,1 +1,2 @@
-"""Optimizers of the port (FusedLAMB) and learning-rate schedules."""
+"""Optimizers of the port (FusedLAMB, FusedAdam, FusedSGD) and learning-rate
+schedules."""

@@ -1,5 +1,5 @@
-"""FusedAdam and FusedLAMB: port of apex_example_tpu/optim/fused.py (:50,
-:140).
+"""FusedAdam, FusedLAMB and FusedSGD: port of apex_example_tpu/optim/fused.py
+(:50, :140, :271).
 
 FusedAdam is Adam (``adam_w_mode=False``: the decay folded into the
 gradient) or AdamW (the default: the decay added to the update), one
@@ -37,11 +37,24 @@ State: ``step`` (the count of steps taken), ``mu`` and ``nu`` (fp32).  The
 learning rate is a float or a schedule ``f(step)`` of the 1-based step
 (optim/schedules.py); the bias corrections ``c = 1 / (1 - beta^t)`` are
 fp32, computed on the host before each step.
+
+FusedSGD is momentum SGD (Nesterov, dampening, L2 weight decay folded into
+the gradient), one kernel launch over the parameters of each dtype
+(ops/fused_optim.py ``sgd_cuda``): one launch for a model of one dtype, two
+under amp O3, whose BatchNorm parameters stay fp32 beside half convolution
+weights.  Its momentum buffers are fp32 and start at zero.  Its step count
+lives on the device, and its ``step`` takes apex's ``noop_flag``: the loss
+scaler's int32 non-finite flag on the card.  A flagged step leaves the
+parameters, the buffers and the step count as they were, and so the
+learning rate a schedule gives at that count (the JAX step selects the old
+params and the whole old ``SGDState``, engine.py:250-257), with no host
+sync: the kernel exits on the flag, the count advances by ``1 - flag``,
+and a schedule's values stand in a device table that the count indexes.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Tuple, Union
+from typing import Callable, Dict, Iterable, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -52,10 +65,13 @@ from apex_example_tpu_torch.ops.fused_optim import (adam_cuda,
                                                     lamb_stage1_plain,
                                                     lamb_stage2_cuda,
                                                     lamb_stage2_plain,
+                                                    sgd_cuda,
+                                                    sgd_update_plain,
                                                     trust_ratio_plain)
 from apex_example_tpu_torch.ops.multi_tensor import (
     TensorTable, clip_grad_norm_cuda, clip_grad_norm_plain,
-    multi_tensor_l2norm_cuda, multi_tensor_l2norm_plain)
+    multi_tensor_l2norm_cuda, multi_tensor_l2norm_plain,
+    multi_tensor_scale_cuda, multi_tensor_scale_plain)
 
 Schedule = Union[float, Callable[[int], float]]
 
@@ -103,19 +119,20 @@ def lamb_update_leaf(lamb: "FusedLAMB", p, g, m, v, c1, c2, lr, gscale):
 
 
 class _ListOptimizer:
-    """What FusedAdam and FusedLAMB share: the parameter list, grads
-    allocated once and zeroed in place, fp32 moments ``mu`` and ``nu``, the
-    device table over (params, grads, mu, nu), the grad norm and clip, and
-    the state dict."""
+    """What the fused optimizers share: the parameter list, grads allocated
+    once and zeroed in place, fp32 state lists named by ``state_names``,
+    one device table per parameter dtype over (params, grads, *state), the
+    grad norm, the clip, the unscale and the state dict."""
+
+    state_names: Tuple[str, ...] = ("mu", "nu")
 
     def __init__(self, params: Iterable[torch.Tensor], lr: Schedule,
-                 betas, eps: float, weight_decay: float):
+                 weight_decay: float):
         self.params = list(params)
         if not self.params:
             raise ValueError(f"{type(self).__name__} needs at least one "
                              f"parameter")
-        self.lr, self.betas, self.eps = lr, tuple(betas), eps
-        self.weight_decay = weight_decay
+        self.lr, self.weight_decay = lr, weight_decay
         self.step_count = 0
         self.device = self.params[0].device
         with torch.no_grad():
@@ -125,14 +142,32 @@ class _ListOptimizer:
                                      f"another on {self.device}")
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
-            self.mu = [torch.zeros_like(p, dtype=torch.float32)
-                       for p in self.params]
-            self.nu = [torch.zeros_like(p, dtype=torch.float32)
-                       for p in self.params]
-        self.table = None
+            for name in self.state_names:
+                setattr(self, name, [torch.zeros_like(p, dtype=torch.float32)
+                                     for p in self.params])
+        # parameter indices by dtype, in order of first appearance
+        by_dtype: Dict[torch.dtype, list] = {}
+        for i, p in enumerate(self.params):
+            by_dtype.setdefault(p.dtype, []).append(i)
+        self.groups = list(by_dtype.values())
+        self.tables = []
         if self.device.type != "cpu":      # the kernels, or their refusal
-            self.table = TensorTable([self.params, self.grads, self.mu,
-                                      self.nu])
+            lists = [self.params, self.grads] + [
+                getattr(self, name) for name in self.state_names]
+            self.tables = [TensorTable([[lst[i] for i in idx]
+                                        for lst in lists])
+                           for idx in self.groups]
+
+    @property
+    def table(self) -> Optional[TensorTable]:
+        """The one device table of an optimizer of one dtype (None on the
+        CPU)."""
+        if not self.tables:
+            return None
+        if len(self.tables) != 1:
+            raise ValueError(f"{type(self).__name__} takes parameters of one "
+                             f"dtype, got {len(self.tables)}")
+        return self.tables[0]
 
     @property
     def grads(self):
@@ -145,36 +180,62 @@ class _ListOptimizer:
             torch._foreach_zero_(self.grads)
 
     def grad_norm(self) -> torch.Tensor:
-        """The global L2 norm of the grads (0-d fp32)."""
-        if self.table is not None:
-            return multi_tensor_l2norm_cuda(self.table, index=1)[0]
-        return multi_tensor_l2norm_plain(self.grads)[0]
+        """The global L2 norm of the grads (0-d fp32): one L2-norm launch
+        per device table."""
+        if not self.tables:
+            return multi_tensor_l2norm_plain(self.grads)[0]
+        norms = [multi_tensor_l2norm_cuda(t, index=1)[0] for t in self.tables]
+        if len(norms) == 1:
+            return norms[0]
+        return torch.sqrt(sum(n * n for n in norms))
 
     @torch.no_grad()
     def clip_grad_norm(self, max_norm: float,
                        eps: float = 1e-6) -> torch.Tensor:
         """Scale the grads in place by min(1, max_norm / (norm + eps));
         returns the norm before the clip (0-d fp32)."""
-        if self.table is not None:
+        if self.tables:
             return clip_grad_norm_cuda(self.table, max_norm, index=1,
                                        eps=eps)
         return clip_grad_norm_plain(self.grads, max_norm, eps)
 
+    @torch.no_grad()
+    def unscale_grads(self, inv_scale: torch.Tensor) -> torch.Tensor:
+        """Multiply the grads in place by the 0-d fp32 ``inv_scale`` (read
+        on the device); returns a 0-d int32 on the grads' device, 1 when an
+        unscaled grad element is inf or nan.  One scale launch per device
+        table; the plain version on the CPU."""
+        if not self.tables:
+            outs, finite = multi_tensor_scale_plain(self.grads, inv_scale,
+                                                    flag_output=True)
+            for g, out in zip(self.grads, outs):
+                g.copy_(out)
+            return (~finite).to(torch.int32)
+        flags = [multi_tensor_scale_cuda(t, 1, 1, scale_t=inv_scale,
+                                         flag_output=True)
+                 for t in self.tables]
+        flag = flags[0]
+        for f in flags[1:]:
+            flag = torch.maximum(flag, f)
+        return flag
+
     def state_dict(self) -> Dict:
-        return {"step": self.step_count,
-                "mu": [m.detach().clone() for m in self.mu],
-                "nu": [v.detach().clone() for v in self.nu]}
+        out = {"step": self.step_count}
+        for name in self.state_names:
+            out[name] = [t.detach().clone() for t in getattr(self, name)]
+        return out
 
     def load_state_dict(self, state: Dict) -> None:
-        """Copy a :meth:`state_dict` in, into the existing moment storage."""
-        if len(state["mu"]) != len(self.mu) or \
-                len(state["nu"]) != len(self.nu):
-            raise ValueError(f"state holds {len(state['mu'])} moments, the "
-                             f"optimizer {len(self.mu)}")
+        """Copy a :meth:`state_dict` in, into the existing state storage."""
+        for name in self.state_names:
+            if len(state[name]) != len(getattr(self, name)):
+                raise ValueError(f"state holds {len(state[name])} {name} "
+                                 f"moments, the optimizer "
+                                 f"{len(getattr(self, name))}")
         with torch.no_grad():
-            for dst, src in zip(self.mu + self.nu,
-                                list(state["mu"]) + list(state["nu"])):
-                dst.copy_(src)
+            for name in self.state_names:
+                for dst, src in zip(getattr(self, name), state[name]):
+                    dst.copy_(src)
         self.step_count = int(state["step"])
 
 
@@ -190,7 +251,8 @@ class FusedAdam(_ListOptimizer):
         if amsgrad:
             raise ValueError("FusedAdam does not support amsgrad (parity "
                              "with the reference)")
-        super().__init__(params, lr, betas, eps, weight_decay)
+        super().__init__(params, lr, weight_decay)
+        self.betas, self.eps = tuple(betas), eps
         self.adam_w_mode = adam_w_mode
 
     @torch.no_grad()
@@ -202,7 +264,7 @@ class FusedAdam(_ListOptimizer):
                      beta1=self.betas[0], beta2=self.betas[1], eps=self.eps,
                      weight_decay=self.weight_decay, bias_c1=c1, bias_c2=c2,
                      adam_w_mode=self.adam_w_mode)
-        if self.table is not None:
+        if self.tables:
             adam_cuda(self.table, **hyper)
             return
         for p, m, v in zip(self.params, self.mu, self.nu):
@@ -220,11 +282,12 @@ class FusedLAMB(_ListOptimizer):
                  betas=(0.9, 0.999), eps: float = 1e-6,
                  weight_decay: float = 0.01, max_grad_norm: float = 1.0,
                  bias_correction: bool = True):
-        super().__init__(params, lr, betas, eps, weight_decay)
+        super().__init__(params, lr, weight_decay)
+        self.betas, self.eps = tuple(betas), eps
         self.max_grad_norm = max_grad_norm
         self.bias_correction = bias_correction
         self._u = None
-        if self.table is not None:
+        if self.tables:
             self._u = torch.empty(self.table.total, dtype=torch.float32,
                                   device=self.device)
 
@@ -238,7 +301,7 @@ class FusedLAMB(_ListOptimizer):
         grad norm before LAMB's clip (0-d fp32)."""
         self.step_count += 1
         c1, c2, lr = lamb_step_scalars(self, self.step_count)
-        if self.table is not None:
+        if self.tables:
             return self._step_cuda(c1, c2, lr)
         return self._step_plain(c1, c2, lr)
 
@@ -262,3 +325,78 @@ class FusedLAMB(_ListOptimizer):
             m.copy_(mo)
             v.copy_(vo)
         return gnorm
+
+
+class FusedSGD(_ListOptimizer):
+    """Momentum SGD over a list of parameters, updated in place (see the
+    module docstring).  The constructor mirrors the JAX one (and apex's):
+    zero-initialized fp32 momentum buffers, so with ``dampening`` 0 the
+    first step equals torch's (whose first buffer is the gradient)."""
+
+    state_names = ("momentum_buffer",)
+    skips_on_flag = True        # step() takes the scaler's noop flag
+
+    def __init__(self, params: Iterable[torch.Tensor], lr: Schedule = 1e-2,
+                 momentum: float = 0.0, weight_decay: float = 0.0,
+                 dampening: float = 0.0, nesterov: bool = False):
+        super().__init__(params, lr, weight_decay)
+        self.momentum, self.dampening = momentum, dampening
+        self.nesterov = nesterov
+        self.step_t = torch.zeros((), dtype=torch.int32, device=self.device)
+        self._lr_table: Optional[torch.Tensor] = None
+        self._attempts = 0
+
+    @property
+    def step_count(self) -> int:
+        """The count of steps taken (reads the device)."""
+        return int(self.step_t)
+
+    @step_count.setter
+    def step_count(self, value: int) -> None:
+        if hasattr(self, "step_t"):          # (not yet in the base __init__)
+            self.step_t.fill_(int(value))
+            self._attempts = max(self._attempts, int(value))
+
+    def lr_tensor(self) -> Optional[torch.Tensor]:
+        """The learning rate of the next step, a one-element fp32 tensor on
+        the device: the schedule at the device step count + 1.  None for a
+        float ``lr``.  The table of the schedule's values grows on the host,
+        ahead of the count, and crosses to the device without a sync."""
+        if not callable(self.lr):
+            return None
+        need = max(self._attempts, 1)
+        if self._lr_table is None or self._lr_table.numel() < need:
+            n = max(2 * need, 64)
+            host = torch.tensor([_lr_at(self.lr, s) for s in range(1, n + 1)],
+                                dtype=torch.float32)
+            if self.device.type == "cuda":
+                host = host.pin_memory()
+            self._lr_table = host.to(self.device, non_blocking=True)
+        return torch.index_select(self._lr_table, 0,
+                                  self.step_t.view(1).long())
+
+    @torch.no_grad()
+    def step(self, noop_flag: Optional[torch.Tensor] = None) -> None:
+        """One SGD step over the grads in ``p.grad``; ``noop_flag`` (0-d
+        int32 on the device, nonzero: skip) is apex's.  Takes no norm."""
+        self._attempts += 1
+        lr_t = self.lr_tensor()
+        hyper = dict(momentum=self.momentum, weight_decay=self.weight_decay,
+                     dampening=self.dampening, nesterov=self.nesterov)
+        if self.tables:
+            for table in self.tables:
+                sgd_cuda(table, lr=0.0 if lr_t is not None else self.lr,
+                         lr_t=lr_t, noop_flag=noop_flag, **hyper)
+        else:
+            lr = lr_t if lr_t is not None else self.lr
+            keep = None if noop_flag is None else noop_flag != 0
+            for p, b in zip(self.params, self.momentum_buffer):
+                po, bo = sgd_update_plain(p, p.grad, b, lr=lr, **hyper)
+                if keep is not None:
+                    po, bo = torch.where(keep, p, po), torch.where(keep, b, bo)
+                p.copy_(po)
+                b.copy_(bo)
+        if noop_flag is None:
+            self.step_t += 1
+        else:
+            self.step_t += 1 - noop_flag

@@ -1,36 +1,52 @@
-"""The language-model trainer: port of train.py's single-device LM path
-(``_lm_main_impl`` :1014) at amp O0: BERT MLM (C4), GPT causal LM and
-Transformer-XL (C5) with its memory carried from step to step, trained with
-FusedLAMB or FusedAdam.  Run it as ``python -m apex_example_tpu_torch.train``.
+"""The trainer: port of train.py's single-device paths, run as
+``python -m apex_example_tpu_torch.train``.
 
-    # bert_tiny on the CPU (the kernels' plain versions), records to JSONL
-    python -m apex_example_tpu_torch.train --device cpu --arch bert_tiny \\
-        --batch-size 8 --seq-len 16 --steps-per-epoch 5 --print-freq 1 \\
-        --metrics-jsonl train.jsonl
-    python tools/metrics_lint.py train.jsonl --require-summary
+The image path (train.py ``main`` :628-994): ResNet-18/34/50/101/152 on
+CIFAR- or ImageNet-shaped synthetic batches with FusedSGD (or FusedAdam,
+FusedLAMB) under amp O0-O3, with ``--loss-scale`` and
+``--keep-batchnorm-fp32``, and ``--eval``.  C1 and C2 of the reference:
 
-    # on the card: C4's model with LAMB, C5's and GPT's with Adam
+    python -m apex_example_tpu_torch.train --arch resnet18 \
+        --dataset cifar10 --opt-level O0
+    python -m apex_example_tpu_torch.train --arch resnet50 \
+        --dataset imagenet --opt sgd --opt-level O2
+
+The language-model path (``_lm_main_impl`` :1014) at amp O0: BERT MLM (C4),
+GPT causal LM and Transformer-XL (C5) with its memory carried from step to
+step, trained with FusedLAMB, FusedAdam or FusedSGD:
+
     python -m apex_example_tpu_torch.train --arch bert_base --opt lamb
     python -m apex_example_tpu_torch.train --arch transformer_xl --opt adam
     python -m apex_example_tpu_torch.train --arch gpt_base --opt adam
 
-Weights are random from ``--seed`` and every batch is synthetic
-(data/synthetic.py of the global step), as in train.py: ``mlm_batch`` for
-BERT, ``lm_batch`` sliced into inputs ``[:, :-1]`` and targets ``[:, 1:]``
-for GPT and Transformer-XL (:1262-1267).  ``--vocab-size`` applies to
+    # on the CPU (the kernels' plain versions), records to JSONL
+    python -m apex_example_tpu_torch.train --device cpu --arch bert_tiny \
+        --opt lamb --batch-size 8 --seq-len 16 --steps-per-epoch 5 \
+        --metrics-jsonl train.jsonl
+    python tools/metrics_lint.py train.jsonl --require-summary
+
+Weights are random from ``--seed``.  Image batches are ``image_batch`` of
+the global step, made on the device (data/synthetic.py); the eval batches
+of epoch E come from the disjoint index range ``10_000 + E * eval_batches
++ j``, as in train.py (:944).  LM batches are ``mlm_batch`` for BERT,
+``lm_batch`` sliced into inputs ``[:, :-1]`` and targets ``[:, 1:]`` for
+GPT and Transformer-XL (:1262-1267).  ``--vocab-size`` applies to
 bert_base, gpt_base and transformer_xl (:1215-1216).  Transformer-XL's
 memory starts at ``init_mems(batch)`` and is carried from step to step
 (:1536-1537, :1729-1732); its step clips the grads to ``--max-grad-norm``
-before the optimizer (workloads.make_txl_train_step).  It runs on the card
-unless ``--device cpu`` is given, and raises when CUDA is asked for and
-absent.  The flags are train.py's for this path; those of paths not ported
-yet (other archs, optimizers and opt levels, eval, grad accumulation,
-parallelism, checkpoints, diagnostics) are absent, so argparse rejects them.
+before the optimizer (workloads.make_txl_train_step).  The LM archs run at
+O0 only (amp for them is the next slice) and without ``--eval``.  Entry
+points run on the card unless ``--device cpu`` is given, and raise when
+CUDA is asked for and absent.  The flags of paths not ported yet (DDP,
+model parallelism, checkpoints, grad accumulation, diagnostics) are
+absent, so argparse rejects them.
 
-Each printed step is train.py's line (:1747-1752):
-``epoch E step i/N loss L (avg) [ppl P ]R tok/s scale 1``, with ``ppl``
-where the step reports it (Transformer-XL).  With ``--metrics-jsonl`` the
-run writes a run_header, one step record per step and a run_summary
+Each printed step is train.py's line: ``epoch E step i/N loss L (avg)
+top1 T (avg) R img/s scale S`` for images (:895-899), ``epoch E step i/N
+loss L (avg) [ppl P ]R tok/s scale S`` for LMs (:1747-1752); after each
+epoch with ``--eval``, ``epoch E EVAL loss L top1 T top5 T5 (N batches)``
+(:951-953).  With ``--metrics-jsonl`` the run writes a run_header, one
+step record per step (``items`` are images or tokens) and a run_summary
 (obs/telemetry.py), which the JAX package's tools read unchanged.
 """
 
@@ -43,25 +59,32 @@ import time
 import numpy as np
 import torch
 
-from apex_example_tpu_torch import resolve_device
-from apex_example_tpu_torch.data.synthetic import lm_batch, mlm_batch
-from apex_example_tpu_torch.engine import create_train_state, make_train_step
+from apex_example_tpu_torch import amp, resolve_device
+from apex_example_tpu_torch.data.synthetic import (CIFAR10, IMAGENET,
+                                                   image_batch, lm_batch,
+                                                   mlm_batch)
+from apex_example_tpu_torch.engine import (create_train_state,
+                                           make_eval_step, make_train_step)
 from apex_example_tpu_torch.models.bert import bert_base, bert_tiny
 from apex_example_tpu_torch.models.gpt import gpt_base, gpt_tiny
+from apex_example_tpu_torch.models.resnet import ARCHS as IMAGE_ARCHS
 from apex_example_tpu_torch.models.transformer_xl import (
     transformer_xl_base, transformer_xl_tiny)
 from apex_example_tpu_torch.obs.metrics import JsonlSink
 from apex_example_tpu_torch.obs.telemetry import TelemetryEmitter
-from apex_example_tpu_torch.optim.fused import FusedAdam, FusedLAMB
+from apex_example_tpu_torch.optim.fused import (FusedAdam, FusedLAMB,
+                                                FusedSGD)
 from apex_example_tpu_torch.optim.schedules import build_schedule
 from apex_example_tpu_torch.utils.meters import AverageMeter, Throughput
 from apex_example_tpu_torch.workloads import (lm_loss, make_txl_train_step,
                                               mlm_loss)
 
-ARCHS = {"bert_base": bert_base, "bert_tiny": bert_tiny,
-         "gpt_base": gpt_base, "gpt_tiny": gpt_tiny,
-         "transformer_xl": transformer_xl_base,
-         "transformer_xl_tiny": transformer_xl_tiny}
+LM_ARCHS = {"bert_base": bert_base, "bert_tiny": bert_tiny,
+            "gpt_base": gpt_base, "gpt_tiny": gpt_tiny,
+            "transformer_xl": transformer_xl_base,
+            "transformer_xl_tiny": transformer_xl_tiny}
+ARCHS = {**IMAGE_ARCHS, **LM_ARCHS}
+DATASETS = {"cifar10": CIFAR10, "imagenet": IMAGENET}
 ARCH_MAX_POSITION = {"bert_base": 512, "bert_tiny": 128,
                      "gpt_base": 1024, "gpt_tiny": 128}
 VOCAB_ARCHS = ("bert_base", "gpt_base", "transformer_xl")
@@ -70,11 +93,15 @@ VOCAB_ARCHS = ("bert_base", "gpt_base", "transformer_xl")
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m apex_example_tpu_torch.train",
-        description="BERT MLM, GPT and Transformer-XL LM training with "
-                    "FusedLAMB or FusedAdam (PyTorch port)")
+        description="ResNet image training under amp O0-O3, BERT MLM, GPT "
+                    "and Transformer-XL LM training (PyTorch port)")
     p.add_argument("--device", default="cuda",
                    help="torch device to train on: cuda (default) or cpu")
-    p.add_argument("--arch", "-a", default="bert_base", choices=list(ARCHS))
+    p.add_argument("--arch", "-a", default="resnet18",
+                   choices=sorted(IMAGE_ARCHS) + list(LM_ARCHS))
+    p.add_argument("--dataset", default="cifar10", choices=list(DATASETS),
+                   help="image shapes: cifar10 (32 px, 10 classes) or "
+                        "imagenet (224 px, 1000 classes)")
     p.add_argument("--seq-len", type=int, default=128)
     p.add_argument("--vocab-size", type=int, default=30522,
                    help="vocabulary of bert_base, gpt_base and "
@@ -93,11 +120,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "(default: 1/3 and 2/3 of the run)")
     p.add_argument("--lr-gamma", type=float, default=0.1)
     p.add_argument("--lr-min", type=float, default=0.0)
+    p.add_argument("--momentum", type=float, default=0.9)
     p.add_argument("--weight-decay", "--wd", type=float, default=1e-4)
-    p.add_argument("--opt", default="lamb", choices=["lamb", "adam"])
-    p.add_argument("--opt-level", default="O0", choices=["O0"])
+    p.add_argument("--opt", default="sgd", choices=["sgd", "adam", "lamb"])
+    p.add_argument("--opt-level", default="O0",
+                   choices=["O0", "O1", "O2", "O3"])
+    p.add_argument("--loss-scale", default=None,
+                   help='None, a number, or "dynamic"')
+    p.add_argument("--keep-batchnorm-fp32", default=None, type=lambda s:
+                   None if s in (None, "None") else s.lower() == "true")
     p.add_argument("--print-freq", type=int, default=10)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--eval", action="store_true",
+                   help="evaluate after each epoch (image archs)")
+    p.add_argument("--eval-batches", type=int, default=10)
     p.add_argument("--metrics-jsonl", default="", metavar="PATH",
                    help="emit schema-valid step records to this JSONL")
     return p
@@ -118,8 +154,18 @@ def is_txl(args) -> bool:
     return args.arch.startswith("transformer_xl")
 
 
-def build_model(args, device):
+def is_image(args) -> bool:
+    return args.arch in IMAGE_ARCHS
+
+
+def build_model(args, device, policy=None):
     kw = {"seed": args.seed, "device": device}
+    if is_image(args):
+        md = amp.module_dtypes(policy or amp.get_policy("O0"))
+        return IMAGE_ARCHS[args.arch](
+            num_classes=DATASETS[args.dataset]["num_classes"],
+            dtype=md.compute, param_dtype=md.param, bn_dtype=md.bn_stats,
+            bn_io_dtype=md.bn_io, **kw)
     if args.arch in VOCAB_ARCHS:
         kw["vocab_size"] = args.vocab_size
     if args.seq_len > ARCH_MAX_POSITION.get(args.arch, args.seq_len):
@@ -128,16 +174,28 @@ def build_model(args, device):
 
 
 def build_optimizer(args, params):
-    """``--opt lamb`` or ``adam`` of train.py's ``build_optimizer`` (:559):
-    FusedLAMB (clip at max_grad_norm 1.0) or FusedAdam (AdamW), with the
+    """train.py's ``build_optimizer`` (:559): FusedSGD (``--momentum``),
+    FusedAdam (AdamW) or FusedLAMB (clip at max_grad_norm 1.0), with the
     schedule and weight decay."""
+    lr = build_lr(args)
+    if args.opt == "sgd":
+        return FusedSGD(params, lr=lr, momentum=args.momentum,
+                        weight_decay=args.weight_decay)
     cls = FusedAdam if args.opt == "adam" else FusedLAMB
-    return cls(params, lr=build_lr(args), weight_decay=args.weight_decay)
+    return cls(params, lr=lr, weight_decay=args.weight_decay)
 
 
 def batch_fn(args, vocab_size: int, step: int, device):
-    """The batch of global step ``step``: (ids, (labels, weights)) for
-    BERT, (inputs, targets) for GPT and Transformer-XL."""
+    """The batch of global step ``step``: (images, labels) for the image
+    archs, (ids, (labels, weights)) for BERT, (inputs, targets) for GPT and
+    Transformer-XL."""
+    if is_image(args):
+        spec = DATASETS[args.dataset]
+        return image_batch(step, batch_size=args.batch_size,
+                           image_size=spec["image_size"],
+                           channels=spec["channels"],
+                           num_classes=spec["num_classes"], seed=args.seed,
+                           device=device)
     to = lambda a: torch.from_numpy(a).to(device)       # noqa: E731
     if args.arch.startswith("bert"):
         ids, labels, w = mlm_batch(step, batch_size=args.batch_size,
@@ -152,33 +210,152 @@ def batch_fn(args, vocab_size: int, step: int, device):
         to(np.ascontiguousarray(toks[:, 1:]))
 
 
-def run_train(args) -> int:
-    device = resolve_device(args.device)
+def check_args(args) -> None:
+    """What the parser cannot say: sizes, and the flags a path does not
+    take yet."""
     for flag in ("epochs", "steps_per_epoch", "batch_size", "seq_len",
-                 "print_freq"):
+                 "print_freq", "eval_batches"):
         if getattr(args, flag) < 1:
             raise SystemExit(f"--{flag.replace('_', '-')} must be >= 1")
-    model = build_model(args, device)
+    if is_image(args):
+        if args.opt != "sgd" and args.opt_level == "O3":
+            raise SystemExit("--opt-level O3 keeps BatchNorm's parameters "
+                             "fp32 beside half convolutions: the port's "
+                             "FusedAdam and FusedLAMB take parameters of one "
+                             "dtype; use --opt sgd")
+        if args.opt != "sgd" and args.loss_scale == "dynamic":
+            raise SystemExit("--loss-scale dynamic skips steps through "
+                             "FusedSGD's noop flag; use --opt sgd")
+        return
+    if (args.opt_level != "O0" or args.loss_scale is not None
+            or args.keep_batchnorm_fp32 is not None):
+        raise SystemExit("the LM archs train at --opt-level O0 without "
+                         "--loss-scale or --keep-batchnorm-fp32 in this "
+                         "port; amp O1-O3 for them comes with the next slice "
+                         "(ROADMAP.md A.4)")
+    if args.eval:
+        raise SystemExit("--eval is ported for the image archs; the LM "
+                         "eval steps come with a later slice")
+
+
+def build_state(args, device):
+    """The train state of ``args`` on ``device``: model, optimizer, and the
+    amp policy and loss scaler of ``--opt-level``, ``--loss-scale`` and
+    ``--keep-batchnorm-fp32`` (the LM archs: O0)."""
+    policy = scaler = None
+    if is_image(args):
+        policy, scaler = amp.initialize(
+            args.opt_level, loss_scale=args.loss_scale,
+            keep_batchnorm_fp32=args.keep_batchnorm_fp32, device=device)
+    model = build_model(args, device, policy)
     optimizer = build_optimizer(args, model.parameters())
-    state = create_train_state(model, optimizer)
-    mems = None
+    return create_train_state(model, optimizer, policy, scaler)
+
+
+def build_step(args):
+    """The train step of ``args``'s arch: cross-entropy with top-1 for
+    the image archs, MLM or LM loss, or Transformer-XL's step (the memory
+    carried in and out, the clip before the optimizer)."""
+    if is_image(args):
+        return make_train_step()
     if is_txl(args):
-        step_fn = make_txl_train_step(args.max_grad_norm)
-        mems = model.init_mems(args.batch_size)
-    else:
-        step_fn = make_train_step(
-            mlm_loss if args.arch.startswith("bert") else lm_loss)
+        return make_txl_train_step(args.max_grad_norm)
+    return make_train_step(
+        mlm_loss if args.arch.startswith("bert") else lm_loss,
+        compute_accuracy=False)
+
+
+def run_train(args) -> int:
+    device = resolve_device(args.device)
+    check_args(args)
+    if is_image(args):
+        return run_image(args, device)
+    return run_lm(args, device)
+
+
+def _policy_text(policy) -> str:
+    md = amp.module_dtypes(policy)
+    name = lambda d: str(d).replace("torch.", "")       # noqa: E731
+    return (f"opt-level {policy.opt_level} (compute {name(md.compute)}, "
+            f"params {name(md.param)}, bn io {name(md.bn_io)}, bn stats "
+            f"{name(md.bn_stats)}, loss scale {policy.loss_scale})")
+
+
+def _emitter(args, device):
+    if not args.metrics_jsonl:
+        return None
+    emitter = TelemetryEmitter(JsonlSink(args.metrics_jsonl), device)
+    emitter.run_header(config=vars(args), argv=sys.argv[1:], arch=args.arch)
+    return emitter
+
+
+def run_image(args, device) -> int:
+    """The image path of train.py's ``main`` (:628-994), one device."""
+    state = build_state(args, device)
+    step_fn = build_step(args)
+    eval_fn = make_eval_step()
+    n_params = sum(p.numel() for p in state.model.parameters())
+    print(f"model {args.arch}: {n_params} parameters in "
+          f"{len(state.optimizer.params)} tensors, dataset {args.dataset}, "
+          f"device {device}, opt {args.opt}, {_policy_text(state.policy)}, "
+          f"params from random init (seed {args.seed})")
+
+    emitter = _emitter(args, device)
+    global_step = 0
+    try:
+        for epoch in range(args.epochs):
+            losses, top1s = AverageMeter("loss"), AverageMeter("top1")
+            thr = Throughput(warmup_steps=2)
+            for i in range(args.steps_per_epoch):
+                batch = batch_fn(args, 0, global_step, device)
+                t0 = time.perf_counter()
+                state, metrics = step_fn(state, batch)
+                global_step += 1
+                if emitter is not None:
+                    emitter.on_step(global_step=global_step, epoch=epoch,
+                                    metrics=metrics, items=args.batch_size,
+                                    t_start=t0)
+                thr.step(args.batch_size)
+                if (i + 1) % args.print_freq == 0 \
+                        or i + 1 == args.steps_per_epoch:
+                    losses.update(float(metrics["loss"]))
+                    top1s.update(float(metrics["top1"]))
+                    print(f"epoch {epoch} step {i + 1}/"
+                          f"{args.steps_per_epoch} {losses} {top1s} "
+                          f"{thr.rate:.1f} img/s "
+                          f"scale {float(metrics['scale']):.0f}")
+            if args.eval:
+                el, e1, e5 = (AverageMeter("loss"), AverageMeter("top1"),
+                              AverageMeter("top5"))
+                for j in range(args.eval_batches):
+                    em = eval_fn(state, batch_fn(
+                        args, 0, 10_000 + epoch * args.eval_batches + j,
+                        device))
+                    el.update(float(em["loss"]))
+                    e1.update(float(em["top1"]))
+                    e5.update(float(em["top5"]))
+                print(f"epoch {epoch} EVAL loss {el.avg:.4f} "
+                      f"top1 {e1.avg:.2f} top5 {e5.avg:.2f} "
+                      f"({args.eval_batches} batches)")
+    finally:
+        if emitter is not None:
+            emitter.close()
+    return 0
+
+
+def run_lm(args, device) -> int:
+    """The LM path (``_lm_main_impl`` :1014) at amp O0, one device."""
+    state = build_state(args, device)
+    model, optimizer = state.model, state.optimizer
+    step_fn = build_step(args)
+    mems = model.init_mems(args.batch_size) if is_txl(args) else None
     n_params = sum(p.numel() for p in model.parameters())
     print(f"model {args.arch}: {n_params} parameters in "
           f"{len(optimizer.params)} tensors, device {device}, opt "
           f"{args.opt}, opt-level O0, params from random init (seed "
           f"{args.seed})")
 
-    emitter = None
-    if args.metrics_jsonl:
-        emitter = TelemetryEmitter(JsonlSink(args.metrics_jsonl), device)
-        emitter.run_header(config=vars(args), argv=sys.argv[1:],
-                           arch=args.arch)
+    emitter = _emitter(args, device)
     tokens = args.batch_size * args.seq_len
     global_step = 0
     try:

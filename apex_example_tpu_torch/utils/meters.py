@@ -1,10 +1,13 @@
-"""Meters of the training loop: a copy of ``AverageMeter`` (:12) and
-``Throughput`` (:47) from apex_example_tpu/utils/meters.py."""
+"""Meters of the training loop: a copy of ``AverageMeter`` (:12),
+``accuracy`` (:36) and ``Throughput`` (:47) from
+apex_example_tpu/utils/meters.py, ``accuracy`` in torch."""
 
 from __future__ import annotations
 
 import time
-from typing import Optional
+from typing import Optional, Tuple
+
+import torch
 
 
 class AverageMeter:
@@ -29,6 +32,17 @@ class AverageMeter:
 
     def __str__(self):
         return f"{self.name} {self.val:.4f} ({self.avg:.4f})"
+
+
+def accuracy(logits: torch.Tensor, labels: torch.Tensor,
+             topk: Tuple[int, ...] = (1,)) -> Tuple[torch.Tensor, ...]:
+    """Top-k accuracy in percent, 0-d fp32 tensors (the reference's
+    ``accuracy()``); ties rank by index, as jnp.argsort's stable sort."""
+    maxk = max(topk)
+    top = torch.argsort(-logits, dim=-1, stable=True)[..., :maxk]
+    correct = top == labels[..., None]
+    return tuple(100.0 * correct[..., :k].any(-1).float().mean()
+                 for k in topk)
 
 
 class Throughput:

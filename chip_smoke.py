@@ -96,6 +96,65 @@ Phases, one or more lines each:
              and backward 26 times each, the L2 norm (the step's grad_norm)
              and Adam once each, the scale and LAMB never.
 10. profile — torch.profiler over three transformer_xl steps, as in 6.
+11. sgd     — momentum SGD (fused_optim.cu) against its plain version over
+             the 161 tensors of resnet50's parameters (25.6 M elements) in
+             fp32 and with bf16 p and g, in the plain, Nesterov, first-step
+             and dampening branches, and over small odd lists and views off
+             16-byte alignment: p and buf within rtol 1e-5 plus atol 1e-6
+             of the tensor's largest magnitude, bf16 p within one bf16 ulp
+             plus 1e-5; with the learning rate read from the card; with the
+             noop flag set, p and buf bitwise unchanged.  Then its, the
+             plain version's and torch._fused_sgd_'s times (that call
+             checked against the kernel first), beside the bound.
+12. bn      — the BatchNorm statistics and backward sums (batch_norm.cu)
+             against their plain versions at resnet50's stem (3,211,264 x
+             64), stage 3 (50,176 x 1024) and stage 4 (12,544 x 2048) at
+             batch 256, in fp32 and bf16, at a ragged row count and an odd
+             C: rtol 1e-4 plus 4e-6 of the sum of the terms' magnitudes
+             (sums over many rows in another order, which may cancel to
+             near zero), and bitwise equal on a second call.
+             SyncBatchNorm built with fused_kernel=True against its
+             composite branch at stage 3's shape, forward and backward,
+             through the module (the launches of that run are the
+             kernels' "syncbn" path): fp32 y and dx rtol = atol 1e-4; bf16
+             y one bf16 ulp, dx two bf16 ulps of its largest magnitude
+             (the composite rounds each of x's two cotangents to bf16);
+             dscale, dbias as the sums; the running statistics rtol 1e-4,
+             atol 1e-5.  Then each
+             kernel's, its plain version's and torch.batch_norm_stats's /
+             torch.batch_norm_backward_reduce's times (checked against the
+             kernel first), beside the bound.
+13. c2      — resnet50 on ImageNet-shaped batches (224 px, 1000 classes)
+             trained through train.main on cuda under amp O2 (bf16, fp32
+             BatchNorm statistics and master weights): batch 256, 20 steps
+             of FusedSGD (lr 0.01, momentum 0.9, weight decay 1e-4; at
+             bench.py's lr 0.1 the first 20 steps' loss rises).  Losses
+             finite, the mean of steps 16-20 below that of steps 1-5, each
+             step launching SGD and the L2 norm once each and no other
+             kernel (the identity scaler unscales nothing; BatchNorm is the
+             composite form, as in the JAX ResNet).  If batch 256 runs out
+             of device memory, the run says so and halves it.
+14. c1      — resnet18 on CIFAR-shaped batches (32 px, 10 classes) at amp
+             O0, batch 256, 10 steps, the same checks.
+15. dynamic — resnet50 at O2 with --loss-scale dynamic, batch 64, 10 steps
+             at lr 0.01:
+             the scale, SGD and L2 norm kernels once each a step, the scale
+             65536 throughout.  Then an overflow drill through the library:
+             an inf planted in one grad by a hook; that step, run under
+             torch.cuda.set_sync_debug_mode("error") (no host sync), must
+             leave the parameters, the momentum buffers and the optimizer's
+             step count bitwise unchanged and halve the scale; the next
+             clean step moves them again.
+16. c2 cross-check — one resnet50 O0 step on one 2-image batch on the card
+             and on the CPU, limited by the floor measured in the same run,
+             as in 8 (ReLU kinks again); kinds of parameter are the names
+             without their block indices.
+17. profile — torch.profiler over three c2 steps, as in 6, and each
+             BatchNorm input shape of a c2 step timed alone through the
+             composite branch (forward and backward): the share of the
+             step's device time that the composite BatchNorm takes; and
+             through the fused_kernel branch, what the kernels would take
+             in its place.
 
 Then one JSON line per the port's kernel table ({"kernels": [...]}) and,
 last, {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
@@ -105,6 +164,7 @@ before the last line; so does a machine where torch sees no CUDA device.
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -119,8 +179,9 @@ FP32_OPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
 FP32_TOL = 1e-5
 TIE_TOL = 1e-4
 SLOTS, BLOCK = 8, 16
-SOURCES = ["layer_norm", "multi_tensor", "fused_optim"]
+SOURCES = ["layer_norm", "multi_tensor", "fused_optim", "batch_norm"]
 SUM_TOL = 1e-4            # dgamma, dbeta: rtol and atol
+BN_SUM_ATOL = 4e-6        # BatchNorm sums: atol, of the sum of |terms|
 NORM_TOL = 1e-5           # L2 norms, ||p||^2, ||u||^2, ratios: rtol
 STATE_ATOL, STATE_RTOL = 1e-6, 1e-5     # m, v, u, p after a LAMB stage
 FLOOR_X = 3               # TXL card-vs-CPU limits, in multiples of the floor
@@ -141,6 +202,29 @@ GPT_ARGS = ["--device", "cuda", "--arch", "gpt_base", "--batch-size", "64",
             "--seq-len", "128", "--epochs", "1", "--steps-per-epoch", "10",
             "--opt", "adam", "--lr", "1e-4", "--weight-decay", "0.01",
             "--seed", "0", "--print-freq", "5"]
+IMAGE_TAIL = ["--device", "cuda", "--opt", "sgd", "--momentum", "0.9",
+              "--weight-decay", "1e-4", "--epochs", "1", "--seed", "0",
+              "--print-freq", "5"]
+# bench.py's c2 row, but at lr 0.01: at its lr 0.1, with no warmup, the
+# loss of the first 20 steps rises (SGD lifts the logits of the ~230
+# classes a batch holds before the features tell 1000 classes apart) and
+# comes back to ln 1000 only after ~40 steps; the reference's own
+# accuracy harness warms resnet50 up over 100 steps (accuracy.py:163)
+C2_ARGS = ["--arch", "resnet50", "--dataset", "imagenet", "--opt-level", "O2",
+           "--batch-size", "256", "--steps-per-epoch", "20",
+           "--lr", "0.01"] + IMAGE_TAIL
+C1_ARGS = ["--arch", "resnet18", "--dataset", "cifar10", "--opt-level", "O0",
+           "--batch-size", "256", "--steps-per-epoch", "10",
+           "--lr", "0.1"] + IMAGE_TAIL
+DYN_ARGS = ["--arch", "resnet50", "--dataset", "imagenet", "--opt-level",
+            "O2", "--loss-scale", "dynamic", "--batch-size", "64",
+            "--steps-per-epoch", "10", "--lr", "0.01"] + IMAGE_TAIL
+C2_CROSS_ARGS = ["--arch", "resnet50", "--dataset", "imagenet",
+                 "--opt-level", "O0", "--batch-size", "2",
+                 "--steps-per-epoch", "1", "--lr", "0.1"] + IMAGE_TAIL
+BN_SHAPES = [(256 * 112 * 112, 64), (256 * 14 * 14, 1024),
+             (256 * 7 * 7, 2048)]   # resnet50's stem, stage 3, stage 4
+BN_MODULE_SHAPE = (256, 14, 14, 1024)  # stage 3's activations, NHWC
 SERVE_ARGS = ["--device", "cuda", "--arch", "gpt_base",
               "--slots", str(SLOTS), "--max-len", "512",
               "--block-size", str(BLOCK), "--requests", "32",
@@ -873,6 +957,359 @@ def phase_scale(mt):
             "library_ms": l_ms}, max(n_err, s_err)
 
 
+def _sgd_lists(shapes, dtype, gen):
+    dev = torch.device("cuda")
+    rnd = lambda s, std: torch.randn(s, device=dev,            # noqa: E731
+                                     generator=gen) * std
+    return ([rnd(s, 0.05).to(dtype) for s in shapes],
+            [rnd(s, 1e-3).to(dtype) for s in shapes],
+            [rnd(s, 1e-3) for s in shapes])
+
+
+def _check_sgd(fo, mt, lists, hyper, what, lr_t=None):
+    """SGD's kernel over ``lists`` (p, g, buf) against its plain version;
+    returns the largest |dp|, |dbuf|."""
+    p, g, b = lists
+    p0, b0 = [t.clone() for t in p], [t.clone() for t in b]
+    fo.sgd_cuda(mt.TensorTable([p, g, b]), lr_t=lr_t, **hyper)
+    plain = dict(hyper, lr=hyper["lr"] if lr_t is None else lr_t)
+    errs, ok = [0.0, 0.0], True
+    for i in range(len(p)):
+        want = fo.sgd_update_plain(p0[i], g[i], b0[i], **plain)
+        for j, (got, w) in enumerate(zip((p[i], b[i]), want)):
+            if got.dtype == torch.float32:
+                e, o = _close_scaled(got, w, 1e-5)
+            else:               # half p: one ulp of its dtype (plus 1e-5)
+                a, c = got.float(), w.float()
+                ulp_bits = 7 if got.dtype == torch.bfloat16 else 10
+                mag = torch.maximum(torch.maximum(a.abs(), c.abs()),
+                                    torch.full_like(a, 2.0 ** -126))
+                tol = torch.exp2(torch.floor(torch.log2(mag)) - ulp_bits)
+                e = float((a - c).abs().max())
+                o = bool(((a - c).abs() <= tol + FP32_TOL).all())
+            errs[j] = max(errs[j], e)
+            ok = ok and o
+    torch.cuda.synchronize()
+    print(f"kernels: sgd {what}: max|dp| {errs[0]:.3g}  max|dbuf| "
+          f"{errs[1]:.3g}  {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise SystemExit(f"sgd kernel disagrees with its plain version "
+                         f"({what})")
+    return max(errs)
+
+
+def phase_sgd(fo, mt, resnet50):
+    """SGD over resnet50-shaped tensors and small odd lists against its
+    plain version, the learning rate from the card, the noop flag; its,
+    the plain version's and torch._fused_sgd_'s times."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    shapes = [tuple(p.shape) for p in resnet50(device="cpu").parameters()]
+    numel = sum(math.prod(s) for s in shapes)
+    print(f"kernels: resnet50 parameter lists: {len(shapes)} tensors, "
+          f"{numel} elements")
+    hyper = dict(lr=0.1, momentum=0.9, weight_decay=1e-4, dampening=0.0,
+                 nesterov=False, first_step=False)
+    branches = [("", {}), (" nesterov", dict(nesterov=True)),
+                (" first_step", dict(first_step=True)),
+                (" dampening 0.1", dict(dampening=0.1))]
+    path_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for what, kw in branches:
+            err = _check_sgd(fo, mt, _sgd_lists(shapes, dtype, gen),
+                             dict(hyper, **kw),
+                             f"{str(dtype)[6:]}{what}, {len(shapes)} "
+                             f"tensors")
+            if dtype == torch.float32 and not kw:
+                path_err = err
+    lr_t = torch.full((1,), 0.05, device=dev)
+    _check_sgd(fo, mt, _sgd_lists(shapes, torch.float32, gen),
+               dict(hyper, lr=123.0), "float32, lr read from the card",
+               lr_t=lr_t)
+    odd = [(1,), (65537,), (3, 5), (7,), (65536,), (513, 129), (2,)]
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for what, kw in branches[:2]:
+            _check_sgd(fo, mt, _sgd_lists(odd, dtype, gen), dict(hyper, **kw),
+                       f"small odd list {str(dtype)[6:]}{what}")
+            lists = [[_misaligned(t) for t in lst]
+                     for lst in _sgd_lists(odd, dtype, gen)]
+            _check_sgd(fo, mt, lists, dict(hyper, **kw),
+                       f"misaligned odd list {str(dtype)[6:]}{what}")
+
+    p, g, b = _sgd_lists(shapes, torch.float32, gen)
+    table = mt.TensorTable([p, g, b])
+    p0, b0 = [t.clone() for t in p], [t.clone() for t in b]
+    noop = torch.ones((), dtype=torch.int32, device=dev)
+    fo.sgd_cuda(table, noop_flag=noop, **hyper)
+    torch.cuda.synchronize()
+    kept = all(torch.equal(x, y) for x, y in zip(p + b, p0 + b0))
+    print(f"kernels: sgd with the noop flag set: p and buf bitwise "
+          f"unchanged: {kept}")
+    if not kept:
+        raise SystemExit("sgd kernel wrote with the noop flag set")
+
+    lib = [[t.clone() for t in lst] for lst in (p, g, b)]
+    l_ms = None
+    if hasattr(torch, "_fused_sgd_"):
+        def library():
+            torch._fused_sgd_(*lib, weight_decay=hyper["weight_decay"],
+                              momentum=hyper["momentum"], lr=hyper["lr"],
+                              dampening=0.0, nesterov=False, maximize=False,
+                              is_first_step=False)
+        fo.sgd_cuda(table, **hyper)
+        library()
+        torch.cuda.synchronize()
+        closes = [_close_scaled(x, y, 1e-5) for lst, ref in
+                  ((lib[0], p), (lib[2], b)) for x, y in zip(lst, ref)]
+        lib_ok = all(o for _, o in closes)
+        print(f"kernels: sgd library call torch._fused_sgd_ against the "
+              f"kernel after one step: max|d| "
+              f"{max(e for e, _ in closes):.3g}  "
+              f"{'ok' if lib_ok else 'MISMATCH'}")
+        if not lib_ok:
+            raise SystemExit("torch._fused_sgd_ does not compute sgd's "
+                             "function")
+        l_ms = _device_ms(library, reps=100, warmup=5)
+
+    def plain():
+        for i in range(len(p)):
+            fo.sgd_update_plain(p[i], g[i], b[i], **hyper)
+
+    kernel = lambda: fo.sgd_cuda(table, **hyper)               # noqa: E731
+    k_ms = _device_ms(kernel, reps=100, warmup=5)
+    p_ms = _device_ms(plain, reps=10, warmup=2)
+    call_ms = _call_ms(kernel, reps=100, warmup=5)
+    nbytes = 20 * numel
+    bound_ms, bound_by = _bound(nbytes, 7 * numel)
+    lib_txt = (f"torch._fused_sgd_ {l_ms:.5f} ms" if l_ms is not None
+               else "torch._fused_sgd_ - (not in this torch)")
+    print(f"kernels: sgd over {len(p)} tensors device time: kernel "
+          f"{k_ms:.5f} ms  plain {p_ms:.5f} ms  {lib_txt}  bound "
+          f"{bound_ms:.6f} ms ({nbytes} bytes over 3.35 TB/s)  per call "
+          f"from Python {call_ms:.5f} ms")
+    return {"name": "sgd", "route": "cuda",
+            "source": "apex_example_tpu_torch/csrc/fused_optim.cu",
+            "replaces": "apex_example_tpu/ops/fused_optim.py:259",
+            "max_abs_err": path_err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": l_ms}
+
+
+def _bn_inputs(rows, C, dtype, gen):
+    dev = torch.device("cuda")
+    rnd = lambda *s: torch.randn(*s, device=dev, generator=gen)  # noqa: E731
+    x = (rnd(rows, C) * 2 + 0.5).to(dtype)
+    dy = rnd(rows, C).to(dtype)
+    c = rnd(C) * 0.5 + 0.5
+    mean = c + rnd(C) * 0.1
+    inv = torch.rand(C, device=dev, generator=gen) + 0.25
+    return x, dy, c, mean, inv
+
+
+def _bn_magnitudes(x, dy, c, mean, inv):
+    """The sums of the terms' magnitudes of the four BatchNorm sums, per
+    channel: sum|x - c|, sum (x - c)^2, sum|dy|, sum|dy * x_hat|."""
+    xc = x.float() - c
+    dyf = dy.float()
+    return (xc.abs().sum(0), (xc * xc).sum(0), dyf.abs().sum(0),
+            (dyf * (x.float() - mean) * inv).abs().sum(0))
+
+
+def _bn_sums_close(got, want, mags):
+    """max |got - want| and whether every sum is within rtol SUM_TOL plus
+    BN_SUM_ATOL of the sum of its terms' magnitudes: a sum over thousands
+    of rows that cancels to near zero carries the rounding of its terms,
+    not of itself (a missing or doubled row moves it by far more)."""
+    return _close(got, want, SUM_TOL, BN_SUM_ATOL * mags.double())
+
+
+def _bn_library(x, dy, c, mean, inv, got):
+    """torch.batch_norm_stats and torch.batch_norm_backward_reduce on the
+    same (rows, C) inputs, held against the kernels' sums ``got``; returns
+    the two calls, or None where this torch has not them."""
+    try:
+        lib_mean, lib_inv = torch.batch_norm_stats(x, 1e-5)
+        sum_dy, sum_dy_xmu = torch.batch_norm_backward_reduce(
+            dy, x, mean, inv, None, True, False, False)[:2]
+    except (AttributeError, RuntimeError, TypeError) as exc:
+        print(f"kernels: batch_norm library calls not available: "
+              f"{str(exc).splitlines()[0]}")
+        return None
+    n = x.shape[0]
+    s, ss, sdy, sdyx = got
+    m_c = s / n
+    checks = [(lib_mean, c + m_c),
+              (lib_inv, torch.rsqrt(ss / n - m_c * m_c + 1e-5)),
+              (sum_dy, sdy), (sum_dy_xmu * inv, sdyx)]
+    mags = _bn_magnitudes(x, dy, c, mean, inv)
+    closes = [_bn_sums_close(a, b, m) for (a, b), m in zip(checks, (
+        torch.ones_like(mags[0]), torch.ones_like(mags[0]), mags[2],
+        mags[3]))]
+    ok = all(o for _, o in closes)
+    print(f"kernels: torch.batch_norm_stats / batch_norm_backward_reduce "
+          f"against the kernels: max|d| {max(e for e, _ in closes):.3g}  "
+          f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise SystemExit("the batch_norm library calls do not compute the "
+                         "kernels' sums")
+    return (lambda: torch.batch_norm_stats(x, 1e-5),
+            lambda: torch.batch_norm_backward_reduce(dy, x, mean, inv, None,
+                                                     True, False, False))
+
+
+def phase_bn(bn, sync_batchnorm_cls, counted):
+    """The BatchNorm statistics and backward sums against their plain
+    versions and bitwise repeat; SyncBatchNorm(fused_kernel=True) against
+    its composite branch through the module (the "syncbn" path's
+    launches); each kernel's, plain version's and library call's time.
+    Returns the two rows and the syncbn path's launch counts."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    cases = [(r, c, d) for r, c in BN_SHAPES
+             for d in (torch.float32, torch.bfloat16)]
+    cases += [(BN_SHAPES[1][0] - 5, 1024, torch.float32),
+              (777, 37, torch.float32), (777, 37, torch.bfloat16),
+              (1000, 64, torch.float16)]
+    errs = [0.0, 0.0]
+    for rows, C, dtype in cases:
+        x, dy, c, mean, inv = _bn_inputs(rows, C, dtype, gen)
+        got = bn.bn_stats_cuda(x, c) + bn.bn_bwd_sums_cuda(x, dy, mean, inv)
+        again = bn.bn_stats_cuda(x, c) + bn.bn_bwd_sums_cuda(x, dy, mean,
+                                                              inv)
+        want = bn.bn_stats_plain(x, c) + bn.bn_bwd_sums_plain(x, dy, mean,
+                                                               inv)
+        mags = _bn_magnitudes(x, dy, c, mean, inv)
+        torch.cuda.synchronize()
+        closes = [_bn_sums_close(a, w, m)
+                  for a, w, m in zip(got, want, mags)]
+        same = all(torch.equal(a, r) for a, r in zip(got, again))
+        ok = same and all(o for _, o in closes)
+        e_s = max(e for e, _ in closes[:2])
+        e_b = max(e for e, _ in closes[2:])
+        print(f"kernels: bn sums {rows}x{C} {str(dtype)[6:]}: max|ds|,|dss| "
+              f"{e_s:.3g}  max|dsdy|,|dsdyx| {e_b:.3g}  second call bitwise "
+              f"equal: {same}  {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise SystemExit(f"batch_norm kernels disagree with their plain "
+                             f"versions or do not repeat at {rows}x{C} "
+                             f"{dtype}")
+        if (rows, C) in BN_SHAPES and dtype == torch.float32:
+            errs = [max(errs[0], e_s), max(errs[1], e_b)]
+        del x, dy
+    torch.cuda.empty_cache()
+
+    # the module, fused against composite, at stage 3's shape
+    n, hw, _, C = BN_MODULE_SHAPE
+    syncbn_counts = None
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.randn(n, hw, hw, C, device=dev, generator=gen) * 2
+             + 0.5).to(dtype)
+        dy = torch.randn(n, hw, hw, C, device=dev, generator=gen).to(dtype)
+        scale = torch.rand(C, device=dev, generator=gen) + 0.5
+        bias = torch.randn(C, device=dev, generator=gen) * 0.2
+        res = {}
+        for fused in (True, False):
+            m = sync_batchnorm_cls(C, dtype=dtype, stats_dtype=torch.float32,
+                                   fused_kernel=fused, device=dev)
+            with torch.no_grad():
+                m.scale.copy_(scale)
+                m.bias.copy_(bias)
+            xg = x.clone().requires_grad_()
+            if fused:
+                _zero_counts(counted)
+            y = m(xg)
+            y.backward(dy)
+            torch.cuda.synchronize()
+            if fused and syncbn_counts is None:
+                syncbn_counts = _counts(counted)
+            res[fused] = [t.detach().float() for t in
+                          (y, xg.grad, m.scale.grad, m.bias.grad, m.mean,
+                           m.var)]
+        (y_f, dx_f, ds_f, db_f, rm_f, rv_f), (y_c, dx_c, ds_c, db_c, rm_c,
+                                              rv_c) = res[True], res[False]
+        if dtype == torch.float32:
+            io = [_close(a, b, 1e-4, 1e-4) for a, b in ((y_f, y_c),
+                                                         (dx_f, dx_c))]
+        else:
+            # y: one bf16 ulp.  dx: two bf16 ulps of its largest magnitude,
+            # since the composite's autograd rounds each of x's two
+            # cotangents (through the moments and through the apply) to
+            # bf16 before it adds them, and they cancel
+            dx_tol = 2.0 * 2.0 ** (math.floor(math.log2(float(
+                dx_c.abs().max()))) - 7)
+            io = [(float((y_f - y_c).abs().max()),
+                   bool(((y_f - y_c).abs() <= _bf16_tol(y_f, y_c)).all())),
+                  _close(dx_f, dx_c, 0.0, dx_tol)]
+        xf = x.double().reshape(-1, C)
+        xhat = (xf - xf.mean(0)) * torch.rsqrt(xf.var(0, unbiased=False)
+                                               + 1e-5)
+        dyf = dy.double().reshape(-1, C)
+        sums = [_bn_sums_close(a, b, m) for a, b, m in (
+            (ds_f, ds_c, (dyf * xhat).abs().sum(0)),
+            (db_f, db_c, dyf.abs().sum(0)))]
+        stats = [_close(a, b, SUM_TOL, 1e-5) for a, b in ((rm_f, rm_c),
+                                                           (rv_f, rv_c))]
+        ok = all(o for _, o in io + sums + stats)
+        print(f"kernels: SyncBatchNorm fused_kernel=True vs composite at "
+              f"{n}x{hw}x{hw}x{C} {str(dtype)[6:]}: max|dy| {io[0][0]:.3g}  "
+              f"max|ddx| {io[1][0]:.3g}  max|ddscale|,|ddbias| "
+              f"{max(e for e, _ in sums):.3g}  max|drunning| "
+              f"{max(e for e, _ in stats):.3g}  {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise SystemExit(f"SyncBatchNorm's fused branch disagrees with "
+                             f"its composite branch ({dtype})")
+        del x, dy, res
+    want = dict.fromkeys(counted, 0)
+    want.update(bn_stats=1, bn_bwd_sums=1)
+    print(f"syncbn: launches of one fused forward and backward through the "
+          f"module {syncbn_counts} (want {want})")
+    if syncbn_counts != want:
+        raise SystemExit("SyncBatchNorm(fused_kernel=True) did not launch "
+                         "the batch_norm kernels once each")
+    torch.cuda.empty_cache()
+
+    rows_out, by_shape = [], {"bn_stats": {}, "bn_bwd_sums": {}}
+    # the stem's shape last: its times are the rows'
+    for rows, C in BN_SHAPES[::-1]:
+        x, dy, c, mean, inv = _bn_inputs(rows, C, torch.float32, gen)
+        got = bn.bn_stats_cuda(x, c) + bn.bn_bwd_sums_cuda(x, dy, mean, inv)
+        lib = _bn_library(x, dy, c, mean, inv, got)
+        spec = (("bn_stats", lambda: bn.bn_stats_cuda(x, c),
+                 lambda: bn.bn_stats_plain(x, c),
+                 4 * rows * C + 12 * C, 4 * rows * C),
+                ("bn_bwd_sums", lambda: bn.bn_bwd_sums_cuda(x, dy, mean, inv),
+                 lambda: bn.bn_bwd_sums_plain(x, dy, mean, inv),
+                 8 * rows * C + 16 * C, 6 * rows * C))
+        for k, (name, kernel, plain, nbytes, ops) in enumerate(spec):
+            k_ms = _device_ms(kernel, reps=100, warmup=5)
+            p_ms = _device_ms(plain, reps=20, warmup=2)
+            l_ms = (_device_ms(lib[k], reps=100, warmup=5)
+                    if lib is not None else None)
+            bound_ms, bound_by = _bound(nbytes, ops)
+            lib_name = ("torch.batch_norm_stats" if k == 0
+                        else "torch.batch_norm_backward_reduce")
+            lib_txt = (f"{lib_name} {l_ms:.5f} ms" if l_ms is not None
+                       else f"{lib_name} -")
+            print(f"kernels: {name} {rows}x{C} float32 device time: kernel "
+                  f"{k_ms:.5f} ms  plain {p_ms:.5f} ms  {lib_txt}  bound "
+                  f"{bound_ms:.6f} ms ({nbytes} bytes over 3.35 TB/s)")
+            by_shape[name][f"{rows}x{C}"] = {
+                "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+                "library_ms": l_ms}
+            if (rows, C) == BN_SHAPES[0]:
+                rows_out.append({
+                    "name": name, "route": "cuda",
+                    "source": "apex_example_tpu_torch/csrc/batch_norm.cu",
+                    "replaces": ("apex_example_tpu/ops/batch_norm.py:74"
+                                 if k == 0 else
+                                 "apex_example_tpu/ops/batch_norm.py:88"),
+                    "max_abs_err": errs[k], "ms": k_ms, "plain_ms": p_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": l_ms, "by_shape": by_shape[name]})
+        del x, dy
+        torch.cuda.empty_cache()
+    return rows_out, syncbn_counts
+
+
 def _zero_counts(counted):
     for fn in counted.values():
         fn.launches = 0
@@ -937,10 +1374,11 @@ def phase_main(cli, gpt_base, counted):
     return counts
 
 
-def phase_train(train, counted, label, argv, per_step):
+def phase_train(train, counted, label, argv, per_step, scale=None):
     """A model trained through the port's trainer: finite, falling loss
     (the mean of the last five steps below that of the first five) and
-    ``per_step`` launches of each kernel a step, none of the others."""
+    ``per_step`` launches of each kernel a step, none of the others; with
+    ``scale``, every step's loss scale equal to it."""
     path = os.path.join(ROOT, "build", f"chip_smoke_{label}.jsonl")
     args = train.build_parser().parse_args(argv + ["--metrics-jsonl", path])
     torch.cuda.reset_peak_memory_stats()
@@ -958,7 +1396,9 @@ def phase_train(train, counted, label, argv, per_step):
     losses = [r["loss"] for r in steps]
     times = [r["step_time_ms"] for r in steps]
     steady = statistics.median(times[1:]) if n > 1 else float("nan")
-    tokens = args.batch_size * args.seq_len
+    image = train.is_image(args)
+    items = args.batch_size * (1 if image else args.seq_len)
+    unit = "img/s" if image else "tokens/s"
     ppl = (f"  ppl first/last {steps[0]['ppl']:.1f}/{steps[-1]['ppl']:.1f}"
            if steps and "ppl" in steps[0] else "")
     print(f"{label}: {args.arch} {n} steps  loss first/last {losses[0]:.4f}/"
@@ -967,8 +1407,11 @@ def phase_train(train, counted, label, argv, per_step):
           f"{statistics.fmean(losses[-5:]):.4f}{ppl}  grad norm first/last "
           f"{steps[0]['grad_norm']:.4f}/{steps[-1]['grad_norm']:.4f}")
     print(f"{label}: step time median {steady:.2f} ms (steps 2-{n})  first "
-          f"step {times[0]:.2f} ms  tokens/s {tokens / steady * 1e3:.1f}  "
+          f"step {times[0]:.2f} ms  {unit} {items / steady * 1e3:.1f}  "
           f"wall {wall:.1f} s  max memory {peak_gib:.2f} GiB")
+    scales = sorted({r["scale"] for r in steps})
+    if scale is not None:
+        print(f"{label}: loss scale over the run {scales} (want {scale})")
     want = dict.fromkeys(counted, 0)
     want.update({k: v * n for k, v in per_step.items()})
     print(f"{label}: launches {counts} (want {want})")
@@ -981,18 +1424,129 @@ def phase_train(train, counted, label, argv, per_step):
         raise SystemExit(f"{label} loss did not fall over {n} steps")
     if counts != want:
         raise SystemExit(f"kernel launches per step off: {counts}")
+    if scale is not None and scales != [scale]:
+        raise SystemExit(f"{label} loss scale moved: {scales}")
     return counts
 
 
+def phase_c2(train, counted, per_step):
+    """C2 through the trainer at batch 256, or at 128 where 256 runs out of
+    device memory (printed as a cut).  Returns the counts and the argv."""
+    argv = list(C2_ARGS)
+    try:
+        return phase_train(train, counted, "c2", argv, per_step), argv
+    except torch.cuda.OutOfMemoryError as exc:
+        print(f"c2: batch 256 does not fit in the card's memory ({exc}); "
+              f"CUT: halved to 128")
+    torch.cuda.empty_cache()
+    argv[argv.index("--batch-size") + 1] = "128"
+    return phase_train(train, counted, "c2", argv, per_step), argv
+
+
+def phase_overflow_drill(train, counted):
+    """Dynamic loss scaling through the library: after a clean step, an inf
+    planted in one grad (a hook on the classifier's bias) must skip the
+    step with no host sync: the parameters, momentum buffers and step count
+    bitwise unchanged, the scale halved; the next clean step moves them."""
+    args = train.build_parser().parse_args(DYN_ARGS)
+    state = train.build_state(args, "cuda")
+    model, opt = state.model, state.optimizer
+    step = train.build_step(args)
+    batches = [train.batch_fn(args, 0, i, "cuda") for i in range(3)]
+    state, _ = step(state, batches[0])
+    torch.cuda.synchronize()
+    before = [t.detach().clone() for t in opt.params + opt.momentum_buffer]
+    count0, scale0 = opt.step_count, float(state.scaler.scale)
+    planted = torch.zeros_like(model.fc.bias)
+    planted[7] = float("inf")
+    hook = model.fc.bias.register_hook(lambda g: g + planted)
+    _zero_counts(counted)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, metrics = step(state, batches[1])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        hook.remove()
+    torch.cuda.synchronize()
+    counts = _counts(counted)
+    after = opt.params + opt.momentum_buffer
+    kept = all(torch.equal(a, b) for a, b in zip(after, before))
+    count1, scale1 = opt.step_count, float(state.scaler.scale)
+    finite = float(metrics["grads_finite"])
+    state, _ = step(state, batches[2])
+    torch.cuda.synchronize()
+    moved = not all(torch.equal(a, b) for a, b in
+                    zip(opt.params, before[:len(opt.params)]))
+    count2, scale2 = opt.step_count, float(state.scaler.scale)
+    want = dict.fromkeys(counted, 0)
+    want.update(multi_tensor_scale=1, sgd=1, multi_tensor_l2norm=1)
+    print(f"dynamic: overflow drill (inf planted in fc.bias's grad, no host "
+          f"sync allowed): grads_finite {finite}  parameters and momentum "
+          f"bitwise unchanged: {kept}  step count {count0} -> {count1}  "
+          f"scale {scale0:g} -> {scale1:g}  launches {counts}; next clean "
+          f"step: parameters moved {moved}, step count {count2}, scale "
+          f"{scale2:g}")
+    if not (kept and finite == 0.0 and count1 == count0
+            and scale1 == scale0 / 2 and counts == want and moved
+            and count2 == count0 + 1 and scale2 == scale1):
+        raise SystemExit("the overflow step was not skipped as the JAX step "
+                         "skips it")
+    del state, model, opt
+    torch.cuda.empty_cache()
+
+
+def phase_bn_share(train, argv, sync_batchnorm_cls, busy_ms):
+    """Each BatchNorm input of one step of ``argv``'s model, timed alone
+    through the composite branch, forward and backward; the sum against
+    the step's device busy time ``busy_ms`` (from the profile); and the
+    same through the fused_kernel branch."""
+    args = train.build_parser().parse_args(argv)
+    state = train.build_state(args, "cuda")
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, inp: seen.append((tuple(inp[0].shape), inp[0].dtype,
+                                      mod.dtype, mod.stats_dtype)))
+             for m in state.model.modules()
+             if isinstance(m, sync_batchnorm_cls)]
+    train.build_step(args)(state, train.batch_fn(args, 0, 0, "cuda"))
+    for h in hooks:
+        h.remove()
+    del state
+    torch.cuda.empty_cache()
+    total, shapes = {False: 0.0, True: 0.0}, {}
+    for key in seen:
+        shapes[key] = shapes.get(key, 0) + 1
+    for (shape, dtype, io, stats), count in shapes.items():
+        x = torch.randn(shape, device="cuda").to(dtype).requires_grad_()
+        dy = torch.randn(shape, device="cuda").to(io)
+        for fused in total:
+            m = sync_batchnorm_cls(shape[-1], dtype=io, stats_dtype=stats,
+                                   fused_kernel=fused, device="cuda")
+            total[fused] += count * _device_ms(lambda: m(x).backward(dy),
+                                               reps=10, warmup=2)
+        del x, dy
+    torch.cuda.empty_cache()
+    print(f"profile: {len(seen)} BatchNorm calls a {args.arch} step "
+          f"({len(shapes)} shapes), forward and backward timed alone: the "
+          f"composite branch {total[False]:.2f} ms a step, "
+          f"{total[False] / busy_ms:.1%} of the profiled step's device busy "
+          f"time ({busy_ms:.2f} ms); the fused_kernel branch "
+          f"{total[True]:.2f} ms")
+
+
 KERNEL_GROUPS = (            # device-time categories, first match wins
+    ("ported: sgd", ("sgd_chunks",)),
     ("ported: layer_norm fwd", ("ln_fwd_kernel",)),
     ("ported: layer_norm bwd", ("ln_bwd_kernel", "ln_bwd_colsum")),
+    ("ported: batch_norm sums", ("colsum_kernel",)),
     ("ported: multi_tensor_l2norm", ("sqsum_chunks", "global_norm",
                                      "tensor_sums")),
     ("ported: lamb stages", ("lamb1_chunks", "trust_ratio",
                              "lamb2_chunks")),
     ("ported: adam", ("adam_chunks",)),
     ("ported: multi_tensor_scale", ("scale_chunks",)),
+    ("convolutions", ("fprop", "dgrad", "wgrad", "conv", "winograd",
+                      "nhwc", "nchw", "implicit")),
     ("matrix products", ("gemm", "cutlass", "xmma", "cublas")),
     ("softmax", ("softmax",)),
     ("embedding", ("embedding",)),
@@ -1012,18 +1566,17 @@ def _group(name):
 def phase_profile(train, argv, steps=3):
     """torch.profiler over a few train steps of the model ``argv`` names:
     device time by kernel group, and the share of the window the device sat
-    idle."""
+    idle.  Returns the device busy time a step (ms), None without device
+    events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from apex_example_tpu_torch.engine import create_train_state
     args = train.build_parser().parse_args(argv)
-    model = train.build_model(args, "cuda")
-    state = create_train_state(model, train.build_optimizer(
-        args, model.parameters()))
+    state = train.build_state(args, "cuda")
+    model = state.model
     step_fn, mems = _step_fn(train, args, model)
-    batches = [train.batch_fn(args, model.vocab_size, i, "cuda")
-               for i in range(steps + 2)]
+    batches = [train.batch_fn(args, getattr(model, "vocab_size", 0), i,
+                              "cuda") for i in range(steps + 2)]
 
     def run(state, mems, batch):
         if mems is None:
@@ -1046,7 +1599,7 @@ def phase_profile(train, argv, steps=3):
                    if e.device_type == DeviceType.CUDA)
     if not spans:
         print("profile: the profiler recorded no device events")
-        return
+        return None
     busy, end = 0.0, spans[0][0]
     by_group, by_name = {}, {}
     for a, b, name in spans:
@@ -1069,37 +1622,30 @@ def phase_profile(train, argv, steps=3):
               f"{name[:90]}")
     del state, model
     torch.cuda.empty_cache()
+    return busy / 1e3 / steps
 
 
 def _step_fn(train, args, model):
     """The trainer's step for ``args`` and the memory it starts from (None
     but for Transformer-XL)."""
-    from apex_example_tpu_torch.engine import make_train_step
-    from apex_example_tpu_torch.workloads import (lm_loss,
-                                                  make_txl_train_step,
-                                                  mlm_loss)
-    if train.is_txl(args):
-        return (make_txl_train_step(args.max_grad_norm),
-                model.init_mems(args.batch_size))
-    return make_train_step(mlm_loss if args.arch.startswith("bert")
-                           else lm_loss), None
+    return train.build_step(args), (model.init_mems(args.batch_size)
+                                    if train.is_txl(args) else None)
 
 
 def one_step(train, args, dev, batch, perturb=0.0):
     """One train step of freshly built weights on ``dev`` (the first
-    parameter, the word embedding, scaled by 1 + ``perturb``); ``batch`` is
+    parameter, the word embedding or the stem's convolution, scaled by 1 +
+    ``perturb``); ``batch`` is
     the step's numpy arrays.  Returns (loss, grad norm, parameters after
     the step, largest update, the new memory or None, the clipped grads),
     the tensors on the CPU."""
-    from apex_example_tpu_torch.engine import create_train_state
-    model = train.build_model(args, dev)
+    state = train.build_state(args, dev)
+    model = state.model
     if perturb:
         with torch.no_grad():
             next(model.parameters()).mul_(1.0 + perturb)
     init = {k: p.detach().to("cpu", copy=True)
             for k, p in model.named_parameters()}
-    opt = train.build_optimizer(args, model.parameters())
-    state = create_train_state(model, opt)
     step_fn, mems = _step_fn(train, args, model)
     arrays = [torch.from_numpy(a).to(dev) for a in batch]
     if mems is None:
@@ -1118,12 +1664,15 @@ def one_step(train, args, dev, batch, perturb=0.0):
 
 
 def _grad_differences(grads, above, params):
-    """By kind of parameter (its name without the layer index): |card -
+    """By kind of parameter (its name without layer and block indices,
+    ``layers.3.ff.weight`` -> ``layers.ff.weight``, ``Bottleneck_3.Conv_1
+    .weight`` -> ``Bottleneck.Conv.weight``): |card -
     CPU| / |CPU| and |floor - CPU| / |CPU| over the clipped grads, the
     elements beyond 1e-5 after the step, and the elements."""
     sums = {}
     for k, g in grads["cpu"].items():
-        name = ".".join(w for w in k.split(".") if not w.isdigit())
+        name = ".".join(re.sub(r"_\d+$", "", w) for w in k.split(".")
+                        if not w.isdigit())
         acc = sums.setdefault(name, [0.0, 0.0, 0.0, 0, 0])
         acc[0] += float(((grads["cuda"][k] - g) ** 2).sum())
         acc[1] += float(((grads["floor"][k] - g) ** 2).sum())
@@ -1145,7 +1694,8 @@ def phase_cross_check(train, counted, label, argv, batch, want,
     rounding of zero passes on one device and not on the other; that
     moves the gradients of everything below it by ~1e-3 of their norm.
     The run measures this floor on the CPU alone, against a step whose
-    word embedding is scaled by 1 + 1e-6, and the limits are FLOOR_X
+    first parameter (the word embedding, the stem's convolution) is scaled
+    by 1 + 1e-6, and the limits are FLOOR_X
     times it: each kind of parameter's clipped grads within FLOOR_X times
     the floor's relative difference for that kind; and since Adam's first
     step moves an element by lr * g / (|g| + eps), about lr whatever g's
@@ -1196,9 +1746,9 @@ def phase_cross_check(train, counted, label, argv, batch, want,
         f_err = max(float((p_f[k] - p_c[k]).abs().max()) for k in p_c)
         kinds = _grad_differences(
             {"cuda": g_g, "cpu": g_c, "floor": g_f}, above, p_c)
-        print(f"{label}: the floor, CPU vs CPU with the embedding x (1 + "
-              f"1e-6): {n_floor} of {n_all} parameter elements differ by "
-              f"more than 1e-5, max|dparam| {f_err:.3g} "
+        print(f"{label}: the floor, CPU vs CPU with the first parameter "
+              f"x (1 + 1e-6): {n_floor} of {n_all} parameter elements "
+              f"differ by more than 1e-5, max|dparam| {f_err:.3g} "
               f"({time.perf_counter() - t0:.1f} s)")
         print(f"{label}: by kind of parameter, |grad difference| / |grad| "
               f"card vs CPU, the floor's, card over floor, and elements "
@@ -1232,12 +1782,16 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     from apex_example_tpu_torch import train
-    from apex_example_tpu_torch.data.synthetic import lm_batch, mlm_batch
+    from apex_example_tpu_torch.data.synthetic import (image_batch,
+                                                       lm_batch, mlm_batch)
     from apex_example_tpu_torch.models.gpt import gpt_base
+    from apex_example_tpu_torch.models.resnet import resnet50
     from apex_example_tpu_torch.ops import _build
+    from apex_example_tpu_torch.ops import batch_norm as bn
     from apex_example_tpu_torch.ops import fused_optim as fo
     from apex_example_tpu_torch.ops import layer_norm as ln
     from apex_example_tpu_torch.ops import multi_tensor as mt
+    from apex_example_tpu_torch.parallel.sync_batchnorm import SyncBatchNorm
     from apex_example_tpu_torch.serve import cli
 
     counted = {"layer_norm_fwd": ln.layer_norm_cuda,
@@ -1246,7 +1800,10 @@ def main() -> int:
                "lamb_stage1": fo.lamb_stage1_cuda,
                "lamb_stage2": fo.lamb_stage2_cuda,
                "adam": fo.adam_cuda,
-               "multi_tensor_scale": mt.multi_tensor_scale_cuda}
+               "multi_tensor_scale": mt.multi_tensor_scale_cuda,
+               "sgd": fo.sgd_cuda,
+               "bn_stats": bn.bn_stats_cuda,
+               "bn_bwd_sums": bn.bn_bwd_sums_cuda}
     bert_step = {"layer_norm_fwd": 26, "layer_norm_bwd": 26,
                  "multi_tensor_l2norm": 1, "lamb_stage1": 1,
                  "lamb_stage2": 1}
@@ -1255,6 +1812,7 @@ def main() -> int:
                 "adam": 1}
     gpt_step = {"layer_norm_fwd": 26, "layer_norm_bwd": 26,
                 "multi_tensor_l2norm": 1, "adam": 1}
+    image_step = {"sgd": 1, "multi_tensor_l2norm": 1}
     phase_env()
     phase_build(_build)
     rows = [phase_kernels(ln), phase_ln_bwd(ln)]
@@ -1282,6 +1840,25 @@ def main() -> int:
     by_path["gpt"] = phase_train(train, counted, "gpt", GPT_ARGS, gpt_step)
     torch.cuda.empty_cache()
     phase_profile(train, TXL_ARGS)
+    torch.cuda.empty_cache()
+    rows.append(phase_sgd(fo, mt, resnet50))
+    bn_rows, by_path["syncbn"] = phase_bn(bn, SyncBatchNorm, counted)
+    rows += bn_rows
+    by_path["c2"], c2_args = phase_c2(train, counted, image_step)
+    torch.cuda.empty_cache()
+    by_path["c1"] = phase_train(train, counted, "c1", C1_ARGS, image_step)
+    by_path["dynamic"] = phase_train(
+        train, counted, "dynamic", DYN_ARGS,
+        dict(image_step, multi_tensor_scale=1), scale=2.0 ** 16)
+    phase_overflow_drill(train, counted)
+    imgs, labels = image_batch(0, batch_size=2, image_size=224,
+                               num_classes=1000, seed=0, device="cpu")
+    phase_cross_check(train, counted, "c2", C2_CROSS_ARGS,
+                      (imgs.numpy(), labels.numpy()), image_step,
+                      flip_lr=0.1)
+    busy_ms = phase_profile(train, c2_args)
+    if busy_ms is not None:
+        phase_bn_share(train, c2_args, SyncBatchNorm, busy_ms)
     for row in rows:
         row["launches_by_path"] = {k: v[row["name"]]
                                    for k, v in by_path.items()}

@@ -16,17 +16,27 @@ near zero); L2 norms and per-tensor sums rtol 1e-5; LAMB's m, v, u and p
 atol 1e-6, rtol 1e-5; Adam's p, m and v the same (fp32: the same
 arithmetic, up to the compiler's fused multiply-adds; bf16 p: one bf16
 ulp of p plus 1e-6); the scale kernel exactly (one fp32 product, then the
-same rounding) and its non-finite flag exactly.
+same rounding) and its non-finite flag exactly; SGD's p and buf rtol 1e-5
+plus atol 1e-6 (bf16 p: one bf16 ulp plus 1e-6), and bitwise unchanged
+under the noop flag; the BatchNorm sums rtol 1e-4 plus 4e-6 of the sum of
+their terms' magnitudes (sums over the rows in another order, which may
+cancel) and bitwise repeatable; the fused BatchNorm's y and
+dx against the CPU's 1e-4, its dscale and dbias rtol = atol 1e-4.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from apex_example_tpu_torch import amp
+from apex_example_tpu_torch.engine import create_train_state, make_train_step
+from apex_example_tpu_torch.models.resnet import resnet18
+from apex_example_tpu_torch.ops import batch_norm as bn
 from apex_example_tpu_torch.ops import fused_optim as fo
 from apex_example_tpu_torch.ops import layer_norm as port_ln
 from apex_example_tpu_torch.ops import multi_tensor as mt
-from apex_example_tpu_torch.optim.fused import FusedAdam, FusedLAMB
+from apex_example_tpu_torch.optim.fused import FusedAdam, FusedLAMB, FusedSGD
+from apex_example_tpu_torch.parallel.sync_batchnorm import SyncBatchNorm
 
 FP32_TOL = 1e-5
 
@@ -347,3 +357,208 @@ def test_fused_adam_with_clip_on_the_card_matches_the_cpu(cuda_device,
     for a, b in zip(p_gpu, p_cpu):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
                                    atol=1e-6)
+
+
+def _sgd_lists(device, shapes, dtype=torch.float32, seed=8):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    p = [(torch.randn(s, device=device, generator=gen) * 0.1).to(dtype)
+         for s in shapes]
+    g = [(torch.randn(s, device=device, generator=gen) * 1e-2).to(dtype)
+         for s in shapes]
+    b = [torch.randn(s, device=device, generator=gen) * 1e-2 for s in shapes]
+    return p, g, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("branch", [{}, {"nesterov": True},
+                                    {"first_step": True},
+                                    {"dampening": 0.25}])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_sgd_kernel_matches_plain(cuda_device, dtype, branch, misaligned):
+    p, g, b = _sgd_lists(cuda_device, SHAPES, dtype)
+    if misaligned:
+        p, g, b = ([_misaligned(t) for t in lst] for lst in (p, g, b))
+    p0, b0 = [t.clone() for t in p], [t.clone() for t in b]
+    hyper = dict(lr=0.1, momentum=0.9, weight_decay=1e-4, **branch)
+    launches = fo.sgd_cuda.launches
+    fo.sgd_cuda(mt.TensorTable([p, g, b]), **hyper)
+    torch.cuda.synchronize()
+    assert fo.sgd_cuda.launches == launches + 1
+    for i in range(len(p)):
+        p_p, b_p = fo.sgd_update_plain(p0[i], g[i], b0[i], **hyper)
+        np.testing.assert_allclose(b[i].cpu().numpy(), b_p.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-6)
+        a, r = p[i].float().cpu().numpy(), p_p.float().cpu().numpy()
+        if dtype == torch.float32:
+            np.testing.assert_allclose(a, r, rtol=1e-5, atol=1e-6)
+        else:
+            tol = 2.0 ** (np.floor(np.log2(np.maximum(
+                np.maximum(np.abs(a), np.abs(r)), 2.0 ** -126))) -
+                (7 if dtype == torch.bfloat16 else 10)) + 1e-6
+            assert np.all(np.abs(a - r) <= tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flag", [0, 1])
+def test_sgd_kernel_device_lr_and_noop_flag(cuda_device, flag):
+    p, g, b = _sgd_lists(cuda_device, SHAPES)
+    p0, b0 = [t.clone() for t in p], [t.clone() for t in b]
+    lr_t = torch.full((1,), 0.05, device=cuda_device)
+    noop = torch.full((), flag, dtype=torch.int32, device=cuda_device)
+    fo.sgd_cuda(mt.TensorTable([p, g, b]), lr=123.0, momentum=0.9,
+                weight_decay=1e-4, lr_t=lr_t, noop_flag=noop)
+    torch.cuda.synchronize()
+    for i in range(len(p)):
+        if flag:
+            assert torch.equal(p[i], p0[i]) and torch.equal(b[i], b0[i])
+        else:
+            p_p, b_p = fo.sgd_update_plain(p0[i], g[i], b0[i], lr=0.05,
+                                           momentum=0.9, weight_decay=1e-4)
+            np.testing.assert_allclose(p[i].cpu().numpy(),
+                                       p_p.cpu().numpy(), rtol=1e-5,
+                                       atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unscale_with_the_device_scale_flags_outputs(cuda_device, dtype):
+    x = _lists(cuda_device, SHAPES, dtype, seed=9)[1]
+    x[0][5, 7] = 1e38 if dtype == torch.float32 else 3e38
+    inv = torch.full((), 4.0, device=cuda_device)
+    want, finite = mt.multi_tensor_scale_plain(x, 4.0, flag_output=True)
+    flag = mt.multi_tensor_scale_cuda(mt.TensorTable([x]), 0, 0,
+                                      scale_t=inv, flag_output=True)
+    torch.cuda.synchronize()
+    assert int(flag) == 1 and not bool(finite)   # the product overflowed
+    for got, w in zip(x, want):
+        np.testing.assert_array_equal(got.float().cpu().numpy(),
+                                      w.float().cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_fused_sgd_on_the_card_matches_the_cpu_across_a_skip(cuda_device):
+    shapes = [(300, 64), (64,), (5,)]
+    gen = torch.Generator().manual_seed(10)
+    init = [torch.randn(s, generator=gen) for s in shapes]
+    grads = [[torch.randn(s, generator=gen) for s in shapes]
+             for _ in range(4)]
+    schedule = lambda step: 0.1 * 0.5 ** (step - 1)        # noqa: E731
+    result = []
+    for device in ("cuda", "cpu"):
+        ps = [torch.nn.Parameter(t.clone().to(device)) for t in init]
+        opt = FusedSGD(ps, lr=schedule, momentum=0.9, weight_decay=1e-4,
+                       nesterov=True)
+        before = fo.sgd_cuda.launches
+        for k, step in enumerate(grads):
+            opt.zero_grad()
+            for p, gr in zip(ps, step):
+                p.grad.add_(gr.to(device))
+            flag = torch.full((), int(k == 1), dtype=torch.int32,
+                              device=device)
+            opt.step(noop_flag=flag)
+        assert fo.sgd_cuda.launches - before == (4 if device == "cuda"
+                                                 else 0)
+        assert opt.step_count == 3
+        result.append(([p.detach().cpu() for p in ps],
+                       [m.cpu() for m in opt.momentum_buffer],
+                       float(opt.lr_tensor())))
+    (p_g, b_g, lr_g), (p_c, b_c, lr_c) = result
+    assert lr_g == lr_c == np.float32(0.1 * 0.5 ** 3)
+    for a, b in zip(p_g + b_g, p_c + b_c):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                   atol=1e-6)
+
+
+BN_CASES = [(1000, 64), (777, 37), (4096, 1024), (12544 // 8, 2048),
+            (33, 3), (1, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("rows,C", BN_CASES)
+def test_bn_kernels_match_plain(cuda_device, dtype, rows, C):
+    gen = torch.Generator(device=cuda_device).manual_seed(rows + C)
+    x = (torch.randn(rows, C, device=cuda_device, generator=gen) * 2
+         + 3).to(dtype)
+    dy = torch.randn(rows, C, device=cuda_device, generator=gen).to(dtype)
+    c = torch.randn(C, device=cuda_device, generator=gen) + 3
+    mean = torch.randn(C, device=cuda_device, generator=gen) + 3
+    inv = torch.rand(C, device=cuda_device, generator=gen) + 0.5
+    counts = (bn.bn_stats_cuda.launches, bn.bn_bwd_sums_cuda.launches)
+    got = bn.bn_stats_cuda(x, c) + bn.bn_bwd_sums_cuda(x, dy, mean, inv)
+    want = bn.bn_stats_plain(x, c) + bn.bn_bwd_sums_plain(x, dy, mean, inv)
+    again = bn.bn_stats_cuda(x, c) + bn.bn_bwd_sums_cuda(x, dy, mean, inv)
+    torch.cuda.synchronize()
+    assert (bn.bn_stats_cuda.launches - counts[0],
+            bn.bn_bwd_sums_cuda.launches - counts[1]) == (2, 2)
+    xc, dyf = x.float() - c, dy.float()
+    mags = (xc.abs().sum(0), (xc * xc).sum(0), dyf.abs().sum(0),
+            (dyf * (x.float() - mean) * inv).abs().sum(0))
+    for a, w, r, m in zip(got, want, again, mags):
+        assert a.dtype == torch.float32 and a.shape == (C,)
+        err = (a - w).abs()
+        assert bool((err <= 1e-4 * w.abs() + 4e-6 * m).all()), float(
+            err.max())
+        assert torch.equal(a, r)                      # bitwise repeat
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_batch_norm_on_the_card_matches_the_cpu(cuda_device, dtype):
+    gen = torch.Generator().manual_seed(11)
+    x = (torch.randn(8, 7, 7, 96, generator=gen) * 2 + 1).to(dtype)
+    dy = torch.randn(8, 7, 7, 96, generator=gen).to(dtype)
+    out = []
+    for device in ("cuda", "cpu"):
+        m = SyncBatchNorm(96, dtype=dtype, stats_dtype=torch.float32,
+                          fused_kernel=True, device=device)
+        affine = torch.Generator().manual_seed(12)
+        with torch.no_grad():
+            m.scale.copy_(torch.rand(96, generator=affine) + 0.5)
+            m.bias.copy_(torch.rand(96, generator=affine) - 0.5)
+        xd = x.to(device).requires_grad_()
+        y = m(xd)
+        y.backward(dy.to(device))
+        out.append([t.detach().float().cpu() for t in
+                    (y, xd.grad, m.scale.grad, m.bias.grad, m.mean, m.var)])
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, b in zip(*out):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_resnet18_dynamic_step_makes_no_host_sync(cuda_device):
+    policy, scaler = amp.initialize("O2", loss_scale="dynamic",
+                                    device=cuda_device)
+    md = amp.module_dtypes(policy)
+    model = resnet18(num_classes=10, num_filters=8, dtype=md.compute,
+                     bn_dtype=md.bn_stats, device=cuda_device)
+    opt = FusedSGD(model.parameters(), lr=lambda s: 0.1 / s, momentum=0.9)
+    state = create_train_state(model, opt, policy, scaler)
+    step = make_train_step()
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    x = torch.randn(8, 32, 32, 3, device=cuda_device, generator=gen)
+    y = torch.randint(0, 10, (8,), device=cuda_device, generator=gen)
+    state, _ = step(state, (x, y))                    # warm up
+    torch.cuda.synchronize()
+    before = [p.detach().clone() for p in model.parameters()]
+    bufs = [b.clone() for b in opt.momentum_buffer]
+    poison = lambda logits, labels: (                # noqa: E731
+        torch.nn.functional.cross_entropy(logits, labels) * float("inf"))
+    counts = (mt.multi_tensor_scale_cuda.launches, fo.sgd_cuda.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, metrics = make_train_step(poison)(state, (x, y))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert (mt.multi_tensor_scale_cuda.launches - counts[0],
+            fo.sgd_cuda.launches - counts[1]) == (1, 1)
+    assert float(metrics["grads_finite"]) == 0.0
+    assert float(state.scaler.scale) == 2.0 ** 15 and opt.step_count == 1
+    for a, b in zip(list(model.parameters()) + opt.momentum_buffer,
+                    before + bufs):
+        assert torch.equal(a, b)

@@ -75,7 +75,9 @@ def test_every_module_imports_with_jax_and_the_jax_package_poisoned(
             f"raise ImportError('the port imported {name}')\n")
     modules = _port_modules()
     for name in ("serve.engine", "train", "optim.fused", "engine",
-                 "ops.fused_optim", "ops.multi_tensor"):
+                 "ops.fused_optim", "ops.multi_tensor", "ops.batch_norm",
+                 "amp", "amp.lists", "amp.policy", "amp.autocast",
+                 "amp.scaler", "models.resnet", "parallel.sync_batchnorm"):
         assert f"apex_example_tpu_torch.{name}" in modules
     script = (
         "import importlib, sys\n"

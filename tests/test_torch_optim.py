@@ -1,16 +1,19 @@
-"""The port's L2 norm, scale, clip, Adam and LAMB, FusedAdam, FusedLAMB and
-schedules held against the JAX package's.
+"""The port's L2 norm, scale, clip, Adam, LAMB and SGD, FusedAdam,
+FusedLAMB, FusedSGD and schedules held against the JAX package's.
 
 The JAX side runs as its own tests run it: tests/conftest.py puts Pallas in
 interpret mode, so ``_sqsum_leaf``, ``multi_tensor_scale``,
-``adam_update_leaf``, ``lamb_stage1_leaf`` and ``lamb_stage2_leaf`` run
-the Pallas ``_sqsum_kernel``, ``_scale_kernel``, ``_adam_kernel``,
-``_lamb1_kernel`` and ``_lamb2_kernel`` through the interpreter.  Inputs
+``adam_update_leaf``, ``lamb_stage1_leaf``, ``lamb_stage2_leaf`` and
+``sgd_update_leaf`` run the Pallas ``_sqsum_kernel``, ``_scale_kernel``,
+``_adam_kernel``, ``_lamb1_kernel``, ``_lamb2_kernel`` and ``_sgd_kernel``
+through the interpreter.  Inputs
 come from numpy with a fixed seed and go to both sides.  Tolerances: sums
 of squares and norms rtol 1e-5 (fp32 sums in another order); the scale's
 outputs exactly (one fp32 product each, then the same rounding); u, m, v
 and p 1e-6 (the same fp32 arithmetic element by element); FusedLAMB's and
-FusedAdam's p, m and v after three steps 1e-6; clipped grads 1e-6.  The
+FusedAdam's p, m and v after three steps 1e-6; clipped grads 1e-6; SGD's p
+and buf 1e-6 in every branch, with fp32 and bf16 p, and FusedSGD's over
+five steps of a schedule.  The
 CUDA wrappers' refusals run here on meta tensors: they raise, never hand
 the tensors to a plain version, and build nothing.  The kernels themselves
 run on the card: tests/test_torch_cuda.py and chip_smoke.py.
@@ -23,13 +26,15 @@ import torch
 
 from apex_example_tpu.ops.fused_optim import (adam_update_leaf,
                                               lamb_stage1_leaf,
-                                              lamb_stage2_leaf)
+                                              lamb_stage2_leaf,
+                                              sgd_update_leaf)
 from apex_example_tpu.ops.multi_tensor import (
     _sqsum_leaf, clip_grad_norm as jax_clip_grad_norm,
     multi_tensor_l2norm as jax_l2norm,
     multi_tensor_scale as jax_multi_tensor_scale)
 from apex_example_tpu.optim.fused import FusedAdam as JaxAdam
 from apex_example_tpu.optim.fused import FusedLAMB as JaxLAMB
+from apex_example_tpu.optim.fused import FusedSGD as JaxSGD
 from apex_example_tpu.optim.fused import \
     lamb_step_scalars as jax_step_scalars
 from apex_example_tpu.optim.schedules import \
@@ -164,7 +169,13 @@ def _port_adam(params, lr):
     return ps, fused.FusedAdam(ps, lr=lr, weight_decay=0.01)
 
 
-@pytest.mark.parametrize("make", [_port_lamb, _port_adam])
+def _port_sgd(params, lr):
+    ps = [torch.nn.Parameter(torch.from_numpy(a.copy()))
+          for a in params.values()]
+    return ps, fused.FusedSGD(ps, lr=lr, momentum=0.9, weight_decay=1e-4)
+
+
+@pytest.mark.parametrize("make", [_port_lamb, _port_adam, _port_sgd])
 def test_grads_are_allocated_once_and_zeroed_in_place(make):
     ps, popt = make(_arrays(4), 1e-3)
     ptrs = [p.grad.data_ptr() for p in ps]
@@ -497,5 +508,152 @@ def test_fused_adam_off_the_cpu_takes_the_kernels_or_raises(no_build,
     opt = fused.FusedAdam(ps)
     assert opt.table is not None and all(p.grad is not None for p in ps)
     for call in (opt.step, opt.grad_norm, lambda: opt.clip_grad_norm(1.0)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+
+
+SGD_BRANCHES = [{}, {"nesterov": True}, {"first_step": True},
+                {"dampening": 0.3}, {"weight_decay": 0.0},
+                {"nesterov": True, "first_step": True}]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("branch", SGD_BRANCHES)
+def test_sgd_update_plain_matches_jax_kernel(dtype, branch):
+    rs = np.random.RandomState(11)
+    p = (rs.randn(5, 130) * 0.1).astype(np.float32)
+    g = (rs.randn(5, 130) * 1e-2).astype(np.float32)
+    b = (rs.randn(5, 130) * 1e-2).astype(np.float32)
+    hyper = dict(dict(lr=0.1, momentum=0.9, weight_decay=1e-4), **branch)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    jp, jb = sgd_update_leaf(jnp.asarray(p).astype(jdt),
+                             jnp.asarray(g).astype(jdt), jnp.asarray(b),
+                             **hyper)
+    tp, tb = fo.sgd_update_plain(torch.from_numpy(p).to(tdt),
+                                 torch.from_numpy(g).to(tdt),
+                                 torch.from_numpy(b), **hyper)
+    assert tp.dtype == tdt and tb.dtype == torch.float32
+    for got, want in ((tp, jp), (tb, jb)):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), rtol=0,
+                                   atol=STATE_TOL)
+
+
+def test_fused_sgd_five_steps_of_a_schedule_match_jax():
+    params = _arrays(6)
+    kw = dict(boundaries=[2, 4], gamma=0.5, warmup_steps=1)
+    jopt = JaxSGD(lr=jax_build_schedule("step", 0.1, 5, **kw), momentum=0.9,
+                  weight_decay=1e-4, nesterov=True)
+    jparams = {k: jnp.asarray(a) for k, a in params.items()}
+    jstate = jopt.init(jparams)
+    ps = [torch.nn.Parameter(torch.from_numpy(a.copy()))
+          for a in params.values()]
+    popt = fused.FusedSGD(ps, lr=build_schedule("step", 0.1, 5, **kw),
+                          momentum=0.9, weight_decay=1e-4, nesterov=True)
+    for step in range(5):
+        grads = _arrays(40 + step, scale=0.1)
+        jparams, jstate = jopt.apply({k: jnp.asarray(a) for k, a in
+                                      grads.items()}, jstate, jparams)
+        popt.zero_grad()
+        for p, a in zip(ps, grads.values()):
+            p.grad.add_(torch.from_numpy(a))
+        assert popt.step() is None                 # SGD takes no norm
+        for i, k in enumerate(params):
+            for got, want in ((ps[i], jparams[k]),
+                              (popt.momentum_buffer[i],
+                               jstate.momentum[k])):
+                np.testing.assert_allclose(got.detach().numpy(),
+                                           np.asarray(want), rtol=STATE_TOL,
+                                           atol=STATE_TOL)
+    assert popt.step_count == int(jstate.step) == 5
+
+
+def test_fused_sgd_noop_flag_keeps_params_buffers_and_step():
+    ps, popt = _port_sgd(_arrays(7), build_schedule(
+        "step", 0.1, 6, boundaries=[1, 2], gamma=0.5))
+    for p, a in zip(ps, _arrays(8).values()):
+        p.grad.copy_(torch.from_numpy(a))
+    popt.step()
+    before = [t.detach().clone() for t in ps + popt.momentum_buffer]
+    lr_before = float(popt.lr_tensor())
+    popt.step(noop_flag=torch.tensor(1, dtype=torch.int32))
+    assert popt.step_count == 1 and float(popt.lr_tensor()) == lr_before
+    for a, b in zip(ps + popt.momentum_buffer, before):
+        assert torch.equal(a, b)
+    popt.step(noop_flag=torch.tensor(0, dtype=torch.int32))
+    assert popt.step_count == 2
+    assert float(popt.lr_tensor()) == np.float32(0.025)
+    assert not torch.equal(ps[0], before[0])
+
+
+def test_fused_sgd_state_dict_round_trip():
+    params = _arrays(5)
+    ps, popt = _port_sgd(params, 1e-2)
+    for step in range(2):
+        for p, a in zip(ps, _arrays(20 + step).values()):
+            p.grad.copy_(torch.from_numpy(a))
+        popt.step()
+    saved = popt.state_dict()
+    assert saved["step"] == 2 and set(saved) == {"step", "momentum_buffer"}
+    ps2, popt2 = _port_sgd(params, 1e-2)
+    ptrs = [b.data_ptr() for b in popt2.momentum_buffer]
+    popt2.load_state_dict(saved)
+    assert popt2.step_count == 2
+    assert [b.data_ptr() for b in popt2.momentum_buffer] == ptrs
+    for a, b in zip(popt.momentum_buffer, popt2.momentum_buffer):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="momentum_buffer"):
+        popt2.load_state_dict({"step": 1, "momentum_buffer":
+                               saved["momentum_buffer"][:1]})
+
+
+def test_optimizers_group_parameters_by_dtype():
+    ps = [torch.nn.Parameter(_meta(4, 4, dtype=torch.bfloat16)),
+          torch.nn.Parameter(_meta(4)),
+          torch.nn.Parameter(_meta(3, dtype=torch.bfloat16))]
+    sgd = fused.FusedSGD(ps, lr=0.1)
+    assert sgd.groups == [[0, 2], [1]] and len(sgd.tables) == 2
+    assert [t.dtype(0) for t in sgd.tables] == [torch.bfloat16,
+                                                torch.float32]
+    with pytest.raises(ValueError, match="one dtype"):
+        fused.FusedAdam(ps).table
+
+
+def _meta_sgd_table(dtype=torch.float32, b_dtype=torch.float32, lists=3):
+    p = [_meta(8, 3, dtype=dtype), _meta(5, dtype=dtype)]
+    tensors = [p, [torch.empty_like(t) for t in p],
+               [_meta(8, 3, dtype=b_dtype), _meta(5, dtype=b_dtype)]]
+    return mt.TensorTable(tensors[:lists])
+
+
+@pytest.mark.parametrize("make,kw,err,match", [
+    (lambda: _meta_sgd_table(lists=2), {}, ValueError, "3 lists"),
+    (lambda: _meta_sgd_table(b_dtype=torch.bfloat16), {}, TypeError,
+     "momentum buffers"),
+    (lambda: _meta_sgd_table(torch.float64), {}, TypeError, "float32"),
+    (_meta_sgd_table, dict(lr_t=_meta(1, dtype=torch.float16)), ValueError,
+     "lr_t"),
+    (_meta_sgd_table, dict(noop_flag=_meta(())), ValueError, "noop_flag"),
+    (_meta_sgd_table, {}, ValueError, "CUDA"),
+])
+def test_sgd_wrapper_raises_on_what_it_cannot_take(no_build, make, kw, err,
+                                                   match):
+    before = fo.sgd_cuda.launches
+    with pytest.raises(err, match=match):
+        fo.sgd_cuda(make(), lr=0.1, momentum=0.9, weight_decay=0.0, **kw)
+    assert fo.sgd_cuda.launches == before
+
+
+def test_fused_sgd_off_the_cpu_takes_the_kernels_or_raises(no_build,
+                                                           monkeypatch):
+    def no_plain(*a, **k):
+        raise AssertionError("plain SGD ran for non-CPU parameters")
+    for name in ("sgd_update_plain", "multi_tensor_scale_plain",
+                 "multi_tensor_l2norm_plain"):
+        monkeypatch.setattr(fused, name, no_plain)
+    ps = [torch.nn.Parameter(_meta(4, 4)), torch.nn.Parameter(_meta(4))]
+    opt = fused.FusedSGD(ps, lr=0.1, momentum=0.9)
+    for call in (opt.step, opt.grad_norm,
+                 lambda: opt.unscale_grads(_meta(()))):
         with pytest.raises(ValueError, match="CUDA"):
             call()

@@ -1,7 +1,8 @@
-"""The port's training slices held against the JAX package's at amp O0, on
-the CPU: bert_tiny MLM with FusedLAMB, gpt_tiny with FusedAdam and
+"""The port's training slices held against the JAX package's, on the CPU:
+bert_tiny MLM with FusedLAMB, gpt_tiny with FusedAdam and
 transformer_xl_tiny with the global-norm clip, FusedAdam and its memory
-carried from step to step.
+carried from step to step, at amp O0; ResNet-18 with FusedSGD at O0, O2 and
+under dynamic loss scaling, and its eval step.
 
 - 5-step loss trails: identical initial weights (the flax init, converted)
   and identical batches (the JAX ``mlm_batch`` / ``lm_batch``, as numpy)
@@ -15,9 +16,24 @@ carried from step to step.
   ``--metrics-jsonl`` stream passes ``tools/metrics_lint.py
   --require-summary`` (the Transformer-XL stream carries ``ppl``); without
   ``--device`` it raises where torch sees no CUDA; the flags of paths not
-  ported (``--opt sgd``, ``--opt-level O2``, ``--arch resnet18``,
+  ported (``--opt adagrad``, ``--grad-accum``, ``--sync_bn``,
   ``--tensor-parallel``) are rejected by argparse.
-- The numpy data generators keep the JAX generators' distributions.
+- ResNet-18 (num_filters 4, the CIFAR stem, 16 px, batch 4) with
+  FusedSGD: the same weights (numpy, in flax's tree, converted) and the
+  JAX ``image_batch``'s images through the JAX ``make_train_step`` and the
+  port's.  At O0 losses, grad norms and parameters as above, top-1 equal.
+  At O2 (bf16 convolutions and BatchNorm I/O, fp32 statistics and master
+  weights) the two frameworks round the bf16 activations at other places:
+  each tensor of the port's first grads no more than twice as far from
+  the fp32 grads as JAX's are, and three steps' losses rtol 2e-2.  Under
+  ``--loss-scale dynamic`` with a step-decay schedule, a step whose scaled
+  loss overflows (the loss times 1e38) is skipped by both: parameters,
+  momentum, the learning rate the step count implies and the scale equal
+  JAX's at every step.  The eval step's loss rtol 1e-4, top-1 and top-5
+  equal.  The CLI trains ResNet-18 under O2 with dynamic scaling and
+  ``--eval`` and its stream lints.
+- The data generators keep the JAX generators' distributions; the image
+  patterns are ``jax.image.resize``'s bilinear upsampling.
 """
 
 import json
@@ -31,35 +47,47 @@ import numpy as np
 import pytest
 import torch
 
+from apex_example_tpu import amp as jamp
 from apex_example_tpu.amp.policy import get_policy
+from apex_example_tpu.data.synthetic import image_batch as jax_image_batch
 from apex_example_tpu.data.synthetic import lm_batch as jax_lm_batch
 from apex_example_tpu.data.synthetic import mlm_batch as jax_mlm_batch
 from apex_example_tpu.engine import create_train_state as jax_create_state
+from apex_example_tpu.engine import TrainState as JaxTrainState
+from apex_example_tpu.engine import cross_entropy_loss as jax_cross_entropy
+from apex_example_tpu.engine import make_eval_step as jax_make_eval_step
 from apex_example_tpu.engine import make_train_step as jax_make_step
 from apex_example_tpu.models.bert import bert_tiny as jax_bert_tiny
 from apex_example_tpu.models.gpt import gpt_tiny as jax_gpt_tiny
+from apex_example_tpu.models.resnet import resnet18 as jax_resnet18
 from apex_example_tpu.models.transformer_xl import \
     transformer_xl_tiny as jax_txl_tiny
 from apex_example_tpu.optim.fused import FusedAdam as JaxAdam
 from apex_example_tpu.optim.fused import FusedLAMB as JaxLAMB
+from apex_example_tpu.optim.fused import FusedSGD as JaxSGD
 from apex_example_tpu.optim.schedules import \
     build_schedule as jax_build_schedule
 from apex_example_tpu.utils.meters import Throughput as JaxThroughput
 from apex_example_tpu.workloads import lm_loss as jax_lm_loss
 from apex_example_tpu.workloads import make_txl_train_step as jax_txl_step
 from apex_example_tpu.workloads import mlm_loss as jax_mlm_loss
-from apex_example_tpu_torch import train
+from apex_example_tpu_torch import amp, train
 from apex_example_tpu_torch.convert import (bert_params_from_flax,
                                             gpt_params_from_flax,
+                                            resnet_params_from_flax,
                                             txl_params_from_flax)
-from apex_example_tpu_torch.data.synthetic import lm_batch, mlm_batch
-from apex_example_tpu_torch.engine import create_train_state, make_train_step
+from apex_example_tpu_torch.data.synthetic import (image_batch, lm_batch,
+                                                   mlm_batch,
+                                                   resize_patterns)
+from apex_example_tpu_torch.engine import (create_train_state,
+                                           make_eval_step, make_train_step)
 from apex_example_tpu_torch.models.bert import bert_tiny
 from apex_example_tpu_torch.models.gpt import gpt_tiny
+from apex_example_tpu_torch.models.resnet import resnet18
 from apex_example_tpu_torch.models.transformer_xl import transformer_xl_tiny
 from apex_example_tpu_torch.obs.metrics import JsonlSink
 from apex_example_tpu_torch.obs.telemetry import TelemetryEmitter
-from apex_example_tpu_torch.optim.fused import FusedAdam, FusedLAMB
+from apex_example_tpu_torch.optim.fused import FusedAdam, FusedLAMB, FusedSGD
 from apex_example_tpu_torch.optim.schedules import build_schedule
 from apex_example_tpu_torch.utils.meters import AverageMeter, Throughput
 from apex_example_tpu_torch.workloads import (lm_loss, make_txl_train_step,
@@ -316,9 +344,8 @@ def test_cli_defaults_to_cuda_and_raises_without_it(monkeypatch):
         train.main(["--arch", "bert_tiny", "--steps-per-epoch", "1"])
 
 
-@pytest.mark.parametrize("argv", [["--opt", "sgd"], ["--opt-level", "O2"],
-                                  ["--arch", "resnet18"],
-                                  ["--tensor-parallel", "2"]])
+@pytest.mark.parametrize("argv", [["--opt", "adagrad"], ["--grad-accum", "2"],
+                                  ["--sync_bn"], ["--tensor-parallel", "2"]])
 def test_flags_of_other_paths_are_rejected(argv):
     with pytest.raises(SystemExit) as exc:
         train.build_parser().parse_args(["--device", "cpu"] + argv)
@@ -369,3 +396,271 @@ def test_meters_match_the_jax_package():
         ours.step(10)
         theirs.step(10)
     assert ours.items == theirs.items == 20 and ours.rate > 0
+
+
+IMG_CLASSES, IMG_SIZE, IMG_STEPS = 10, 16, 5
+
+
+def _flax_weights(jm, seed):
+    """The flax ``params`` / ``batch_stats`` of ``jm`` from numpy (He-normal
+    kernels, BatchNorm around its init): ``jax.eval_shape`` gives the tree
+    without running the init."""
+    tree = jax.eval_shape(lambda: jm.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, IMG_SIZE, IMG_SIZE, 3)),
+        train=False))
+    rs = np.random.RandomState(seed)
+
+    def fill(path, leaf):
+        name, shape = path[-1].key, leaf.shape
+        if name == "kernel":
+            std = np.sqrt(2.0 / np.prod(shape[:-1]))
+            return (rs.randn(*shape) * std).astype(np.float32)
+        base = {"scale": 1.0, "var": 1.0}.get(name, 0.0)
+        return (base + 0.05 * rs.randn(*shape)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, tree)
+
+
+def _image_batches(n, start=0):
+    return [tuple(np.array(a) for a in jax_image_batch(
+        jnp.asarray(start + i, jnp.int32), batch_size=B,
+        image_size=IMG_SIZE, num_classes=IMG_CLASSES, seed=0))
+        for i in range(n)]
+
+
+def _resnet_pair(level, lr, loss_scale=None, seed=2):
+    """JAX and port ResNet-18 train states at ``level`` from one set of
+    weights, with FusedSGD (momentum 0.9, weight decay 1e-4)."""
+    jpolicy = get_policy(level, loss_scale=loss_scale)
+    jmd = jamp.module_dtypes(jpolicy)
+    jm = jax_resnet18(num_classes=IMG_CLASSES, num_filters=4,
+                      small_stem=True, dtype=jmd.compute,
+                      param_dtype=jmd.param, bn_dtype=jmd.bn_stats,
+                      bn_io_dtype=jmd.bn_io)
+    v = _flax_weights(jm, seed)
+    jopt = JaxSGD(lr=lr if not isinstance(lr, dict) else
+                  jax_build_schedule(**lr), momentum=0.9, weight_decay=1e-4)
+    jstate = JaxTrainState(
+        step=jnp.zeros((), jnp.int32), params=v["params"],
+        batch_stats=v["batch_stats"], opt_state=jopt.init(v["params"]),
+        scaler=jamp.make_scaler(jpolicy))
+    policy, scaler = amp.initialize(level, loss_scale=loss_scale)
+    md = amp.module_dtypes(policy)
+    pm = resnet18(num_classes=IMG_CLASSES, num_filters=4, small_stem=True,
+                  dtype=md.compute, param_dtype=md.param,
+                  bn_dtype=md.bn_stats, bn_io_dtype=md.bn_io, device="cpu")
+    pm.load_state_dict(resnet_params_from_flax(v["params"],
+                                               v["batch_stats"]))
+    popt = FusedSGD(pm.parameters(), lr=lr if not isinstance(lr, dict) else
+                    build_schedule(**lr), momentum=0.9, weight_decay=1e-4)
+    pstate = create_train_state(pm, popt, policy, scaler)
+    return jm, jopt, jpolicy, jstate, pm, popt, pstate
+
+
+def _assert_resnet_follows(pm, jstate, tol):
+    want = resnet_params_from_flax(
+        jax.tree_util.tree_map(np.asarray, jstate.params),
+        jax.tree_util.tree_map(np.asarray, jstate.batch_stats))
+    for name, t in list(pm.named_parameters()) + list(pm.named_buffers()):
+        np.testing.assert_allclose(t.detach().float().numpy(),
+                                   want[name].float().numpy(), rtol=tol,
+                                   atol=tol, err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def resnet_o0_trail():
+    jm, jopt, jpolicy, jstate, pm, popt, pstate = _resnet_pair("O0", 0.02)
+    jstep = jax.jit(jax_make_step(jm, jopt, jpolicy))
+    pstep = make_train_step()
+    metrics = []
+    for x, y in _image_batches(IMG_STEPS):
+        jstate, jmet = jstep(jstate, (jnp.asarray(x), jnp.asarray(y)))
+        pstate, pmet = pstep(pstate, (torch.from_numpy(x),
+                                      torch.from_numpy(y).long()))
+        metrics.append((jmet, pmet))
+    return jm, jstate, pstate, metrics
+
+
+def test_resnet18_five_step_sgd_trail_matches_jax(resnet_o0_trail):
+    _, jstate, pstate, metrics = resnet_o0_trail
+    for jmet, pmet in metrics:
+        for key in ("loss", "grad_norm"):
+            np.testing.assert_allclose(float(pmet[key]), float(jmet[key]),
+                                       rtol=TRAIL_TOL, err_msg=key)
+        assert float(pmet["top1"]) == float(jmet["top1"])
+        assert float(pmet["scale"]) == float(jmet["scale"]) == 1.0
+        assert pmet["grads_finite"] == 1.0
+    assert pstate.step == IMG_STEPS == int(jstate.step)
+    assert pstate.optimizer.step_count == int(jstate.opt_state.step)
+    _assert_resnet_follows(pstate.model, jstate, TRAIL_TOL)
+    losses = [float(p["loss"]) for _, p in metrics]
+    assert losses[-1] < losses[0]
+
+
+def test_resnet18_eval_step_matches_jax(resnet_o0_trail):
+    jm, jstate, pstate, _ = resnet_o0_trail
+    jeval = jax.jit(jax_make_eval_step(jm))
+    peval = make_eval_step()
+    for x, y in _image_batches(2, start=10_000):
+        jmet = jeval(jstate, (jnp.asarray(x), jnp.asarray(y)))
+        pmet = peval(pstate, (torch.from_numpy(x),
+                              torch.from_numpy(y).long()))
+        np.testing.assert_allclose(float(pmet["loss"]), float(jmet["loss"]),
+                                   rtol=TRAIL_TOL)
+        for key in ("top1", "top5"):
+            assert float(pmet[key]) == float(jmet[key]), key
+    assert not pstate.model.training
+
+
+def _first_grads(jm, jstate, pm, x, y):
+    """The grads of one cross-entropy loss, JAX's and the port's, fp32."""
+    def loss(params):
+        logits, _ = jm.apply({"params": params,
+                              "batch_stats": jstate.batch_stats},
+                             jnp.asarray(x), train=True,
+                             mutable=["batch_stats"])
+        return jax_cross_entropy(logits, jnp.asarray(y))
+
+    g = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32),
+                               jax.jit(jax.grad(loss))(jstate.params))
+    pm.train()
+    torch.nn.functional.cross_entropy(
+        pm(torch.from_numpy(x)), torch.from_numpy(y).long()).backward()
+    got = {n: p.grad.detach().float().clone()
+           for n, p in pm.named_parameters()}
+    pm.zero_grad(set_to_none=False)
+    return resnet_params_from_flax(g), got
+
+
+def test_resnet18_o2_trail_follows_jax_within_bf16_rounding():
+    # bf16 rounds each activation and cotangent to 8 bits, and the two
+    # frameworks round at other places (XLA inside its fusions, PyTorch
+    # after each op), so O2 is held to its distance from fp32: each
+    # tensor of the port's O2 grads no more than twice as far from the
+    # fp32 grads as JAX's O2 grads are (BatchNorm biases, sums of
+    # cancelling bf16 cotangents, are 20-80% off in both).  Three steps
+    # at a small lr: losses rtol 2e-2 (bf16 logits, through BatchNorm
+    # over few rows).
+    # The fp32 grads are the port's at O0, which equal JAX's (the O0 trail).
+    (x, y), = _image_batches(1)
+    _, _, _, _, pm0, _, _ = _resnet_pair("O0", 0.001)
+    pm0.train()
+    torch.nn.functional.cross_entropy(
+        pm0(torch.from_numpy(x)), torch.from_numpy(y).long()).backward()
+    g32 = {n: p.grad for n, p in pm0.named_parameters()}
+    jm, jopt, jpolicy, jstate, pm, popt, pstate = _resnet_pair("O2", 0.001)
+    j16, p16 = _first_grads(jm, jstate, pm, x, y)
+    rel = lambda a, b: float((a - b).norm() / b.norm())     # noqa: E731
+    for name, g in g32.items():
+        assert rel(p16[name], g) <= 2 * rel(j16[name], g) + 1e-3, name
+    jstep = jax.jit(jax_make_step(jm, jopt, jpolicy))
+    pstep = make_train_step()
+    assert pm.get_submodule("conv_init").weight.dtype == torch.float32
+    for x, y in _image_batches(3):
+        jstate, jmet = jstep(jstate, (jnp.asarray(x), jnp.asarray(y)))
+        pstate, pmet = pstep(pstate, (torch.from_numpy(x),
+                                      torch.from_numpy(y).long()))
+        np.testing.assert_allclose(float(pmet["loss"]), float(jmet["loss"]),
+                                   rtol=2e-2)
+    assert all(p.dtype == torch.float32 for p in pm.parameters())
+
+
+def test_dynamic_scaling_skips_an_overflow_step_as_jax_does():
+    schedule = dict(name="step", base_lr=0.05, total_steps=6,
+                    boundaries=[2, 4], gamma=0.5)
+    jm, jopt, jpolicy, jstate, pm, popt, pstate = _resnet_pair(
+        "O0", schedule, loss_scale="dynamic")
+    jloss = lambda logits, y: jax_cross_entropy(logits, y[0]) * y[1]
+    ploss = lambda logits, y: (                         # noqa: E731
+        torch.nn.functional.cross_entropy(logits.float(), y[0]) * y[1])
+    jstep = jax.jit(jax_make_step(jm, jopt, jpolicy, loss_fn=jloss))
+    pstep = make_train_step(ploss)
+    jlr = jax_build_schedule(**schedule)
+    factors = [1.0, 1.0, 1e38, 1.0, 1.0, 1.0]         # step 3 overflows
+    for (x, y), f in zip(_image_batches(len(factors)), factors):
+        jstate, jmet = jstep(jstate, (jnp.asarray(x),
+                                      (jnp.asarray(y), jnp.float32(f))))
+        pstate, pmet = pstep(pstate, (torch.from_numpy(x), (
+            torch.from_numpy(y).long(), torch.tensor(f, dtype=torch.float32))))
+        skipped = f > 1.0
+        assert float(pmet["grads_finite"]) == float(jmet["grads_finite"]) \
+            == (0.0 if skipped else 1.0)
+        assert float(pmet["scale"]) == float(jmet["scale"])
+        assert popt.step_count == int(jstate.opt_state.step)
+        np.testing.assert_allclose(
+            float(popt.lr_tensor()),
+            float(jlr(jstate.opt_state.step + 1)), rtol=1e-7)
+        _assert_resnet_follows(pm, jstate, TRAIL_TOL)
+        for i, (name, _) in enumerate(pm.named_parameters()):
+            want = resnet_params_from_flax(jax.tree_util.tree_map(
+                np.asarray, jstate.opt_state.momentum))[name]
+            np.testing.assert_allclose(popt.momentum_buffer[i].numpy(),
+                                       want.numpy(), rtol=TRAIL_TOL,
+                                       atol=TRAIL_TOL, err_msg=name)
+    assert float(pstate.scaler.scale) == 2.0 ** 15
+    assert popt.step_count == 5 and pstate.step == 6
+
+
+def test_image_cli_runs_o2_dynamic_with_eval_and_its_stream_lints(tmp_path):
+    stream = tmp_path / "resnet.jsonl"
+    proc = subprocess.run(
+        [sys.executable, "-m", "apex_example_tpu_torch.train", "--device",
+         "cpu", "--arch", "resnet18", "--dataset", "cifar10",
+         "--opt-level", "O2", "--loss-scale", "dynamic", "--eval",
+         "--eval-batches", "2", "--batch-size", "4", "--steps-per-epoch",
+         "3", "--print-freq", "1", "--lr", "0.01", "--metrics-jsonl",
+         str(stream)], cwd=REPO, capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    steps = [ln for ln in lines if ln.startswith("epoch 0 step ")]
+    assert len(steps) == 3 and all(" top1 " in ln and " img/s scale 65536"
+                                   in ln for ln in steps)
+    assert any(ln.startswith("epoch 0 EVAL loss ") and ln.endswith(
+        "(2 batches)") for ln in lines)
+    assert "opt-level O2 (compute bfloat16" in proc.stdout
+    lint = subprocess.run(
+        [sys.executable, "tools/metrics_lint.py", str(stream),
+         "--require-summary"], cwd=REPO, capture_output=True, text=True,
+        timeout=120)
+    assert lint.returncode == 0, lint.stdout + lint.stderr
+    records = [json.loads(ln) for ln in stream.read_text().splitlines()]
+    recs = [r for r in records if r["record"] == "step"]
+    assert [r["step"] for r in recs] == [1, 2, 3]
+    assert all(r["scale"] == 65536.0 and "top1" in r and r["grads_finite"]
+               == 1.0 for r in recs)
+    assert records[-1]["record"] == "run_summary"
+
+
+@pytest.mark.parametrize("argv", [["--opt-level", "O2"],
+                                  ["--loss-scale", "dynamic"],
+                                  ["--eval"]])
+def test_lm_archs_refuse_amp_and_eval_until_their_slice(argv):
+    with pytest.raises(SystemExit, match="slice"):
+        train.main(["--device", "cpu", "--arch", "bert_tiny"] + argv)
+
+
+def test_image_patterns_are_jax_image_resize():
+    low = np.random.RandomState(0).randn(3, 8, 8, 2).astype(np.float32)
+    for size in (32, 224):
+        want = jax.image.resize(jnp.asarray(low), (3, size, size, 2),
+                                "bilinear")
+        got = resize_patterns(torch.from_numpy(low), size)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+
+
+def test_image_batch_is_deterministic_per_step_on_its_device():
+    imgs, labels = image_batch(3, batch_size=64, image_size=32, seed=0)
+    again = image_batch(3, batch_size=64, image_size=32, seed=0)
+    other = image_batch(4, batch_size=64, image_size=32, seed=0)
+    assert imgs.shape == (64, 32, 32, 3) and imgs.dtype == torch.float32
+    assert labels.dtype == torch.int64 and labels.shape == (64,)
+    assert int(labels.min()) >= 0 and int(labels.max()) < 10
+    assert torch.equal(imgs, again[0]) and torch.equal(labels, again[1])
+    assert not torch.equal(imgs, other[0])
+    noisy = image_batch(3, batch_size=4096, image_size=8, seed=0,
+                        label_noise=0.5)[1]
+    clean = image_batch(3, batch_size=4096, image_size=8, seed=0)[1]
+    assert torch.equal(noisy[:0], clean[:0])
+    changed = float((noisy != clean).float().mean())
+    assert 0.35 < changed < 0.55         # p (1 - 1 / classes) = 0.45
