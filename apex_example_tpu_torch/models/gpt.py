@@ -6,7 +6,11 @@ layers (models/bert.BertLayer, causal) -> ``final_ln`` -> the tied head
 the plain causal forward over whole sequences or, given a
 :class:`~apex_example_tpu_torch.models.bert.PagedStep`, one step of
 block-paged slot decode, where positions come from the host's per-slot
-fill levels, clipped into the position table (:136-138).
+fill levels, clipped into the position table (:136-138).  The layers take
+the flash-attention kernels under ``fused_attention`` (True, or "auto"
+at sequence 2048 and up) and the amp dtypes ``dtype``, ``param_dtype``,
+``ln_dtype`` and ``softmax_dtype`` (:45-49, :176), as models/bert.py
+describes.
 
 Weights: random from ``seed`` (a CPU ``torch.Generator``, so the same seed
 gives the same weights on any device), or a flax tree through
@@ -20,11 +24,12 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from apex_example_tpu_torch import resolve_device
-from apex_example_tpu_torch.models.bert import BertLayer, PagedStep
+from apex_example_tpu_torch.models.bert import (BertLayer, FusedSetting,
+                                                PagedStep, cast_params,
+                                                embed, tied_logits)
 from apex_example_tpu_torch.normalization import FusedLayerNorm
 
 
@@ -32,13 +37,20 @@ class GPTForCausalLM(nn.Module):
     def __init__(self, vocab_size: int = 30522, hidden_size: int = 768,
                  num_layers: int = 12, num_heads: int = 12,
                  intermediate_size: int = 3072, max_position: int = 1024,
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, device="cuda",
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32,
+                 ln_dtype: Optional[torch.dtype] = None,
+                 softmax_dtype: torch.dtype = torch.float32,
+                 fused_attention: FusedSetting = "auto"):
         super().__init__()
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
         self.num_heads = num_heads
         self.max_position = max_position
+        self.dtype = dtype
+        self.ln_dtype = ln_dtype or dtype
         # Built without storage, filled from the seeded generator on the
         # host, then moved: the weights depend on the seed alone.
         with torch.device("meta"):
@@ -48,28 +60,26 @@ class GPTForCausalLM(nn.Module):
             self.embeddings_ln = FusedLayerNorm(hidden_size)
             self.layers = nn.ModuleList(
                 BertLayer(hidden_size, num_heads, intermediate_size,
-                          causal=True)
+                          causal=True, dtype=dtype, ln_dtype=ln_dtype,
+                          softmax_dtype=softmax_dtype,
+                          fused_attention=fused_attention)
                 for _ in range(num_layers))
             self.final_ln = FusedLayerNorm(hidden_size)
             self.lm_bias = nn.Parameter(torch.zeros(vocab_size))
         self.to_empty(device="cpu")
         _init_weights(self, seed)
+        cast_params(self, param_dtype)
         self.to(resolve_device(device))
 
     def forward(self, input_ids: torch.Tensor,
                 step: Optional[PagedStep] = None) -> torch.Tensor:
         """[B, L] token ids -> [B, L, vocab] fp32 logits."""
-        L = input_ids.shape[1]
-        if step is None:
-            pos = torch.arange(L, device=input_ids.device)[None, :]
-        else:
-            pos = step.pos.clamp(0, self.max_position - 1)
-        x = self.word_embeddings(input_ids) + self.position_embeddings(pos)
-        x = self.embeddings_ln(x)
+        pos = None if step is None else step.pos.clamp(
+            0, self.max_position - 1)
+        x = embed(self, input_ids, pos)
         for i, layer in enumerate(self.layers):
             x = layer(x, None if step is None else step.arenas[i], step)
-        x = self.final_ln(x)
-        return F.linear(x, self.word_embeddings.weight, self.lm_bias).float()
+        return tied_logits(self, self.final_ln, x, self.lm_bias)
 
 
 def _init_weights(model: GPTForCausalLM, seed: int) -> None:

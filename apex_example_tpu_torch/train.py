@@ -11,13 +11,19 @@ FusedLAMB) under amp O0-O3, with ``--loss-scale`` and
     python -m apex_example_tpu_torch.train --arch resnet50 \
         --dataset imagenet --opt sgd --opt-level O2
 
-The language-model path (``_lm_main_impl`` :1014) at amp O0: BERT MLM (C4),
-GPT causal LM and Transformer-XL (C5) with its memory carried from step to
-step, trained with FusedLAMB, FusedAdam or FusedSGD:
+The language-model path (``_lm_main_impl`` :1014): BERT MLM (C4) and GPT
+causal LM at amp O0 or O2, Transformer-XL (C5) at O0 with its memory
+carried from step to step, trained with FusedLAMB, FusedAdam or FusedSGD.
+BERT and GPT attention takes the flash-attention kernels at sequence 2048
+and up, or at any length with ``--fused-attention`` (models/bert.py):
 
     python -m apex_example_tpu_torch.train --arch bert_base --opt lamb
     python -m apex_example_tpu_torch.train --arch transformer_xl --opt adam
     python -m apex_example_tpu_torch.train --arch gpt_base --opt adam
+    # long context: 8 x 2048 tokens a step through the kernels, bf16
+    python -m apex_example_tpu_torch.train --arch gpt_base --opt adam \
+        --lr 1e-4 --weight-decay 0.01 --seq-len 2048 --batch-size 8 \
+        --opt-level O2
 
     # on the CPU (the kernels' plain versions), records to JSONL
     python -m apex_example_tpu_torch.train --device cpu --arch bert_tiny \
@@ -34,8 +40,11 @@ GPT and Transformer-XL (:1262-1267).  ``--vocab-size`` applies to
 bert_base, gpt_base and transformer_xl (:1215-1216).  Transformer-XL's
 memory starts at ``init_mems(batch)`` and is carried from step to step
 (:1536-1537, :1729-1732); its step clips the grads to ``--max-grad-norm``
-before the optimizer (workloads.make_txl_train_step).  The LM archs run at
-O0 only (amp for them is the next slice) and without ``--eval``.  Entry
+before the optimizer (workloads.make_txl_train_step).  BERT and GPT run at
+O0 or O2 (bf16 dense layers, embeddings and LayerNorm I/O over fp32
+masters, fp32 softmax and logits, the identity loss scaler), without
+``--loss-scale`` (FusedAdam's and FusedLAMB's kernels take no noop flag
+yet); Transformer-XL at O0; the LM archs without ``--eval``.  Entry
 points run on the card unless ``--device cpu`` is given, and raise when
 CUDA is asked for and absent.  The flags of paths not ported yet (DDP,
 model parallelism, checkpoints, grad accumulation, diagnostics) are
@@ -103,6 +112,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="image shapes: cifar10 (32 px, 10 classes) or "
                         "imagenet (224 px, 1000 classes)")
     p.add_argument("--seq-len", type=int, default=128)
+    p.add_argument("--fused-attention", action="store_true",
+                   help="flash-attention kernels for the BERT/GPT archs at "
+                        "any sequence length (default: at 2048 and up; "
+                        "fp32-softmax opt levels only)")
     p.add_argument("--vocab-size", type=int, default=30522,
                    help="vocabulary of bert_base, gpt_base and "
                         "transformer_xl (the tiny archs keep 256)")
@@ -160,14 +173,19 @@ def is_image(args) -> bool:
 
 def build_model(args, device, policy=None):
     kw = {"seed": args.seed, "device": device}
+    md = amp.module_dtypes(policy or amp.get_policy("O0"))
     if is_image(args):
-        md = amp.module_dtypes(policy or amp.get_policy("O0"))
         return IMAGE_ARCHS[args.arch](
             num_classes=DATASETS[args.dataset]["num_classes"],
             dtype=md.compute, param_dtype=md.param, bn_dtype=md.bn_stats,
             bn_io_dtype=md.bn_io, **kw)
     if args.arch in VOCAB_ARCHS:
         kw["vocab_size"] = args.vocab_size
+    if not is_txl(args):
+        # flag set: the kernels at any length; absent: "auto" (:1224)
+        kw.update(dtype=md.compute, param_dtype=md.param,
+                  ln_dtype=md.ln_io, softmax_dtype=md.softmax,
+                  fused_attention=args.fused_attention or "auto")
     if args.seq_len > ARCH_MAX_POSITION.get(args.arch, args.seq_len):
         kw["max_position"] = args.seq_len
     return ARCHS[args.arch](**kw)
@@ -217,6 +235,12 @@ def check_args(args) -> None:
                  "print_freq", "eval_batches"):
         if getattr(args, flag) < 1:
             raise SystemExit(f"--{flag.replace('_', '-')} must be >= 1")
+    if args.fused_attention and not args.arch.startswith(("bert", "gpt")):
+        raise SystemExit("--fused-attention is wired for the BERT/GPT "
+                         "archs only")
+    if args.fused_attention and args.opt_level == "O3":
+        raise SystemExit("--fused-attention requires fp32 softmax "
+                         "(opt levels O0-O2); O3 runs softmax half")
     if is_image(args):
         if args.opt != "sgd" and args.opt_level == "O3":
             raise SystemExit("--opt-level O3 keeps BatchNorm's parameters "
@@ -227,12 +251,15 @@ def check_args(args) -> None:
             raise SystemExit("--loss-scale dynamic skips steps through "
                              "FusedSGD's noop flag; use --opt sgd")
         return
-    if (args.opt_level != "O0" or args.loss_scale is not None
+    levels = ("O0",) if is_txl(args) else ("O0", "O2")
+    if (args.opt_level not in levels or args.loss_scale is not None
             or args.keep_batchnorm_fp32 is not None):
-        raise SystemExit("the LM archs train at --opt-level O0 without "
-                         "--loss-scale or --keep-batchnorm-fp32 in this "
-                         "port; amp O1-O3 for them comes with the next slice "
-                         "(ROADMAP.md A.4)")
+        raise SystemExit(
+            f"{args.arch} trains at --opt-level {' or '.join(levels)} "
+            f"without --loss-scale or --keep-batchnorm-fp32 in this port: "
+            f"FusedAdam's and FusedLAMB's kernels take no noop flag for a "
+            f"dynamic skip yet; the other levels come with a later slice "
+            f"(ROADMAP.md A.4)")
     if args.eval:
         raise SystemExit("--eval is ported for the image archs; the LM "
                          "eval steps come with a later slice")
@@ -241,12 +268,10 @@ def check_args(args) -> None:
 def build_state(args, device):
     """The train state of ``args`` on ``device``: model, optimizer, and the
     amp policy and loss scaler of ``--opt-level``, ``--loss-scale`` and
-    ``--keep-batchnorm-fp32`` (the LM archs: O0)."""
-    policy = scaler = None
-    if is_image(args):
-        policy, scaler = amp.initialize(
-            args.opt_level, loss_scale=args.loss_scale,
-            keep_batchnorm_fp32=args.keep_batchnorm_fp32, device=device)
+    ``--keep-batchnorm-fp32``."""
+    policy, scaler = amp.initialize(
+        args.opt_level, loss_scale=args.loss_scale,
+        keep_batchnorm_fp32=args.keep_batchnorm_fp32, device=device)
     model = build_model(args, device, policy)
     optimizer = build_optimizer(args, model.parameters())
     return create_train_state(model, optimizer, policy, scaler)
@@ -273,12 +298,23 @@ def run_train(args) -> int:
     return run_lm(args, device)
 
 
-def _policy_text(policy) -> str:
+def _policy_text(policy, lm: bool = False) -> str:
     md = amp.module_dtypes(policy)
     name = lambda d: str(d).replace("torch.", "")       # noqa: E731
+    norm = (f"ln io {name(md.ln_io)}, softmax {name(md.softmax)}" if lm
+            else f"bn io {name(md.bn_io)}, bn stats {name(md.bn_stats)}")
     return (f"opt-level {policy.opt_level} (compute {name(md.compute)}, "
-            f"params {name(md.param)}, bn io {name(md.bn_io)}, bn stats "
-            f"{name(md.bn_stats)}, loss scale {policy.loss_scale})")
+            f"params {name(md.param)}, {norm}, loss scale "
+            f"{policy.loss_scale})")
+
+
+def attention_route(args, model) -> str:
+    """Which attention the LM's whole-sequence steps take."""
+    if is_txl(args):
+        return "relative einsum"
+    if model.layers[0].attention.uses_kernel(args.seq_len):
+        return "flash kernels"
+    return "einsum"
 
 
 def _emitter(args, device):
@@ -344,7 +380,7 @@ def run_image(args, device) -> int:
 
 
 def run_lm(args, device) -> int:
-    """The LM path (``_lm_main_impl`` :1014) at amp O0, one device."""
+    """The LM path (``_lm_main_impl`` :1014), one device."""
     state = build_state(args, device)
     model, optimizer = state.model, state.optimizer
     step_fn = build_step(args)
@@ -352,7 +388,8 @@ def run_lm(args, device) -> int:
     n_params = sum(p.numel() for p in model.parameters())
     print(f"model {args.arch}: {n_params} parameters in "
           f"{len(optimizer.params)} tensors, device {device}, opt "
-          f"{args.opt}, opt-level O0, params from random init (seed "
+          f"{args.opt}, {_policy_text(state.policy, lm=True)}, attention "
+          f"{attention_route(args, model)}, params from random init (seed "
           f"{args.seed})")
 
     emitter = _emitter(args, device)

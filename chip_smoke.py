@@ -148,13 +148,53 @@ Phases, one or more lines each:
 16. c2 cross-check — one resnet50 O0 step on one 2-image batch on the card
              and on the CPU, limited by the floor measured in the same run,
              as in 8 (ReLU kinks again); kinds of parameter are the names
-             without their block indices.
+             without their block indices.  The card's step of every
+             cross-check runs cuDNN's deterministic convolutions, chosen
+             without timing, so that which kinks flip is the same each run.
 17. profile — torch.profiler over three c2 steps, as in 6, and each
              BatchNorm input shape of a c2 step timed alone through the
              composite branch (forward and backward): the share of the
              step's device time that the composite BatchNorm takes; and
              through the fused_kernel branch, what the kernels would take
              in its place.
+
+18. attention — the flash-attention kernels (attention.cu; run after 7,
+             before 4) against their plain versions: at gpt_base's 8 x
+             2048 x 12 heads x 64, causal, in fp32 and bf16; at bert_base's
+             8 x 512, bidirectional with a key bias masking a random suffix
+             of each row and every key of the last row; causal Sq 384
+             against Sk 1024 (bottom-right); a ragged 1000 x 1000 with D =
+             16 (fp32, bf16) and D = 80 (bias); a non-zero lse cotangent in
+             the last three.  lse and fp32 O atol = rtol 2e-5, dQ, dK,
+             dV 5e-5 in fp32 and bf16 alike (sums in another order; the
+             bf16 grads round the same fp32 sums).  A bf16 O 2e-2 from the
+             reference's arithmetic, which rounds the normalised P; and
+             against the kernels' own arithmetic in plain PyTorch (64-key
+             tiles, P rounded before P V) rtol 1e-2, atol 1e-3 (two ulps)
+             with at most 1e-2 of its elements off.  At gpt_base's bf16
+             shape, the plain versions with one rounding point skipped (P
+             before P V, P before dV, dS before dK and dQ) must fail those
+             limits.  A second launch bitwise equal.  Then at gpt_base's
+             shape in fp32 and bf16 each
+             kernel's, the plain version's and SDPA's (forward; backward,
+             which computes dQ, dK and dV in one call) device times beside
+             the bound: the live flops (Sq * off + Sq (Sq + 1) / 2 scores a
+             head under the causal mask; 4, 8 and 6 flops per score per
+             head-dim element) over 67 TFLOP/s (fp32) or 989 TFLOP/s (bf16
+             tensor cores), or the bytes over 3.35 TB/s.
+19. gpt2048 — the tentpole's entry point, bench.py's gpt row at sequence
+             2048: gpt_base, batch 8 x 2048, FusedAdam (lr 1e-4, weight
+             decay 0.01), 10 steps at amp O2 (bf16) and 5 at O0 (fp32):
+             finite losses, the mean of the last 5 (O0: 2) steps below the
+             first's, each step launching the three attention kernels 12
+             times each, the LayerNorm forward and backward 26 times each,
+             the L2 norm and Adam once; step time, tokens/s, peak memory.
+20. route   — one fp32 step of gpt_base at 2 x 2048 through the kernels
+             (fused_attention=True) and through the einsum path (False),
+             both on the card: loss rtol 1e-5, each gradient within 1e-4 of
+             its norm (the key biases, whose exact gradient is zero, of
+             their layer's query-bias gradient).  Then torch.profiler over
+             three O2 gpt2048 steps, as in 6.
 
 Then one JSON line per the port's kernel table ({"kernels": [...]}) and,
 last, {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
@@ -176,10 +216,12 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_OPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12          # H100 SXM bf16 tensor cores, dense
 FP32_TOL = 1e-5
 TIE_TOL = 1e-4
 SLOTS, BLOCK = 8, 16
-SOURCES = ["layer_norm", "multi_tensor", "fused_optim", "batch_norm"]
+SOURCES = ["layer_norm", "multi_tensor", "fused_optim", "batch_norm",
+           "attention"]
 SUM_TOL = 1e-4            # dgamma, dbeta: rtol and atol
 BN_SUM_ATOL = 4e-6        # BatchNorm sums: atol, of the sum of |terms|
 NORM_TOL = 1e-5           # L2 norms, ||p||^2, ||u||^2, ratios: rtol
@@ -202,6 +244,26 @@ GPT_ARGS = ["--device", "cuda", "--arch", "gpt_base", "--batch-size", "64",
             "--seq-len", "128", "--epochs", "1", "--steps-per-epoch", "10",
             "--opt", "adam", "--lr", "1e-4", "--weight-decay", "0.01",
             "--seed", "0", "--print-freq", "5"]
+# the tentpole's entry point: bench.py's gpt row at sequence 2048
+GPT2048_ARGS = ["--device", "cuda", "--arch", "gpt_base", "--opt", "adam",
+                "--lr", "1e-4", "--weight-decay", "0.01", "--seq-len",
+                "2048", "--batch-size", "8", "--epochs", "1", "--seed", "0",
+                "--print-freq", "5"]
+GPT2048_O2_ARGS = GPT2048_ARGS + ["--opt-level", "O2",
+                                  "--steps-per-epoch", "10"]
+GPT2048_O0_ARGS = GPT2048_ARGS + ["--opt-level", "O0",
+                                  "--steps-per-epoch", "5"]
+ATTN_FWD_TOL, ATTN_BWD_TOL = 2e-5, 5e-5   # fp32: atol = rtol
+# A bf16 O against the reference's arithmetic, which rounds the normalised
+# P (and so moves ~half of O's roundings by an ulp): atol = rtol.
+ATTN_HALF_TOL = 2e-2
+# A bf16 O against the kernels' own arithmetic (attention_pair_tiled_plain):
+# within about two ulps (rtol, atol), and at most ATTN_HALF_FLIPS of its
+# elements off at all: sums in another order flip ~1e-3 of them, one
+# rounding point of P skipped or moved 18-40%.  bf16 dQ, dK and dV:
+# ATTN_BWD_TOL, as in fp32 (they round the same fp32 sums).
+ATTN_HALF_O_RTOL, ATTN_HALF_O_ATOL, ATTN_HALF_FLIPS = 1e-2, 1e-3, 1e-2
+ROUTE_TOL = 1e-4          # flash vs dense step: |dgrad| / |grad|
 IMAGE_TAIL = ["--device", "cuda", "--opt", "sgd", "--momentum", "0.9",
               "--weight-decay", "1e-4", "--epochs", "1", "--seed", "0",
               "--print-freq", "5"]
@@ -283,9 +345,9 @@ def _close(got, want, rtol, atol):
     return float(err.max()), bool((err <= atol + rtol * want.abs()).all())
 
 
-def _bound(nbytes, ops):
+def _bound(nbytes, ops, ops_per_s=FP32_OPS_PER_S):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    ops_ms = ops / ops_per_s * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations")
 
@@ -1310,6 +1372,238 @@ def phase_bn(bn, sync_batchnorm_cls, counted):
     return rows_out, syncbn_counts
 
 
+ATTN_CASES = (   # name, B, Sq, Sk, H, D, causal, key bias, dlse, dtypes
+    ("gpt_base", 8, 2048, 2048, 12, 64, True, False, False,
+     (torch.float32, torch.bfloat16)),
+    ("bert_base", 8, 512, 512, 12, 64, False, True, False,
+     (torch.float32, torch.bfloat16)),
+    ("rectangular", 2, 384, 1024, 12, 64, True, False, True,
+     (torch.float32,)),
+    ("ragged", 2, 1000, 1000, 4, 16, True, False, True,
+     (torch.float32, torch.bfloat16)),
+    ("ragged", 2, 1000, 1000, 4, 80, False, True, True, (torch.float32,)))
+
+
+def _attn_inputs(b, sq, sk, h, d, dtype, gen, bias, dlse):
+    """q, k, v, dO (normal), dlse or None, and a (B, Sk) key bias masking a
+    random suffix of each row at -1e9, the last row's every key, or None."""
+    dev = "cuda"
+    q, k, v, do = (torch.randn(b, s, h, d, device=dev, generator=gen)
+                   .to(dtype) for s in (sq, sk, sk, sq))
+    dl = (torch.randn(b, h, sq, device=dev, generator=gen) if dlse
+          else None)
+    key_bias = None
+    if bias:
+        keep = torch.randint(sk // 4, sk + 1, (b,), device=dev,
+                             generator=gen)
+        keep[-1] = 0
+        key_bias = torch.where(
+            torch.arange(sk, device=dev)[None, :] < keep[:, None], 0.0, -1e9)
+    return q, k, v, do, dl, key_bias
+
+
+def _attn_work(b, sq, sk, h, d, causal, esize):
+    """(live scores, bytes of fwd, dK/dV, dQ): each input read once, each
+    output written once; the causal mask bottom-right aligned."""
+    off = sk - sq
+    live = b * h * (sq * off + sq * (sq + 1) // 2 if causal else sq * sk)
+    qd, kd = b * sq * h * d * esize, b * sk * h * d * esize
+    rows = b * h * sq * 4
+    return live, (2 * qd + 2 * kd + rows, 2 * qd + 4 * kd + 2 * rows,
+                  3 * qd + 2 * kd + 2 * rows)
+
+
+def _attn_check(name, got, ref, half):
+    """(max |got - ref|, the share of elements not equal, whether within
+    the limits): lse and fp32 O against the reference ATTN_FWD_TOL, a half
+    O ATTN_HALF_TOL; a half O against the kernels' arithmetic ("o_tiled")
+    ATTN_HALF_O_RTOL and _ATOL with at most ATTN_HALF_FLIPS of it off; the
+    grads ATTN_BWD_TOL; atol = rtol but for o_tiled; the dtypes equal."""
+    if name == "o_tiled":
+        err, ok = _close(got, ref, ATTN_HALF_O_RTOL, ATTN_HALF_O_ATOL)
+    else:
+        tol = (ATTN_BWD_TOL if name not in ("o", "lse")
+               else ATTN_HALF_TOL if name == "o" and half else ATTN_FWD_TOL)
+        err, ok = _close(got, ref, tol, tol)
+    share = float((got != ref).float().mean())
+    if name == "o_tiled":
+        ok = ok and share <= ATTN_HALF_FLIPS
+    return err, share, ok and got.dtype == ref.dtype
+
+
+def _planted_faults(att, q, k, v, causal, scale, o, lse, do, want):
+    """The half limits against kernels that skip one bf16 rounding point
+    each, built from the plain versions: P unrounded before P V (O), P
+    before dV, dS before dK and dQ.  Each must fail the limit that the
+    kernels pass; ``o`` and ``lse`` are the reference forward's, ``want``
+    the plain results by name ("o_tiled", "dq", "dk", "dv")."""
+    dt = q.dtype
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    faults = {"o_tiled": att.attention_pair_tiled_plain(
+        qf, kf, vf, None, causal, scale)[0].to(dt)}
+    p = torch.exp(att.scores_plain(q, k, None, causal, scale)
+                  - lse[..., None])
+    faults["dv"] = torch.einsum("bhqk,bqhd->bkhd", p, dof).to(dt)
+    ds = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (ds - att.delta(o, do)[..., None]) * scale
+    del p
+    faults["dk"] = torch.einsum("bhqk,bqhd->bkhd", ds, qf).to(dt)
+    faults["dq"] = torch.einsum("bhqk,bkhd->bqhd", ds, kf).to(dt)
+    del ds
+    text = []
+    for name, bad in faults.items():
+        err, share, ok = _attn_check(name, bad, want[name], True)
+        text.append(f"{name} max|d| {err:.3g} ({share:.2e} off) "
+                    f"{'PASSED' if ok else 'caught'}")
+        if ok:
+            raise SystemExit(f"the bf16 limit of {name} passes a kernel "
+                             f"that skips a rounding point")
+    print("attention: planted faults, one bf16 rounding point skipped "
+          "(P before P V; P before dV; dS before dK and dQ): "
+          + "  ".join(text))
+
+
+def phase_attention(att):
+    """The three flash-attention kernels against their plain versions at
+    the shapes of ATTN_CASES (O and lse, then dK/dV and dQ from the plain
+    forward's lse and Delta) within the limits of ``_attn_check``, and the
+    bf16 limits against planted faults at gpt_base's shape; a second
+    launch bitwise equal; then each kernel's, its plain version's and
+    SDPA's times at gpt_base's shape."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    names = ("attn_fwd", "attn_dkdv", "attn_dq")
+    errs = dict.fromkeys(names, 0.0)
+    t0 = time.perf_counter()
+    for (label, b, sq, sk, h, d, causal, bias, dlse, dtypes) in ATTN_CASES:
+        for dtype in dtypes:
+            q, k, v, do, dl_in, kb = _attn_inputs(b, sq, sk, h, d, dtype,
+                                                  gen, bias, dlse)
+            scale = d ** -0.5
+            o, lse = att.flash_attention_cuda(q, k, v, kb, causal, scale)
+            o_p, lse_p = att.attention_pair_plain(q, k, v, kb, causal, scale)
+            dl = att.delta(o_p, do, dl_in)
+            bwd = (q, k, v, kb, causal, scale, do, lse_p, dl)
+            dk, dv = att.flash_attention_dkdv_cuda(*bwd)
+            dq = att.flash_attention_dq_cuda(*bwd)
+            want = att.attention_bwd_plain(q, k, v, kb, causal, scale, o_p,
+                                           lse_p, do, dl_in)
+            again = (att.flash_attention_cuda(q, k, v, kb, causal, scale)
+                     + att.flash_attention_dkdv_cuda(*bwd)
+                     + (att.flash_attention_dq_cuda(*bwd),))
+            torch.cuda.synchronize()
+            half = dtype != torch.float32
+            checks = (("attn_fwd", "o", o, o_p),
+                      ("attn_fwd", "lse", lse, lse_p),
+                      ("attn_dkdv", "dk", dk, want[1]),
+                      ("attn_dkdv", "dv", dv, want[2]),
+                      ("attn_dq", "dq", dq, want[0]))
+            o_t = None
+            if half:
+                o_t = att.attention_pair_tiled_plain(q, k, v, kb, causal,
+                                                     scale)[0]
+                checks += (("attn_fwd", "o_tiled", o, o_t),)
+            ok, text = True, []
+            for kernel, name, got, ref in checks:
+                err, share, good = _attn_check(name, got, ref, half)
+                ok = ok and good
+                text.append(f"max|d{name}| {err:.3g}" + (
+                    f" ({share:.2e} off)" if half and name in ("o", "o_tiled")
+                    else ""))
+                if label == "gpt_base" and not (half and name == "o"):
+                    errs[kernel] = max(errs[kernel], err)
+            same = all(torch.equal(a, r) for a, r in
+                       zip((o, lse, dk, dv, dq), again))
+            print(f"attention: {label} B{b} Sq{sq} Sk{sk} H{h} D{d} "
+                  f"{'causal' if causal else 'full'}"
+                  f"{' bias' if bias else ''}{' dlse' if dlse else ''} "
+                  f"{str(dtype)[6:]}: {'  '.join(text)}  bitwise repeat "
+                  f"{same}  {'ok' if ok and same else 'MISMATCH'}")
+            if not (ok and same):
+                raise SystemExit(f"attention kernels disagree with their "
+                                 f"plain versions ({label}, {dtype})")
+            if label == "gpt_base" and half:
+                _planted_faults(att, q, k, v, causal, scale, o_p, lse_p, do,
+                                dict(zip(("o_tiled", "dq", "dk", "dv"),
+                                         (o_t,) + tuple(want))))
+            del o, lse, o_p, lse_p, o_t, dk, dv, dq, want, again
+            torch.cuda.empty_cache()
+    print(f"attention: checks took {time.perf_counter() - t0:.1f} s")
+
+    b, sq, sk, h, d, causal = 8, 2048, 2048, 12, 64, True
+    by_dtype = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do, _, _ = _attn_inputs(b, sq, sk, h, d, dtype, gen, False,
+                                         False)
+        scale = d ** -0.5
+        o, lse = att.attention_pair_plain(q, k, v, None, causal, scale)
+        dl = att.delta(o, do)
+        bwd = (q, k, v, None, causal, scale, do, lse, dl)
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True)
+
+        out = sdpa()
+        lib_err = float((out.detach().transpose(1, 2).float()
+                         - att.flash_attention_cuda(q, k, v, None, causal,
+                                                    scale)[0].float())
+                        .abs().max())
+        # The plain backward and SDPA's backward compute dQ, dK and dV in
+        # one call: the dK/dV and dQ rows both carry that call's time.
+        fwd_plain = _device_ms(lambda: att.attention_pair_plain(
+            q, k, v, None, causal, scale), reps=5, warmup=1)
+        bwd_plain = _device_ms(lambda: att.attention_bwd_plain(
+            q, k, v, None, causal, scale, o, lse, do), reps=5, warmup=1)
+        fwd_lib = _device_ms(sdpa, reps=20, warmup=3)
+        bwd_lib = _device_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), reps=20, warmup=3)
+        kernels = (
+            ("attn_fwd", lambda: att.flash_attention_cuda(
+                q, k, v, None, causal, scale), fwd_plain, fwd_lib),
+            ("attn_dkdv", lambda: att.flash_attention_dkdv_cuda(*bwd),
+             bwd_plain, bwd_lib),
+            ("attn_dq", lambda: att.flash_attention_dq_cuda(*bwd),
+             bwd_plain, bwd_lib))
+        live, nbytes = _attn_work(b, sq, sk, h, d, causal, q.element_size())
+        peak = FP32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
+        rows = {}
+        for (name, kernel, plain_ms, lib_ms), flops, nb in zip(
+                kernels, (4, 8, 6), nbytes):
+            ms = _device_ms(kernel, reps=20, warmup=3)
+            bound_ms, bound_by = _bound(nb, flops * d * live, peak)
+            rows[name] = {"ms": ms, "plain_ms": plain_ms,
+                          "library_ms": lib_ms, "bound_ms": bound_ms,
+                          "bound_by": bound_by}
+            print(f"attention: {name} gpt_base {str(dtype)[6:]} device "
+                  f"time: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+                  f"SDPA {'forward' if name == 'attn_fwd' else 'backward'} "
+                  f"{lib_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}: "
+                  f"{flops * d * live / 1e9:.2f} GFLOP over "
+                  f"{peak / 1e12:.0f} TFLOP/s, {nb} bytes)  "
+                  f"{flops * d * live / ms / 1e9:.2f} TFLOP/s")
+        print(f"attention: SDPA forward against the kernel, gpt_base "
+              f"{str(dtype)[6:]}: max|diff| {lib_err:.3g} (the yardstick "
+              f"computes the same function)")
+        by_dtype[str(dtype)[6:]] = rows
+        del q, k, v, do, o, lse, dl, bwd, qt, kt, vt, dot, out, kernels
+        torch.cuda.empty_cache()
+    sources = {"attn_fwd": 147, "attn_dkdv": 183, "attn_dq": 216}
+    out_rows = []
+    for name in names:
+        # the row's times are bf16's: the O2 run, bench.py's gpt contract
+        row = dict(by_dtype["bfloat16"][name])
+        out_rows.append({
+            "name": name, "route": "cuda",
+            "source": "apex_example_tpu_torch/csrc/attention.cu",
+            "replaces": f"apex_example_tpu/ops/attention.py:{sources[name]}",
+            "max_abs_err": errs[name], **row,
+            "by_dtype": {dt: r[name] for dt, r in by_dtype.items()}})
+    return out_rows
+
+
 def _zero_counts(counted):
     for fn in counted.values():
         fn.launches = 0
@@ -1376,7 +1670,8 @@ def phase_main(cli, gpt_base, counted):
 
 def phase_train(train, counted, label, argv, per_step, scale=None):
     """A model trained through the port's trainer: finite, falling loss
-    (the mean of the last five steps below that of the first five) and
+    (the mean of the last five steps below that of the first five; of the
+    last two below the first two in a run of five) and
     ``per_step`` launches of each kernel a step, none of the others; with
     ``scale``, every step's loss scale equal to it."""
     path = os.path.join(ROOT, "build", f"chip_smoke_{label}.jsonl")
@@ -1401,10 +1696,11 @@ def phase_train(train, counted, label, argv, per_step, scale=None):
     unit = "img/s" if image else "tokens/s"
     ppl = (f"  ppl first/last {steps[0]['ppl']:.1f}/{steps[-1]['ppl']:.1f}"
            if steps and "ppl" in steps[0] else "")
+    w = min(5, n // 2)        # the first and last w steps' mean losses
     print(f"{label}: {args.arch} {n} steps  loss first/last {losses[0]:.4f}/"
-          f"{losses[-1]:.4f}  mean steps 1-5 "
-          f"{statistics.fmean(losses[:5]):.4f}  mean steps {n - 4}-{n} "
-          f"{statistics.fmean(losses[-5:]):.4f}{ppl}  grad norm first/last "
+          f"{losses[-1]:.4f}  mean steps 1-{w} "
+          f"{statistics.fmean(losses[:w]):.4f}  mean steps {n - w + 1}-{n} "
+          f"{statistics.fmean(losses[-w:]):.4f}{ppl}  grad norm first/last "
           f"{steps[0]['grad_norm']:.4f}/{steps[-1]['grad_norm']:.4f}")
     print(f"{label}: step time median {steady:.2f} ms (steps 2-{n})  first "
           f"step {times[0]:.2f} ms  {unit} {items / steady * 1e3:.1f}  "
@@ -1420,7 +1716,7 @@ def phase_train(train, counted, label, argv, per_step, scale=None):
                          f"{args.steps_per_epoch})")
     if not all(math.isfinite(x) for x in losses):
         raise SystemExit(f"{label} loss is not finite: {losses}")
-    if not statistics.fmean(losses[-5:]) < statistics.fmean(losses[:5]):
+    if not statistics.fmean(losses[-w:]) < statistics.fmean(losses[:w]):
         raise SystemExit(f"{label} loss did not fall over {n} steps")
     if counts != want:
         raise SystemExit(f"kernel launches per step off: {counts}")
@@ -1544,6 +1840,8 @@ KERNEL_GROUPS = (            # device-time categories, first match wins
     ("ported: lamb stages", ("lamb1_chunks", "trust_ratio",
                              "lamb2_chunks")),
     ("ported: adam", ("adam_chunks",)),
+    ("ported: attention", ("attn_fwd_kernel", "attn_dkdv_kernel",
+                           "attn_dq_kernel")),
     ("ported: multi_tensor_scale", ("scale_chunks",)),
     ("convolutions", ("fprop", "dgrad", "wgrad", "conv", "winograd",
                       "nhwc", "nchw", "implicit")),
@@ -1638,8 +1936,21 @@ def one_step(train, args, dev, batch, perturb=0.0):
     ``perturb``); ``batch`` is
     the step's numpy arrays.  Returns (loss, grad norm, parameters after
     the step, largest update, the new memory or None, the clipped grads),
-    the tensors on the CPU."""
+    the tensors on the CPU.  On the card the step's convolutions are
+    cuDNN's deterministic ones, picked without timing: the algorithms
+    ``cudnn.benchmark`` times vary from run to run, and with them which
+    ReLU inputs within rounding of zero pass."""
     state = train.build_state(args, dev)
+    cudnn = torch.backends.cudnn
+    timed = cudnn.benchmark, cudnn.deterministic
+    cudnn.benchmark, cudnn.deterministic = False, True
+    try:
+        return _one_step(train, args, state, dev, batch, perturb)
+    finally:
+        cudnn.benchmark, cudnn.deterministic = timed
+
+
+def _one_step(train, args, state, dev, batch, perturb):
     model = state.model
     if perturb:
         with torch.no_grad():
@@ -1775,6 +2086,60 @@ def phase_cross_check(train, counted, label, argv, batch, want,
                          f"the CPU's")
 
 
+def phase_route_cross_check(counted, lm_batch):
+    """gpt_base at full width, sequence 2048, batch 2, fp32: the loss and
+    every gradient of one step through the flash-attention kernels and
+    through the dense einsum path, both on the card.  Loss rtol 1e-5; each
+    gradient within ROUTE_TOL of its norm, but the key projections' biases,
+    whose exact gradient is zero (softmax ignores a shift common to a
+    row's logits): their rounding noise is held to ROUTE_TOL of the same
+    layer's query-bias gradient."""
+    from apex_example_tpu_torch.models.gpt import gpt_base
+    from apex_example_tpu_torch.workloads import lm_loss
+    toks = lm_batch(0, batch_size=2, seq_len=2048, vocab_size=30522, seed=0)
+    ids, tgt = (torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
+                for a in (toks[:, :-1], toks[:, 1:]))
+    got = {}
+    for fused in (True, False):
+        model = gpt_base(seed=0, device="cuda", max_position=2048,
+                         fused_attention=fused)
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(counted)
+        t0 = time.perf_counter()
+        loss = lm_loss(model(ids), tgt)
+        loss.backward()
+        torch.cuda.synchronize()
+        counts = _counts(counted)
+        route = "flash" if fused else "dense"
+        loss = float(loss.detach())
+        print(f"route: gpt_base 2 x 2048 fp32 {route} step: loss "
+              f"{loss!r}  {time.perf_counter() - t0:.2f} s  max "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  "
+              f"launches {counts}")
+        want = 12 if fused else 0
+        if any(counts[k] != want for k in ("attn_fwd", "attn_dkdv",
+                                           "attn_dq")):
+            raise SystemExit(f"the {route} step launched {counts}")
+        got[route] = (loss, {n: p.grad for n, p in
+                             model.named_parameters()})
+        del model, loss
+        torch.cuda.empty_cache()
+    (l_f, g_f), (l_d, g_d) = got["flash"], got["dense"]
+    rel = {}
+    for name, gd in g_d.items():
+        ref = g_d[name.replace("key.bias", "query.bias")]
+        rel[name] = float((g_f[name] - gd).norm() / ref.norm())
+    worst = sorted(rel, key=rel.get, reverse=True)[:4]
+    l_ok = abs(l_f - l_d) <= 1e-5 * abs(l_d)
+    g_ok = max(rel.values()) <= ROUTE_TOL
+    print(f"route: flash vs dense: |dloss| {abs(l_f - l_d):.3g} (rtol 1e-5)"
+          f"  largest |dgrad| / |grad| over {len(rel)} tensors "
+          + ", ".join(f"{n} {rel[n]:.3g}" for n in worst)
+          + f" (limit {ROUTE_TOL:g})  {'ok' if l_ok and g_ok else 'MISMATCH'}")
+    if not (l_ok and g_ok):
+        raise SystemExit("the flash and dense routes disagree")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this check runs on "
@@ -1787,6 +2152,7 @@ def main() -> int:
     from apex_example_tpu_torch.models.gpt import gpt_base
     from apex_example_tpu_torch.models.resnet import resnet50
     from apex_example_tpu_torch.ops import _build
+    from apex_example_tpu_torch.ops import attention as att
     from apex_example_tpu_torch.ops import batch_norm as bn
     from apex_example_tpu_torch.ops import fused_optim as fo
     from apex_example_tpu_torch.ops import layer_norm as ln
@@ -1803,7 +2169,10 @@ def main() -> int:
                "multi_tensor_scale": mt.multi_tensor_scale_cuda,
                "sgd": fo.sgd_cuda,
                "bn_stats": bn.bn_stats_cuda,
-               "bn_bwd_sums": bn.bn_bwd_sums_cuda}
+               "bn_bwd_sums": bn.bn_bwd_sums_cuda,
+               "attn_fwd": att.flash_attention_cuda,
+               "attn_dkdv": att.flash_attention_dkdv_cuda,
+               "attn_dq": att.flash_attention_dq_cuda}
     bert_step = {"layer_norm_fwd": 26, "layer_norm_bwd": 26,
                  "multi_tensor_l2norm": 1, "lamb_stage1": 1,
                  "lamb_stage2": 1}
@@ -1812,6 +2181,8 @@ def main() -> int:
                 "adam": 1}
     gpt_step = {"layer_norm_fwd": 26, "layer_norm_bwd": 26,
                 "multi_tensor_l2norm": 1, "adam": 1}
+    gpt2048_step = dict(gpt_step, attn_fwd=12, attn_dkdv=12, attn_dq=12)
+    t_start = time.perf_counter()
     image_step = {"sgd": 1, "multi_tensor_l2norm": 1}
     phase_env()
     phase_build(_build)
@@ -1823,6 +2194,7 @@ def main() -> int:
     l2_row = next(r for r in rows if r["name"] == "multi_tensor_l2norm")
     l2_row["max_abs_err"] = max(l2_row["max_abs_err"], l2_err)
     torch.cuda.empty_cache()
+    rows += phase_attention(att)
     by_path = {"serve": phase_main(cli, gpt_base, counted),
                "train": phase_train(train, counted, "train", TRAIN_ARGS,
                                     bert_step)}
@@ -1839,6 +2211,18 @@ def main() -> int:
                       mems_tol=1e-4, flip_lr=2.5e-4)
     by_path["gpt"] = phase_train(train, counted, "gpt", GPT_ARGS, gpt_step)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    by_path["gpt2048"] = phase_train(train, counted, "gpt2048",
+                                     GPT2048_O2_ARGS, gpt2048_step)
+    torch.cuda.empty_cache()
+    by_path["gpt2048_o0"] = phase_train(train, counted, "gpt2048_o0",
+                                        GPT2048_O0_ARGS, gpt2048_step)
+    torch.cuda.empty_cache()
+    phase_route_cross_check(counted, lm_batch)
+    phase_profile(train, GPT2048_O2_ARGS)
+    torch.cuda.empty_cache()
+    print(f"gpt2048: the sequence-2048 phases took "
+          f"{time.perf_counter() - t0:.1f} s")
     phase_profile(train, TXL_ARGS)
     torch.cuda.empty_cache()
     rows.append(phase_sgd(fo, mt, resnet50))
@@ -1863,6 +2247,8 @@ def main() -> int:
         row["launches_by_path"] = {k: v[row["name"]]
                                    for k, v in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s, the build included")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,10 @@ against the JAX package's, on converted bert_tiny parameters
 (d) the structure: 41 tensors with the decoder tied to the
     word-embedding table, random init in the flax initializers'
     distributions, bidirectional attention (GPT keeps its causal path:
-    tests/test_torch_gpt.py).
+    tests/test_torch_gpt.py);
+(e) with ``fused_attention=True`` at S = 128 and an attention mask (the
+    key bias reaches the kernels as ``mask_bias[:, 0, 0, :]``), logits and
+    every gradient of ``mlm_loss`` to 1e-4.
 """
 
 import math
@@ -189,3 +192,36 @@ def test_bert_base_has_201_tensors_and_109_5m_elements():
               + [(768, 768), (768,), (768,), (768,), (30522,)])
     assert len(shapes) == 201
     assert sum(math.prod(s) for s in shapes) == 109_512_762
+
+
+def test_fused_attention_with_a_mask_matches_jax():
+    jm = jax_bert_tiny(fused_attention=True)
+    params = jm.init(jax.random.PRNGKey(5),
+                     jnp.zeros((1, 8), jnp.int32))["params"]
+    pm = bert_tiny(device="cpu", fused_attention=True)
+    pm.load_state_dict(bert_params_from_flax(
+        jax.tree_util.tree_map(np.asarray, params)))
+    ids, labels, weights, mask = _batch(6, s=128)
+    mask[0, 100:] = 0
+
+    def loss_fn(p):
+        logits = jm.apply({"params": p}, jnp.asarray(ids),
+                          attention_mask=jnp.asarray(mask))
+        return jax_mlm_loss(logits, (jnp.asarray(labels),
+                                     jnp.asarray(weights))), logits
+
+    (want_loss, want_logits), want_grads = jax.jit(jax.value_and_grad(
+        loss_fn, has_aux=True))(params)
+    logits = pm(torch.from_numpy(ids), torch.from_numpy(mask))
+    loss = mlm_loss(logits, (torch.from_numpy(labels),
+                             torch.from_numpy(weights)))
+    loss.backward()
+    np.testing.assert_allclose(logits.detach().numpy(),
+                               np.asarray(want_logits), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(float(loss.detach()), float(want_loss),
+                               rtol=1e-5)
+    want = bert_params_from_flax(jax.tree_util.tree_map(np.asarray,
+                                                        want_grads))
+    for name, p in pm.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want[name].numpy(),
+                                   rtol=1e-4, atol=1e-4, err_msg=name)

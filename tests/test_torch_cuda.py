@@ -21,7 +21,16 @@ plus atol 1e-6 (bf16 p: one bf16 ulp plus 1e-6), and bitwise unchanged
 under the noop flag; the BatchNorm sums rtol 1e-4 plus 4e-6 of the sum of
 their terms' magnitudes (sums over the rows in another order, which may
 cancel) and bitwise repeatable; the fused BatchNorm's y and
-dx against the CPU's 1e-4, its dscale and dbias rtol = atol 1e-4.
+dx against the CPU's 1e-4, its dscale and dbias rtol = atol 1e-4; the
+flash-attention kernels' lse, and O in fp32, atol = rtol 2e-5, their dQ,
+dK and dV 5e-5 in fp32 (tests/test_attention.py's limits: sums in another
+order); a half O 2e-2 from the reference's arithmetic (which rounds the
+normalised P); a half O against the kernels' own arithmetic
+(``attention_pair_tiled_plain``) and the half dQ, dK and dV rtol 1e-2 and
+atol 1e-3 (two bf16 ulps) with at most 1e-2 of their elements off at all
+(the kernels' and cuBLAS's fp32 sums in another order flip an ulp now and
+then; a rounding point of P or dS skipped or moved flips 18-42%); every
+result bitwise repeatable.
 """
 
 import numpy as np
@@ -30,7 +39,9 @@ import torch
 
 from apex_example_tpu_torch import amp
 from apex_example_tpu_torch.engine import create_train_state, make_train_step
+from apex_example_tpu_torch.models.gpt import gpt_tiny
 from apex_example_tpu_torch.models.resnet import resnet18
+from apex_example_tpu_torch.ops import attention as att
 from apex_example_tpu_torch.ops import batch_norm as bn
 from apex_example_tpu_torch.ops import fused_optim as fo
 from apex_example_tpu_torch.ops import layer_norm as port_ln
@@ -562,3 +573,147 @@ def test_resnet18_dynamic_step_makes_no_host_sync(cuda_device):
     for a, b in zip(list(model.parameters()) + opt.momentum_buffer,
                     before + bufs):
         assert torch.equal(a, b)
+
+
+ATTN_CASES = [  # (B, Sq, Sk, H, D, causal, bias)
+    (2, 256, 256, 2, 64, True, False), (2, 256, 256, 2, 64, False, True),
+    (1, 96, 200, 2, 64, True, False), (1, 100, 100, 3, 16, True, False),
+    (2, 100, 100, 2, 80, False, True), (1, 64, 64, 1, 128, True, False)]
+
+
+def _attn_inputs(device, b, sq, sk, h, d, bias, dtype, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn(b, s, h, d, device=device, generator=gen)
+               .to(dtype) for s in (sq, sk, sk))
+    do = torch.randn(b, sq, h, d, device=device, generator=gen).to(dtype)
+    dlse = torch.randn(b, h, sq, device=device, generator=gen)
+    key_bias = None
+    if bias:    # a masked suffix per row; the last row has every key masked
+        keep = torch.randint(sk // 2, sk + 1, (b,), device=device,
+                             generator=gen)
+        keep[-1] = 0
+        key_bias = torch.where(
+            torch.arange(sk, device=device)[None, :] < keep[:, None],
+            0.0, -1e9)
+    return q, k, v, do, dlse, key_bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_attention_kernels_match_plain(cuda_device, dtype, case):
+    b, sq, sk, h, d, causal, bias = case
+    q, k, v, do, dlse, key_bias = _attn_inputs(cuda_device, b, sq, sk, h, d,
+                                               bias, dtype, sq * d)
+    scale = d ** -0.5
+    launches = [fn.launches for fn in (att.flash_attention_cuda,
+                                       att.flash_attention_dkdv_cuda,
+                                       att.flash_attention_dq_cuda)]
+    o, lse = att.flash_attention_cuda(q, k, v, key_bias, causal, scale)
+    o_p, lse_p = att.attention_pair_plain(q, k, v, key_bias, causal, scale)
+    dl = att.delta(o_p, do, dlse)
+    dk, dv = att.flash_attention_dkdv_cuda(q, k, v, key_bias, causal, scale,
+                                           do, lse_p, dl)
+    dq = att.flash_attention_dq_cuda(q, k, v, key_bias, causal, scale, do,
+                                     lse_p, dl)
+    want = att.attention_bwd_plain(q, k, v, key_bias, causal, scale, o_p,
+                                   lse_p, do, dlse)
+    again = (att.flash_attention_cuda(q, k, v, key_bias, causal, scale)
+             + att.flash_attention_dkdv_cuda(q, k, v, key_bias, causal,
+                                             scale, do, lse_p, dl)
+             + (att.flash_attention_dq_cuda(q, k, v, key_bias, causal,
+                                            scale, do, lse_p, dl),))
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in (att.flash_attention_cuda,
+                                   att.flash_attention_dkdv_cuda,
+                                   att.flash_attention_dq_cuda)] == \
+        [n + 2 for n in launches]
+    half = dtype != torch.float32
+    grad_tol = (1e-2, 1e-3) if half else (5e-5, 5e-5)
+    checks = [("o", o, o_p) + ((2e-2, 2e-2) if half else (2e-5, 2e-5)),
+              ("lse", lse, lse_p, 2e-5, 2e-5),
+              ("dq", dq, want[0]) + grad_tol,
+              ("dk", dk, want[1]) + grad_tol,
+              ("dv", dv, want[2]) + grad_tol]
+    if half:
+        o_t = att.attention_pair_tiled_plain(q, k, v, key_bias, causal,
+                                             scale)[0]
+        checks.append(("o_tiled", o, o_t, 1e-2, 1e-3))
+        for name, got, ref in (("o_tiled", o, o_t), ("dq", dq, want[0]),
+                               ("dk", dk, want[1]), ("dv", dv, want[2])):
+            assert float((got != ref).float().mean()) <= 1e-2, name
+    for name, got, ref, rtol, atol in checks:
+        assert got.dtype == ref.dtype and got.shape == ref.shape, name
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   ref.float().cpu().numpy(), rtol=rtol,
+                                   atol=atol, err_msg=name)
+    for got, rep in zip((o, lse, dk, dv, dq), again):
+        assert torch.equal(got, rep)                  # bitwise repeat
+
+
+@pytest.mark.cuda
+def test_attention_kernels_raise_on_what_they_cannot_take(cuda_device):
+    q = torch.zeros(1, 64, 2, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        att.flash_attention_cuda(q[..., :60], q[..., :60], q[..., :60])
+    with pytest.raises(ValueError, match="Sq <= Sk"):
+        att.flash_attention_cuda(q, q[:, :32], q[:, :32], causal=True)
+    with pytest.raises(ValueError, match="lies on"):
+        att.flash_attention_cuda(q, q.cpu(), q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_lse", [False, True])
+def test_attention_route_carries_the_gradient_as_the_cpu(cuda_device,
+                                                         with_lse):
+    """Through FlashAttentionFunction on the card: a grad_fn, one launch
+    of each kernel, and the CPU route's gradients (strided views of a
+    fused projection in, as the model hands them)."""
+    gen = torch.Generator().manual_seed(21)
+    qkv = torch.randn(2, 128, 3, 4, 32, generator=gen)
+    do = torch.randn(2, 128, 4, 32, generator=gen)
+    dlse = torch.randn(2, 4, 128, generator=gen)
+    grads = []
+    for device in ("cuda", "cpu"):
+        x = qkv.to(device).requires_grad_()
+        q, k, v = x.unbind(2)
+        before = (att.flash_attention_cuda.launches,
+                  att.flash_attention_dkdv_cuda.launches,
+                  att.flash_attention_dq_cuda.launches)
+        if with_lse:
+            o, lse = att.flash_attention_with_lse(q, k, v, causal=True)
+            torch.autograd.backward((o, lse), (do.to(device),
+                                               dlse.to(device)))
+        else:
+            o = att.flash_attention(q, k, v, causal=True)
+            assert o.grad_fn is not None
+            o.backward(do.to(device))
+        after = (att.flash_attention_cuda.launches,
+                 att.flash_attention_dkdv_cuda.launches,
+                 att.flash_attention_dq_cuda.launches)
+        assert [a - b for a, b in zip(after, before)] == (
+            [1, 1, 1] if device == "cuda" else [0, 0, 0])
+        grads.append((o.detach().cpu(), x.grad.cpu()))
+    for a, b in zip(*grads):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=5e-5,
+                                   atol=5e-5)
+
+
+@pytest.mark.cuda
+def test_gpt_flash_route_matches_the_dense_route_on_the_card(cuda_device):
+    gen = torch.Generator().manual_seed(22)
+    ids = torch.randint(0, 256, (2, 64), generator=gen).to(cuda_device)
+    out = []
+    for fused in (True, False):
+        model = gpt_tiny(device=cuda_device, fused_attention=fused)
+        before = att.flash_attention_cuda.launches
+        logits = model(ids)
+        logits.float().logsumexp(-1).mean().backward()
+        assert att.flash_attention_cuda.launches - before == (
+            model.num_layers if fused else 0)
+        out.append([logits.detach().cpu()] + [
+            p.grad.cpu() for p in model.parameters()])
+    for a, b in zip(*out):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-5)

@@ -7,7 +7,13 @@ parameters (convert.gpt_params_from_flax of a flax init), on the CPU.
 (b) a scripted sequence of paged slot-decode steps — a prefill chunk,
     decode lanes, a dead slot and a copy-on-write tick — through both
     sides' step: logits and the updated K/V arenas to 1e-5;
-(c) ``sample_tokens``: greedy and top-k filtering agree on fixed logits.
+(c) ``sample_tokens``: greedy and top-k filtering agree on fixed logits;
+(d) with ``fused_attention=True`` at S = 256 (the flash-attention route on
+    both sides), logits and every gradient to 1e-4; "auto" chooses the
+    kernels at sequence 2048 and up under an fp32 softmax, as JAX does;
+(e) amp O3's module dtypes (bf16 parameters and half softmax) against
+    JAX's logits within bf16 rounding; the converters load GPT and BERT
+    trees whose position table was widened to 2048.
 """
 
 import jax
@@ -16,10 +22,12 @@ import numpy as np
 import pytest
 import torch
 
+from apex_example_tpu.models.bert import _resolve_fused_attention
 from apex_example_tpu.models.gpt import gpt_tiny as jax_gpt_tiny
 from apex_example_tpu.models.gpt import sample_tokens as jax_sample_tokens
 from apex_example_tpu_torch.convert import gpt_params_from_flax
-from apex_example_tpu_torch.models.bert import paged_step
+from apex_example_tpu_torch.models.bert import (BertLayer, paged_step,
+                                                resolve_fused_attention)
 from apex_example_tpu_torch.models.gpt import (gpt_tiny, sample_tokens,
                                                topk_filter)
 
@@ -181,3 +189,116 @@ def test_topk_filter_keeps_what_jax_samples_from(k):
     port = sample_tokens(torch.from_numpy(lg), np.ones(5, np.float32), k,
                          torch.Generator().manual_seed(1)).numpy()
     assert kept[np.arange(lg.shape[0]), port].all()
+
+
+FUSED_TOL = 1e-4
+
+
+def test_fused_attention_model_matches_jax_logits_and_grads():
+    """gpt_tiny with ``fused_attention=True`` at S = 256 on both sides (the
+    JAX layers run the Pallas kernels through the interpreter, the port's
+    the plain version of its kernels): logits and every gradient of the
+    mean next-token loss, atol = rtol 1e-4."""
+    jm = jax_gpt_tiny(max_position=256, fused_attention=True)
+    params = jm.init(jax.random.PRNGKey(3),
+                     jnp.zeros((1, 8), jnp.int32))["params"]
+    tree = jax.tree_util.tree_map(np.asarray, params)
+    pm = gpt_tiny(device="cpu", max_position=256, fused_attention=True)
+    pm.load_state_dict(gpt_params_from_flax(tree))
+    assert pm.layers[0].attention.uses_kernel(256)
+    rs = np.random.RandomState(4)
+    ids = rs.randint(0, 256, size=(1, 256))
+    tgt = rs.randint(0, 256, size=(1, 256))
+
+    def loss_fn(p):
+        logits = jm.apply({"params": p}, jnp.asarray(ids, jnp.int32))
+        lse = jax.scipy.special.logsumexp(logits, -1)
+        picked = jnp.take_along_axis(logits, jnp.asarray(tgt)[..., None],
+                                     -1)[..., 0]
+        return jnp.mean(lse - picked), logits
+
+    (_, want_logits), want_grads = jax.value_and_grad(
+        loss_fn, has_aux=True)(params)
+    logits = pm(torch.from_numpy(ids))
+    torch.nn.functional.cross_entropy(logits.reshape(-1, 256),
+                                      torch.from_numpy(tgt).reshape(-1)
+                                      ).backward()
+    np.testing.assert_allclose(logits.detach().numpy(),
+                               np.asarray(want_logits), rtol=FUSED_TOL,
+                               atol=FUSED_TOL)
+    want = gpt_params_from_flax(jax.tree_util.tree_map(np.asarray,
+                                                       want_grads))
+    for name, p in pm.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want[name].numpy(),
+                                   rtol=FUSED_TOL, atol=FUSED_TOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("setting,seq,softmax,want", [
+    ("auto", 2048, jnp.float32, True), ("auto", 2047, jnp.float32, False),
+    ("auto", 4096, jnp.float32, True), (True, 16, jnp.float32, True),
+    (False, 4096, jnp.float32, False), (True, 4096, jnp.bfloat16, False),
+    ("auto", 2048, jnp.bfloat16, False)])
+def test_auto_takes_the_kernels_at_2048_and_up_as_jax(setting, seq, softmax,
+                                                      want):
+    """The route choice only (no run at 2048): the port's rule against
+    the JAX package's ``_resolve_fused_attention``, and a causal layer
+    built with the setting (on the meta device: no storage)."""
+    tdt = torch.float32 if softmax == jnp.float32 else torch.bfloat16
+    assert _resolve_fused_attention(setting, seq, softmax) is want
+    assert resolve_fused_attention(setting, seq, tdt) is want
+    layer = BertLayer(64, 4, 128, device="meta", causal=True,
+                      softmax_dtype=tdt, fused_attention=setting)
+    assert layer.attention.uses_kernel(seq) is want
+
+
+def test_o3_dtypes_forward_matches_jax():
+    """amp O3's module dtypes (bf16 parameters, compute and softmax; the
+    LayerNorms' parameters and the head bias fp32): the einsum route with
+    a half softmax (masks at -1e4), held to JAX's logits within bf16
+    rounding (atol = rtol 5e-2: activations rounded to 8 bits at other
+    places in the two frameworks)."""
+    kw = dict(dtype=jnp.bfloat16, param_dtype=jnp.bfloat16,
+              softmax_dtype=jnp.bfloat16)
+    jm = jax_gpt_tiny(**kw)
+    params = jm.init(jax.random.PRNGKey(5),
+                     jnp.zeros((1, 8), jnp.int32))["params"]
+    tree = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32),
+                                  params)
+    pm = gpt_tiny(device="cpu", dtype=torch.bfloat16,
+                  param_dtype=torch.bfloat16, softmax_dtype=torch.bfloat16,
+                  fused_attention=True)
+    pm.load_state_dict(gpt_params_from_flax(tree))
+    assert pm.word_embeddings.weight.dtype == torch.bfloat16
+    assert pm.layers[0].output.weight.dtype == torch.bfloat16
+    assert pm.final_ln.scale.dtype == pm.lm_bias.dtype == torch.float32
+    assert not pm.layers[0].attention.uses_kernel(4096)  # half softmax
+    ids = np.random.RandomState(6).randint(0, 256, size=(2, 16))
+    want = jm.apply({"params": params}, jnp.asarray(ids, jnp.int32))
+    with torch.no_grad():
+        got = pm(torch.from_numpy(ids))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=5e-2,
+                               atol=5e-2)
+
+
+@pytest.mark.parametrize("arch", ["gpt", "bert"])
+def test_convert_loads_a_tree_widened_to_2048(arch):
+    """train.py widens ``max_position`` to ``--seq-len`` (2048 for the
+    long-context run): the converters load such a flax tree, every name
+    and shape (strict), the position table row for row."""
+    from apex_example_tpu.models.bert import bert_tiny as jax_bert_tiny
+    from apex_example_tpu_torch.convert import bert_params_from_flax
+    from apex_example_tpu_torch.models.bert import bert_tiny
+    jax_cls, port_cls, convert = {
+        "gpt": (jax_gpt_tiny, gpt_tiny, gpt_params_from_flax),
+        "bert": (jax_bert_tiny, bert_tiny, bert_params_from_flax)}[arch]
+    params = jax_cls(max_position=2048).init(
+        jax.random.PRNGKey(7), jnp.zeros((1, 8), jnp.int32))["params"]
+    tree = jax.tree_util.tree_map(np.asarray, params)
+    pm = port_cls(device="cpu", max_position=2048)
+    pm.load_state_dict(convert(tree))
+    table = pm.position_embeddings.weight.detach().numpy()
+    assert table.shape == (2048, 64)
+    np.testing.assert_array_equal(
+        table, tree["position_embeddings"]["embedding"])

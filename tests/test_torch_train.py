@@ -1,7 +1,8 @@
 """The port's training slices held against the JAX package's, on the CPU:
-bert_tiny MLM with FusedLAMB, gpt_tiny with FusedAdam and
-transformer_xl_tiny with the global-norm clip, FusedAdam and its memory
-carried from step to step, at amp O0; ResNet-18 with FusedSGD at O0, O2 and
+bert_tiny MLM with FusedLAMB, gpt_tiny with FusedAdam (at amp O0 and O2,
+on the einsum and the flash-attention routes) and transformer_xl_tiny with
+the global-norm clip, FusedAdam and its memory carried from step to step,
+at amp O0; ResNet-18 with FusedSGD at O0, O2 and
 under dynamic loss scaling, and its eval step.
 
 - 5-step loss trails: identical initial weights (the flax init, converted)
@@ -17,7 +18,8 @@ under dynamic loss scaling, and its eval step.
   --require-summary`` (the Transformer-XL stream carries ``ppl``); without
   ``--device`` it raises where torch sees no CUDA; the flags of paths not
   ported (``--opt adagrad``, ``--grad-accum``, ``--sync_bn``,
-  ``--tensor-parallel``) are rejected by argparse.
+  ``--tensor-parallel``) are rejected by argparse; the LM archs refuse O1,
+  ``--loss-scale`` and ``--eval`` with a message naming a later slice.
 - ResNet-18 (num_filters 4, the CIFAR stem, 16 px, batch 4) with
   FusedSGD: the same weights (numpy, in flax's tree, converted) and the
   JAX ``image_batch``'s images through the JAX ``make_train_step`` and the
@@ -32,6 +34,15 @@ under dynamic loss scaling, and its eval step.
   JAX's at every step.  The eval step's loss rtol 1e-4, top-1 and top-5
   equal.  The CLI trains ResNet-18 under O2 with dynamic scaling and
   ``--eval`` and its stream lints.
+- gpt_tiny through the flash-attention route (``--fused-attention``):
+  three steps at S = 256 against JAX's step with its Pallas kernels
+  (interpreted), rtol 1e-4 as above; at amp O2 (bf16 over fp32 masters)
+  at S = 128, held as ResNet-18's O2 (each tensor of the first grads no
+  more than twice as far from fp32 as JAX's, the key biases, whose exact
+  gradient is zero, aside; three steps' losses rtol 2e-2).  The CLI runs
+  ``--fused-attention`` at O0 and O2 and its stream lints; it refuses
+  ``--fused-attention`` at O3 and for transformer_xl and the image archs,
+  ``--loss-scale dynamic`` for the LM archs, and O2 for transformer_xl.
 - The data generators keep the JAX generators' distributions; the image
   patterns are ``jax.image.resize``'s bilinear upsampling.
 """
@@ -250,6 +261,108 @@ def test_txl_five_step_trail_with_carried_memory_matches_jax():
     _assert_params_follow(pm, jstate.params, init, txl_params_from_flax)
 
 
+def _gpt_batches(seq, b=2, steps=3):
+    """(inputs, targets) numpy pairs of the JAX ``lm_batch`` at ``seq``."""
+    out = []
+    for i in range(steps):
+        toks = np.array(jax_lm_batch(jnp.asarray(i, jnp.int32),
+                                     batch_size=b, seq_len=seq,
+                                     vocab_size=V, seed=0))
+        out.append((np.ascontiguousarray(toks[:, :-1]),
+                    np.ascontiguousarray(toks[:, 1:])))
+    return out
+
+
+def _gpt_pair(level, seq, fused, batch, lr=2e-3):
+    """JAX and port gpt_tiny train states at amp ``level`` from one flax
+    init, FusedAdam (eps 1e-6: see the five-step trail), the position
+    table widened to ``seq``."""
+    policy = get_policy(level)
+    jmd = jamp.module_dtypes(policy)
+    jm = jax_gpt_tiny(max_position=max(seq, 128), fused_attention=fused,
+                      dtype=jmd.compute, param_dtype=jmd.param,
+                      ln_dtype=jmd.ln_io, softmax_dtype=jmd.softmax)
+    jopt = JaxAdam(lr=lr, eps=1e-6, weight_decay=0.01)
+    jstate = jax_create_state(jax.random.PRNGKey(4), jm, jopt,
+                              jnp.asarray(batch[:1]), policy)
+    init = jax.tree_util.tree_map(np.asarray, jstate.params)
+    ppolicy, scaler = amp.initialize(level)
+    md = amp.module_dtypes(ppolicy)
+    pm = gpt_tiny(device="cpu", max_position=max(seq, 128),
+                  fused_attention=fused, dtype=md.compute,
+                  param_dtype=md.param, ln_dtype=md.ln_io,
+                  softmax_dtype=md.softmax)
+    pm.load_state_dict(gpt_params_from_flax(init))
+    pstate = create_train_state(pm, FusedAdam(
+        pm.parameters(), lr=lr, eps=1e-6, weight_decay=0.01), ppolicy,
+        scaler)
+    return jm, jopt, policy, jstate, init, pm, pstate
+
+
+def test_gpt_fused_attention_trail_matches_jax():
+    """Three steps of gpt_tiny with ``--fused-attention`` at S = 256: the
+    JAX step runs the Pallas flash kernels (interpreted), the port's the
+    plain version of its kernels; loss and grad norm rtol 1e-4, the
+    parameters after three steps 1e-4."""
+    batches = _gpt_batches(256)
+    jm, jopt, policy, jstate, init, pm, pstate = _gpt_pair(
+        "O0", 256, True, batches[0][0])
+    assert pm.layers[0].attention.uses_kernel(256)
+    jstep = jax.jit(jax_make_step(jm, jopt, policy, loss_fn=jax_lm_loss,
+                                  compute_accuracy=False))
+    pstep = make_train_step(lm_loss)
+    for x, y in batches:
+        jstate, jmet = jstep(jstate, (jnp.asarray(x), jnp.asarray(y)))
+        pstate, pmet = pstep(pstate, (torch.from_numpy(x),
+                                      torch.from_numpy(y)))
+        for key in ("loss", "grad_norm"):
+            np.testing.assert_allclose(float(pmet[key]), float(jmet[key]),
+                                       rtol=TRAIL_TOL, err_msg=key)
+    _assert_params_follow(pm, jstate.params, init, gpt_params_from_flax)
+
+
+def test_gpt_o2_fused_trail_follows_jax_within_bf16_rounding():
+    """amp O2 (bf16 dense layers, embeddings, LayerNorm I/O and flash
+    attention over fp32 masters) held as ResNet-18's O2 is: each tensor of
+    the port's first O2 grads no more than twice as far from the fp32
+    grads as JAX's O2 grads are, then three steps' losses rtol 2e-2.  The
+    key projections' biases are left out: their exact gradient is zero
+    (softmax ignores a shift common to a row's logits), so each side's is
+    rounding noise and so is its distance."""
+    batches = _gpt_batches(128)
+    x, y = batches[0]
+    _, _, _, _, _, pm0, _ = _gpt_pair("O0", 128, True, x)
+    lm_loss(pm0(torch.from_numpy(x)), torch.from_numpy(y)).backward()
+    g32 = {n: p.grad for n, p in pm0.named_parameters()}
+    jm, jopt, policy, jstate, _, pm, pstate = _gpt_pair("O2", 128, True, x)
+    assert pm.layers[0].attention.query.weight.dtype == torch.float32
+    jgrads = jax.jit(jax.grad(lambda p: jax_lm_loss(
+        jm.apply({"params": p}, jnp.asarray(x)), jnp.asarray(y))))(
+            jstate.params)
+    j16 = gpt_params_from_flax(jax.tree_util.tree_map(
+        lambda a: np.asarray(a, np.float32), jgrads))
+    lm_loss(pm(torch.from_numpy(x)), torch.from_numpy(y)).backward()
+    rel = lambda a, b: float((a - b).norm() / b.norm())     # noqa: E731
+    for name, p in pm.named_parameters():
+        if name.endswith("attention.key.bias"):
+            continue
+        assert p.grad.dtype == torch.float32
+        assert rel(p.grad, g32[name]) <= 2 * rel(j16[name], g32[name]) \
+            + 1e-3, name
+    pm.zero_grad(set_to_none=False)
+    jstep = jax.jit(jax_make_step(jm, jopt, policy, loss_fn=jax_lm_loss,
+                                  compute_accuracy=False))
+    pstep = make_train_step(lm_loss)
+    for x, y in batches:
+        jstate, jmet = jstep(jstate, (jnp.asarray(x), jnp.asarray(y)))
+        pstate, pmet = pstep(pstate, (torch.from_numpy(x),
+                                      torch.from_numpy(y)))
+        np.testing.assert_allclose(float(pmet["loss"]), float(jmet["loss"]),
+                                   rtol=2e-2)
+        assert float(pmet["scale"]) == 1.0
+    assert all(p.dtype == torch.float32 for p in pm.parameters())
+
+
 def test_step_records_carry_ppl(tmp_path):
     path = tmp_path / "s.jsonl"
     emitter = TelemetryEmitter(JsonlSink(str(path)), torch.device("cpu"))
@@ -307,6 +420,34 @@ def test_lm_cli_runs_on_the_cpu_and_its_stream_lints(tmp_path, arch):
         assert not any(" ppl " in ln for ln in lines)
         assert all("ppl" not in r for r in steps)
     assert records[-1]["record"] == "run_summary"
+
+
+@pytest.mark.parametrize("level", ["O0", "O2"])
+def test_gpt_cli_with_fused_attention_lints(tmp_path, level):
+    out, lines, records = _run_cli(tmp_path, "gpt_tiny", "--opt", "adam",
+                                   "--lr", "1e-3", "--fused-attention",
+                                   "--opt-level", level)
+    assert "attention flash kernels" in out
+    assert f"opt-level {level} (compute " + (
+        "float32" if level == "O0" else "bfloat16") in out
+    assert len(lines) == 3 and lines[-1].endswith("scale 1")
+    assert records[0]["config"]["fused_attention"] is True
+    steps = [r for r in records if r["record"] == "step"]
+    assert all(np.isfinite(r["loss"]) for r in steps)
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--arch", "gpt_tiny", "--fused-attention", "--opt-level", "O3"],
+     "fp32 softmax"),
+    (["--arch", "transformer_xl_tiny", "--fused-attention"],
+     "BERT/GPT archs only"),
+    (["--arch", "resnet18", "--fused-attention"], "BERT/GPT archs only"),
+    (["--arch", "gpt_tiny", "--fused-attention", "--opt-level", "O2",
+      "--loss-scale", "dynamic"], "noop flag"),
+    (["--arch", "transformer_xl_tiny", "--opt-level", "O2"], "O0 without")])
+def test_fused_attention_and_amp_refusals(argv, match):
+    with pytest.raises(SystemExit, match=match):
+        train.main(["--device", "cpu"] + argv)
 
 
 def test_cli_runs_on_the_cpu_and_its_stream_lints(tmp_path):
@@ -632,7 +773,7 @@ def test_image_cli_runs_o2_dynamic_with_eval_and_its_stream_lints(tmp_path):
     assert records[-1]["record"] == "run_summary"
 
 
-@pytest.mark.parametrize("argv", [["--opt-level", "O2"],
+@pytest.mark.parametrize("argv", [["--opt-level", "O1"],
                                   ["--loss-scale", "dynamic"],
                                   ["--eval"]])
 def test_lm_archs_refuse_amp_and_eval_until_their_slice(argv):
