@@ -16,11 +16,15 @@ ResNet (models/resnet.py, whose submodules carry the flax names): a conv
 (OIHW), the Dense ``fc`` kernel is transposed into ``fc.weight``, BatchNorm
 ``scale``/``bias`` are parameters and the batch statistics ``mean``/``var``
 buffers of the same names.
+
+``optimizer_state_from_jax(name, state, leaves)`` turns the state of the
+JAX package's FusedSGD, FusedNovoGrad or FusedAdagrad into the
+``load_state_dict`` form of the port's optimizer of the same name.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Callable, Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -132,3 +136,45 @@ def resnet_params_from_flax(params: Mapping, batch_stats: Mapping = None
     for path, leaf in _flatten(batch_stats or {}):
         sd[path] = _tensor(leaf)
     return sd
+
+
+# The JAX optimizer state's fields and the port's names for them.
+_OPT_FIELDS = {"sgd": {"momentum": "momentum_buffer"},
+               "novograd": {"mu": "mu", "nu": "nu"},
+               "adagrad": {"sum_sq": "sum_sq"}}
+
+
+def _map_trees(fn, a, b):
+    """``fn`` over the leaves of two nested dicts of one structure."""
+    if isinstance(a, Mapping):
+        return {k: _map_trees(fn, a[k], b[k]) for k in a}
+    return fn(a, b)
+
+
+def optimizer_state_from_jax(name: str, state: Mapping,
+                             leaves: Callable[[Mapping], List]) -> Dict:
+    """The port's optimizer state dict from a JAX ``SGDState``,
+    ``NovoGradState`` or ``AdagradState`` (``name``: sgd, novograd or
+    adagrad).  ``state`` maps the state's fields to numpy: ``step`` a
+    scalar, the others nested dicts shaped as the flax params.  ``leaves``
+    turns such a tree into the port's parameters' order, with the layout of
+    each (for example a ``*_params_from_flax`` converter, then its values
+    in the model's ``named_parameters`` order), so that a moment of a
+    transposed kernel is transposed with it.  NovoGrad's ``nu`` holds one
+    scalar per leaf: each goes through ``leaves`` as an array of the
+    parameter's shape filled with it, and comes out 0-d."""
+    if name not in _OPT_FIELDS:
+        raise ValueError(f"no JAX optimizer state named {name!r}: "
+                         f"{sorted(_OPT_FIELDS)}")
+    out = {"step": int(np.asarray(state["step"]))}
+    for field, port_name in _OPT_FIELDS[name].items():
+        tree = state[field]
+        if field == "nu":
+            tree = _map_trees(lambda m, s: np.full(np.shape(m), s, np.float32),
+                              state["mu"], tree)
+        tensors = [torch.from_numpy(np.array(t, np.float32))
+                   for t in leaves(tree)]
+        if field == "nu":
+            tensors = [t.reshape(-1)[0].clone() for t in tensors]
+        out[port_name] = [t.contiguous() for t in tensors]
+    return out

@@ -1,5 +1,5 @@
-// LAMB stage 1 and stage 2, and Adam, for Hopper (sm_90a), bound with
-// ctypes.
+// LAMB stage 1 and stage 2, Adam, momentum SGD, NovoGrad and Adagrad, for
+// Hopper (sm_90a), bound with ctypes.
 //
 // Replace apex_example_tpu/ops/fused_optim.py:137 `_lamb1_kernel` (launched
 // per leaf by `lamb_stage1_leaf`, :167 / :196) and :219 `_lamb2_kernel`
@@ -65,6 +65,41 @@
 // parameters move 511 MB, ~0.153 ms at 3.35 TB/s; about 7 operations per
 // element.  Design as Adam's: the whole list (of one dtype) in one launch,
 // one block per chunk, 16-byte vector loads where aligned.
+//
+// NovoGrad.  Replaces apex_example_tpu/ops/fused_optim.py:274
+// `_novograd_kernel` (launched once per leaf by `novograd_update_leaf`,
+// :285 / :317) and the per-leaf scalar work around it in
+// apex_example_tpu/optim/fused.py:252-259.  The second moment v is ONE fp32
+// per tensor, the EMA of the tensor's squared grad norm sq (the L2-norm
+// kernel's per-tensor output, multi_tensor.cu).  The chunks of one tensor
+// run in different blocks, in no order, so no chunk may read v[t] while
+// another writes it: a small per-tensor kernel (one thread a tensor, as
+// LAMB's trust_ratio_kernel) first computes
+//   v' = (first step and not init_zero) ? sq : b2*v + (1-b2)*sq
+//   inv_denom = 1 / (sqrt(v' * c2) + eps)
+// and writes v in place and inv_denom to a [T] buffer; then the chunk
+// kernel, per element, in fp32 as the TPU kernel:
+//   g^ = g * inv_denom[t] + wd*p;  m = b1*m + ga*g^;  p -= lr_c1*m
+// (ga = 1 - b1 under grad averaging, else 1; lr_c1 = lr * c1 folds the
+// bias correction in).  lr_c1 and c2 are read from the card (a row of the
+// optimizer's per-step table, indexed by its device step count), and the
+// first-step branch is the device count being 0.  noop (apex's noop_flag)
+// nonzero: both kernels return before writing, so a skipped step leaves p,
+// m and v as they were.  Bound: bytes.  p, g, m read
+// and p, m written: 20 bytes per fp32 element (the [T] vectors are noise):
+// bert_base's 109.5 M parameters move 2.19 GB, ~0.654 ms at 3.35 TB/s; about
+// 7 operations per element.  Design as Adam's for the chunk kernel.
+//
+// Adagrad.  Replaces apex_example_tpu/ops/fused_optim.py:380
+// `_adagrad_kernel` (launched once per leaf by `adagrad_update_leaf`, :396 /
+// :418).  Per element, fp32 arithmetic with fp32 scalars:
+//   L2 mode (w_mode = 0): g += wd*p
+//   h += g*g;  u = g / (sqrt(h) + eps);  w_mode: u += wd*p
+//   p -= lr*u
+// p (fp32, bf16 or fp16, g of p's dtype) and h (fp32) in place; lr a host
+// float or read from the card, and the noop flag as SGD's.  Bound: bytes,
+// the same 20 bytes per fp32 element as SGD: ResNet-50's 25.6 M parameters,
+// ~0.153 ms.  Design as SGD's.
 
 #include "multi_tensor_apply.cuh"
 
@@ -320,6 +355,157 @@ int run_stage2(const Table& tab, const float* u, const float* ratio, float lr,
   return static_cast<int>(cudaGetLastError());
 }
 
+struct NovoArgs {
+  float beta1, beta2, one_minus_beta2, eps, weight_decay, grad_avg_coeff;
+  int init_zero;
+};
+
+// One thread a tensor: v' from sq, and inv_denom.  scal: (lr_c1, c2) on the
+// card; step: the steps taken before this one (the first step when 0).
+__global__ void __launch_bounds__(256)
+    novograd_moment_kernel(int n_tensors, NovoArgs a,
+                           const float* __restrict__ sq, float* __restrict__ v,
+                           float* __restrict__ inv_denom,
+                           const float* __restrict__ scal,
+                           const int* __restrict__ step,
+                           const int* __restrict__ noop) {
+  if (noop != nullptr && *noop != 0) return;
+  const int t = blockIdx.x * 256 + threadIdx.x;
+  if (t >= n_tensors) return;
+  const float c2 = scal[1];
+  const bool first = *step == 0;
+  const float s = sq[t];
+  const float vn = (first && !a.init_zero)
+                       ? s
+                       : a.beta2 * v[t] + a.one_minus_beta2 * s;
+  v[t] = vn;
+  inv_denom[t] = 1.f / (sqrtf(vn * c2) + a.eps);
+}
+
+__device__ __forceinline__ void novograd_element(const NovoArgs& a,
+                                                 float inv, float lr_c1,
+                                                 float& p, float g,
+                                                 float& m) {
+  const float gh = g * inv + a.weight_decay * p;
+  m = a.beta1 * m + a.grad_avg_coeff * gh;
+  p = p - lr_c1 * m;
+}
+
+// ptrs lists: 0 = p, 1 = g (dtype T), 2 = m (fp32).
+template <typename T>
+__global__ void __launch_bounds__(mta::kThreads)
+    novograd_chunks_kernel(Table tab, NovoArgs a,
+                           const float* __restrict__ inv_denom,
+                           const float* __restrict__ scal,
+                           const int* __restrict__ noop) {
+  if (noop != nullptr && *noop != 0) return;
+  const float lr_c1 = scal[0];
+  const Chunk k = mta::chunk_of(tab, blockIdx.x);
+  const float inv = inv_denom[k.tensor];
+  const long long n = tab.n_tensors;
+  T* p = reinterpret_cast<T*>(tab.ptrs[k.tensor]) + k.start;
+  const T* g = reinterpret_cast<const T*>(tab.ptrs[n + k.tensor]) + k.start;
+  float* m = reinterpret_cast<float*>(tab.ptrs[2 * n + k.tensor]) + k.start;
+  int i = threadIdx.x;
+  if (mta::aligned16(p) && mta::aligned16(g) && mta::aligned16(m)) {
+    const int nvec = k.len / 4;
+    for (; i < nvec; i += mta::kThreads) {
+      float pf[4], gf[4], mf[4];
+      mta::load4(p + 4 * i, pf);
+      mta::load4(g + 4 * i, gf);
+      mta::load4(m + 4 * i, mf);
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        novograd_element(a, inv, lr_c1, pf[u], gf[u], mf[u]);
+      mta::store4(p + 4 * i, pf);
+      mta::store4(m + 4 * i, mf);
+    }
+    i = 4 * nvec + threadIdx.x;       // the ragged tail, scalar
+  }
+  for (; i < k.len; i += mta::kThreads) {
+    float pf = mta::to_float(p[i]), mf = m[i];
+    novograd_element(a, inv, lr_c1, pf, mta::to_float(g[i]), mf);
+    p[i] = mta::from_float<T>(pf);
+    m[i] = mf;
+  }
+}
+
+template <typename T>
+int run_novograd(const Table& tab, const NovoArgs& a, const float* sq,
+                 float* v, float* inv_denom, const float* scal,
+                 const int* step, const int* noop, cudaStream_t stream) {
+  novograd_moment_kernel<<<static_cast<unsigned>((tab.n_tensors + 255) / 256),
+                           256, 0, stream>>>(tab.n_tensors, a, sq, v,
+                                             inv_denom, scal, step, noop);
+  int rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0 || tab.n_chunks == 0) return rc;
+  novograd_chunks_kernel<T><<<static_cast<unsigned>(tab.n_chunks),
+                              mta::kThreads, 0, stream>>>(tab, a, inv_denom,
+                                                          scal, noop);
+  return static_cast<int>(cudaGetLastError());
+}
+
+struct AdagradArgs {
+  float lr, eps, weight_decay;
+  int w_mode;
+};
+
+__device__ __forceinline__ void adagrad_element(const AdagradArgs& a,
+                                                float lr, float& p, float g,
+                                                float& h) {
+  if (!a.w_mode) g = g + a.weight_decay * p;
+  h = h + g * g;
+  float u = g / (sqrtf(h) + a.eps);
+  if (a.w_mode) u = u + a.weight_decay * p;
+  p = p - lr * u;
+}
+
+// ptrs lists: 0 = p, 1 = g (dtype T), 2 = h (fp32).
+template <typename T>
+__global__ void __launch_bounds__(mta::kThreads)
+    adagrad_chunks_kernel(Table tab, AdagradArgs a,
+                          const float* __restrict__ lr_dev,
+                          const int* __restrict__ noop) {
+  if (noop != nullptr && *noop != 0) return;
+  const float lr = lr_dev != nullptr ? *lr_dev : a.lr;
+  const Chunk k = mta::chunk_of(tab, blockIdx.x);
+  const long long n = tab.n_tensors;
+  T* p = reinterpret_cast<T*>(tab.ptrs[k.tensor]) + k.start;
+  const T* g = reinterpret_cast<const T*>(tab.ptrs[n + k.tensor]) + k.start;
+  float* h = reinterpret_cast<float*>(tab.ptrs[2 * n + k.tensor]) + k.start;
+  int i = threadIdx.x;
+  if (mta::aligned16(p) && mta::aligned16(g) && mta::aligned16(h)) {
+    const int nvec = k.len / 4;
+    for (; i < nvec; i += mta::kThreads) {
+      float pf[4], gf[4], hf[4];
+      mta::load4(p + 4 * i, pf);
+      mta::load4(g + 4 * i, gf);
+      mta::load4(h + 4 * i, hf);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) adagrad_element(a, lr, pf[u], gf[u], hf[u]);
+      mta::store4(p + 4 * i, pf);
+      mta::store4(h + 4 * i, hf);
+    }
+    i = 4 * nvec + threadIdx.x;       // the ragged tail, scalar
+  }
+  for (; i < k.len; i += mta::kThreads) {
+    float pf = mta::to_float(p[i]), hf = h[i];
+    adagrad_element(a, lr, pf, mta::to_float(g[i]), hf);
+    p[i] = mta::from_float<T>(pf);
+    h[i] = hf;
+  }
+}
+
+template <typename T>
+int run_adagrad(const Table& tab, const AdagradArgs& a, const float* lr_dev,
+                const int* noop, cudaStream_t stream) {
+  if (tab.n_chunks == 0) return 0;
+  adagrad_chunks_kernel<T><<<static_cast<unsigned>(tab.n_chunks),
+                             mta::kThreads, 0, stream>>>(tab, a, lr_dev,
+                                                         noop);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Stage 1 over a table of four lists (p, g, m, v).  gnorm: the device grad
@@ -436,6 +622,74 @@ extern "C" int apex_sgd(const void* ptrs, const void* offsets,
       return run_sgd<__nv_bfloat16>(tab, a, lr_d, nf, st);
     case 2:
       return run_sgd<__half>(tab, a, lr_d, nf, st);
+    default:
+      return -1;
+  }
+}
+
+// NovoGrad over a table of three lists (p, g, m), p and m in place, after
+// the per-tensor kernel: sq (n_tensors floats in: the squared grad norms),
+// v (n_tensors floats, in place), inv_denom (n_tensors floats out).  dtype
+// is p's and g's.  scal: (lr_c1, c2), two floats on the card; step: one
+// int32 on the card, the first step when 0; noop: null, or one int32 on
+// the card, nonzero skips the step.
+extern "C" int apex_novograd(
+    const void* ptrs, const void* offsets, const void* chunk_tensor,
+    const void* chunk_start, const void* tensor_chunk0, int n_tensors,
+    int n_chunks, int dtype, float beta1, float beta2, float one_minus_beta2,
+    float eps, float weight_decay, float grad_avg_coeff, int init_zero,
+    const void* sq, void* v, void* inv_denom, const void* scal,
+    const void* step, const void* noop, void* stream) {
+  if (n_tensors < 1 || n_chunks < 0 || scal == nullptr || step == nullptr)
+    return -2;
+  const Table tab = mta::make_table(ptrs, offsets, chunk_tensor, chunk_start,
+                                    tensor_chunk0, n_tensors, n_chunks);
+  const NovoArgs a{beta1, beta2, one_minus_beta2, eps, weight_decay,
+                   grad_avg_coeff, init_zero != 0};
+  const float* s = static_cast<const float*>(sq);
+  float* vv = static_cast<float*>(v);
+  float* inv = static_cast<float*>(inv_denom);
+  const float* sd = static_cast<const float*>(scal);
+  const int* st = static_cast<const int*>(step);
+  const int* nf = static_cast<const int*>(noop);
+  cudaStream_t strm = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return run_novograd<float>(tab, a, s, vv, inv, sd, st, nf, strm);
+    case 1:
+      return run_novograd<__nv_bfloat16>(tab, a, s, vv, inv, sd, st, nf,
+                                         strm);
+    case 2:
+      return run_novograd<__half>(tab, a, s, vv, inv, sd, st, nf, strm);
+    default:
+      return -1;
+  }
+}
+
+// Adagrad over a table of three lists (p, g, h), p and h in place.  dtype
+// is p's and g's; adagrad_w_mode 1 adds the decay to the update, 0 folds it
+// into the gradient.  lr_dev and noop as apex_sgd's.
+extern "C" int apex_adagrad(const void* ptrs, const void* offsets,
+                            const void* chunk_tensor, const void* chunk_start,
+                            const void* tensor_chunk0, int n_tensors,
+                            int n_chunks, int dtype, float lr, float eps,
+                            float weight_decay, int adagrad_w_mode,
+                            const void* lr_dev, const void* noop,
+                            void* stream) {
+  if (n_tensors < 1 || n_chunks < 0) return -2;
+  const Table tab = mta::make_table(ptrs, offsets, chunk_tensor, chunk_start,
+                                    tensor_chunk0, n_tensors, n_chunks);
+  const AdagradArgs a{lr, eps, weight_decay, adagrad_w_mode != 0};
+  const float* lr_d = static_cast<const float*>(lr_dev);
+  const int* nf = static_cast<const int*>(noop);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return run_adagrad<float>(tab, a, lr_d, nf, st);
+    case 1:
+      return run_adagrad<__nv_bfloat16>(tab, a, lr_d, nf, st);
+    case 2:
+      return run_adagrad<__half>(tab, a, lr_d, nf, st);
     default:
       return -1;
   }

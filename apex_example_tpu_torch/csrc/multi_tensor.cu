@@ -43,6 +43,18 @@
 // a block ORs 1 into it (an integer atomic) when __syncthreads_or finds a
 // non-finite element among its threads.  The TPU kernel's per-leaf SMEM
 // counter becomes that one word.
+//
+// axpby.  Replaces apex_example_tpu/ops/multi_tensor.py:151 `_axpby_kernel`
+// (launched once per leaf by `_axpby_leaf_pallas`, :157 / :170, from the
+// public `multi_tensor_axpby` :188): out = a*x + b*y in fp32, stored in y's
+// dtype.  x and y may differ in dtype (any pair of fp32, bf16 and fp16:
+// apex mixes half model grads with fp32 masters), so the kernel is
+// instantiated for each pair; a and b are host floats.  Bound: bytes.  x and
+// y read once, out written once: 12 bytes per fp32 element, bert_base's
+// 109.5 M elements 1.31 GB, ~0.392 ms at 3.35 TB/s; three operations per
+// element.  Design: one block per 64 Ki-element chunk over the whole list in
+// one launch (a table of three lists: x, y, out), 16-byte vector loads
+// where every pointer of the chunk is 16-byte aligned, scalar otherwise.
 
 #include "multi_tensor_apply.cuh"
 
@@ -153,6 +165,56 @@ int run(const Table& tab, int list, float* partial, float* sq, float* norm,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ptrs lists: 0 = x (dtype TX), 1 = y, 2 = out (dtype TY).
+template <typename TX, typename TY>
+__global__ void __launch_bounds__(mta::kThreads)
+    axpby_chunks_kernel(Table tab, float a, float b) {
+  const Chunk k = mta::chunk_of(tab, blockIdx.x);
+  const long long n = tab.n_tensors;
+  const TX* x = reinterpret_cast<const TX*>(tab.ptrs[k.tensor]) + k.start;
+  const TY* y = reinterpret_cast<const TY*>(tab.ptrs[n + k.tensor]) + k.start;
+  TY* out = reinterpret_cast<TY*>(tab.ptrs[2 * n + k.tensor]) + k.start;
+  int i = threadIdx.x;
+  if (mta::aligned16(x) && mta::aligned16(y) && mta::aligned16(out)) {
+    const int nvec = k.len / 4;
+    for (; i < nvec; i += mta::kThreads) {
+      float xf[4], yf[4];
+      mta::load4(x + 4 * i, xf);
+      mta::load4(y + 4 * i, yf);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) xf[u] = a * xf[u] + b * yf[u];
+      mta::store4(out + 4 * i, xf);
+    }
+    i = 4 * nvec + threadIdx.x;       // the ragged tail, scalar
+  }
+  for (; i < k.len; i += mta::kThreads)
+    out[i] = mta::from_float<TY>(a * mta::to_float(x[i]) +
+                                 b * mta::to_float(y[i]));
+}
+
+template <typename TX, typename TY>
+int run_axpby(const Table& tab, float a, float b, cudaStream_t stream) {
+  if (tab.n_chunks == 0) return 0;
+  axpby_chunks_kernel<TX, TY><<<static_cast<unsigned>(tab.n_chunks),
+                                mta::kThreads, 0, stream>>>(tab, a, b);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TX>
+int run_axpby_y(const Table& tab, int y_dtype, float a, float b,
+                cudaStream_t stream) {
+  switch (y_dtype) {
+    case 0:
+      return run_axpby<TX, float>(tab, a, b, stream);
+    case 1:
+      return run_axpby<TX, __nv_bfloat16>(tab, a, b, stream);
+    case 2:
+      return run_axpby<TX, __half>(tab, a, b, stream);
+    default:
+      return -1;
+  }
+}
+
 template <typename T>
 int run_scale(const Table& tab, int in_list, int out_list, float scale,
               const float* scale_dev, const float* norm, float max_norm,
@@ -226,6 +288,28 @@ extern "C" int apex_multi_tensor_scale(
     case 2:
       return run_scale<__half>(tab, in_list, out_list, scale, sd, nm,
                                max_norm, eps, flag_output, fl, st);
+    default:
+      return -1;
+  }
+}
+
+// out = a * x + b * y over a table of three lists (x, y, out): x of dtype
+// x_dtype, y and out of y_dtype.
+extern "C" int apex_multi_tensor_axpby(
+    const void* ptrs, const void* offsets, const void* chunk_tensor,
+    const void* chunk_start, const void* tensor_chunk0, int n_tensors,
+    int n_chunks, int x_dtype, int y_dtype, float a, float b, void* stream) {
+  if (n_tensors < 1 || n_chunks < 0) return -2;
+  const Table tab = mta::make_table(ptrs, offsets, chunk_tensor, chunk_start,
+                                    tensor_chunk0, n_tensors, n_chunks);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (x_dtype) {
+    case 0:
+      return run_axpby_y<float>(tab, y_dtype, a, b, st);
+    case 1:
+      return run_axpby_y<__nv_bfloat16>(tab, y_dtype, a, b, st);
+    case 2:
+      return run_axpby_y<__half>(tab, y_dtype, a, b, st);
     default:
       return -1;
   }

@@ -11,15 +11,17 @@ With the identity scaler (a static scale of 1.0: O0, and O1-O3 in bf16)
 the scale and unscale do nothing and launch nothing.  Under dynamic
 scaling a non-finite grad skips the step the way the JAX step selects the
 old params and the whole old optimizer state (:250-257): the optimizer
-takes the flag as apex's ``noop_flag`` (FusedSGD, optim/fused.py) and
-leaves the parameters, its buffers and its step count untouched; the
-scale halves.  Nothing in the step reads a device value on the host.  BN
-running statistics are not rolled back, as in JAX and apex.
+takes the flag as apex's ``noop_flag`` (FusedSGD, FusedNovoGrad and
+FusedAdagrad, optim/fused.py) and leaves the parameters, its buffers and
+its step count untouched; the scale halves.  Nothing in the step reads
+a device value on the host.  BN running statistics are not rolled back,
+as in JAX and apex.
 
 Metrics, as the JAX step's: ``loss``, ``scale`` (after the update),
 ``grads_finite``, ``grad_norm`` (the global norm of the unscaled grads:
-FusedLAMB's step takes it for its clip; for the others it is one L2-norm
-launch after the step, which leaves the grads as they are) and, where the
+FusedLAMB's step takes it for its clip and FusedNovoGrad's for its second
+moments; for the others it is one L2-norm launch after the step, which
+leaves the grads as they are) and, where the
 labels are one tensor of classes, ``top1`` (percent of the batch).
 
 The JAX state is an immutable pytree that each step replaces; here the
@@ -97,7 +99,8 @@ def make_train_step(loss_fn: Callable = cross_entropy_loss,
             raise ValueError(
                 f"dynamic loss scaling skips a step through the optimizer's "
                 f"noop flag, which {type(opt).__name__} does not take yet; "
-                f"use FusedSGD or a static --loss-scale")
+                f"use FusedSGD, FusedNovoGrad, FusedAdagrad or a static "
+                f"--loss-scale")
         state.model.train()
         opt.zero_grad()
         logits = state.model(x)

@@ -30,6 +30,22 @@ them, :352-353).  ``sgd_cuda`` launches csrc/fused_optim.cu over a table of
 learning rate from the card and skip the whole step on apex's
 ``noop_flag``, an int32 on the card (the loss scaler's non-finite flag).
 
+``novograd_moment_plain`` is NovoGrad's per-tensor scalar work
+(apex_example_tpu/optim/fused.py:252-259): the second moment v, one fp32
+per tensor, from the squared grad norm, and ``inv_denom``;
+``novograd_update_plain`` is the arithmetic of the Pallas
+``_novograd_kernel`` (:274; ``novograd_update_leaf`` :285).
+``novograd_cuda`` launches csrc/fused_optim.cu over a table of (p, g, m):
+a per-tensor kernel (v in place, inv_denom out), then the chunk kernel (p
+and m in place), in one call; the step's scalars and its first-step
+branch come from the card, and it skips on the noop flag.
+
+``adagrad_update_plain`` is the arithmetic of the Pallas ``_adagrad_kernel``
+(:380; ``adagrad_update_leaf_reference`` :432 with its scalars in fp32, as the
+kernel receives them, :414-415).  ``adagrad_cuda`` launches csrc/fused_optim.cu
+over a table of (p, g, h) in one call, p and h in place, with the learning
+rate and the noop flag as ``sgd_cuda``'s.
+
 Which one runs is the caller's choice by device (optim/fused.py): CPU
 tensors take the plain versions, CUDA tensors the kernels, and the kernels'
 wrappers raise on anything they cannot take.
@@ -111,6 +127,55 @@ def sgd_update_plain(p, g, buf, *, lr, momentum, weight_decay,
     return (pf - lr * step_dir).to(p.dtype), nb.to(buf.dtype)
 
 
+def novograd_moment_plain(sq, v, *, beta2, eps, c2=1.0, first_step=False,
+                          init_zero=False):
+    """``(v', inv_denom)``, fp32 [T], from the squared grad norms ``sq``
+    and the second moments ``v`` (fp32 [T]): ``v' = sq`` on the first step
+    (unless ``init_zero``), else ``beta2 v + (1 - beta2) sq``, and
+    ``inv_denom = 1 / (sqrt(v' c2) + eps)``.  ``1 - beta2`` is rounded to
+    fp32 from the exact value, as the JAX optimizer's Python float is.
+    ``c2`` is a float or a 0-d fp32 tensor, ``first_step`` a bool or a 0-d
+    bool tensor."""
+    sq, v = sq.float(), v.float()
+    ema = (float(np.float32(beta2)) * v
+           + float(np.float32(1.0 - beta2)) * sq)
+    vn = ema if init_zero else torch.where(torch.as_tensor(first_step), sq,
+                                           ema)
+    c2 = c2 if torch.is_tensor(c2) else float(np.float32(c2))
+    return vn, 1.0 / (torch.sqrt(vn * c2) + float(np.float32(eps)))
+
+
+def novograd_update_plain(p, g, m, *, inv_denom, lr_c1, beta1, weight_decay,
+                          grad_avg_coeff):
+    """``(p', m')`` for one tensor, fp32 arithmetic, in the dtypes of p and
+    m: ``g^ = g inv_denom + wd p``, ``m' = beta1 m + ga g^``,
+    ``p' = p - lr_c1 m'``.  ``inv_denom`` and ``lr_c1`` are floats or 0-d
+    fp32 tensors."""
+    pf, gf, mf = p.float(), g.float(), m.float()
+    f32 = lambda x: x if torch.is_tensor(x) else float(np.float32(x))  # noqa
+    g_hat = gf * f32(inv_denom) + f32(weight_decay) * pf
+    mf = f32(beta1) * mf + f32(grad_avg_coeff) * g_hat
+    return (pf - f32(lr_c1) * mf).to(p.dtype), mf.to(m.dtype)
+
+
+def adagrad_update_plain(p, g, h, *, lr, eps, weight_decay,
+                         adagrad_w_mode: bool = False):
+    """``(p', h')`` for one tensor, fp32 arithmetic with fp32 scalars, in
+    the dtypes of p and h: in L2 mode ``g += wd p`` first; ``h' = h + g^2``,
+    ``u = g / (sqrt(h') + eps)``; under ``adagrad_w_mode`` ``u += wd p``;
+    ``p' = p - lr u``.  ``lr`` is a float or a one-element fp32 tensor."""
+    pf, gf, hf = p.float(), g.float(), h.float()
+    wd = float(np.float32(weight_decay))
+    if not adagrad_w_mode:
+        gf = gf + wd * pf
+    hf = hf + gf * gf
+    upd = gf / (torch.sqrt(hf) + float(np.float32(eps)))
+    if adagrad_w_mode:
+        upd = upd + wd * pf
+    lr = lr if torch.is_tensor(lr) else float(np.float32(lr))
+    return (pf - lr * upd).to(p.dtype), hf.to(h.dtype)
+
+
 def trust_ratio_plain(p_sq: torch.Tensor, u_sq: torch.Tensor
                       ) -> torch.Tensor:
     """``||p|| / ||u||`` where both are positive, else 1 (optim/fused.py
@@ -135,6 +200,13 @@ def _library() -> ctypes.CDLL:
     lib.apex_sgd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
         ctypes.c_float] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
     lib.apex_sgd.restype = ctypes.c_int
+    lib.apex_novograd.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int] * 3 + [ctypes.c_float] * 6 + [ctypes.c_int] + [
+        ctypes.c_void_p] * 7
+    lib.apex_novograd.restype = ctypes.c_int
+    lib.apex_adagrad.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+        ctypes.c_float] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+    lib.apex_adagrad.restype = ctypes.c_int
     return lib
 
 
@@ -258,6 +330,17 @@ def _check_device_scalar(t: Optional[torch.Tensor], name: str, dtype,
                          f"device")
 
 
+def _check_three_lists(table: TensorTable, who: str, state: str) -> None:
+    """A table of (p, g, state): p and g of one dtype, the state float32."""
+    if len(table.lists) != 3:
+        raise ValueError(f"{who} takes a table of 3 lists, got "
+                         f"{len(table.lists)}")
+    if table.dtype(1) != table.dtype(0):
+        raise TypeError(f"{who}: p and g must share a dtype")
+    if table.dtype(2) != torch.float32:
+        raise TypeError(f"{who}: {state} must be float32")
+
+
 def sgd_cuda(table: TensorTable, *, lr: float, momentum: float,
              weight_decay: float, dampening: float = 0.0,
              nesterov: bool = False, first_step: bool = False,
@@ -268,13 +351,7 @@ def sgd_cuda(table: TensorTable, *, lr: float, momentum: float,
     one-element fp32 tensor on the card read in place of ``lr``;
     ``noop_flag``: a one-element int32 on the card, nonzero to leave p and
     buf untouched.  ``sgd_cuda.launches`` counts the calls."""
-    if len(table.lists) != 3:
-        raise ValueError(f"sgd_cuda takes a table of 3 lists, got "
-                         f"{len(table.lists)}")
-    if table.dtype(1) != table.dtype(0):
-        raise TypeError("sgd_cuda: p and g must share a dtype")
-    if table.dtype(2) != torch.float32:
-        raise TypeError("sgd_cuda: the momentum buffers must be float32")
+    _check_three_lists(table, "sgd_cuda", "the momentum buffers")
     _check_device_scalar(lr_t, "lr_t", torch.float32, table)
     _check_device_scalar(noop_flag, "noop_flag", torch.int32, table)
     check_table(table, 0, "sgd_cuda")
@@ -292,3 +369,86 @@ def sgd_cuda(table: TensorTable, *, lr: float, momentum: float,
 
 
 sgd_cuda.launches = 0
+
+
+def _check_per_tensor(t: torch.Tensor, name: str, table: TensorTable) -> None:
+    if (t.dtype != torch.float32 or t.dim() != 1
+            or t.numel() != table.n_tensors or not t.is_contiguous()
+            or t.device != table.device):
+        raise ValueError(f"{name} must be a contiguous float32 "
+                         f"[{table.n_tensors}] on the tensors' device")
+
+
+def novograd_cuda(table: TensorTable, sq: torch.Tensor, v: torch.Tensor,
+                  scalars_t: torch.Tensor, step_t: torch.Tensor, *,
+                  beta1: float, beta2: float, eps: float,
+                  weight_decay: float, grad_avg_coeff: float,
+                  init_zero: bool = False,
+                  noop_flag: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """NovoGrad over a table of three lists (p, g, m) in one call: the
+    per-tensor kernel turns the squared grad norms ``sq`` (fp32 [T]) into
+    the second moments ``v`` (fp32 [T], in place) and ``inv_denom``, then
+    the chunk kernel updates p and m in place.  ``scalars_t``: the step's
+    (lr_c1, c2), fp32 [2] on the card; ``step_t``: a 0-d int32 on the card,
+    the steps taken so far (the first step when 0); ``noop_flag``: a 0-d
+    int32 on the card, nonzero to leave p, m and v untouched.  Returns
+    ``inv_denom`` (fp32 [T]).  ``novograd_cuda.launches`` counts the
+    calls."""
+    who = "novograd_cuda"
+    _check_three_lists(table, who, "m")
+    _check_per_tensor(sq, "sq", table)
+    _check_per_tensor(v, "v", table)
+    if (scalars_t.dtype != torch.float32 or scalars_t.numel() != 2
+            or not scalars_t.is_contiguous()
+            or scalars_t.device != table.device):
+        raise ValueError("scalars_t must be two contiguous float32 (lr_c1, "
+                         "c2) on the tensors' device")
+    _check_device_scalar(step_t, "step_t", torch.int32, table)
+    _check_device_scalar(noop_flag, "noop_flag", torch.int32, table)
+    check_table(table, 0, who)
+    table.refresh()
+    inv_denom = torch.empty(table.n_tensors, dtype=torch.float32,
+                            device=table.device)
+    lib = _library()
+    with torch.cuda.device(table.device):
+        rc = lib.apex_novograd(
+            *table.args(), _build.DTYPE_CODES[table.dtype(0)], beta1, beta2,
+            float(np.float32(1.0 - beta2)), eps, weight_decay,
+            grad_avg_coeff, int(bool(init_zero)), sq.data_ptr(),
+            v.data_ptr(), inv_denom.data_ptr(), scalars_t.data_ptr(),
+            step_t.data_ptr(),
+            None if noop_flag is None else noop_flag.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _build.raise_on(rc, lib, "novograd", ARG_ERRORS)
+    novograd_cuda.launches += 1
+    return inv_denom
+
+
+novograd_cuda.launches = 0
+
+
+def adagrad_cuda(table: TensorTable, *, lr: float, eps: float,
+                 weight_decay: float, adagrad_w_mode: bool = False,
+                 lr_t: Optional[torch.Tensor] = None,
+                 noop_flag: Optional[torch.Tensor] = None) -> None:
+    """Adagrad over a table of three lists (p, g, h), p and h updated in
+    place, in one call of the CUDA kernel.  ``lr_t`` and ``noop_flag`` as
+    :func:`sgd_cuda`'s.  ``adagrad_cuda.launches`` counts the calls."""
+    _check_three_lists(table, "adagrad_cuda", "the sums of squares")
+    _check_device_scalar(lr_t, "lr_t", torch.float32, table)
+    _check_device_scalar(noop_flag, "noop_flag", torch.int32, table)
+    check_table(table, 0, "adagrad_cuda")
+    table.refresh()
+    lib = _library()
+    with torch.cuda.device(table.device):
+        rc = lib.apex_adagrad(
+            *table.args(), _build.DTYPE_CODES[table.dtype(0)], float(lr),
+            eps, weight_decay, int(bool(adagrad_w_mode)),
+            None if lr_t is None else lr_t.data_ptr(),
+            None if noop_flag is None else noop_flag.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _build.raise_on(rc, lib, "adagrad", ARG_ERRORS)
+    adagrad_cuda.launches += 1
+
+
+adagrad_cuda.launches = 0

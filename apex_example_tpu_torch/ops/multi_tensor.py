@@ -10,6 +10,9 @@ the Pallas ``_scale_kernel`` :79): ``y = (x.float() * s).to(x.dtype)`` and
 a flag that no INPUT element is inf or nan, whatever the scale.
 ``clip_grad_norm_plain`` is ``clip_grad_norm`` (:265): the global norm,
 then every grad scaled by ``min(1, max_norm / (norm + eps))`` in fp32.
+``multi_tensor_axpby_plain`` is ``multi_tensor_axpby`` (:188, the Pallas
+``_axpby_kernel`` :151): ``a x + b y`` in fp32, in y's dtype, for any pair
+of float dtypes.
 
 ``multi_tensor_l2norm_cuda`` and ``multi_tensor_scale_cuda`` launch
 csrc/multi_tensor.cu over a whole :class:`TensorTable` in one call each,
@@ -17,7 +20,10 @@ where the JAX package launches one kernel per leaf: from Python one call
 costs tens of microseconds, and an optimizer step over 241 tensors would
 pay it hundreds of times.  ``clip_grad_norm_cuda`` is the two of them over
 one table: the scale kernel reads the norm on the card, so nothing between
-them waits for the host.
+them waits for the host.  ``multi_tensor_axpby_cuda`` launches the axpby
+kernel over a table of (x, y, out) in one call, and ``multi_tensor_axpby``
+is the public op: new tensors from the plain version for CPU tensors, from
+the kernel (over a table built for the call) for CUDA tensors.
 
 ``TensorTable`` is the device-side chunk table of
 csrc/multi_tensor_apply.cuh, built on the host once for lists of tensors
@@ -153,6 +159,9 @@ def _library() -> ctypes.CDLL:
                              ctypes.c_float, ctypes.c_int,
                              ctypes.c_void_p, ctypes.c_void_p]
     lib.apex_multi_tensor_scale.restype = ctypes.c_int
+    lib.apex_multi_tensor_axpby.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+    lib.apex_multi_tensor_axpby.restype = ctypes.c_int
     return lib
 
 
@@ -285,3 +294,56 @@ def clip_grad_norm_cuda(table: TensorTable, max_norm: float,
     multi_tensor_scale_cuda(table, index, index, norm=total,
                             max_norm=max_norm, eps=eps)
     return total
+
+
+def multi_tensor_axpby_plain(a: float, xs: Sequence[torch.Tensor], b: float,
+                             ys: Sequence[torch.Tensor]
+                             ) -> List[torch.Tensor]:
+    """``a x + b y`` for each pair, in fp32 with fp32 scalars, returned in
+    y's dtype as new tensors."""
+    a, b = float(np.float32(a)), float(np.float32(b))
+    return [(a * x.float() + b * y.float()).to(y.dtype)
+            for x, y in zip(xs, ys)]
+
+
+def multi_tensor_axpby_cuda(table: TensorTable, a: float, b: float) -> None:
+    """List 2 (out) of ``table`` = a * list 0 (x) + b * list 1 (y), in one
+    call of the CUDA kernel: fp32 arithmetic, out in y's dtype, x of any
+    float dtype.  ``multi_tensor_axpby_cuda.launches`` counts the calls."""
+    who = "multi_tensor_axpby_cuda"
+    if len(table.lists) != 3:
+        raise ValueError(f"{who} takes a table of 3 lists (x, y, out), got "
+                         f"{len(table.lists)}")
+    if table.dtype(2) != table.dtype(1):
+        raise TypeError(f"{who}: out must have y's dtype")
+    check_table(table, 0, who)
+    check_table(table, 1, who)
+    table.refresh()
+    lib = _library()
+    with torch.cuda.device(table.device):
+        rc = lib.apex_multi_tensor_axpby(
+            *table.args(), _build.DTYPE_CODES[table.dtype(0)],
+            _build.DTYPE_CODES[table.dtype(1)], float(a), float(b),
+            torch.cuda.current_stream().cuda_stream)
+    _build.raise_on(rc, lib, "multi_tensor_axpby", ARG_ERRORS)
+    multi_tensor_axpby_cuda.launches += 1
+
+
+multi_tensor_axpby_cuda.launches = 0
+
+
+def multi_tensor_axpby(a: float, xs: Sequence[torch.Tensor], b: float,
+                       ys: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """``[a x + b y]`` for the pairs of ``xs`` and ``ys`` (the JAX
+    package's ``multi_tensor_axpby`` over lists), each in y's dtype: the
+    plain version for CPU tensors, else one kernel launch."""
+    xs, ys = list(xs), list(ys)
+    if len(xs) != len(ys):
+        raise ValueError(f"{len(xs)} x tensors against {len(ys)} y tensors")
+    if not xs:
+        return []
+    if xs[0].device.type == "cpu":
+        return multi_tensor_axpby_plain(a, xs, b, ys)
+    outs = [torch.empty_like(y) for y in ys]
+    multi_tensor_axpby_cuda(TensorTable([xs, ys, outs]), a, b)
+    return outs

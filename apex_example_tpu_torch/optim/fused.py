@@ -1,5 +1,5 @@
-"""FusedAdam, FusedLAMB and FusedSGD: port of apex_example_tpu/optim/fused.py
-(:50, :140, :271).
+"""FusedAdam, FusedLAMB, FusedSGD, FusedNovoGrad and FusedAdagrad: port of
+apex_example_tpu/optim/fused.py (:50, :140, :271, :198, :324).
 
 FusedAdam is Adam (``adam_w_mode=False``: the decay folded into the
 gradient) or AdamW (the default: the decay added to the update), one
@@ -50,24 +50,30 @@ learning rate a schedule gives at that count (the JAX step selects the old
 params and the whole old ``SGDState``, engine.py:250-257), with no host
 sync: the kernel exits on the flag, the count advances by ``1 - flag``,
 and a schedule's values stand in a device table that the count indexes.
+
+FusedNovoGrad (layer-wise normalised momentum: one fp32 second moment per
+tensor, the EMA of its squared grad norm) and FusedAdagrad (``h += g^2``)
+share that device count and noop flag (``_DeviceStepCount``), one launch
+each per dtype, as FusedSGD; NovoGrad's step also launches the L2 norm,
+whose per-tensor sums are its second moments' input and whose global norm
+its ``step`` returns.  The JAX step keeps the whole old optimizer state on
+a skipped step, step count included, so NovoGrad's bias corrections and
+first-step branch read the count on the card.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Optional, Tuple, Union
+from typing import (Callable, Dict, Iterable, List, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
 
-from apex_example_tpu_torch.ops.fused_optim import (adam_cuda,
-                                                    adam_update_plain,
-                                                    lamb_stage1_cuda,
-                                                    lamb_stage1_plain,
-                                                    lamb_stage2_cuda,
-                                                    lamb_stage2_plain,
-                                                    sgd_cuda,
-                                                    sgd_update_plain,
-                                                    trust_ratio_plain)
+from apex_example_tpu_torch.ops.fused_optim import (
+    adagrad_cuda, adagrad_update_plain, adam_cuda, adam_update_plain,
+    lamb_stage1_cuda, lamb_stage1_plain, lamb_stage2_cuda, lamb_stage2_plain,
+    novograd_cuda, novograd_moment_plain, novograd_update_plain, sgd_cuda,
+    sgd_update_plain, trust_ratio_plain)
 from apex_example_tpu_torch.ops.multi_tensor import (
     TensorTable, clip_grad_norm_cuda, clip_grad_norm_plain,
     multi_tensor_l2norm_cuda, multi_tensor_l2norm_plain,
@@ -327,24 +333,27 @@ class FusedLAMB(_ListOptimizer):
         return gnorm
 
 
-class FusedSGD(_ListOptimizer):
-    """Momentum SGD over a list of parameters, updated in place (see the
-    module docstring).  The constructor mirrors the JAX one (and apex's):
-    zero-initialized fp32 momentum buffers, so with ``dampening`` 0 the
-    first step equals torch's (whose first buffer is the gradient)."""
+class _DeviceStepCount:
+    """The step count on the device, for the optimizers whose ``step``
+    takes apex's ``noop_flag`` (FusedSGD, FusedNovoGrad, FusedAdagrad): the
+    count advances by ``1 - flag`` on the card, and the scalars a step
+    takes from it (the schedule's learning rate; NovoGrad's bias
+    corrections) stand in a device table of one row per step, built on the
+    host ahead of the count and indexed by it there, so a flagged step
+    changes nothing and no step reads the device.  FusedAdam and FusedLAMB
+    count on the host: through :attr:`step_count`, which reads the device,
+    their steps would each wait for it."""
 
-    state_names = ("momentum_buffer",)
     skips_on_flag = True        # step() takes the scaler's noop flag
 
-    def __init__(self, params: Iterable[torch.Tensor], lr: Schedule = 1e-2,
-                 momentum: float = 0.0, weight_decay: float = 0.0,
-                 dampening: float = 0.0, nesterov: bool = False):
-        super().__init__(params, lr, weight_decay)
-        self.momentum, self.dampening = momentum, dampening
-        self.nesterov = nesterov
+    def _init_step_count(self, table: bool) -> None:
+        """The count at 0 and, where the steps read ``table``, its first
+        rows, built now so that no step allocates them."""
         self.step_t = torch.zeros((), dtype=torch.int32, device=self.device)
-        self._lr_table: Optional[torch.Tensor] = None
+        self._step_table: Optional[torch.Tensor] = None
         self._attempts = 0
+        if table:
+            self._step_row()
 
     @property
     def step_count(self) -> int:
@@ -357,46 +366,242 @@ class FusedSGD(_ListOptimizer):
             self.step_t.fill_(int(value))
             self._attempts = max(self._attempts, int(value))
 
-    def lr_tensor(self) -> Optional[torch.Tensor]:
-        """The learning rate of the next step, a one-element fp32 tensor on
-        the device: the schedule at the device step count + 1.  None for a
-        float ``lr``.  The table of the schedule's values grows on the host,
-        ahead of the count, and crosses to the device without a sync."""
-        if not callable(self.lr):
-            return None
+    def _scalars_at(self, step: int) -> Sequence[float]:
+        """The per-step scalars at the 1-based ``step``."""
+        raise NotImplementedError
+
+    def _step_row(self) -> torch.Tensor:
+        """The scalars of the next step, fp32 [k] on the device: the
+        table's row at the device step count.  The table grows on the host
+        ahead of the count (at least as many rows as steps attempted) and
+        crosses to the device without a sync."""
         need = max(self._attempts, 1)
-        if self._lr_table is None or self._lr_table.numel() < need:
+        if self._step_table is None or self._step_table.shape[0] < need:
             n = max(2 * need, 64)
-            host = torch.tensor([_lr_at(self.lr, s) for s in range(1, n + 1)],
+            host = torch.tensor([list(self._scalars_at(s))
+                                 for s in range(1, n + 1)],
                                 dtype=torch.float32)
             if self.device.type == "cuda":
                 host = host.pin_memory()
-            self._lr_table = host.to(self.device, non_blocking=True)
-        return torch.index_select(self._lr_table, 0,
-                                  self.step_t.view(1).long())
+            self._step_table = host.to(self.device, non_blocking=True)
+        return torch.index_select(self._step_table, 0,
+                                  self.step_t.view(1).long()).view(-1)
+
+    def _count_step(self, noop_flag: Optional[torch.Tensor]) -> None:
+        if noop_flag is None:
+            self.step_t += 1
+        else:
+            self.step_t += 1 - noop_flag
+
+
+class _ScheduledLR(_DeviceStepCount):
+    """A learning rate that is a float (a host scalar) or a schedule read
+    from the device table at the count."""
+
+    def _scalars_at(self, step: int) -> Sequence[float]:
+        return (_lr_at(self.lr, step),)
+
+    def lr_tensor(self) -> Optional[torch.Tensor]:
+        """The learning rate of the next step, a one-element fp32 tensor on
+        the device: the schedule at the device step count + 1.  None for a
+        float ``lr``."""
+        return self._step_row() if callable(self.lr) else None
+
+    def _update(self, kernel, plain, state: List[torch.Tensor], hyper: Dict,
+                noop_flag: Optional[torch.Tensor]) -> None:
+        """One step of an optimizer with one fp32 state list: ``kernel``
+        over each device table (the lr from the card under a schedule), or
+        ``plain(p, g, s, lr=, **hyper) -> (p', s')`` tensor by tensor on
+        the CPU, where a set ``noop_flag`` keeps p and s; then the count."""
+        self._attempts += 1
+        lr_t = self.lr_tensor()
+        if self.tables:
+            for table in self.tables:
+                kernel(table, lr=0.0 if lr_t is not None else self.lr,
+                       lr_t=lr_t, noop_flag=noop_flag, **hyper)
+        else:
+            lr = lr_t if lr_t is not None else self.lr
+            keep = None if noop_flag is None else noop_flag != 0
+            for p, s in zip(self.params, state):
+                po, so = plain(p, p.grad, s, lr=lr, **hyper)
+                if keep is not None:
+                    po, so = torch.where(keep, p, po), torch.where(keep, s, so)
+                p.copy_(po)
+                s.copy_(so)
+        self._count_step(noop_flag)
+
+
+class FusedSGD(_ScheduledLR, _ListOptimizer):
+    """Momentum SGD over a list of parameters, updated in place (see the
+    module docstring).  The constructor mirrors the JAX one (and apex's):
+    zero-initialized fp32 momentum buffers, so with ``dampening`` 0 the
+    first step equals torch's (whose first buffer is the gradient)."""
+
+    state_names = ("momentum_buffer",)
+
+    def __init__(self, params: Iterable[torch.Tensor], lr: Schedule = 1e-2,
+                 momentum: float = 0.0, weight_decay: float = 0.0,
+                 dampening: float = 0.0, nesterov: bool = False):
+        super().__init__(params, lr, weight_decay)
+        self.momentum, self.dampening = momentum, dampening
+        self.nesterov = nesterov
+        self._init_step_count(callable(lr))
 
     @torch.no_grad()
     def step(self, noop_flag: Optional[torch.Tensor] = None) -> None:
         """One SGD step over the grads in ``p.grad``; ``noop_flag`` (0-d
         int32 on the device, nonzero: skip) is apex's.  Takes no norm."""
+        self._update(sgd_cuda, sgd_update_plain, self.momentum_buffer,
+                     dict(momentum=self.momentum,
+                          weight_decay=self.weight_decay,
+                          dampening=self.dampening, nesterov=self.nesterov),
+                     noop_flag)
+
+
+class FusedAdagrad(_ScheduledLR, _ListOptimizer):
+    """Adagrad over a list of parameters, updated in place: ``h += g^2``,
+    ``p -= lr g / (sqrt(h) + eps)``, one kernel launch over the parameters
+    of each dtype (ops/fused_optim.py ``adagrad_cuda``).  The constructor
+    mirrors the JAX one (:324, and apex's): weight decay folded into the
+    gradient, or added to the update under ``adagrad_w_mode``; fp32 sums of
+    squares ``sum_sq`` that start at zero.  The step count lives on the
+    device and ``step`` takes the noop flag, as FusedSGD's."""
+
+    state_names = ("sum_sq",)
+
+    def __init__(self, params: Iterable[torch.Tensor], lr: Schedule = 1e-2,
+                 eps: float = 1e-10, weight_decay: float = 0.0,
+                 adagrad_w_mode: bool = False):
+        super().__init__(params, lr, weight_decay)
+        self.eps, self.adagrad_w_mode = eps, adagrad_w_mode
+        self._init_step_count(callable(lr))
+
+    @torch.no_grad()
+    def step(self, noop_flag: Optional[torch.Tensor] = None) -> None:
+        """One Adagrad step over the grads in ``p.grad``; ``noop_flag`` as
+        FusedSGD's.  Takes no norm."""
+        self._update(adagrad_cuda, adagrad_update_plain, self.sum_sq,
+                     dict(eps=self.eps, weight_decay=self.weight_decay,
+                          adagrad_w_mode=self.adagrad_w_mode), noop_flag)
+
+
+class FusedNovoGrad(_DeviceStepCount, _ListOptimizer):
+    """NovoGrad over a list of parameters, updated in place: layer-wise
+    normalised momentum SGD.  The constructor mirrors the JAX one (:198,
+    and apex's): betas (0.95, 0.98), eps 1e-8, ``grad_averaging``,
+    ``bias_correction``, ``init_zero=False`` (the first step's second
+    moment is the squared grad norm itself), L2 decay added to the
+    normalised gradient; amsgrad refused.
+
+    The first moment ``mu`` is fp32 per element; the second moment is ONE
+    fp32 per tensor (the EMA of the tensor's squared grad norm), kept as one
+    [T] vector per parameter dtype and shown as ``nu``, 0-d views in
+    parameter order (the JAX state's per-leaf scalars).  A step is, per
+    dtype, one L2-norm launch (the per-tensor squared norms, and the global
+    grad norm that ``step`` returns) and one NovoGrad call (a per-tensor
+    kernel for v, then the chunk kernel).  The step count lives on the
+    device and ``step`` takes the noop flag, as FusedSGD's; each step's
+    ``(lr * c1, c2)`` is a row of the device table that the count indexes,
+    and the first-step branch is the count being 0 there."""
+
+    state_names = ("mu",)
+
+    def __init__(self, params: Iterable[torch.Tensor], lr: Schedule = 1e-3,
+                 betas=(0.95, 0.98), eps: float = 1e-8,
+                 weight_decay: float = 0.0, grad_averaging: bool = True,
+                 bias_correction: bool = True, init_zero: bool = False,
+                 amsgrad: bool = False):
+        if amsgrad:
+            raise ValueError("FusedNovoGrad does not support amsgrad "
+                             "(parity with the reference)")
+        super().__init__(params, lr, weight_decay)
+        self.betas, self.eps = tuple(betas), eps
+        self.grad_averaging = grad_averaging
+        self.bias_correction = bias_correction
+        self.init_zero = init_zero
+        self._v = [torch.zeros(len(idx), dtype=torch.float32,
+                               device=self.device) for idx in self.groups]
+        self._init_step_count(True)
+
+    @property
+    def grad_avg_coeff(self) -> float:
+        """``1 - beta1`` under grad averaging (rounded to fp32 from the
+        exact value, as the JAX optimizer's Python float), else 1."""
+        return (float(np.float32(1.0 - self.betas[0]))
+                if self.grad_averaging else 1.0)
+
+    @property
+    def nu(self) -> List[torch.Tensor]:
+        """The second moments, one 0-d fp32 view per parameter, in
+        parameter order."""
+        out: List[Optional[torch.Tensor]] = [None] * len(self.params)
+        for v, idx in zip(self._v, self.groups):
+            for j, i in enumerate(idx):
+                out[i] = v[j]
+        return out
+
+    def _scalars_at(self, step: int) -> Sequence[float]:
+        """(lr * c1, c2) at the 1-based ``step``, fp32 as the JAX
+        optimizer computes them (:236-244)."""
+        c1, c2 = _bias_corrections(self.betas, step, self.bias_correction)
+        return (float(np.float32(_lr_at(self.lr, step)) * np.float32(c1)),
+                c2)
+
+    @torch.no_grad()
+    def step(self, noop_flag: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One NovoGrad step over the grads in ``p.grad``; ``noop_flag`` as
+        FusedSGD's.  Returns the global grad norm (0-d fp32), from the same
+        L2-norm launch as the second moments."""
         self._attempts += 1
-        lr_t = self.lr_tensor()
-        hyper = dict(momentum=self.momentum, weight_decay=self.weight_decay,
-                     dampening=self.dampening, nesterov=self.nesterov)
+        scal = self._step_row()
+        hyper = dict(beta1=self.betas[0], weight_decay=self.weight_decay,
+                     grad_avg_coeff=self.grad_avg_coeff)
         if self.tables:
-            for table in self.tables:
-                sgd_cuda(table, lr=0.0 if lr_t is not None else self.lr,
-                         lr_t=lr_t, noop_flag=noop_flag, **hyper)
+            norms = []
+            for table, v in zip(self.tables, self._v):
+                norm, sq = multi_tensor_l2norm_cuda(table, index=1)
+                novograd_cuda(table, sq, v, scal, self.step_t,
+                              beta2=self.betas[1], eps=self.eps,
+                              init_zero=self.init_zero, noop_flag=noop_flag,
+                              **hyper)
+                norms.append(norm)
+            gnorm = (norms[0] if len(norms) == 1
+                     else torch.sqrt(sum(n * n for n in norms)))
         else:
-            lr = lr_t if lr_t is not None else self.lr
-            keep = None if noop_flag is None else noop_flag != 0
-            for p, b in zip(self.params, self.momentum_buffer):
-                po, bo = sgd_update_plain(p, p.grad, b, lr=lr, **hyper)
+            gnorm = self._step_plain(scal, hyper, noop_flag)
+        self._count_step(noop_flag)
+        return gnorm
+
+    def _step_plain(self, scal, hyper, noop_flag) -> torch.Tensor:
+        gnorm, sq = multi_tensor_l2norm_plain(self.grads)
+        keep = None if noop_flag is None else noop_flag != 0
+        for v, idx in zip(self._v, self.groups):
+            vn, inv = novograd_moment_plain(
+                sq[idx], v, beta2=self.betas[1], eps=self.eps, c2=scal[1],
+                first_step=self.step_t == 0, init_zero=self.init_zero)
+            for j, i in enumerate(idx):
+                p, m = self.params[i], self.mu[i]
+                po, mo = novograd_update_plain(p, p.grad, m, inv_denom=inv[j],
+                                               lr_c1=scal[0], **hyper)
                 if keep is not None:
-                    po, bo = torch.where(keep, p, po), torch.where(keep, b, bo)
+                    po, mo = torch.where(keep, p, po), torch.where(keep, m, mo)
                 p.copy_(po)
-                b.copy_(bo)
-        if noop_flag is None:
-            self.step_t += 1
-        else:
-            self.step_t += 1 - noop_flag
+                m.copy_(mo)
+            v.copy_(vn if keep is None else torch.where(keep, v, vn))
+        return gnorm
+
+    def state_dict(self) -> Dict:
+        out = super().state_dict()
+        out["nu"] = [t.detach().clone() for t in self.nu]
+        return out
+
+    def load_state_dict(self, state: Dict) -> None:
+        """Copy a :meth:`state_dict` in, into the existing state storage;
+        ``nu`` holds one 0-d second moment per parameter."""
+        if len(state["nu"]) != len(self.params):
+            raise ValueError(f"state holds {len(state['nu'])} nu moments, "
+                             f"the optimizer {len(self.params)}")
+        super().load_state_dict(state)
+        with torch.no_grad():
+            for dst, src in zip(self.nu, state["nu"]):
+                dst.copy_(src)

@@ -2,22 +2,29 @@
 ``python -m apex_example_tpu_torch.train``.
 
 The image path (train.py ``main`` :628-994): ResNet-18/34/50/101/152 on
-CIFAR- or ImageNet-shaped synthetic batches with FusedSGD (or FusedAdam,
-FusedLAMB) under amp O0-O3, with ``--loss-scale`` and
-``--keep-batchnorm-fp32``, and ``--eval``.  C1 and C2 of the reference:
+CIFAR- or ImageNet-shaped synthetic batches with FusedSGD (or FusedNovoGrad,
+FusedAdagrad, FusedAdam, FusedLAMB) under amp O0-O3, with ``--loss-scale``
+and ``--keep-batchnorm-fp32``, and ``--eval``.  C1 and C2 of the reference:
 
     python -m apex_example_tpu_torch.train --arch resnet18 \
         --dataset cifar10 --opt-level O0
     python -m apex_example_tpu_torch.train --arch resnet50 \
         --dataset imagenet --opt sgd --opt-level O2
+    # apex's other fused optimizers, dynamic loss scaling and O3 included
+    python -m apex_example_tpu_torch.train --arch resnet50 \
+        --dataset imagenet --opt adagrad --lr 1e-3 --opt-level O2 \
+        --loss-scale dynamic
 
 The language-model path (``_lm_main_impl`` :1014): BERT MLM (C4) and GPT
 causal LM at amp O0 or O2, Transformer-XL (C5) at O0 with its memory
-carried from step to step, trained with FusedLAMB, FusedAdam or FusedSGD.
-BERT and GPT attention takes the flash-attention kernels at sequence 2048
-and up, or at any length with ``--fused-attention`` (models/bert.py):
+carried from step to step, trained with FusedLAMB, FusedAdam, FusedSGD,
+FusedNovoGrad or FusedAdagrad.  BERT and GPT attention takes the
+flash-attention kernels at sequence 2048 and up, or at any length with
+``--fused-attention`` (models/bert.py):
 
     python -m apex_example_tpu_torch.train --arch bert_base --opt lamb
+    python -m apex_example_tpu_torch.train --arch bert_base --opt novograd \
+        --lr 0.5
     python -m apex_example_tpu_torch.train --arch transformer_xl --opt adam
     python -m apex_example_tpu_torch.train --arch gpt_base --opt adam
     # long context: 8 x 2048 tokens a step through the kernels, bf16
@@ -43,8 +50,8 @@ memory starts at ``init_mems(batch)`` and is carried from step to step
 before the optimizer (workloads.make_txl_train_step).  BERT and GPT run at
 O0 or O2 (bf16 dense layers, embeddings and LayerNorm I/O over fp32
 masters, fp32 softmax and logits, the identity loss scaler), without
-``--loss-scale`` (FusedAdam's and FusedLAMB's kernels take no noop flag
-yet); Transformer-XL at O0; the LM archs without ``--eval``.  Entry
+``--loss-scale`` (the LM paths' amp levels with a scaler come with a later
+slice); Transformer-XL at O0; the LM archs without ``--eval``.  Entry
 points run on the card unless ``--device cpu`` is given, and raise when
 CUDA is asked for and absent.  The flags of paths not ported yet (DDP,
 model parallelism, checkpoints, grad accumulation, diagnostics) are
@@ -81,7 +88,8 @@ from apex_example_tpu_torch.models.transformer_xl import (
     transformer_xl_base, transformer_xl_tiny)
 from apex_example_tpu_torch.obs.metrics import JsonlSink
 from apex_example_tpu_torch.obs.telemetry import TelemetryEmitter
-from apex_example_tpu_torch.optim.fused import (FusedAdam, FusedLAMB,
+from apex_example_tpu_torch.optim.fused import (FusedAdagrad, FusedAdam,
+                                                FusedLAMB, FusedNovoGrad,
                                                 FusedSGD)
 from apex_example_tpu_torch.optim.schedules import build_schedule
 from apex_example_tpu_torch.utils.meters import AverageMeter, Throughput
@@ -135,7 +143,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lr-min", type=float, default=0.0)
     p.add_argument("--momentum", type=float, default=0.9)
     p.add_argument("--weight-decay", "--wd", type=float, default=1e-4)
-    p.add_argument("--opt", default="sgd", choices=["sgd", "adam", "lamb"])
+    p.add_argument("--opt", default="sgd",
+                   choices=["sgd", "adam", "lamb", "novograd", "adagrad"])
     p.add_argument("--opt-level", default="O0",
                    choices=["O0", "O1", "O2", "O3"])
     p.add_argument("--loss-scale", default=None,
@@ -191,16 +200,21 @@ def build_model(args, device, policy=None):
     return ARCHS[args.arch](**kw)
 
 
+OPTIMIZERS = {"adam": FusedAdam, "lamb": FusedLAMB,
+              "novograd": FusedNovoGrad, "adagrad": FusedAdagrad}
+
+
 def build_optimizer(args, params):
     """train.py's ``build_optimizer`` (:559): FusedSGD (``--momentum``),
-    FusedAdam (AdamW) or FusedLAMB (clip at max_grad_norm 1.0), with the
-    schedule and weight decay."""
+    FusedAdam (AdamW), FusedLAMB (clip at max_grad_norm 1.0),
+    FusedNovoGrad or FusedAdagrad (their other arguments at their
+    defaults), with the schedule and weight decay."""
     lr = build_lr(args)
     if args.opt == "sgd":
         return FusedSGD(params, lr=lr, momentum=args.momentum,
                         weight_decay=args.weight_decay)
-    cls = FusedAdam if args.opt == "adam" else FusedLAMB
-    return cls(params, lr=lr, weight_decay=args.weight_decay)
+    return OPTIMIZERS[args.opt](params, lr=lr,
+                                weight_decay=args.weight_decay)
 
 
 def batch_fn(args, vocab_size: int, step: int, device):
@@ -242,14 +256,17 @@ def check_args(args) -> None:
         raise SystemExit("--fused-attention requires fp32 softmax "
                          "(opt levels O0-O2); O3 runs softmax half")
     if is_image(args):
-        if args.opt != "sgd" and args.opt_level == "O3":
+        one_dtype = args.opt in ("adam", "lamb")
+        if one_dtype and args.opt_level == "O3":
             raise SystemExit("--opt-level O3 keeps BatchNorm's parameters "
                              "fp32 beside half convolutions: the port's "
                              "FusedAdam and FusedLAMB take parameters of one "
-                             "dtype; use --opt sgd")
-        if args.opt != "sgd" and args.loss_scale == "dynamic":
-            raise SystemExit("--loss-scale dynamic skips steps through "
-                             "FusedSGD's noop flag; use --opt sgd")
+                             "dtype; use --opt sgd, novograd or adagrad")
+        if one_dtype and args.loss_scale == "dynamic":
+            raise SystemExit("--loss-scale dynamic skips steps through the "
+                             "optimizer's noop flag, which FusedAdam and "
+                             "FusedLAMB do not take yet; use --opt sgd, "
+                             "novograd or adagrad")
         return
     levels = ("O0",) if is_txl(args) else ("O0", "O2")
     if (args.opt_level not in levels or args.loss_scale is not None
@@ -259,7 +276,7 @@ def check_args(args) -> None:
             f"without --loss-scale or --keep-batchnorm-fp32 in this port: "
             f"FusedAdam's and FusedLAMB's kernels take no noop flag for a "
             f"dynamic skip yet; the other levels come with a later slice "
-            f"(ROADMAP.md A.4)")
+            f"(ROADMAP.md A.3)")
     if args.eval:
         raise SystemExit("--eval is ported for the image archs; the LM "
                          "eval steps come with a later slice")

@@ -18,9 +18,13 @@ arithmetic, up to the compiler's fused multiply-adds; bf16 p: one bf16
 ulp of p plus 1e-6); the scale kernel exactly (one fp32 product, then the
 same rounding) and its non-finite flag exactly; SGD's p and buf rtol 1e-5
 plus atol 1e-6 (bf16 p: one bf16 ulp plus 1e-6), and bitwise unchanged
-under the noop flag; the BatchNorm sums rtol 1e-4 plus 4e-6 of the sum of
-their terms' magnitudes (sums over the rows in another order, which may
-cancel) and bitwise repeatable; the fused BatchNorm's y and
+under the noop flag; NovoGrad's and Adagrad's the same, NovoGrad's
+per-tensor v and inv_denom rtol 1e-6 (one fp32 expression each), and
+every one bitwise unchanged under the noop flag; axpby rtol 1e-5 plus atol
+1e-6 in fp32, one ulp of its output dtype in bf16 and fp16; the
+BatchNorm sums rtol 1e-4 plus 4e-6 of the sum of their terms' magnitudes
+(sums over the rows in another order, which may cancel) and bitwise
+repeatable; the fused BatchNorm's y and
 dx against the CPU's 1e-4, its dscale and dbias rtol = atol 1e-4; the
 flash-attention kernels' lse, and O in fp32, atol = rtol 2e-5, their dQ,
 dK and dV 5e-5 in fp32 (tests/test_attention.py's limits: sums in another
@@ -46,7 +50,9 @@ from apex_example_tpu_torch.ops import batch_norm as bn
 from apex_example_tpu_torch.ops import fused_optim as fo
 from apex_example_tpu_torch.ops import layer_norm as port_ln
 from apex_example_tpu_torch.ops import multi_tensor as mt
-from apex_example_tpu_torch.optim.fused import FusedAdam, FusedLAMB, FusedSGD
+from apex_example_tpu_torch.optim.fused import (FusedAdagrad, FusedAdam,
+                                                FusedLAMB, FusedNovoGrad,
+                                                FusedSGD)
 from apex_example_tpu_torch.parallel.sync_batchnorm import SyncBatchNorm
 
 FP32_TOL = 1e-5
@@ -480,6 +486,257 @@ def test_fused_sgd_on_the_card_matches_the_cpu_across_a_skip(cuda_device):
     for a, b in zip(p_g + b_g, p_c + b_c):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
                                    atol=1e-6)
+
+
+def _assert_half_close(a, r, dtype):
+    """One ulp of ``dtype`` plus 1e-6 (fp32: rtol 1e-5, atol 1e-6)."""
+    if dtype == torch.float32:
+        np.testing.assert_allclose(a, r, rtol=1e-5, atol=1e-6)
+        return
+    bits = 7 if dtype == torch.bfloat16 else 10
+    tol = 2.0 ** (np.floor(np.log2(np.maximum(
+        np.maximum(np.abs(a), np.abs(r)), 2.0 ** -126))) - bits) + 1e-6
+    assert np.all(np.abs(a - r) <= tol)
+
+
+NOVO = dict(beta1=0.95, beta2=0.98, eps=1e-8, weight_decay=0.01)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("first_step,ga", [(True, 0.05), (False, 0.05),
+                                           (False, 1.0)])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_novograd_kernel_matches_plain(cuda_device, dtype, first_step, ga,
+                                       misaligned):
+    p, g, m = _sgd_lists(cuda_device, SHAPES, dtype, seed=21)
+    if misaligned:
+        p, g, m = ([_misaligned(t) for t in lst] for lst in (p, g, m))
+    gen = torch.Generator(device=cuda_device).manual_seed(22)
+    v = torch.rand(len(p), device=cuda_device, generator=gen)
+    sq = mt.multi_tensor_l2norm_plain(g)[1]
+    p0, m0, v0 = [t.clone() for t in p], [t.clone() for t in m], v.clone()
+    hyper = dict(NOVO, grad_avg_coeff=ga)
+    scal = torch.tensor([0.02 / 0.05, 1.7], device=cuda_device)
+    step = torch.full((), 0 if first_step else 3, dtype=torch.int32,
+                      device=cuda_device)
+    table = mt.TensorTable([p, g, m])
+    launches = fo.novograd_cuda.launches
+    inv = fo.novograd_cuda(table, sq, v, scal, step, **hyper)
+    torch.cuda.synchronize()
+    assert fo.novograd_cuda.launches == launches + 1
+    v_p, inv_p = fo.novograd_moment_plain(
+        sq, v0, beta2=0.98, eps=1e-8, c2=1.7, first_step=first_step)
+    np.testing.assert_allclose(v.cpu().numpy(), v_p.cpu().numpy(), rtol=1e-6)
+    np.testing.assert_allclose(inv.cpu().numpy(), inv_p.cpu().numpy(),
+                               rtol=1e-6)
+    for i in range(len(p)):
+        p_p, m_p = fo.novograd_update_plain(
+            p0[i], g[i], m0[i], inv_denom=inv_p[i], lr_c1=0.02 / 0.05,
+            beta1=0.95, weight_decay=0.01, grad_avg_coeff=ga)
+        np.testing.assert_allclose(m[i].cpu().numpy(), m_p.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-6)
+        _assert_half_close(p[i].float().cpu().numpy(),
+                           p_p.float().cpu().numpy(), dtype)
+    p1, m1, v1 = [t.clone() for t in p], [t.clone() for t in m], v.clone()
+    for lst, ref in ((p, p0), (m, m0)):
+        for a, b in zip(lst, ref):
+            a.copy_(b)
+    v.copy_(v0)
+    fo.novograd_cuda(table, sq, v, scal, step, **hyper)
+    torch.cuda.synchronize()
+    assert torch.equal(v, v1)
+    assert all(torch.equal(a, b) for a, b in zip(p + m, p1 + m1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flag", [0, 1])
+@pytest.mark.parametrize("count", [0, 3])
+def test_novograd_kernel_first_step_branch_and_noop_flag(cuda_device, flag,
+                                                         count):
+    p, g, m = _sgd_lists(cuda_device, SHAPES, seed=23)
+    v = torch.rand(len(p), device=cuda_device) + 0.5
+    sq = mt.multi_tensor_l2norm_plain(g)[1]
+    p0, m0, v0 = [t.clone() for t in p], [t.clone() for t in m], v.clone()
+    scal = torch.tensor([0.3, 1.25], device=cuda_device)
+    step = torch.full((), count, dtype=torch.int32, device=cuda_device)
+    noop = torch.full((), flag, dtype=torch.int32, device=cuda_device)
+    fo.novograd_cuda(mt.TensorTable([p, g, m]), sq, v, scal, step,
+                     grad_avg_coeff=0.05, noop_flag=noop, **NOVO)
+    torch.cuda.synchronize()
+    if flag:
+        assert torch.equal(v, v0)
+        assert all(torch.equal(a, b) for a, b in zip(p + m, p0 + m0))
+        return
+    v_p, inv_p = fo.novograd_moment_plain(sq, v0, beta2=0.98, eps=1e-8,
+                                          c2=1.25, first_step=count == 0)
+    np.testing.assert_allclose(v.cpu().numpy(), v_p.cpu().numpy(), rtol=1e-6)
+    for i in range(len(p)):
+        p_p, _ = fo.novograd_update_plain(
+            p0[i], g[i], m0[i], inv_denom=inv_p[i], lr_c1=0.3, beta1=0.95,
+            weight_decay=0.01, grad_avg_coeff=0.05)
+        np.testing.assert_allclose(p[i].cpu().numpy(), p_p.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("w_mode", [False, True])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_adagrad_kernel_matches_plain(cuda_device, dtype, w_mode,
+                                      misaligned):
+    p, g, _ = _sgd_lists(cuda_device, SHAPES, dtype, seed=24)
+    h = [torch.rand(t.shape, device=cuda_device) * 1e-4 for t in p]
+    if misaligned:
+        p, g, h = ([_misaligned(t) for t in lst] for lst in (p, g, h))
+    p0, h0 = [t.clone() for t in p], [t.clone() for t in h]
+    hyper = dict(lr=0.01, eps=1e-10, weight_decay=1e-4,
+                 adagrad_w_mode=w_mode)
+    table = mt.TensorTable([p, g, h])
+    launches = fo.adagrad_cuda.launches
+    fo.adagrad_cuda(table, **hyper)
+    torch.cuda.synchronize()
+    assert fo.adagrad_cuda.launches == launches + 1
+    for i in range(len(p)):
+        p_p, h_p = fo.adagrad_update_plain(p0[i], g[i], h0[i], **hyper)
+        np.testing.assert_allclose(h[i].cpu().numpy(), h_p.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-6)
+        _assert_half_close(p[i].float().cpu().numpy(),
+                           p_p.float().cpu().numpy(), dtype)
+    p1, h1 = [t.clone() for t in p], [t.clone() for t in h]
+    for lst, ref in ((p, p0), (h, h0)):
+        for a, b in zip(lst, ref):
+            a.copy_(b)
+    fo.adagrad_cuda(table, **hyper)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(p + h, p1 + h1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flag", [0, 1])
+def test_adagrad_kernel_device_lr_and_noop_flag(cuda_device, flag):
+    p, g, _ = _sgd_lists(cuda_device, SHAPES, seed=25)
+    h = [torch.rand(t.shape, device=cuda_device) * 1e-4 for t in p]
+    p0, h0 = [t.clone() for t in p], [t.clone() for t in h]
+    lr_t = torch.full((1,), 0.05, device=cuda_device)
+    noop = torch.full((), flag, dtype=torch.int32, device=cuda_device)
+    fo.adagrad_cuda(mt.TensorTable([p, g, h]), lr=123.0, eps=1e-10,
+                    weight_decay=1e-4, lr_t=lr_t, noop_flag=noop)
+    torch.cuda.synchronize()
+    for i in range(len(p)):
+        if flag:
+            assert torch.equal(p[i], p0[i]) and torch.equal(h[i], h0[i])
+        else:
+            p_p, _ = fo.adagrad_update_plain(p0[i], g[i], h0[i], lr=0.05,
+                                             eps=1e-10, weight_decay=1e-4)
+            np.testing.assert_allclose(p[i].cpu().numpy(),
+                                       p_p.cpu().numpy(), rtol=1e-5,
+                                       atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16,
+                                     torch.float16])
+@pytest.mark.parametrize("y_dtype", [torch.float32, torch.bfloat16,
+                                     torch.float16])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_axpby_kernel_matches_plain(cuda_device, x_dtype, y_dtype,
+                                    misaligned):
+    x = _sgd_lists(cuda_device, SHAPES, x_dtype, seed=26)[0]
+    y = _sgd_lists(cuda_device, SHAPES, y_dtype, seed=27)[0]
+    out = [torch.empty_like(t) for t in y]
+    if misaligned:
+        x, y, out = ([_misaligned(t) for t in lst] for lst in (x, y, out))
+    launches = mt.multi_tensor_axpby_cuda.launches
+    mt.multi_tensor_axpby_cuda(mt.TensorTable([x, y, out]), 0.7, -1.3)
+    torch.cuda.synchronize()
+    assert mt.multi_tensor_axpby_cuda.launches == launches + 1
+    want = mt.multi_tensor_axpby_plain(0.7, x, -1.3, y)
+    for a, r in zip(out, want):
+        assert a.dtype == y_dtype
+        _assert_half_close(a.float().cpu().numpy(), r.float().cpu().numpy(),
+                           y_dtype)
+    again = mt.multi_tensor_axpby(0.7, x, -1.3, y)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cls", [FusedNovoGrad, FusedAdagrad])
+def test_novograd_and_adagrad_on_the_card_match_the_cpu_across_a_skip(
+        cuda_device, cls):
+    shapes = [(300, 64), (64,), (5,)]
+    gen = torch.Generator().manual_seed(28)
+    init = [torch.randn(s, generator=gen) for s in shapes]
+    grads = [[torch.randn(s, generator=gen) for s in shapes]
+             for _ in range(4)]
+    schedule = lambda step: 0.05 * 0.5 ** (step - 1)       # noqa: E731
+    counter = fo.novograd_cuda if cls is FusedNovoGrad else fo.adagrad_cuda
+    result = []
+    for device in ("cuda", "cpu"):
+        ps = [torch.nn.Parameter(t.clone().to(device)) for t in init]
+        opt = cls(ps, lr=schedule, weight_decay=1e-3)
+        before = counter.launches
+        for k, step in enumerate(grads):
+            opt.zero_grad()
+            for p, gr in zip(ps, step):
+                p.grad.add_(gr.to(device))
+            flag = torch.full((), int(k in (0, 2)), dtype=torch.int32,
+                              device=device)
+            opt.step(noop_flag=flag)
+        assert counter.launches - before == (4 if device == "cuda" else 0)
+        assert opt.step_count == 2
+        state = opt.state_dict()
+        result.append([p.detach().cpu() for p in ps] + [
+            t.cpu() for name in state if name != "step"
+            for t in state[name]])
+    for a, b in zip(*result):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                   atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cls", [FusedNovoGrad, FusedAdagrad])
+def test_first_step_overflow_is_skipped_with_no_host_sync(cuda_device, cls):
+    policy, scaler = amp.initialize("O2", loss_scale="dynamic",
+                                    device=cuda_device)
+    md = amp.module_dtypes(policy)
+    model = resnet18(num_classes=10, num_filters=8, dtype=md.compute,
+                     bn_dtype=md.bn_stats, device=cuda_device)
+    opt = cls(model.parameters(), lr=1e-3)
+    state = create_train_state(model, opt, policy, scaler)
+    gen = torch.Generator(device=cuda_device).manual_seed(29)
+    x = torch.randn(8, 32, 32, 3, device=cuda_device, generator=gen)
+    y = torch.randint(0, 10, (8,), device=cuda_device, generator=gen)
+    torch.nn.functional.cross_entropy(model(x), y).backward()   # warm up
+    torch.cuda.synchronize()
+    before = [t.detach().clone() for t in model.parameters()]
+    saved = opt.state_dict()
+    poison = lambda logits, labels: (                # noqa: E731
+        torch.nn.functional.cross_entropy(logits, labels) * float("inf"))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, metrics = make_train_step(poison)(state, (x, y))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert float(metrics["grads_finite"]) == 0.0
+    assert float(state.scaler.scale) == 2.0 ** 15 and opt.step_count == 0
+    after = opt.state_dict()
+    for a, b in zip(list(model.parameters()), before):
+        assert torch.equal(a, b)
+    for name in saved:
+        if name != "step":
+            assert all(torch.equal(a, b) for a, b in zip(after[name],
+                                                         saved[name]))
+    state, metrics = make_train_step()(state, (x, y))
+    torch.cuda.synchronize()
+    assert float(metrics["grads_finite"]) == 1.0 and opt.step_count == 1
+    if cls is FusedNovoGrad:       # the first-step branch: v = ||g||^2
+        _, sq = mt.multi_tensor_l2norm_cuda(opt.table, index=1)
+        assert torch.equal(opt._v[0], sq)
 
 
 BN_CASES = [(1000, 64), (777, 37), (4096, 1024), (12544 // 8, 2048),

@@ -1,44 +1,59 @@
-"""The port's L2 norm, scale, clip, Adam, LAMB and SGD, FusedAdam,
-FusedLAMB, FusedSGD and schedules held against the JAX package's.
+"""The port's L2 norm, scale, clip, axpby, Adam, LAMB, SGD, NovoGrad and
+Adagrad, FusedAdam, FusedLAMB, FusedSGD, FusedNovoGrad, FusedAdagrad and
+schedules held against the JAX package's.
 
 The JAX side runs as its own tests run it: tests/conftest.py puts Pallas in
 interpret mode, so ``_sqsum_leaf``, ``multi_tensor_scale``,
-``adam_update_leaf``, ``lamb_stage1_leaf``, ``lamb_stage2_leaf`` and
-``sgd_update_leaf`` run the Pallas ``_sqsum_kernel``, ``_scale_kernel``,
-``_adam_kernel``, ``_lamb1_kernel``, ``_lamb2_kernel`` and ``_sgd_kernel``
-through the interpreter.  Inputs
+``adam_update_leaf``, ``lamb_stage1_leaf``, ``lamb_stage2_leaf``,
+``sgd_update_leaf``, ``novograd_update_leaf``, ``adagrad_update_leaf`` and
+``multi_tensor_axpby`` run the Pallas ``_sqsum_kernel``, ``_scale_kernel``,
+``_adam_kernel``, ``_lamb1_kernel``, ``_lamb2_kernel``, ``_sgd_kernel``,
+``_novograd_kernel``, ``_adagrad_kernel`` and ``_axpby_kernel`` through the
+interpreter.  Inputs
 come from numpy with a fixed seed and go to both sides.  Tolerances: sums
 of squares and norms rtol 1e-5 (fp32 sums in another order); the scale's
 outputs exactly (one fp32 product each, then the same rounding); u, m, v
 and p 1e-6 (the same fp32 arithmetic element by element); FusedLAMB's and
 FusedAdam's p, m and v after three steps 1e-6; clipped grads 1e-6; SGD's p
 and buf 1e-6 in every branch, with fp32 and bf16 p, and FusedSGD's over
-five steps of a schedule.  The
+five steps of a schedule; NovoGrad's, Adagrad's and axpby's plain versions
+1e-6 in fp32 and one bf16 ulp in bf16 (the same fp32 arithmetic, one
+rounding); FusedNovoGrad's and FusedAdagrad's params and state after five
+steps rtol 1e-4 (norms summed in another order, compounding), from a
+fresh state, from a converted JAX state and across a skipped first
+step.  The
 CUDA wrappers' refusals run here on meta tensors: they raise, never hand
 the tensors to a plain version, and build nothing.  The kernels themselves
 run on the card: tests/test_torch_cuda.py and chip_smoke.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from apex_example_tpu.ops.fused_optim import (adam_update_leaf,
+from apex_example_tpu.ops.fused_optim import (adagrad_update_leaf,
+                                              adam_update_leaf,
                                               lamb_stage1_leaf,
                                               lamb_stage2_leaf,
+                                              novograd_update_leaf,
                                               sgd_update_leaf)
 from apex_example_tpu.ops.multi_tensor import (
     _sqsum_leaf, clip_grad_norm as jax_clip_grad_norm,
+    multi_tensor_axpby as jax_axpby,
     multi_tensor_l2norm as jax_l2norm,
     multi_tensor_scale as jax_multi_tensor_scale)
+from apex_example_tpu.optim.fused import FusedAdagrad as JaxAdagrad
 from apex_example_tpu.optim.fused import FusedAdam as JaxAdam
 from apex_example_tpu.optim.fused import FusedLAMB as JaxLAMB
+from apex_example_tpu.optim.fused import FusedNovoGrad as JaxNovoGrad
 from apex_example_tpu.optim.fused import FusedSGD as JaxSGD
 from apex_example_tpu.optim.fused import \
     lamb_step_scalars as jax_step_scalars
 from apex_example_tpu.optim.schedules import \
     build_schedule as jax_build_schedule
+from apex_example_tpu_torch.convert import optimizer_state_from_jax
 from apex_example_tpu_torch.ops import _build
 from apex_example_tpu_torch.ops import fused_optim as fo
 from apex_example_tpu_torch.ops import multi_tensor as mt
@@ -175,7 +190,20 @@ def _port_sgd(params, lr):
     return ps, fused.FusedSGD(ps, lr=lr, momentum=0.9, weight_decay=1e-4)
 
 
-@pytest.mark.parametrize("make", [_port_lamb, _port_adam, _port_sgd])
+def _port_novograd(params, lr):
+    ps = [torch.nn.Parameter(torch.from_numpy(a.copy()))
+          for a in params.values()]
+    return ps, fused.FusedNovoGrad(ps, lr=lr, weight_decay=0.01)
+
+
+def _port_adagrad(params, lr):
+    ps = [torch.nn.Parameter(torch.from_numpy(a.copy()))
+          for a in params.values()]
+    return ps, fused.FusedAdagrad(ps, lr=lr, weight_decay=0.01)
+
+
+@pytest.mark.parametrize("make", [_port_lamb, _port_adam, _port_sgd,
+                                  _port_novograd, _port_adagrad])
 def test_grads_are_allocated_once_and_zeroed_in_place(make):
     ps, popt = make(_arrays(4), 1e-3)
     ptrs = [p.grad.data_ptr() for p in ps]
@@ -189,7 +217,8 @@ def test_grads_are_allocated_once_and_zeroed_in_place(make):
     assert [p.grad.data_ptr() for p in ps] == ptrs     # accumulated in place
 
 
-@pytest.mark.parametrize("make", [_port_lamb, _port_adam])
+@pytest.mark.parametrize("make", [_port_lamb, _port_adam, _port_novograd,
+                                  _port_adagrad])
 def test_state_dict_round_trip(make):
     params = _arrays(5)
     ps, popt = make(params, 1e-2)
@@ -198,12 +227,17 @@ def test_state_dict_round_trip(make):
             p.grad.copy_(torch.from_numpy(a))
         popt.step()
     saved = popt.state_dict()
+    names = [k for k in saved if k != "step"]
+    assert names == list(popt.state_names) + (
+        ["nu"] if make is _port_novograd else [])
     ps2, popt2 = make(params, 1e-2)
-    mu_ptrs = [m.data_ptr() for m in popt2.mu]
+    state = lambda opt: [t for n in names                 # noqa: E731
+                         for t in getattr(opt, n)]
+    ptrs = [t.data_ptr() for t in state(popt2)]
     popt2.load_state_dict(saved)
     assert popt2.step_count == 2
-    assert [m.data_ptr() for m in popt2.mu] == mu_ptrs
-    for a, b in zip(popt.mu + popt.nu, popt2.mu + popt2.nu):
+    assert [t.data_ptr() for t in state(popt2)] == ptrs
+    for a, b in zip(state(popt), state(popt2)):
         assert torch.equal(a, b)
     with torch.no_grad():
         for p, q in zip(ps, ps2):
@@ -215,8 +249,8 @@ def test_state_dict_round_trip(make):
     for p, q in zip(ps, ps2):
         assert torch.equal(p, q)
     with pytest.raises(ValueError, match="moments"):
-        popt2.load_state_dict({"step": 1, "mu": saved["mu"][:1],
-                               "nu": saved["nu"][:1]})
+        popt2.load_state_dict({"step": 1, **{n: saved[n][:1]
+                                             for n in names}})
 
 
 @pytest.mark.parametrize("name", ["const", "step", "cosine", "poly"])
@@ -615,6 +649,14 @@ def test_optimizers_group_parameters_by_dtype():
     assert sgd.groups == [[0, 2], [1]] and len(sgd.tables) == 2
     assert [t.dtype(0) for t in sgd.tables] == [torch.bfloat16,
                                                 torch.float32]
+    for opt in (fused.FusedNovoGrad(ps), fused.FusedAdagrad(ps)):
+        assert opt.groups == [[0, 2], [1]]
+        assert [t.dtype(0) for t in opt.tables] == [torch.bfloat16,
+                                                    torch.float32]
+        assert [len(t.lists) for t in opt.tables] == [3, 3]
+    novograd = fused.FusedNovoGrad(ps)
+    assert [v.numel() for v in novograd._v] == [2, 1]
+    assert novograd.nu[1].data_ptr() == novograd._v[1].data_ptr()
     with pytest.raises(ValueError, match="one dtype"):
         fused.FusedAdam(ps).table
 
@@ -653,6 +695,380 @@ def test_fused_sgd_off_the_cpu_takes_the_kernels_or_raises(no_build,
         monkeypatch.setattr(fused, name, no_plain)
     ps = [torch.nn.Parameter(_meta(4, 4)), torch.nn.Parameter(_meta(4))]
     opt = fused.FusedSGD(ps, lr=0.1, momentum=0.9)
+    for call in (opt.step, opt.grad_norm,
+                 lambda: opt.unscale_grads(_meta(()))):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+
+
+def _ulp_close(got, want, dtype):
+    """fp32: 1e-6 (rtol and atol); bf16: one bf16 ulp of the larger
+    magnitude."""
+    got = got.float().numpy().astype(np.float64)
+    want = np.asarray(want, np.float32).astype(np.float64)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=STATE_TOL, atol=STATE_TOL)
+        return
+    mag = np.maximum(np.maximum(np.abs(got), np.abs(want)), 2.0 ** -126)
+    assert np.all(np.abs(got - want) <= 2.0 ** (np.floor(np.log2(mag)) - 7))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ga", [0.05, 1.0])
+def test_novograd_update_plain_matches_jax_kernel(dtype, ga):
+    rs = np.random.RandomState(13)
+    p, g, m = (rs.randn(6, 140).astype(np.float32) * s
+               for s in (0.1, 1e-2, 1e-3))
+    hyper = dict(inv_denom=np.float32(7.3), lr_c1=np.float32(0.02 / 0.05),
+                 beta1=0.95, weight_decay=0.01, grad_avg_coeff=ga)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    jp, jm = novograd_update_leaf(jnp.asarray(p).astype(jdt),
+                                  jnp.asarray(g).astype(jdt),
+                                  jnp.asarray(m), **hyper)
+    tp, tm = fo.novograd_update_plain(
+        torch.from_numpy(p).to(tdt), torch.from_numpy(g).to(tdt),
+        torch.from_numpy(m), **dict(hyper, inv_denom=float(7.3)))
+    assert tp.dtype == tdt and tm.dtype == torch.float32
+    _ulp_close(tp, jp, dtype)
+    _ulp_close(tm, jm, "float32")
+
+
+@pytest.mark.parametrize("first_step,init_zero", [(True, False),
+                                                  (False, False),
+                                                  (True, True)])
+def test_novograd_moment_plain_is_the_jax_optimizers(first_step, init_zero):
+    # apex_example_tpu/optim/fused.py:252-259, written out in jnp
+    rs = np.random.RandomState(14)
+    sq = (rs.rand(9) * 3).astype(np.float32)
+    v = (rs.rand(9) * 2).astype(np.float32)
+    c2 = np.float32(1.0) / (np.float32(1.0) - np.float32(0.98) ** 3)
+    jv = (jnp.asarray(sq) if first_step and not init_zero
+          else 0.98 * jnp.asarray(v) + (1.0 - 0.98) * jnp.asarray(sq))
+    jinv = 1.0 / (jnp.sqrt(jv * c2) + 1e-8)
+    tv, tinv = fo.novograd_moment_plain(
+        torch.from_numpy(sq), torch.from_numpy(v), beta2=0.98, eps=1e-8,
+        c2=float(c2), first_step=first_step, init_zero=init_zero)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-7)
+    np.testing.assert_allclose(tinv.numpy(), np.asarray(jinv), rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("w_mode", [False, True])
+def test_adagrad_update_plain_matches_jax_kernel(dtype, w_mode):
+    rs = np.random.RandomState(15)
+    p = (rs.randn(6, 140) * 0.1).astype(np.float32)
+    g = (rs.randn(6, 140) * 1e-2).astype(np.float32)
+    h = (rs.rand(6, 140) * 1e-3).astype(np.float32)
+    hyper = dict(lr=0.01, eps=1e-10, weight_decay=0.05,
+                 adagrad_w_mode=w_mode)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    jp, jh = adagrad_update_leaf(jnp.asarray(p).astype(jdt),
+                                 jnp.asarray(g).astype(jdt), jnp.asarray(h),
+                                 **hyper)
+    tp, th = fo.adagrad_update_plain(torch.from_numpy(p).to(tdt),
+                                     torch.from_numpy(g).to(tdt),
+                                     torch.from_numpy(h), **hyper)
+    assert tp.dtype == tdt and th.dtype == torch.float32
+    _ulp_close(tp, jp, dtype)
+    _ulp_close(th, jh, "float32")
+
+
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("y_dtype", ["float32", "bfloat16", "float16"])
+def test_multi_tensor_axpby_plain_matches_jax(x_dtype, y_dtype):
+    xs, ys = _arrays(16), _arrays(17)
+    jx = {k: jnp.asarray(a).astype(x_dtype) for k, a in xs.items()}
+    jy = {k: jnp.asarray(a).astype(y_dtype) for k, a in ys.items()}
+    want = jax_axpby(0.7, jx, -1.3, jy)
+    got = mt.multi_tensor_axpby(
+        0.7, [torch.from_numpy(np.array(jx[k], np.float32)).to(
+            getattr(torch, x_dtype)) for k in xs],
+        -1.3, [torch.from_numpy(np.array(jy[k], np.float32)).to(
+            getattr(torch, y_dtype)) for k in ys])
+    for t, k in zip(got, xs):
+        assert t.dtype == getattr(torch, y_dtype)
+        assert t.shape == tuple(want[k].shape)
+        if y_dtype == "float16":     # one fp16 ulp
+            a = t.float().numpy().astype(np.float64)
+            b = np.asarray(want[k], np.float32).astype(np.float64)
+            mag = np.maximum(np.maximum(np.abs(a), np.abs(b)), 2.0 ** -14)
+            assert np.all(np.abs(a - b) <= 2.0 ** (np.floor(np.log2(mag))
+                                                   - 10))
+        else:
+            _ulp_close(t, want[k], y_dtype)
+
+
+NOVOGRAD_CASES = {
+    "defaults": {},
+    "no_grad_averaging": dict(grad_averaging=False),
+    "no_bias_correction": dict(bias_correction=False),
+    "init_zero": dict(init_zero=True),
+    "weight_decay": dict(weight_decay=0.05),
+    "schedule": dict(lr=("cosine", 5e-2, 5, 2)),
+}
+
+
+def _lr_pair(lr):
+    """A float, or (name, base, total, warmup) as the JAX and the port
+    schedule."""
+    if not isinstance(lr, tuple):
+        return lr, lr
+    name, base, total, warmup = lr
+    return (jax_build_schedule(name, base, total, warmup_steps=warmup),
+            build_schedule(name, base, total, warmup_steps=warmup))
+
+
+def _novograd_pair(kw, params):
+    kw = dict(kw)
+    jlr, plr = _lr_pair(kw.pop("lr", 2e-2))
+    jopt = JaxNovoGrad(lr=jlr, **kw)
+    ps = [torch.nn.Parameter(torch.from_numpy(a.copy()))
+          for a in params.values()]
+    return jopt, ps, fused.FusedNovoGrad(ps, lr=plr, **kw)
+
+
+def _adagrad_pair(kw, params):
+    kw = dict(kw)
+    jlr, plr = _lr_pair(kw.pop("lr", 5e-2))
+    jopt = JaxAdagrad(lr=jlr, **kw)
+    ps = [torch.nn.Parameter(torch.from_numpy(a.copy()))
+          for a in params.values()]
+    return jopt, ps, fused.FusedAdagrad(ps, lr=plr, **kw)
+
+
+def _trail(jopt, ps, popt, jparams, jstate, steps, seed, flags=()):
+    """``steps`` steps of both sides on the same grads; the step numbered
+    in ``flags`` overflows: JAX's state is kept as the engine's
+    ``select_tree`` keeps it, the port's step takes the noop flag."""
+    for step in range(steps):
+        grads = _arrays(seed + step, scale=0.1)
+        skip = step in flags
+        new_p, new_s = jopt.apply({k: jnp.asarray(a) for k, a in
+                                   grads.items()}, jstate, jparams)
+        if not skip:
+            jparams, jstate = new_p, new_s
+        popt.zero_grad()
+        for p, a in zip(ps, grads.values()):
+            p.grad.add_(torch.from_numpy(a))
+        popt.step(noop_flag=torch.tensor(int(skip), dtype=torch.int32))
+    return jparams, jstate
+
+
+def _assert_state_follows(ps, popt, jparams, jstate, fields):
+    assert popt.step_count == int(jstate.step)
+    for i, k in enumerate(jparams):
+        np.testing.assert_allclose(ps[i].detach().numpy(),
+                                   np.asarray(jparams[k]), rtol=1e-4,
+                                   atol=1e-6, err_msg=k)
+        for port, jax_field in fields:
+            np.testing.assert_allclose(
+                getattr(popt, port)[i].numpy(),
+                np.asarray(getattr(jstate, jax_field)[k]), rtol=1e-4,
+                atol=1e-7, err_msg=f"{port} {k}")
+
+
+@pytest.mark.parametrize("case", sorted(NOVOGRAD_CASES))
+def test_fused_novograd_five_steps_match_jax(case):
+    params = _arrays(18)
+    jopt, ps, popt = _novograd_pair(NOVOGRAD_CASES[case], params)
+    jparams = {k: jnp.asarray(a) for k, a in params.items()}
+    jstate = jopt.init(jparams)
+    for step in range(5):
+        grads = _arrays(50 + step, scale=0.1)
+        jparams, jstate = jopt.apply({k: jnp.asarray(a) for k, a in
+                                      grads.items()}, jstate, jparams)
+        popt.zero_grad()
+        for p, a in zip(ps, grads.values()):
+            p.grad.add_(torch.from_numpy(a))
+        gnorm = popt.step()
+        np.testing.assert_allclose(
+            float(gnorm), np.sqrt(sum((a.astype(np.float64) ** 2).sum()
+                                      for a in grads.values())),
+            rtol=NORM_TOL)
+    assert int(jstate.step) == 5
+    _assert_state_follows(ps, popt, jparams, jstate,
+                          [("mu", "mu"), ("nu", "nu")])
+    moved = max(float(np.abs(np.asarray(jparams[k]) - a).max())
+                for k, a in params.items())
+    assert moved > 1e-3
+
+
+@pytest.mark.parametrize("kw", [dict(weight_decay=0.05),
+                                dict(weight_decay=0.05, adagrad_w_mode=True),
+                                dict(lr=("poly", 5e-2, 5, 1))])
+def test_fused_adagrad_five_steps_match_jax(kw):
+    params = _arrays(19)
+    jopt, ps, popt = _adagrad_pair(kw, params)
+    jparams = {k: jnp.asarray(a) for k, a in params.items()}
+    jstate = jopt.init(jparams)
+    jparams, jstate = _trail(jopt, ps, popt, jparams, jstate, 5, 60)
+    assert int(jstate.step) == 5
+    _assert_state_follows(ps, popt, jparams, jstate, [("sum_sq", "sum_sq")])
+
+
+def _fields(name):
+    return {"novograd": [("mu", "mu"), ("nu", "nu")],
+            "adagrad": [("sum_sq", "sum_sq")],
+            "sgd": [("momentum_buffer", "momentum")]}[name]
+
+
+@pytest.mark.parametrize("name", ["novograd", "adagrad", "sgd"])
+def test_trail_from_a_converted_jax_state_matches_jax(name):
+    """Two JAX steps, the state and params converted into a fresh port
+    optimizer, then three more steps on both sides."""
+    params = _arrays(20)
+    if name == "novograd":
+        jopt, ps, popt = _novograd_pair(dict(weight_decay=0.01), params)
+    elif name == "adagrad":
+        jopt, ps, popt = _adagrad_pair({}, params)
+    else:
+        jopt = JaxSGD(lr=0.05, momentum=0.9, weight_decay=1e-4)
+        ps, popt = _port_sgd(params, 0.05)
+        popt.lr = 0.05
+    jparams = {k: jnp.asarray(a) for k, a in params.items()}
+    jstate = jopt.init(jparams)
+    for step in range(2):
+        grads = {k: jnp.asarray(a) for k, a in
+                 _arrays(70 + step, scale=0.1).items()}
+        jparams, jstate = jopt.apply(grads, jstate, jparams)
+    order = lambda tree: [tree[k] for k in params]          # noqa: E731
+    numpy_state = {f: jax.tree_util.tree_map(np.asarray, v)
+                   for f, v in jstate._asdict().items()}
+    popt.load_state_dict(optimizer_state_from_jax(name, numpy_state, order))
+    with torch.no_grad():
+        for p, k in zip(ps, params):
+            p.copy_(torch.from_numpy(np.array(jparams[k])))
+    assert popt.step_count == 2
+    jparams, jstate = _trail(jopt, ps, popt, jparams, jstate, 3, 72)
+    _assert_state_follows(ps, popt, jparams, jstate, _fields(name))
+
+
+@pytest.mark.parametrize("name", ["novograd", "adagrad"])
+def test_noop_flag_on_the_first_step_keeps_jax_step_one(name):
+    """The first step overflows: both sides keep the whole old state,
+    step count included, so the next step is JAX's step 1 (NovoGrad's
+    first-step branch, v = ||g||^2, and c1, c2 at t = 1); a later skip
+    keeps the state again."""
+    params = _arrays(21)
+    pair = _novograd_pair if name == "novograd" else _adagrad_pair
+    jopt, ps, popt = pair(dict(lr=("step", 5e-2, 5, 0)), params)
+    jparams = {k: jnp.asarray(a) for k, a in params.items()}
+    jstate = jopt.init(jparams)
+    jparams, jstate = _trail(jopt, ps, popt, jparams, jstate, 1, 80,
+                             flags=(0,))
+    assert popt.step_count == int(jstate.step) == 0
+    for p, a in zip(ps, params.values()):
+        assert torch.equal(p.detach(), torch.from_numpy(a))
+    jparams, jstate = _trail(jopt, ps, popt, jparams, jstate, 1, 81)
+    assert int(jstate.step) == 1
+    _assert_state_follows(ps, popt, jparams, jstate, _fields(name))
+    if name == "novograd":     # the first-step branch: v = ||g_1||^2
+        np.testing.assert_allclose(
+            [float(v) for v in popt.nu],
+            [float((a.astype(np.float64) ** 2).sum())
+             for a in _arrays(81, scale=0.1).values()], rtol=NORM_TOL)
+    jparams, jstate = _trail(jopt, ps, popt, jparams, jstate, 3, 82,
+                             flags=(1,))
+    assert int(jstate.step) == 3
+    _assert_state_follows(ps, popt, jparams, jstate, _fields(name))
+
+
+def test_fused_novograd_refuses_amsgrad():
+    with pytest.raises(ValueError, match="amsgrad"):
+        fused.FusedNovoGrad([torch.nn.Parameter(torch.zeros(2))],
+                            amsgrad=True)
+
+
+def _meta_three(dtype=torch.float32, s_dtype=torch.float32, lists=3):
+    p = [_meta(8, 3, dtype=dtype), _meta(5, dtype=dtype)]
+    tensors = [p, [torch.empty_like(t) for t in p],
+               [_meta(8, 3, dtype=s_dtype), _meta(5, dtype=s_dtype)]]
+    return mt.TensorTable(tensors[:lists])
+
+
+@pytest.mark.parametrize("make,kw,err,match", [
+    (lambda: _meta_three(lists=2), {}, ValueError, "3 lists"),
+    (lambda: _meta_three(s_dtype=torch.bfloat16), {}, TypeError,
+     "m must be float32"),
+    (lambda: _meta_three(torch.float64), {}, TypeError, "float32"),
+    (_meta_three, dict(sq=_meta(3)), ValueError, "sq must be"),
+    (_meta_three, dict(v=_meta(2, dtype=torch.bfloat16)), ValueError,
+     "v must be"),
+    (_meta_three, dict(scal=_meta(3)), ValueError, "scalars_t"),
+    (_meta_three, dict(step=_meta(())), ValueError, "step_t"),
+    (_meta_three, dict(noop_flag=_meta((), dtype=torch.int64)), ValueError,
+     "noop_flag"),
+    (_meta_three, {}, ValueError, "CUDA"),
+])
+def test_novograd_wrapper_raises_on_what_it_cannot_take(no_build, make, kw,
+                                                        err, match):
+    before = fo.novograd_cuda.launches
+    args = dict(sq=_meta(2), v=_meta(2), scal=_meta(2),
+                step=_meta((), dtype=torch.int32))
+    args.update(kw)
+    with pytest.raises(err, match=match):
+        fo.novograd_cuda(make(), args.pop("sq"), args.pop("v"),
+                         args.pop("scal"), args.pop("step"), beta1=0.95,
+                         beta2=0.98, eps=1e-8, weight_decay=0.0,
+                         grad_avg_coeff=0.05, **args)
+    assert fo.novograd_cuda.launches == before
+
+
+@pytest.mark.parametrize("make,kw,err,match", [
+    (lambda: _meta_three(lists=2), {}, ValueError, "3 lists"),
+    (lambda: _meta_three(s_dtype=torch.float16), {}, TypeError,
+     "sums of squares"),
+    (lambda: _meta_three(torch.float64), {}, TypeError, "float32"),
+    (_meta_three, dict(lr_t=_meta(1, dtype=torch.float16)), ValueError,
+     "lr_t"),
+    (_meta_three, dict(noop_flag=_meta(())), ValueError, "noop_flag"),
+    (_meta_three, {}, ValueError, "CUDA"),
+])
+def test_adagrad_wrapper_raises_on_what_it_cannot_take(no_build, make, kw,
+                                                       err, match):
+    before = fo.adagrad_cuda.launches
+    with pytest.raises(err, match=match):
+        fo.adagrad_cuda(make(), lr=0.1, eps=1e-10, weight_decay=0.0, **kw)
+    assert fo.adagrad_cuda.launches == before
+
+
+@pytest.mark.parametrize("lists,err,match", [
+    ([[_meta(4)], [_meta(4)]], ValueError, "3 lists"),
+    ([[_meta(4)], [_meta(4)], [_meta(4, dtype=torch.bfloat16)]], TypeError,
+     "y's dtype"),
+    ([[_meta(4, dtype=torch.float64)], [_meta(4)], [_meta(4)]], TypeError,
+     "float32"),
+    ([[_meta(4, dtype=torch.bfloat16)], [_meta(4)], [_meta(4)]], ValueError,
+     "CUDA"),
+])
+def test_axpby_wrapper_raises_instead_of_falling_back(no_build, monkeypatch,
+                                                      lists, err, match):
+    def no_plain(*a, **k):
+        raise AssertionError("plain version ran for a non-CPU tensor")
+    monkeypatch.setattr(mt, "multi_tensor_axpby_plain", no_plain)
+    before = mt.multi_tensor_axpby_cuda.launches
+    with pytest.raises(err, match=match):
+        mt.multi_tensor_axpby_cuda(mt.TensorTable(lists), 0.5, 2.0)
+    if len(lists) == 3 and match == "CUDA":
+        with pytest.raises(ValueError, match="CUDA"):
+            mt.multi_tensor_axpby(0.5, lists[0], 2.0, lists[1])
+    assert mt.multi_tensor_axpby_cuda.launches == before
+
+
+@pytest.mark.parametrize("cls,plain", [
+    (fused.FusedNovoGrad, ("novograd_update_plain", "novograd_moment_plain",
+                           "multi_tensor_l2norm_plain")),
+    (fused.FusedAdagrad, ("adagrad_update_plain",
+                          "multi_tensor_l2norm_plain"))])
+def test_novograd_and_adagrad_off_the_cpu_take_the_kernels_or_raise(
+        no_build, monkeypatch, cls, plain):
+    def no_plain(*a, **k):
+        raise AssertionError("a plain version ran for non-CPU parameters")
+    for name in plain + ("multi_tensor_scale_plain",):
+        monkeypatch.setattr(fused, name, no_plain)
+    ps = [torch.nn.Parameter(_meta(4, 4)), torch.nn.Parameter(_meta(4))]
+    opt = cls(ps, lr=0.1)
+    assert opt.skips_on_flag and len(opt.tables) == 1
     for call in (opt.step, opt.grad_norm,
                  lambda: opt.unscale_grads(_meta(()))):
         with pytest.raises(ValueError, match="CUDA"):

@@ -17,7 +17,7 @@ under dynamic loss scaling, and its eval step.
   ``--metrics-jsonl`` stream passes ``tools/metrics_lint.py
   --require-summary`` (the Transformer-XL stream carries ``ppl``); without
   ``--device`` it raises where torch sees no CUDA; the flags of paths not
-  ported (``--opt adagrad``, ``--grad-accum``, ``--sync_bn``,
+  ported (``--larc``, ``--grad-accum``, ``--sync_bn``,
   ``--tensor-parallel``) are rejected by argparse; the LM archs refuse O1,
   ``--loss-scale`` and ``--eval`` with a message naming a later slice.
 - ResNet-18 (num_filters 4, the CIFAR stem, 16 px, batch 4) with
@@ -43,6 +43,14 @@ under dynamic loss scaling, and its eval step.
   ``--fused-attention`` at O0 and O2 and its stream lints; it refuses
   ``--fused-attention`` at O3 and for transformer_xl and the image archs,
   ``--loss-scale dynamic`` for the LM archs, and O2 for transformer_xl.
+- ``train.main`` with ``--opt novograd`` (bert_tiny) and ``--opt
+  adagrad`` (ResNet-18, num_filters 4): three steps on the CPU from the
+  flax init, converted, against the JAX ``make_train_step`` with the JAX
+  package's FusedNovoGrad / FusedAdagrad on the same batches (the port's
+  generators, as numpy): losses and grad norms rtol 1e-4.  ``check_args``
+  lets both through under O3 and ``--loss-scale dynamic`` on the image
+  archs (their steps take the noop flag and one launch per dtype) and
+  still refuses FusedAdam and FusedLAMB there.
 - The data generators keep the JAX generators' distributions; the image
   patterns are ``jax.image.resize``'s bilinear upsampling.
 """
@@ -73,8 +81,10 @@ from apex_example_tpu.models.gpt import gpt_tiny as jax_gpt_tiny
 from apex_example_tpu.models.resnet import resnet18 as jax_resnet18
 from apex_example_tpu.models.transformer_xl import \
     transformer_xl_tiny as jax_txl_tiny
+from apex_example_tpu.optim.fused import FusedAdagrad as JaxAdagrad
 from apex_example_tpu.optim.fused import FusedAdam as JaxAdam
 from apex_example_tpu.optim.fused import FusedLAMB as JaxLAMB
+from apex_example_tpu.optim.fused import FusedNovoGrad as JaxNovoGrad
 from apex_example_tpu.optim.fused import FusedSGD as JaxSGD
 from apex_example_tpu.optim.schedules import \
     build_schedule as jax_build_schedule
@@ -485,7 +495,7 @@ def test_cli_defaults_to_cuda_and_raises_without_it(monkeypatch):
         train.main(["--arch", "bert_tiny", "--steps-per-epoch", "1"])
 
 
-@pytest.mark.parametrize("argv", [["--opt", "adagrad"], ["--grad-accum", "2"],
+@pytest.mark.parametrize("argv", [["--larc"], ["--grad-accum", "2"],
                                   ["--sync_bn"], ["--tensor-parallel", "2"]])
 def test_flags_of_other_paths_are_rejected(argv):
     with pytest.raises(SystemExit) as exc:
@@ -805,3 +815,97 @@ def test_image_batch_is_deterministic_per_step_on_its_device():
     assert torch.equal(noisy[:0], clean[:0])
     changed = float((noisy != clean).float().mean())
     assert 0.35 < changed < 0.55         # p (1 - 1 / classes) = 0.45
+
+
+def _main_records(monkeypatch, tmp_path, argv, make_model):
+    """``train.main`` on the CPU with the model ``make_model(args, device,
+    policy)`` builds; its step records."""
+    monkeypatch.setattr(train, "build_model", make_model)
+    stream = tmp_path / "main.jsonl"
+    assert train.main(["--device", "cpu"] + argv
+                      + ["--metrics-jsonl", str(stream)]) == 0
+    records = [json.loads(ln) for ln in stream.read_text().splitlines()]
+    return [r for r in records if r["record"] == "step"]
+
+
+def _assert_follow_jax(steps, jstep, jstate, batches):
+    assert len(steps) == len(batches)
+    for rec, batch in zip(steps, batches):
+        jstate, jmet = jstep(jstate, batch)
+        np.testing.assert_allclose(rec["loss"], float(jmet["loss"]),
+                                   rtol=TRAIL_TOL)
+        np.testing.assert_allclose(rec["grad_norm"],
+                                   float(jmet["grad_norm"]), rtol=TRAIL_TOL)
+
+
+def test_main_novograd_bert_tiny_follows_jax(monkeypatch, tmp_path):
+    argv = ["--arch", "bert_tiny", "--opt", "novograd", "--lr", "0.05",
+            "--weight-decay", "0.01", "--batch-size", str(B), "--seq-len",
+            str(S), "--steps-per-epoch", "3", "--print-freq", "1"]
+    args = train.build_parser().parse_args(argv)
+    batches = []
+    for i in range(3):
+        ids, (labels, w) = train.batch_fn(args, V, i, "cpu")
+        batches.append((jnp.asarray(ids.numpy()),
+                        (jnp.asarray(labels.numpy()), jnp.asarray(w.numpy()))))
+    jm = jax_bert_tiny()
+    jopt = JaxNovoGrad(lr=0.05, weight_decay=0.01)
+    policy = get_policy("O0")
+    jstate = jax_create_state(jax.random.PRNGKey(4), jm, jopt,
+                              batches[0][0][:1], policy)
+    weights = bert_params_from_flax(
+        jax.tree_util.tree_map(np.asarray, jstate.params))
+
+    def make_model(args, device, policy=None):
+        model = bert_tiny(device=device)
+        model.load_state_dict(weights)
+        return model
+
+    steps = _main_records(monkeypatch, tmp_path, argv, make_model)
+    jstep = jax.jit(jax_make_step(jm, jopt, policy, loss_fn=jax_mlm_loss,
+                                  compute_accuracy=False))
+    _assert_follow_jax(steps, jstep, jstate, batches)
+
+
+def test_main_adagrad_resnet18_follows_jax(monkeypatch, tmp_path):
+    argv = ["--arch", "resnet18", "--dataset", "cifar10", "--opt",
+            "adagrad", "--lr", "0.01", "--batch-size", str(B),
+            "--steps-per-epoch", "3", "--print-freq", "1"]
+    args = train.build_parser().parse_args(argv)
+    batches = [tuple(jnp.asarray(t.numpy()) for t in
+                     train.batch_fn(args, 0, i, "cpu")) for i in range(3)]
+    jpolicy = get_policy("O0")
+    jm = jax_resnet18(num_classes=IMG_CLASSES, num_filters=4,
+                      small_stem=True)
+    v = _flax_weights(jm, 3)
+    jopt = JaxAdagrad(lr=0.01, weight_decay=1e-4)
+    jstate = JaxTrainState(
+        step=jnp.zeros((), jnp.int32), params=v["params"],
+        batch_stats=v["batch_stats"], opt_state=jopt.init(v["params"]),
+        scaler=jamp.make_scaler(jpolicy))
+    weights = resnet_params_from_flax(v["params"], v["batch_stats"])
+
+    def make_model(args, device, policy=None):
+        model = resnet18(num_classes=IMG_CLASSES, num_filters=4,
+                         small_stem=True, device=device)
+        model.load_state_dict(weights)
+        return model
+
+    steps = _main_records(monkeypatch, tmp_path, argv, make_model)
+    _assert_follow_jax(steps, jax.jit(jax_make_step(jm, jopt, jpolicy)),
+                       jstate, batches)
+
+
+@pytest.mark.parametrize("opt", ["novograd", "adagrad", "adam", "lamb"])
+@pytest.mark.parametrize("flag", [["--opt-level", "O3"],
+                                  ["--opt-level", "O2", "--loss-scale",
+                                   "dynamic"]])
+def test_check_args_takes_the_noop_flag_optimizers_on_images(opt, flag):
+    args = train.build_parser().parse_args(
+        ["--device", "cpu", "--arch", "resnet18", "--opt", opt] + flag)
+    if opt in ("novograd", "adagrad"):
+        train.check_args(args)
+    else:
+        with pytest.raises(SystemExit, match="one dtype" if "O3" in flag
+                           else "noop flag"):
+            train.check_args(args)
