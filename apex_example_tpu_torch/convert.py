@@ -17,6 +17,10 @@ ResNet (models/resnet.py, whose submodules carry the flax names): a conv
 ``scale``/``bias`` are parameters and the batch statistics ``mean``/``var``
 buffers of the same names.
 
+``norm_params_from_flax(variables)`` turns a flax FusedLayerNorm's or
+FusedRMSNorm's variables into the port module's state dict, each leaf in
+its stored dtype.
+
 ``optimizer_state_from_jax(name, state, leaves)`` turns the state of the
 JAX package's FusedSGD, FusedNovoGrad or FusedAdagrad into the
 ``load_state_dict`` form of the port's optimizer of the same name.
@@ -63,11 +67,35 @@ def _layers_from_flax(tree: Mapping, sd: Dict[str, torch.Tensor]) -> None:
             sd[f"layers.{i}.{ln}.bias"] = _tensor(layer[ln]["bias"])
 
 
+def _stored(a) -> torch.Tensor:
+    """``a`` as a tensor of its own dtype.  A bfloat16 array (ml_dtypes',
+    which ``torch.from_numpy`` does not take) crosses as its bits."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def _norm_leaves(node: Mapping, convert=_tensor) -> Dict[str, torch.Tensor]:
+    """A flax FusedLayerNorm's or FusedRMSNorm's leaves: ``scale`` and
+    ``bias``, each where the module has it (``use_scale``, ``use_bias``)."""
+    return {k: convert(node[k]) for k in ("scale", "bias") if k in node}
+
+
 def _norms(tree: Mapping, names, sd: Dict[str, torch.Tensor],
            prefix: str = "") -> None:
     for ln in names:
-        sd[f"{prefix}{ln}.scale"] = _tensor(tree[ln]["scale"])
-        sd[f"{prefix}{ln}.bias"] = _tensor(tree[ln]["bias"])
+        for leaf, t in _norm_leaves(tree[ln]).items():
+            sd[f"{prefix}{ln}.{leaf}"] = t
+
+
+def norm_params_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict of the port's ``FusedLayerNorm`` / ``FusedRMSNorm`` from
+    the flax module's variables (``{"params": {...}}``, or the params
+    alone; numpy leaves): ``scale`` and, where present, ``bias``, in their
+    stored dtype.  A module built with ``use_scale=False`` (and
+    ``use_bias=False``) has no leaf and gets an empty dict."""
+    return _norm_leaves(variables.get("params", variables), _stored)
 
 
 def gpt_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:

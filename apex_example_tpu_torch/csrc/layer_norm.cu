@@ -1,4 +1,5 @@
-// LayerNorm forward for Hopper (sm_90a), bound to Python with ctypes.
+// LayerNorm and RMSNorm, forward and backward, for Hopper (sm_90a), bound to
+// Python with ctypes.
 //
 // Replaces apex_example_tpu/ops/layer_norm.py:66 `_fwd_kernel` (the Pallas
 // kernel launched by `_norm_fwd_pallas`, :126 / :144).  Same arithmetic:
@@ -22,6 +23,17 @@
 // in a 128-thread block) and reduce with warp shuffles alone; wider rows,
 // up to kMaxH, take a 512-thread block each and reduce across its warps
 // through shared memory.
+//
+// RMSNorm forward: the same kernel with kMean = false.  Replaces
+// apex_example_tpu/ops/layer_norm.py:278 `_rms_fwd_kernel` (launched by
+// `_norm_fwd_pallas` with beta None, :126 / :144).  Same arithmetic: per
+// row rstd = rsqrt(mean(x^2) + eps) in fp32, y = x * rstd * gamma in x's
+// dtype, rstd stored as fp32; no mean, no beta.  Bound: bytes,
+// N*H*(in + out bytes) + 4*H (gamma) + 4*N (rstd), one pass over memory as
+// above: at 4096 x 768 fp32, 25.2 MB, ~7.5 us.  Its one reduction (the sum
+// of squares) is taken while the row is loaded.  It inherits the layout
+// above: an H that is not a multiple of the vector width (410, for one)
+// takes VEC = 1, and above 256 elements a 512-thread block per row.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -84,7 +96,8 @@ __device__ __forceinline__ float group_sum(float v, float* smem) {
   return v;
 }
 
-template <typename T, int VEC, int TPR, int CHUNKS>
+// kMean: LayerNorm.  Without it RMSNorm: beta and mean_out are null.
+template <typename T, int VEC, int TPR, int CHUNKS, bool kMean>
 __global__ void __launch_bounds__(TPR == 32 ? 128 : TPR)
     ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
                   const float* __restrict__ beta, T* __restrict__ y,
@@ -111,7 +124,7 @@ __global__ void __launch_bounds__(TPR == 32 ? 128 : TPR)
 #pragma unroll
       for (int i = 0; i < VEC; ++i) {
         v[c][i] = to_float(p.v[i]);
-        sum += v[c][i];
+        sum += kMean ? v[c][i] : v[c][i] * v[c][i];
       }
     } else {
 #pragma unroll
@@ -119,21 +132,25 @@ __global__ void __launch_bounds__(TPR == 32 ? 128 : TPR)
     }
   }
   const float fh = static_cast<float>(h);
-  const float mean = group_sum<TPR>(sum, smem) / fh;
-
-  float sq = 0.f;
+  float mean = 0.f, rstd;
+  if constexpr (kMean) {
+    mean = group_sum<TPR>(sum, smem) / fh;
+    float sq = 0.f;
 #pragma unroll
-  for (int c = 0; c < CHUNKS; ++c) {
-    const int col = (c * TPR + tid) * VEC;
-    if (col < h) {
+    for (int c = 0; c < CHUNKS; ++c) {
+      const int col = (c * TPR + tid) * VEC;
+      if (col < h) {
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        const float d = v[c][i] - mean;
-        sq += d * d;
+        for (int i = 0; i < VEC; ++i) {
+          const float d = v[c][i] - mean;
+          sq += d * d;
+        }
       }
     }
+    rstd = rsqrtf(group_sum<TPR>(sq, smem) / fh + eps);
+  } else {
+    rstd = rsqrtf(group_sum<TPR>(sum, smem) / fh + eps);
   }
-  const float rstd = rsqrtf(group_sum<TPR>(sq, smem) / fh + eps);
 
 #pragma unroll
   for (int c = 0; c < CHUNKS; ++c) {
@@ -141,19 +158,23 @@ __global__ void __launch_bounds__(TPR == 32 ? 128 : TPR)
     if (col < h) {
       Pack<T, VEC> p;
 #pragma unroll
-      for (int i = 0; i < VEC; ++i)
-        p.v[i] = from_float<T>((v[c][i] - mean) * rstd * gamma[col + i] +
-                               beta[col + i]);
+      for (int i = 0; i < VEC; ++i) {
+        if constexpr (kMean)
+          p.v[i] = from_float<T>((v[c][i] - mean) * rstd * gamma[col + i] +
+                                 beta[col + i]);
+        else
+          p.v[i] = from_float<T>(v[c][i] * rstd * gamma[col + i]);
+      }
       *reinterpret_cast<Pack<T, VEC>*>(yr + col) = p;
     }
   }
   if (tid == 0) {
-    mean_out[row] = mean;
+    if constexpr (kMean) mean_out[row] = mean;
     rstd_out[row] = rstd;
   }
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, bool kMean>
 int launch(const void* x, const float* gamma, const float* beta, void* y,
            float* mean, float* rstd, int64_t n, int h, float eps,
            cudaStream_t stream) {
@@ -161,18 +182,18 @@ int launch(const void* x, const float* gamma, const float* beta, void* y,
   T* yt = static_cast<T*>(y);
   if (h <= kWarpChunks * 32 * VEC) {
     const int64_t blocks = (n + 3) / 4;
-    ln_fwd_kernel<T, VEC, 32, kWarpChunks>
+    ln_fwd_kernel<T, VEC, 32, kWarpChunks, kMean>
         <<<static_cast<unsigned>(blocks), 128, 0, stream>>>(
             xt, gamma, beta, yt, mean, rstd, n, h, eps);
   } else {
-    ln_fwd_kernel<T, VEC, kBlockThreads, kMaxH / (kBlockThreads * VEC)>
+    ln_fwd_kernel<T, VEC, kBlockThreads, kMaxH / (kBlockThreads * VEC), kMean>
         <<<static_cast<unsigned>(n), kBlockThreads, 0, stream>>>(
             xt, gamma, beta, yt, mean, rstd, n, h, eps);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool kMean>
 int dispatch(const void* x, const float* gamma, const float* beta, void* y,
              float* mean, float* rstd, int64_t n, int h, float eps,
              cudaStream_t stream) {
@@ -181,8 +202,10 @@ int dispatch(const void* x, const float* gamma, const float* beta, void* y,
                    reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(y) % 16 == 0;
   if (vec)
-    return launch<T, kVec>(x, gamma, beta, y, mean, rstd, n, h, eps, stream);
-  return launch<T, 1>(x, gamma, beta, y, mean, rstd, n, h, eps, stream);
+    return launch<T, kVec, kMean>(x, gamma, beta, y, mean, rstd, n, h, eps,
+                                  stream);
+  return launch<T, 1, kMean>(x, gamma, beta, y, mean, rstd, n, h, eps,
+                             stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -209,12 +232,25 @@ int dispatch(const void* x, const float* gamma, const float* beta, void* y,
 // per column in a fixed order.  No float atomics, so dgamma and dbeta repeat
 // bitwise.  Per thread 32 elements at most (the warp layout) or 16 (the
 // block layout), so the four register arrays stay within 128 floats.
+//
+// RMSNorm backward: the same kernels with kMean = false.  Replaces
+// apex_example_tpu/ops/layer_norm.py:285 `_rms_bwd_kernel` (launched by
+// `_norm_bwd_pallas` with mean None, :161 / :192).  Same arithmetic
+// (:285-294): x_hat = x * rstd, wdy = dy * gamma, c2 = mean(wdy * x_hat),
+// dx = rstd * (wdy - x_hat * c2) in x's dtype, dgamma = sum over rows of
+// dy * x_hat in fp32; no c1 and no dbeta.  Bound: bytes, 3*N*H elements
+// (x, dy read; dx written) + 4*H + 4*N, plus the workspace, now one
+// [n_groups, H] plane (4096 x 768 fp32: 37.8 MB, ~11.3 us without it).
+// The Pallas kernel adds dgamma across grid steps that run in order
+// (:292); here the per-group partials and the fixed-order column pass
+// again, so dgamma repeats bitwise.
 
 constexpr int kBwdWarpElems = 32;   // elements per thread, warp layout
 constexpr int kBwdColTile = 32;     // columns per block of the column sum
 constexpr int kBwdColSegs = 16;     // workspace-row segments per block
 
-template <typename T, int VEC, int TPR, int CHUNKS>
+// kMean: LayerNorm.  Without it RMSNorm: mean_in and ws_db are null.
+template <typename T, int VEC, int TPR, int CHUNKS, bool kMean>
 __global__ void __launch_bounds__(TPR == 32 ? 128 : TPR)
     ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                   const float* __restrict__ gamma,
@@ -238,7 +274,7 @@ __global__ void __launch_bounds__(TPR == 32 ? 128 : TPR)
 
   const float fh = static_cast<float>(h);
   for (int64_t row = group; row < n_rows; row += n_groups) {
-    const float mu = mean_in[row];
+    const float mu = kMean ? mean_in[row] : 0.f;
     const float rs = rstd_in[row];
     const T* xr = x + row * h;
     const T* dyr = dy + row * h;
@@ -257,12 +293,12 @@ __global__ void __launch_bounds__(TPR == 32 ? 128 : TPR)
           xh[c][i] = (to_float(px.v[i]) - mu) * rs;
           d[c][i] = to_float(pd.v[i]);
           pg[c][i] += d[c][i] * xh[c][i];
-          pb[c][i] += d[c][i];
+          if (kMean) pb[c][i] += d[c][i];
           // __fmul_rn: never fused into an FMA, so the sums and dx below
           // see the same rounded wdy (at H = 1, wdy - c1 must be 0 exactly,
           // and rstd = 1/sqrt(eps) would magnify a fused product's error).
           const float wdy = __fmul_rn(d[c][i], gamma[col + i]);
-          s1 += wdy;
+          if (kMean) s1 += wdy;
           s2 += wdy * xh[c][i];
         }
       } else {
@@ -270,7 +306,7 @@ __global__ void __launch_bounds__(TPR == 32 ? 128 : TPR)
         for (int i = 0; i < VEC; ++i) xh[c][i] = d[c][i] = 0.f;
       }
     }
-    const float c1 = group_sum<TPR>(s1, smem) / fh;
+    const float c1 = kMean ? group_sum<TPR>(s1, smem) / fh : 0.f;
     const float c2 = group_sum<TPR>(s2, smem) / fh;
     T* dxr = dx + row * h;
 #pragma unroll
@@ -281,7 +317,10 @@ __global__ void __launch_bounds__(TPR == 32 ? 128 : TPR)
 #pragma unroll
         for (int i = 0; i < VEC; ++i) {
           const float wdy = __fmul_rn(d[c][i], gamma[col + i]);
-          p.v[i] = from_float<T>(rs * (wdy - c1 - xh[c][i] * c2));
+          if constexpr (kMean)
+            p.v[i] = from_float<T>(rs * (wdy - c1 - xh[c][i] * c2));
+          else
+            p.v[i] = from_float<T>(rs * (wdy - xh[c][i] * c2));
         }
         *reinterpret_cast<Pack<T, VEC>*>(dxr + col) = p;
       }
@@ -289,7 +328,6 @@ __global__ void __launch_bounds__(TPR == 32 ? 128 : TPR)
   }
 
   float* wg = ws_dg + group * h;
-  float* wb = ws_db + group * h;
 #pragma unroll
   for (int c = 0; c < CHUNKS; ++c) {
     const int col = (c * TPR + tid) * VEC;
@@ -297,7 +335,7 @@ __global__ void __launch_bounds__(TPR == 32 ? 128 : TPR)
 #pragma unroll
       for (int i = 0; i < VEC; ++i) {
         wg[col + i] = pg[c][i];
-        wb[col + i] = pb[c][i];
+        if constexpr (kMean) ws_db[group * h + col + i] = pb[c][i];
       }
     }
   }
@@ -305,7 +343,9 @@ __global__ void __launch_bounds__(TPR == 32 ? 128 : TPR)
 
 // dgamma[col] = sum over the workspace's rows, in a fixed order: segment s
 // of a block adds rows s, s + kBwdColSegs, ...; then the segments are added
-// in order 0..kBwdColSegs-1.
+// in order 0..kBwdColSegs-1.  Without kMean (RMSNorm) ws_db and dbeta are
+// null and only dgamma is summed.
+template <bool kMean>
 __global__ void __launch_bounds__(kBwdColTile * kBwdColSegs)
     ln_bwd_colsum_kernel(const float* __restrict__ ws_dg,
                          const float* __restrict__ ws_db,
@@ -318,7 +358,7 @@ __global__ void __launch_bounds__(kBwdColTile * kBwdColSegs)
   if (col < h) {
     for (int64_t r = threadIdx.y; r < n_groups; r += kBwdColSegs) {
       a += ws_dg[r * h + col];
-      b += ws_db[r * h + col];
+      if (kMean) b += ws_db[r * h + col];
     }
   }
   sg[threadIdx.y][threadIdx.x] = a;
@@ -332,11 +372,11 @@ __global__ void __launch_bounds__(kBwdColTile * kBwdColSegs)
       t += sb[k][threadIdx.x];
     }
     dgamma[col] = s;
-    dbeta[col] = t;
+    if (kMean) dbeta[col] = t;
   }
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, bool kMean>
 int launch_bwd(const void* x, const void* dy, const float* gamma,
                const float* mean, const float* rstd, void* dx, float* dgamma,
                float* dbeta, float* ws, int64_t n, int h, int64_t n_groups,
@@ -345,27 +385,28 @@ int launch_bwd(const void* x, const void* dy, const float* gamma,
   const T* dyt = static_cast<const T*>(dy);
   T* dxt = static_cast<T*>(dx);
   float* ws_dg = ws;
-  float* ws_db = ws + n_groups * h;
+  float* ws_db = kMean ? ws + n_groups * h : nullptr;
   constexpr int kChunks = kBwdWarpElems / VEC;
   if (h <= kChunks * 32 * VEC) {
-    ln_bwd_kernel<T, VEC, 32, kChunks>
+    ln_bwd_kernel<T, VEC, 32, kChunks, kMean>
         <<<static_cast<unsigned>((n_groups + 3) / 4), 128, 0, stream>>>(
             xt, dyt, gamma, mean, rstd, dxt, ws_dg, ws_db, n, h, n_groups);
   } else {
-    ln_bwd_kernel<T, VEC, kBlockThreads, kMaxH / (kBlockThreads * VEC)>
+    ln_bwd_kernel<T, VEC, kBlockThreads, kMaxH / (kBlockThreads * VEC), kMean>
         <<<static_cast<unsigned>(n_groups), kBlockThreads, 0, stream>>>(
             xt, dyt, gamma, mean, rstd, dxt, ws_dg, ws_db, n, h, n_groups);
   }
   int rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
-  ln_bwd_colsum_kernel<<<static_cast<unsigned>((h + kBwdColTile - 1) /
-                                               kBwdColTile),
-                         dim3(kBwdColTile, kBwdColSegs), 0, stream>>>(
-      ws_dg, ws_db, dgamma, dbeta, h, n_groups);
+  const unsigned col_blocks =
+      static_cast<unsigned>((h + kBwdColTile - 1) / kBwdColTile);
+  ln_bwd_colsum_kernel<kMean>
+      <<<col_blocks, dim3(kBwdColTile, kBwdColSegs), 0, stream>>>(
+          ws_dg, ws_db, dgamma, dbeta, h, n_groups);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool kMean>
 int dispatch_bwd(const void* x, const void* dy, const float* gamma,
                  const float* mean, const float* rstd, void* dx,
                  float* dgamma, float* dbeta, float* ws, int64_t n, int h,
@@ -376,10 +417,10 @@ int dispatch_bwd(const void* x, const void* dy, const float* gamma,
                    reinterpret_cast<uintptr_t>(dy) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(dx) % 16 == 0;
   if (vec)
-    return launch_bwd<T, kVec>(x, dy, gamma, mean, rstd, dx, dgamma, dbeta,
-                               ws, n, h, n_groups, stream);
-  return launch_bwd<T, 1>(x, dy, gamma, mean, rstd, dx, dgamma, dbeta, ws, n,
-                          h, n_groups, stream);
+    return launch_bwd<T, kVec, kMean>(x, dy, gamma, mean, rstd, dx, dgamma,
+                                      dbeta, ws, n, h, n_groups, stream);
+  return launch_bwd<T, 1, kMean>(x, dy, gamma, mean, rstd, dx, dgamma, dbeta,
+                                 ws, n, h, n_groups, stream);
 }
 
 }  // namespace
@@ -406,14 +447,14 @@ extern "C" int apex_layer_norm_bwd(const void* x, const void* dy,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return dispatch_bwd<float>(x, dy, g, m, r, dx, dg, db, ws, n_rows, h,
-                                 n_groups, s);
+      return dispatch_bwd<float, true>(x, dy, g, m, r, dx, dg, db, ws, n_rows,
+                                       h, n_groups, s);
     case 1:
-      return dispatch_bwd<__nv_bfloat16>(x, dy, g, m, r, dx, dg, db, ws,
-                                         n_rows, h, n_groups, s);
+      return dispatch_bwd<__nv_bfloat16, true>(x, dy, g, m, r, dx, dg, db, ws,
+                                               n_rows, h, n_groups, s);
     case 2:
-      return dispatch_bwd<__half>(x, dy, g, m, r, dx, dg, db, ws, n_rows, h,
-                                  n_groups, s);
+      return dispatch_bwd<__half, true>(x, dy, g, m, r, dx, dg, db, ws,
+                                        n_rows, h, n_groups, s);
     default:
       return -1;
   }
@@ -433,11 +474,69 @@ extern "C" int apex_layer_norm_fwd(const void* x, const void* gamma,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return dispatch<float>(x, g, b, y, m, r, n_rows, h, eps, s);
+      return dispatch<float, true>(x, g, b, y, m, r, n_rows, h, eps, s);
     case 1:
-      return dispatch<__nv_bfloat16>(x, g, b, y, m, r, n_rows, h, eps, s);
+      return dispatch<__nv_bfloat16, true>(x, g, b, y, m, r, n_rows, h, eps,
+                                           s);
     case 2:
-      return dispatch<__half>(x, g, b, y, m, r, n_rows, h, eps, s);
+      return dispatch<__half, true>(x, g, b, y, m, r, n_rows, h, eps, s);
+    default:
+      return -1;
+  }
+}
+
+// RMSNorm forward: y in x's dtype, rstd fp32 (N,), gamma fp32 (H,).
+// Argument errors are negative; a launch error is the cudaError_t value.
+extern "C" int apex_rms_norm_fwd(const void* x, const void* gamma, void* y,
+                                 void* rstd, long long n_rows, int h,
+                                 float eps, int dtype, void* stream) {
+  if (h < 1 || h > kMaxH) return -2;
+  if (n_rows < 1 || n_rows > 0x7fffffffLL) return -3;
+  const float* g = static_cast<const float*>(gamma);
+  float* r = static_cast<float*>(rstd);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return dispatch<float, false>(x, g, nullptr, y, nullptr, r, n_rows, h,
+                                    eps, s);
+    case 1:
+      return dispatch<__nv_bfloat16, false>(x, g, nullptr, y, nullptr, r,
+                                            n_rows, h, eps, s);
+    case 2:
+      return dispatch<__half, false>(x, g, nullptr, y, nullptr, r, n_rows, h,
+                                     eps, s);
+    default:
+      return -1;
+  }
+}
+
+// RMSNorm backward: dx in x's dtype (dy has it too), dgamma fp32 (H,);
+// workspace n_groups * H floats of scratch.  Argument errors are negative;
+// a launch error is the cudaError_t value.
+extern "C" int apex_rms_norm_bwd(const void* x, const void* dy,
+                                 const void* gamma, const void* rstd,
+                                 void* dx, void* dgamma, void* workspace,
+                                 long long n_rows, int h, long long n_groups,
+                                 int dtype, void* stream) {
+  if (h < 1 || h > kMaxH) return -2;
+  if (n_rows < 1 || n_rows > 0x7fffffffLL) return -3;
+  if (n_groups < 1 || n_groups > n_rows) return -4;
+  const float* g = static_cast<const float*>(gamma);
+  const float* r = static_cast<const float*>(rstd);
+  float* dg = static_cast<float*>(dgamma);
+  float* ws = static_cast<float*>(workspace);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return dispatch_bwd<float, false>(x, dy, g, nullptr, r, dx, dg, nullptr,
+                                        ws, n_rows, h, n_groups, s);
+    case 1:
+      return dispatch_bwd<__nv_bfloat16, false>(x, dy, g, nullptr, r, dx, dg,
+                                                nullptr, ws, n_rows, h,
+                                                n_groups, s);
+    case 2:
+      return dispatch_bwd<__half, false>(x, dy, g, nullptr, r, dx, dg,
+                                         nullptr, ws, n_rows, h, n_groups, s);
     default:
       return -1;
   }

@@ -1,5 +1,5 @@
-"""LayerNorm forward and backward: the hand-written Hopper kernels and
-their plain versions.
+"""LayerNorm and RMSNorm, forward and backward: the hand-written Hopper
+kernels and their plain versions.
 
 Port of apex_example_tpu/ops/layer_norm.py.  ``layer_norm_plain`` is the
 arithmetic of ``layer_norm_reference`` (:47) and of the Pallas
@@ -17,13 +17,26 @@ from one to the other.
 ``custom_vjp`` (:211-268): the forward saves ``(x, gamma, mean, rstd)``,
 the backward recomputes x_hat from them.  ``layer_norm`` goes through it,
 so gradients reach x, gamma and beta on either device.
+
+RMSNorm (:271-343) follows the same shape name for name: ``rms_norm_plain``
+is ``rms_norm_reference`` (:56) and the Pallas ``_rms_fwd_kernel`` (:278),
+``rms_norm_bwd_plain`` the backward (:332-338, ``_rms_bwd_kernel`` :285),
+``rms_norm_cuda`` / ``rms_norm_bwd_cuda`` launch the RMSNorm kernels of
+csrc/layer_norm.cu, ``rms_norm_fwd`` / ``rms_norm_bwd`` dispatch on the
+device and ``RMSNormFunction`` saves ``(x, gamma, rstd)``.
+
+The kernels take fp32 gamma (and beta).  The JAX ops take parameters of
+any float dtype, read them as fp32 and return their gradients in the
+parameters' dtype; the dispatchers do the same: gamma and beta cast to
+fp32 on the way in (exact from bf16 or fp16), dgamma and dbeta summed in
+fp32 and rounded once to the parameters' dtype on the way out.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -58,35 +71,37 @@ def layer_norm_plain(x: torch.Tensor, gamma: torch.Tensor,
 
 
 def _check_args(x: torch.Tensor, gamma: torch.Tensor,
-                beta: torch.Tensor) -> None:
+                beta: Optional[torch.Tensor],
+                what: str = "layer_norm_cuda") -> None:
     """Everything the kernel does not take raises here, before a build
-    or a launch: shape, dtype and layout first, the device last."""
+    or a launch: shape, dtype and layout first, the device last.  RMSNorm
+    has no ``beta`` (None)."""
     if x.dim() != 2:
-        raise ValueError(f"layer_norm_cuda takes (N, H) rows, got shape "
+        raise ValueError(f"{what} takes (N, H) rows, got shape "
                          f"{tuple(x.shape)}")
     if x.dtype not in _build.DTYPE_CODES:
-        raise TypeError(f"layer_norm_cuda takes float32, bfloat16 or "
-                        f"float16 x, got {x.dtype}")
+        raise TypeError(f"{what} takes float32, bfloat16 or float16 x, "
+                        f"got {x.dtype}")
     n, h = x.shape
     if not 1 <= h <= MAX_H:
-        raise ValueError(f"layer_norm_cuda takes 1 <= H <= {MAX_H}, "
-                         f"got H = {h}")
+        raise ValueError(f"{what} takes 1 <= H <= {MAX_H}, got H = {h}")
     if n >= 2 ** 31:
-        raise ValueError(f"layer_norm_cuda takes fewer than 2**31 rows, "
-                         f"got {n}")
-    for pname, p in (("gamma", gamma), ("beta", beta)):
+        raise ValueError(f"{what} takes fewer than 2**31 rows, got {n}")
+    params = (("gamma", gamma),) + (() if beta is None else
+                                    (("beta", beta),))
+    for pname, p in params:
         if tuple(p.shape) != (h,) or p.dtype != torch.float32:
             raise ValueError(f"{pname} must be float32 of shape ({h},), got "
                              f"{p.dtype} {tuple(p.shape)}")
         if p.device != x.device:
             raise ValueError(f"{pname} lies on {p.device}, x on {x.device}")
-    for tname, t in (("x", x), ("gamma", gamma), ("beta", beta)):
+    for tname, t in (("x", x),) + params:
         if not t.is_contiguous():
-            raise ValueError(f"layer_norm_cuda takes contiguous tensors; "
-                             f"{tname} is not")
+            raise ValueError(f"{what} takes contiguous tensors; {tname} is "
+                             f"not")
     if x.device.type != "cuda":
-        raise ValueError(f"layer_norm_cuda launches a CUDA kernel; x lies "
-                         f"on {x.device}")
+        raise ValueError(f"{what} launches a CUDA kernel; x lies on "
+                         f"{x.device}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -100,6 +115,14 @@ def _library() -> ctypes.CDLL:
         ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_void_p]
     lib.apex_layer_norm_bwd.restype = ctypes.c_int
+    lib.apex_rms_norm_fwd.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+        ctypes.c_void_p]
+    lib.apex_rms_norm_fwd.restype = ctypes.c_int
+    lib.apex_rms_norm_bwd.argtypes = [ctypes.c_void_p] * 7 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_void_p]
+    lib.apex_rms_norm_bwd.restype = ctypes.c_int
     return lib
 
 
@@ -140,7 +163,8 @@ def layer_norm_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     if x2d.device.type == "cpu":
         y, mean, rstd = layer_norm_plain(x2d, gamma, beta, eps)
     else:
-        y, mean, rstd = layer_norm_cuda(x2d, gamma, beta, eps)
+        y, mean, rstd = layer_norm_cuda(x2d, gamma.float(), beta.float(),
+                                        eps)
     return y.reshape(shape), mean, rstd
 
 
@@ -165,26 +189,29 @@ def layer_norm_bwd_plain(x: torch.Tensor, gamma: torch.Tensor,
 
 
 def _check_bwd_args(x: torch.Tensor, gamma: torch.Tensor,
-                    mean: torch.Tensor, rstd: torch.Tensor,
-                    dy: torch.Tensor) -> None:
+                    mean: Optional[torch.Tensor], rstd: torch.Tensor,
+                    dy: torch.Tensor,
+                    what: str = "layer_norm_bwd_cuda") -> None:
     """dy like x, the stats fp32 (N,), all on x's device and contiguous;
-    then the forward's checks on x and gamma, the device last."""
+    then the forward's checks on x and gamma, the device last.  RMSNorm
+    has no ``mean`` (None)."""
     if dy.shape != x.shape or dy.dtype != x.dtype:
         raise ValueError(f"dy must match x ({x.dtype} {tuple(x.shape)}), "
                          f"got {dy.dtype} {tuple(dy.shape)}")
-    for sname, st in (("mean", mean), ("rstd", rstd)):
+    stats = (() if mean is None else (("mean", mean),)) + (("rstd", rstd),)
+    for sname, st in stats:
         if x.dim() != 2 or tuple(st.shape) != (x.shape[0],) \
                 or st.dtype != torch.float32:
             raise ValueError(f"{sname} must be float32 of shape "
                              f"(N,) for N = x.shape[0], got {st.dtype} "
                              f"{tuple(st.shape)}")
-    for tname, t in (("dy", dy), ("mean", mean), ("rstd", rstd)):
+    for tname, t in (("dy", dy),) + stats:
         if t.device != x.device:
             raise ValueError(f"{tname} lies on {t.device}, x on {x.device}")
         if not t.is_contiguous():
-            raise ValueError(f"layer_norm_bwd_cuda takes contiguous "
-                             f"tensors; {tname} is not")
-    _check_args(x, gamma, gamma)
+            raise ValueError(f"{what} takes contiguous tensors; {tname} is "
+                             f"not")
+    _check_args(x, gamma, None, what)
 
 
 def bwd_groups(n: int) -> int:
@@ -233,7 +260,7 @@ def layer_norm_bwd(x: torch.Tensor, gamma: torch.Tensor, mean: torch.Tensor,
     if x2d.device.type == "cpu":
         dx, dg, db = layer_norm_bwd_plain(x2d, gamma, mean, rstd, dy2d)
     else:
-        dx, dg, db = layer_norm_bwd_cuda(x2d, gamma, mean, rstd,
+        dx, dg, db = layer_norm_bwd_cuda(x2d, gamma.float(), mean, rstd,
                                          dy2d.contiguous())
     return dx.reshape(shape), dg.to(gamma.dtype), db.to(gamma.dtype)
 
@@ -261,3 +288,141 @@ def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     """Fused LayerNorm over the last axis; x (..., H), gamma/beta (H,).
     Differentiable in x, gamma and beta through :class:`LayerNormFunction`."""
     return LayerNormFunction.apply(x, gamma, beta, eps)
+
+
+RmsStats = Tuple[torch.Tensor, torch.Tensor]
+
+
+def rms_norm_plain(x: torch.Tensor, gamma: torch.Tensor,
+                   eps: float = 1e-5) -> RmsStats:
+    """``(y, rstd)`` over the last axis of a 2-D ``x``:
+    ``rstd = rsqrt(mean(x²) + eps)`` in fp32, ``y = x · rstd · gamma`` in
+    x's dtype, rstd fp32 of shape (N,)."""
+    xf = _acc(x)
+    rstd = torch.rsqrt((xf * xf).mean(-1) + eps)
+    y = xf * rstd[:, None] * gamma.to(xf.dtype)
+    return y.to(x.dtype), rstd
+
+
+def rms_norm_cuda(x: torch.Tensor, gamma: torch.Tensor,
+                  eps: float = 1e-5) -> RmsStats:
+    """``(y, rstd)`` like :func:`rms_norm_plain`, computed by the CUDA
+    kernel on PyTorch's current stream.  ``rms_norm_cuda.launches`` counts
+    the kernel's launches."""
+    _check_args(x, gamma, None, "rms_norm_cuda")
+    n, h = x.shape
+    y = torch.empty_like(x)
+    rstd = torch.empty(n, dtype=torch.float32, device=x.device)
+    if n == 0:
+        return y, rstd
+    lib = _library()
+    with torch.cuda.device(x.device):
+        rc = lib.apex_rms_norm_fwd(
+            x.data_ptr(), gamma.data_ptr(), y.data_ptr(), rstd.data_ptr(),
+            n, h, float(eps), _build.DTYPE_CODES[x.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    _build.raise_on(rc, lib, "rms_norm", _ARG_ERRORS)
+    rms_norm_cuda.launches += 1
+    return y, rstd
+
+
+rms_norm_cuda.launches = 0
+
+
+def rms_norm_fwd(x: torch.Tensor, gamma: torch.Tensor,
+                 eps: float = 1e-5) -> RmsStats:
+    """RMSNorm over the last axis of ``x`` (..., H): ``(y, rstd)`` with y
+    shaped like x and the fp32 rstd flattened to (N,), as
+    ``_rms_norm_fwd`` (:304) returns them."""
+    shape = x.shape
+    x2d = x.reshape(-1, shape[-1])
+    if x2d.device.type == "cpu":
+        y, rstd = rms_norm_plain(x2d, gamma, eps)
+    else:
+        y, rstd = rms_norm_cuda(x2d, gamma.float(), eps)
+    return y.reshape(shape), rstd
+
+
+RmsGrads = Tuple[torch.Tensor, torch.Tensor]
+
+
+def rms_norm_bwd_plain(x: torch.Tensor, gamma: torch.Tensor,
+                       rstd: torch.Tensor, dy: torch.Tensor) -> RmsGrads:
+    """``(dx, dgamma)`` for a 2-D ``x`` and ``dy`` from the saved fp32
+    rstd: dx in x's dtype, dgamma fp32 of shape (H,)."""
+    xf = _acc(x)
+    dyf = dy.to(xf.dtype)
+    xhat = xf * rstd[:, None]
+    wdy = dyf * gamma.to(xf.dtype)
+    dg = (dyf * xhat).sum(0)
+    c2 = (wdy * xhat).mean(-1, keepdim=True)
+    dx = (rstd[:, None] * (wdy - xhat * c2)).to(x.dtype)
+    return dx, dg
+
+
+def rms_norm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor,
+                      rstd: torch.Tensor, dy: torch.Tensor) -> RmsGrads:
+    """``(dx, dgamma)`` like :func:`rms_norm_bwd_plain`, computed by the
+    CUDA kernel on PyTorch's current stream.
+    ``rms_norm_bwd_cuda.launches`` counts the calls that launched it."""
+    _check_bwd_args(x, gamma, None, rstd, dy, "rms_norm_bwd_cuda")
+    n, h = x.shape
+    dx = torch.empty_like(x)
+    dg = torch.empty(h, dtype=torch.float32, device=x.device)
+    if n == 0:
+        return dx, dg.zero_()
+    groups = bwd_groups(n)
+    ws = torch.empty(groups * h, dtype=torch.float32, device=x.device)
+    lib = _library()
+    with torch.cuda.device(x.device):
+        rc = lib.apex_rms_norm_bwd(
+            x.data_ptr(), dy.data_ptr(), gamma.data_ptr(), rstd.data_ptr(),
+            dx.data_ptr(), dg.data_ptr(), ws.data_ptr(), n, h, groups,
+            _build.DTYPE_CODES[x.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    _build.raise_on(rc, lib, "rms_norm backward", _ARG_ERRORS)
+    rms_norm_bwd_cuda.launches += 1
+    return dx, dg
+
+
+rms_norm_bwd_cuda.launches = 0
+
+
+def rms_norm_bwd(x: torch.Tensor, gamma: torch.Tensor, rstd: torch.Tensor,
+                 dy: torch.Tensor) -> RmsGrads:
+    """The backward of :func:`rms_norm_fwd` (``_rms_norm_bwd_vjp`` :322):
+    dx shaped like x, dgamma cast to gamma's dtype."""
+    shape = x.shape
+    x2d = x.reshape(-1, shape[-1])
+    dy2d = dy.reshape(-1, shape[-1])
+    if x2d.device.type == "cpu":
+        dx, dg = rms_norm_bwd_plain(x2d, gamma, rstd, dy2d)
+    else:
+        dx, dg = rms_norm_bwd_cuda(x2d, gamma.float(), rstd,
+                                   dy2d.contiguous())
+    return dx.reshape(shape), dg.to(gamma.dtype)
+
+
+class RMSNormFunction(torch.autograd.Function):
+    """RMSNorm with its backward kernel: the JAX ``custom_vjp``
+    (:297-343).  Saves ``(x, gamma, rstd)``; x_hat is recomputed in the
+    backward, never stored."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, eps):
+        y, rstd = rms_norm_fwd(x, gamma, eps)
+        ctx.save_for_backward(x, gamma, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma, rstd = ctx.saved_tensors
+        dx, dg = rms_norm_bwd(x, gamma, rstd, dy)
+        return dx, dg, None
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """Fused RMSNorm over the last axis; x (..., H), gamma (H,).
+    Differentiable in x and gamma through :class:`RMSNormFunction`."""
+    return RMSNormFunction.apply(x, gamma, eps)

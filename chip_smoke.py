@@ -245,6 +245,21 @@ Phases, one or more lines each:
              step is the optimizer's first: count 1, and NovoGrad's second
              moments equal that step's squared grad norms exactly (the
              first-step branch, read from the count on the card).
+27. rmsnorm — the RMSNorm forward and backward kernels (layer_norm.cu;
+             run after 3, before 7) against their plain versions at the
+             LayerNorm phase's path shapes (128, 4096, 8192 x 768 and
+             6144 x 410) in fp32 and bf16, at 37 x 777 (the scalar path)
+             and 64 x 8192 (the block layout) in both, and at 16384 x 4096
+             in bf16 (LLaMA-7B's width): y, dx as LayerNorm's, rstd
+             1e-5, dgamma rtol = atol 1e-4, and a second backward bitwise
+             equal.  Each shape's kernel, plain and F.rms_norm times
+             (forward; backward through autograd) beside the bound.  Then
+             the `rmsnorm` path: FusedRMSNorm(768) and MixedFusedRMSNorm(
+             768, param_dtype=bf16) forward and backward at 4096 x 768 in
+             fp32 and bf16 on the card against the CPU (y and dx as above,
+             dscale 1e-4, a bf16 dscale one bf16 ulp plus 1e-4), one
+             forward and one backward launch each, none under no_grad;
+             and at the end no RMSNorm launch on any other path.
 
 Then one JSON line per the port's kernel table ({"kernels": [...]}) and,
 last, {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
@@ -617,6 +632,222 @@ def phase_ln_bwd(ln):
             "plain_ms": ms["plain"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": ms["library"],
             "by_shape": by_shape}
+
+
+RMS_CASES = ([(SLOTS * BLOCK, 768, dt) for dt in (torch.float32,
+                                                 torch.bfloat16)]
+             + [(TRAIN_ROWS, 768, dt) for dt in (torch.float32,
+                                                 torch.bfloat16)]
+             + [(TXL_ROWS, TXL_H, dt) for dt in (torch.float32,
+                                                 torch.bfloat16)]
+             + [(GPT_ROWS, 768, dt) for dt in (torch.float32,
+                                               torch.bfloat16)]
+             + [(37, 777, dt) for dt in (torch.float32, torch.bfloat16)]
+             + [(64, 8192, dt) for dt in (torch.float32, torch.bfloat16)]
+             # LLaMA-7B's hidden size: 128 MiB of x
+             + [(16384, 4096, torch.bfloat16)])
+RMS_PATH_SHAPES = {(SLOTS * BLOCK, 768), (TRAIN_ROWS, 768),
+                   (TXL_ROWS, TXL_H), (GPT_ROWS, 768)}
+
+
+def _half_close(got, want, atol):
+    """max |got - want| and whether every element is within one bf16 ulp
+    of the larger magnitude plus ``atol`` (for a result rounded once to
+    bf16 from fp32 values that differ in their last bits)."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    tol = _bf16_tol(got, want) - FP32_TOL + atol
+    return float(err.max()), bool((err <= tol).all())
+
+
+def _norm_close(got, want, dtype):
+    """y or dx against the plain version: fp32 rtol = atol = 1e-5, a half
+    output one bf16 ulp plus 1e-5."""
+    if dtype == torch.float32:
+        return _close(got, want, FP32_TOL, FP32_TOL)
+    return _half_close(got, want, FP32_TOL)
+
+
+def phase_rms_norm(ln, normalization, counted):
+    """RMSNorm's kernels against their plain versions at every shape of
+    RMS_CASES (y, rstd, dx, dgamma; dgamma and dx bitwise on a second
+    launch), each timed beside its bound, its plain version and
+    F.rms_norm (forward; the backward through autograd); then the
+    module path (``rmsnorm``): FusedRMSNorm and MixedFusedRMSNorm forward
+    and backward on the card against the CPU.  Returns the two kernel rows
+    and the module path's launch counts."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    t0 = time.perf_counter()
+    fwd_err = bwd_err = 0.0
+    fwd_by, bwd_by = {}, {}
+    for n, h, dtype in RMS_CASES:
+        x = (torch.randn(n, h, device=dev, generator=gen) * 2 + 0.5).to(dtype)
+        g = torch.randn(h, device=dev, generator=gen) * 0.2 + 1
+        dy = torch.randn(n, h, device=dev, generator=gen).to(dtype)
+        y, rstd = ln.rms_norm_cuda(x, g)
+        y_p, rstd_p = ln.rms_norm_plain(x, g)
+        dx, dg = ln.rms_norm_bwd_cuda(x, g, rstd_p, dy)
+        dx_p, dg_p = ln.rms_norm_bwd_plain(x, g, rstd_p, dy)
+        again = ln.rms_norm_bwd_cuda(x, g, rstd_p, dy)
+        torch.cuda.synchronize()
+        y_err, y_ok = _norm_close(y, y_p, dtype)
+        r_err, r_ok = _close(rstd, rstd_p, FP32_TOL, FP32_TOL)
+        dx_err, dx_ok = _norm_close(dx, dx_p, dtype)
+        dg_err, dg_ok = _close(dg, dg_p, SUM_TOL, SUM_TOL)
+        same = torch.equal(again[0], dx) and torch.equal(again[1], dg)
+        ok = (y_ok and r_ok and dx_ok and dg_ok and same
+              and y.dtype == dx.dtype == dtype)
+        what = f"{n}x{h} {str(dtype)[6:]}"
+        print(f"kernels: rms_norm {what}: max|dy| {y_err:.3g}  max|drstd| "
+              f"{r_err:.3g}  max|ddx| {dx_err:.3g}  max|ddgamma| "
+              f"{dg_err:.3g}  second backward bitwise equal: {same}  "
+              f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise SystemExit(f"rms_norm kernels disagree with their plain "
+                             f"versions at {what}")
+        if dtype == torch.float32 and (n, h) in RMS_PATH_SHAPES:
+            fwd_err = max(fwd_err, y_err, r_err)
+            bwd_err = max(bwd_err, dx_err, dg_err)
+
+        # yardstick only: F.rms_norm forward, its autograd backward
+        xr, gr = x.detach().requires_grad_(), g.detach().requires_grad_()
+        yr = torch.nn.functional.rms_norm(xr, (h,), gr, 1e-5)
+        dyr = dy.to(yr.dtype)
+        lib_err = float((yr.detach().float() - y_p.float()).abs().max())
+        esize = x.element_size()
+        for direction, kernel, plain, library, nbytes, ops, by in (
+                ("fwd", lambda: ln.rms_norm_cuda(x, g),
+                 lambda: ln.rms_norm_plain(x, g),
+                 lambda: torch.nn.functional.rms_norm(x, (h,), g, 1e-5),
+                 n * h * 2 * esize + 4 * h + 4 * n, 4 * n * h, fwd_by),
+                ("bwd", lambda: ln.rms_norm_bwd_cuda(x, g, rstd_p, dy),
+                 lambda: ln.rms_norm_bwd_plain(x, g, rstd_p, dy),
+                 lambda: torch.autograd.grad(yr, (xr, gr), dyr,
+                                             retain_graph=True),
+                 n * h * 3 * esize + 4 * h + 4 * n, 8 * n * h, bwd_by)):
+            ms = {name: _device_ms(fn) for name, fn in
+                  (("kernel", kernel), ("plain", plain),
+                   ("library", library))}
+            bound_ms, bound_by = _bound(nbytes, ops)
+            print(f"kernels: rms_norm_{direction} {what} device time: kernel "
+                  f"{ms['kernel']:.5f} ms  plain {ms['plain']:.5f} ms  "
+                  f"F.rms_norm{'' if direction == 'fwd' else ' backward'} "
+                  f"{ms['library']:.5f} ms  bound {bound_ms:.6f} ms "
+                  f"({nbytes} bytes over 3.35 TB/s)"
+                  + (f"  (F.rms_norm's y {str(yr.dtype)[6:]}, max|d| from "
+                     f"the plain y {lib_err:.3g})" if direction == "fwd"
+                     else ""))
+            by[what] = {"ms": ms["kernel"], "plain_ms": ms["plain"],
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": ms["library"]}
+        if dtype != torch.float32 and esize == 2:
+            # information only: F.rms_norm takes its fused path only for a
+            # weight in x's dtype, a rounded gamma (not the same inputs)
+            g_half = g.to(dtype)
+            half_ms = _device_ms(lambda: torch.nn.functional.rms_norm(
+                x, (h,), g_half, 1e-5))
+            print(f"kernels: rms_norm_fwd {what} device time: F.rms_norm "
+                  f"with gamma in {str(dtype)[6:]} {half_ms:.5f} ms")
+            by[what]["library_half_gamma_ms"] = half_ms
+        del xr, gr, yr, dyr
+    torch.cuda.empty_cache()
+    head = f"{TRAIN_ROWS}x768 float32"    # the module path's shape
+    rows = []
+    for name, line, err, by in (("rms_norm_fwd", 278, fwd_err, fwd_by),
+                                ("rms_norm_bwd", 285, bwd_err, bwd_by)):
+        rows.append({"name": name, "route": "cuda",
+                     "source": "apex_example_tpu_torch/csrc/layer_norm.cu",
+                     "replaces": f"apex_example_tpu/ops/layer_norm.py:{line}",
+                     "max_abs_err": err, "ms": by[head]["ms"],
+                     "plain_ms": by[head]["plain_ms"],
+                     "bound_ms": by[head]["bound_ms"],
+                     "bound_by": by[head]["bound_by"],
+                     "library_ms": by[head]["library_ms"], "by_shape": by})
+    counts = phase_rms_module(normalization, counted)
+    print(f"rmsnorm: the RMSNorm phase took {time.perf_counter() - t0:.1f} s")
+    return rows, counts
+
+
+def phase_rms_module(normalization, counted):
+    """The ``rmsnorm`` path: FusedRMSNorm(768) and MixedFusedRMSNorm(768,
+    param_dtype=bf16), scale from a seeded generator, on 4096 x 768 fp32
+    and bf16 inputs, forward and backward on the card and on the CPU with
+    the same parameters and inputs.  y and dx as the kernels against their
+    plain versions, dscale rtol = atol 1e-4 (bf16: one bf16 ulp plus
+    1e-4); each forward launches one rms_norm_fwd and nothing else, each
+    backward one rms_norm_bwd, a forward under no_grad no backward."""
+    gen = torch.Generator().manual_seed(3)
+    fwd_only = dict.fromkeys(counted, 0)
+    fwd_only["rms_norm_fwd"] = 1
+    bwd_only = dict.fromkeys(counted, 0)
+    bwd_only["rms_norm_bwd"] = 1
+
+    def delta(before):
+        now = _counts(counted)
+        return {k: now[k] - before[k] for k in now}
+
+    _zero_counts(counted)
+    for label, cls, kw in (("FusedRMSNorm", normalization.FusedRMSNorm, {}),
+                           ("MixedFusedRMSNorm",
+                            normalization.MixedFusedRMSNorm,
+                            {"param_dtype": torch.bfloat16})):
+        for dtype in (torch.float32, torch.bfloat16):
+            cpu_m = cls(768, **kw)
+            with torch.no_grad():
+                cpu_m.scale.copy_(torch.randn(768, generator=gen) * 0.2 + 1)
+            card_m = cls(768, device="cuda", **kw)
+            card_m.load_state_dict(cpu_m.state_dict())
+            x = (torch.randn(TRAIN_ROWS, 768, generator=gen) * 2
+                 + 0.5).to(dtype)
+            dy = torch.randn(TRAIN_ROWS, 768, generator=gen).to(dtype)
+            xc = x.cuda().requires_grad_()
+            before = _counts(counted)
+            yc = card_m(xc)
+            torch.cuda.synchronize()
+            fwd = delta(before)
+            before = _counts(counted)
+            yc.backward(dy.cuda())
+            torch.cuda.synchronize()
+            bwd = delta(before)
+            x.requires_grad_()
+            y = cpu_m(x)
+            y.backward(dy)
+            y_err, y_ok = _norm_close(yc.detach().cpu(), y.detach(), dtype)
+            dx_err, dx_ok = _norm_close(xc.grad.cpu(), x.grad, dtype)
+            got, want = card_m.scale.grad.cpu(), cpu_m.scale.grad
+            if got.dtype == torch.float32:
+                ds_err, ds_ok = _close(got, want, SUM_TOL, SUM_TOL)
+            else:
+                ds_err, ds_ok = _half_close(got, want, SUM_TOL)
+            ok = (y_ok and dx_ok and ds_ok and fwd == fwd_only
+                  and bwd == bwd_only and yc.dtype == y.dtype == dtype
+                  and got.dtype == want.dtype == card_m.scale.dtype)
+            params = ", param_dtype=bfloat16" if kw else ""
+            print(f"rmsnorm: {label}(768{params}) on {TRAIN_ROWS}x768 "
+                  f"{str(dtype)[6:]}, card vs CPU: "
+                  f"max|dy| {y_err:.3g}  max|ddx| {dx_err:.3g}  "
+                  f"max|ddscale| {ds_err:.3g} ({str(got.dtype)[6:]})  "
+                  f"launches forward {fwd['rms_norm_fwd']} backward "
+                  f"{bwd['rms_norm_bwd']}  {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                raise SystemExit(f"rmsnorm path: {label} {dtype} "
+                                 f"off the CPU's, or launches off: forward "
+                                 f"{fwd}, backward {bwd}")
+    before = _counts(counted)
+    with torch.no_grad():
+        card_m(xc)
+    torch.cuda.synchronize()
+    served = delta(before)
+    counts = _counts(counted)
+    want = dict.fromkeys(counted, 0)
+    want.update(rms_norm_fwd=5, rms_norm_bwd=4)
+    print(f"rmsnorm: a no_grad forward launched {served['rms_norm_fwd']} "
+          f"forward, {served['rms_norm_bwd']} backward (want 1, 0); the "
+          f"path's launches {counts} (want {want})")
+    if served != fwd_only or counts != want:
+        raise SystemExit("rmsnorm path: launches off")
+    return counts
 
 
 def _bert_base_shapes():
@@ -2604,7 +2835,7 @@ def main() -> int:
               "an NVIDIA card", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from apex_example_tpu_torch import train
+    from apex_example_tpu_torch import normalization, train
     from apex_example_tpu_torch.data.synthetic import (image_batch,
                                                        lm_batch, mlm_batch)
     from apex_example_tpu_torch.models.gpt import gpt_base
@@ -2633,7 +2864,9 @@ def main() -> int:
                "attn_dq": att.flash_attention_dq_cuda,
                "novograd": fo.novograd_cuda,
                "adagrad": fo.adagrad_cuda,
-               "axpby": mt.multi_tensor_axpby_cuda}
+               "axpby": mt.multi_tensor_axpby_cuda,
+               "rms_norm_fwd": ln.rms_norm_cuda,
+               "rms_norm_bwd": ln.rms_norm_bwd_cuda}
     bert_step = {"layer_norm_fwd": 26, "layer_norm_bwd": 26,
                  "multi_tensor_l2norm": 1, "lamb_stage1": 1,
                  "lamb_stage2": 1}
@@ -2651,6 +2884,8 @@ def main() -> int:
     phase_env()
     phase_build(_build)
     rows = [phase_kernels(ln), phase_ln_bwd(ln)]
+    rms_rows, rms_counts = phase_rms_norm(ln, normalization, counted)
+    rows += rms_rows
     rows += phase_optim_kernels(mt, fo)
     rows.append(phase_adam(mt, fo))
     scale_row, l2_err = phase_scale(mt)
@@ -2659,7 +2894,8 @@ def main() -> int:
     l2_row["max_abs_err"] = max(l2_row["max_abs_err"], l2_err)
     torch.cuda.empty_cache()
     rows += phase_attention(att)
-    by_path = {"serve": phase_main(cli, gpt_base, counted),
+    by_path = {"rmsnorm": rms_counts,
+               "serve": phase_main(cli, gpt_base, counted),
                "train": phase_train(train, counted, "train", TRAIN_ARGS,
                                     bert_step)}
     phase_cross_check(train, counted, "train", TRAIN_ARGS, mlm_batch(
@@ -2741,6 +2977,12 @@ def main() -> int:
         row["launches_by_path"] = {k: v[row["name"]]
                                    for k, v in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())
+    rms_elsewhere = {k: (v["rms_norm_fwd"], v["rms_norm_bwd"])
+                     for k, v in by_path.items() if k != "rmsnorm"}
+    print(f"rmsnorm: RMSNorm launches on the other paths {rms_elsewhere} "
+          f"(want 0 each)")
+    if any(any(v) for v in rms_elsewhere.values()):
+        raise SystemExit("a path other than rmsnorm launched RMSNorm")
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s, the build included")
     print(json.dumps({"kernels": rows}))

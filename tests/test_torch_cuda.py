@@ -12,7 +12,9 @@ tests.)  Tolerances as in chip_smoke.py: fp32 1e-5; bf16 one bf16 ulp of
 the output plus 1e-5, since a result that cancels to near zero carries
 the fp32 rounding error of the affine step; LayerNorm dgamma and dbeta
 rtol = atol = 1e-4 (sums over the rows in another order, some cancelling
-near zero); L2 norms and per-tensor sums rtol 1e-5; LAMB's m, v, u and p
+near zero), RMSNorm's y, rstd, dx and dgamma the same, and a bf16 dscale
+of FusedRMSNorm one bf16 ulp plus 1e-4 (the same fp32 sums, rounded
+once); L2 norms and per-tensor sums rtol 1e-5; LAMB's m, v, u and p
 atol 1e-6, rtol 1e-5; Adam's p, m and v the same (fp32: the same
 arithmetic, up to the compiler's fused multiply-adds; bf16 p: one bf16
 ulp of p plus 1e-6); the scale kernel exactly (one fp32 product, then the
@@ -65,9 +67,9 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _bf16_tol(a, b):
+def _bf16_tol(a, b, atol=FP32_TOL):
     mag = np.maximum(np.maximum(np.abs(a), np.abs(b)), 2.0 ** -126)
-    return 2.0 ** (np.floor(np.log2(mag)) - 7) + FP32_TOL
+    return 2.0 ** (np.floor(np.log2(mag)) - 7) + atol
 
 
 @pytest.mark.cuda
@@ -157,6 +159,99 @@ def test_layer_norm_autograd_runs_both_kernels(cuda_device):
     for dev, cpu in ((x, xc), (g, gc), (b, bc)):
         np.testing.assert_allclose(dev.grad.cpu().numpy(),
                                    cpu.grad.numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("n,h", [(4096, 768), (6144, 410), (37, 777),
+                                 (64, 8192), (1000, 64), (3, 1)])
+def test_rms_norm_kernels_match_plain(cuda_device, dtype, n, h, misaligned):
+    """Forward and backward against the plain versions, at the vector path
+    (H a multiple of the vector width, 16-byte aligned), the scalar path
+    (odd H, or every pointer 4 bytes past alignment) and the block layout
+    (H = 8192); dgamma, and dx, bitwise on a second launch."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3 * n + h)
+    x = (torch.randn(n, h, device=cuda_device, generator=gen) * 2 + 0.5)
+    x = x.to(dtype)
+    g = torch.randn(h, device=cuda_device, generator=gen) * 0.2 + 1
+    dy = torch.randn(n, h, device=cuda_device, generator=gen).to(dtype)
+    if misaligned:
+        x, dy = _misaligned(x), _misaligned(dy)
+    fwd, bwd = port_ln.rms_norm_cuda.launches, \
+        port_ln.rms_norm_bwd_cuda.launches
+    y_k, rstd_k = port_ln.rms_norm_cuda(x, g)
+    y_p, rstd_p = port_ln.rms_norm_plain(x, g)
+    dx, dg = port_ln.rms_norm_bwd_cuda(x, g, rstd_p, dy)
+    dx_p, dg_p = port_ln.rms_norm_bwd_plain(x, g, rstd_p, dy)
+    torch.cuda.synchronize()
+    assert port_ln.rms_norm_cuda.launches == fwd + 1
+    assert port_ln.rms_norm_bwd_cuda.launches == bwd + 1
+    assert y_k.dtype == dx.dtype == dtype and dg.dtype == torch.float32
+    for got, want in ((y_k, y_p), (dx, dx_p)):
+        a, r = got.float().cpu().numpy(), want.float().cpu().numpy()
+        if dtype == torch.float32:
+            np.testing.assert_allclose(a, r, rtol=FP32_TOL, atol=FP32_TOL)
+        else:
+            assert np.all(np.abs(a - r) <= _bf16_tol(a, r))
+    np.testing.assert_allclose(rstd_k.cpu().numpy(), rstd_p.cpu().numpy(),
+                               rtol=FP32_TOL, atol=FP32_TOL)
+    np.testing.assert_allclose(dg.cpu().numpy(), dg_p.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    again = port_ln.rms_norm_bwd_cuda(x, g, rstd_p, dy)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("param_dtype", [torch.float32, torch.bfloat16])
+def test_rms_norm_autograd_runs_both_kernels(cuda_device, param_dtype):
+    """FusedRMSNorm on the card: one forward and one backward launch, a
+    no_grad forward no backward, and the CPU's y and gradients (dscale in
+    the parameters' dtype: one bf16 ulp plus 1e-4 where that is bf16)."""
+    from apex_example_tpu_torch.normalization import FusedRMSNorm
+    gen = torch.Generator().manual_seed(7)
+    m = FusedRMSNorm(64, param_dtype=param_dtype)
+    with torch.no_grad():
+        m.scale.copy_(torch.randn(64, generator=gen) * 0.2 + 1)
+    mc = FusedRMSNorm(64, param_dtype=param_dtype).to(cuda_device)
+    mc.load_state_dict(m.state_dict())
+    x = torch.randn(2, 8, 64, generator=gen)
+    xc = x.to(cuda_device).requires_grad_()
+    x.requires_grad_()
+    fwd, bwd = port_ln.rms_norm_cuda.launches, \
+        port_ln.rms_norm_bwd_cuda.launches
+    yc = mc(xc)
+    (yc ** 2).sum().backward()
+    assert port_ln.rms_norm_cuda.launches == fwd + 1
+    assert port_ln.rms_norm_bwd_cuda.launches == bwd + 1
+    with torch.no_grad():
+        mc(xc)
+    assert port_ln.rms_norm_cuda.launches == fwd + 2
+    assert port_ln.rms_norm_bwd_cuda.launches == bwd + 1
+    y = m(x)
+    (y ** 2).sum().backward()
+    assert mc.scale.grad.dtype == param_dtype
+    np.testing.assert_allclose(yc.detach().cpu().numpy(), y.detach().numpy(),
+                               rtol=FP32_TOL, atol=FP32_TOL)
+    np.testing.assert_allclose(xc.grad.cpu().numpy(), x.grad.numpy(),
+                               rtol=1e-4, atol=1e-4)
+    a, r = mc.scale.grad.float().cpu().numpy(), m.scale.grad.float().numpy()
+    tol = (_bf16_tol(a, r, atol=1e-4) if param_dtype == torch.bfloat16
+           else 1e-4 + 1e-4 * np.abs(r))
+    assert np.all(np.abs(a - r) <= tol)
+
+
+@pytest.mark.cuda
+def test_rms_norm_raises_on_a_card_tensor_it_cannot_take(cuda_device):
+    """H above 8192 on the card raises; nothing falls back to the plain
+    version."""
+    launches = port_ln.rms_norm_cuda.launches
+    x = torch.randn(2, port_ln.MAX_H + 1, device=cuda_device)
+    g = torch.ones(port_ln.MAX_H + 1, device=cuda_device)
+    with pytest.raises(ValueError, match="H <="):
+        port_ln.rms_norm(x, g)
+    assert port_ln.rms_norm_cuda.launches == launches
 
 
 def _lists(device, shapes, dtype=torch.float32, seed=0):
