@@ -19,23 +19,50 @@
 // dQ += dS K.  dQ and dK/dV are separate kernels, as in JAX: no kernel
 // adds into another block's output, so every result repeats bitwise.
 //
-// Inputs fp32, bf16 or fp16; every product and sum in fp32.  Products run
-// as fp32 fused multiply-adds on the CUDA cores, not on the tensor cores:
-// fp32 without TF32 (the port's fp32 contract), and bf16 / fp16 operands
-// widen exactly to fp32, so the products are those of JAX's
-// `preferred_element_type=float32` dots.
-//
 // Bound: operations.  Each live score costs 4 (forward), 8 (dK/dV) and 6
 // (dQ) flops per head-dimension element, and the bytes are O(S * D) per
 // head, so at gpt_base's 8 x 2048 x 12 x 64 the least time is the flops
-// over the card's fp32 rate (bf16: its tensor-core rate).  The design is
-// the simple one: tiles of 64 queries and 64 keys in shared memory, held
-// as fp32; 256 threads, each owning a 4 x 4 piece of the score tile (4
-// rows, columns 16 apart) and 4 rows x 8 head-dim columns of the output;
-// 16-byte shared-memory loads along the head dimension; row maxima and sums
-// over the 16 threads of a row with warp shuffles.  Causal tiles wholly
-// above the diagonal are skipped, as `_when_live` (:121) skips them.
-// Tensor-core (wgmma) and TMA pipelines are for a later change.
+// over the card's fp32 rate, or its bf16 tensor-core rate for half inputs.
+//
+// Two designs, chosen by dtype alone (`launch`):
+//
+// fp32, and dQ in every dtype: fp32 fused multiply-adds on the CUDA cores
+// (fp32 without TF32 is the port's fp32 contract; bf16 / fp16 operands
+// widen exactly to fp32, so dQ's products are those of JAX's
+// `preferred_element_type=float32` dots).  Tiles of 64 queries and 64 keys
+// in shared memory, held as fp32; 256 threads, each owning a 4 x 4 piece of
+// the score tile (4 rows, columns 16 apart) and 4 rows x 8 head-dim columns
+// of the output; row maxima and sums over the 16 threads of a row with warp
+// shuffles.  Causal tiles wholly above the diagonal are skipped, as
+// `_when_live` (:121) skips them.
+//
+// bf16 / fp16 forward and dK/dV (`attn_fwd_kernel_tc`, `attn_dkdv_kernel_tc`):
+// Hopper's tensor cores.  One warpgroup (128 threads) owns 64 rows: the
+// forward's queries, dK/dV's keys.  Every operand tile is 64 rows of the
+// head dim padded to 64 or 128 halves (pad columns zero), stored in
+// wgmma's 128-byte-swizzle layout, so one tile serves as a K-major operand
+// (products over the head dim) and as a transposed, MN-major one (products
+// over the rows).  The streamed tiles (the forward's K and V, dK/dV's Q,
+// dO, lse and Delta) run through a ring of two stages filled by cp.async
+// while the previous tile computes; cp.async, not TMA, because the
+// operands arrive as strided (B, S, H, D) views with any strides: a row
+// that is contiguous and 16-byte aligned loads in 16-byte chunks, any
+// other through its strides, element by element, into the same layout.
+// Forward: S = Q K^T is a shared-memory wgmma (m64n64k16); the online
+// softmax runs on the fp32 accumulator fragments, each thread holding two
+// rows' m, l and O; P is rounded into the register A operand of P V
+// (m64nDk16, V transposed from shared memory), summed per k/v tile into a
+// fresh accumulator and added as O = O alpha + P V.  dK/dV: S^T = K Q^T
+// and dP^T = V dO^T are shared-memory wgmmas, each k16 step into fresh
+// accumulators added with round-to-nearest; P^T (fp32, for dS) and dS^T
+// are formed in registers and rounded into the A operands of dV += P^T dO
+// and dK += dS^T Q.  The forward's exp is __expf; dK/dV's is expf (P
+// feeds dS's rounding point).  Key tiles stay 64 wide (kTcKeys), so a half
+// O rounds P against the running max where attention_pair_tiled_plain
+// does.  Causal blocks launch longest first (the forward's last q tiles,
+// dK/dV's first k tiles).  The fp32 sums run in the tensor cores' order,
+// not the CUDA cores': a half result differs from the plain version's by
+// an ulp now and then (chip_smoke.py's ATTN_FLOOR_FACTOR).
 //
 // Layout: q, k, v, o and dO are read in their (B, S, H, D) layout through
 // four strides each (elements), so no transpose is copied; O, dQ, dK and
@@ -47,6 +74,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -98,6 +127,7 @@ struct Params {
   void* dv;
   long long sq[4], sk[4], sv[4], sdo[4];  // strides of (B, S, H, D)
   long long sbias[2];                     // strides of (B, Sk)
+  int vq, vk, vv, vdo;  // rows contiguous and 16-byte aligned (cp.async)
   int B, H, Sq, Sk, D;
   int causal, off;  // off = Sk - Sq
   float scale;
@@ -452,6 +482,671 @@ __global__ void __launch_bounds__(kThreads) attn_dkdv_kernel(Params p) {
   store_rows(static_cast<T*>(p.dv), b, h, k0, p.Sk, p, r0, tx, dv);
 }
 
+// ---- bf16 / fp16 forward and dK/dV on the tensor cores ------------------
+
+constexpr int kTcKeys = 64;     // keys of a k/v tile (the plain TILE)
+constexpr int kTcRows = 64;     // rows of every other tile: q, dO
+constexpr int kTcThreads = 128;  // one warpgroup
+constexpr int kAtomBytes = 64 * 128;  // a 64-row column of 64 halves
+static_assert(kTcKeys == kTcRows, "the tile helpers take 64-row tiles");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// Byte offset of 16-byte chunk c (halves 8c .. 8c + 7) of row r in a
+// 64-row tile: columns of 64 halves (kAtomBytes apart), rows of 128 bytes,
+// chunk c & 7 stored at (c & 7) ^ (r & 7) (the 128-byte swizzle, which
+// the descriptors name; the tile base is 1024-byte aligned).
+__device__ __forceinline__ uint32_t chunk_off(int r, int c) {
+  return (c >> 3) * kAtomBytes + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// A wgmma shared-memory descriptor, 128-byte swizzle: start address,
+// leading byte offset, stride byte offset 1024 (eight 128-byte rows).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+// The tile as a K-major operand (the product runs over the head dim),
+// k16 step kk: 32 bytes along a row, the next column of 64 halves after 4.
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk) {
+  return sw128_desc(tile + (kk >> 2) * kAtomBytes + (kk & 3) * 32, 16);
+}
+// The tile as an MN-major (transposed) operand (the product runs over its
+// rows), k16 step kk: rows 16 kk .. 16 kk + 15; columns kAtomBytes apart.
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int kk) {
+  return sw128_desc(tile + kk * 2048, kAtomBytes);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait for all but the newest cp.async group, then make the tiles visible
+// to the tensor cores (the async proxy) and to the whole block.
+__device__ __forceinline__ void wait_tiles() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+}
+__device__ __forceinline__ void st_shared_v4(uint32_t dst, uint32_t a,
+                                             uint32_t b, uint32_t c,
+                                             uint32_t d) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst),
+               "r"(a), "r"(b), "r"(c), "r"(d)
+               : "memory");
+}
+__device__ __forceinline__ void zero_smem(uint32_t dst, int bytes) {
+  for (int i = 16 * threadIdx.x; i < bytes; i += 16 * kTcThreads)
+    st_shared_v4(dst + i, 0u, 0u, 0u, 0u);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Pin registers that a wgmma reads or writes to this point of the
+// program: the compiler may not move their other uses across it.
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void pin(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// S (+)= A B^T, m64n64k16: A and B both K-major in shared memory
+// (descriptors da, db); scale_d = 0 overwrites d.
+template <typename T>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (std::is_same<T, __half>::value) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+  } else {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+  }
+}
+
+// d (+)= A B, m64n64k16: A from registers (four 16-bit pairs a
+// thread), B an MN-major (transposed) shared-memory operand.
+template <typename T>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  if constexpr (std::is_same<T, __half>::value) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  } else {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+}
+
+// d (+)= A B, m64n128k16: A from registers (four 16-bit pairs a
+// thread), B an MN-major (transposed) shared-memory operand.
+template <typename T>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  if constexpr (std::is_same<T, __half>::value) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  } else {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+}
+
+// Two floats rounded to T, the lower column in the low half.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+}
+
+// A k16 slice of the 64 x 64 score accumulator as a wgmma A operand: the
+// accumulator's n8 blocks 2 kk and 2 kk + 1 are the operand's columns
+// 0-7 and 8-15, in the same thread and row.
+template <typename T>
+__device__ __forceinline__ void to_operand(const float (&s)[32],
+                                           uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack2<T>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+}
+
+// This thread's share of the 16-byte chunks of a 64-row tile, D / 8
+// chunks a row: chunks tid, tid + 128, ... in row-major order (rows r, c
+// the first's), walked without a division per chunk.
+struct ChunkWalk {
+  int r, c, n;   // the first chunk's row and column; the thread's count
+  int dr, dc;    // 128 chunks on: dr rows and dc columns further
+  int cpr;       // chunks a row
+};
+
+__device__ __forceinline__ ChunkWalk chunk_walk(int D) {
+  ChunkWalk w;
+  w.cpr = D >> 3;
+  const int total = kTcRows * w.cpr;
+  const int t = threadIdx.x;
+  w.r = t / w.cpr;
+  w.c = t - w.r * w.cpr;
+  w.n = t < total ? (total - t + kTcThreads - 1) / kTcThreads : 0;
+  w.dr = kTcThreads / w.cpr;
+  w.dc = kTcThreads - w.dr * w.cpr;
+  return w;
+}
+
+// Start copying rows row0 .. row0 + 63 of head (b, h) of a (B, S, H, D)
+// tensor into the tile at shared address `tile`: 16-byte cp.async chunks
+// when the rows are contiguous and 16-byte aligned (`vec`), else 2-byte
+// loads through the strides.  Rows at or past n_rows are zero; the pad
+// columns past D are never written (zeroed at the kernel's start).
+template <typename T>
+__device__ __forceinline__ void load_tile_tc(uint32_t tile, const T* src,
+                                             const long long* st, int vec,
+                                             int b, int h, int row0,
+                                             int n_rows, const ChunkWalk& w) {
+  const long long base = b * st[0] + h * st[2];
+  const unsigned short* s16 = reinterpret_cast<const unsigned short*>(src);
+  int r = w.r, c = w.c;
+  for (int i = 0; i < w.n; ++i) {
+    const int row = row0 + r;
+    const uint32_t dst = tile + chunk_off(r, c);
+    if (vec) {
+      const int safe = row < n_rows ? row : n_rows - 1;
+      cp_async16(dst, src + base + safe * st[1] + 8 * c,
+                 row < n_rows ? 16 : 0);
+    } else {
+      uint32_t u[4] = {0u, 0u, 0u, 0u};
+      if (row < n_rows) {
+        const long long at = base + row * st[1] + 8LL * c * st[3];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          u[e] = static_cast<uint32_t>(s16[at + 2 * e * st[3]]) |
+                 (static_cast<uint32_t>(s16[at + (2 * e + 1) * st[3]]) << 16);
+      }
+      st_shared_v4(dst, u[0], u[1], u[2], u[3]);
+    }
+    r += w.dr;
+    c += w.dc;
+    if (c >= w.cpr) {
+      c -= w.cpr;
+      ++r;
+    }
+  }
+}
+
+// Start copying lse and Delta of rows q0 .. q0 + 63 (zero past Sq) to
+// dst[0 .. 63] and dst[64 .. 127] (floats).
+__device__ __forceinline__ void load_rows_tc(uint32_t dst, const Params& p,
+                                             long long row_base, int q0) {
+  const int t = threadIdx.x & 63;
+  const float* src = threadIdx.x < 64 ? p.lse : p.delta;
+  const int row = q0 + t;
+  cp_async4(dst + 4 * threadIdx.x,
+            src + row_base + (row < p.Sq ? row : p.Sq - 1),
+            row < p.Sq ? 4 : 0);
+}
+
+// Rows r and r + 8 of a 64 x 2N accumulator in the input dtype: columns
+// below D of rows row0 + r (+ 8) that are below n_rows, contiguous
+// (B, n_rows, H, D).
+template <typename T, int N>
+__device__ __forceinline__ void store_acc(T* dst, const Params& p, int b,
+                                          int h, int row0, int n_rows,
+                                          int r, int c, const float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + r + 8 * i;
+    if (row >= n_rows) continue;
+    T* out = dst + ((static_cast<long long>(b) * n_rows + row) * p.H + h) *
+                       p.D;
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j) {
+      const int col = 8 * j + 2 * c;
+      if (col < p.D)
+        *reinterpret_cast<uint32_t*>(out + col) =
+            pack2<T>(d[4 * j + 2 * i], d[4 * j + 2 * i + 1]);
+    }
+  }
+}
+
+// acc = acc * alpha + t, rounded after each step as the plain version's
+// `acc * alpha + P V` is (no fused multiply-add).
+template <int N>
+__device__ __forceinline__ void rescale_add(float (&acc)[N],
+                                            const float (&t)[N],
+                                            const float (&alpha)[2]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    acc[i] = __fadd_rn(__fmul_rn(acc[i], alpha[(i >> 1) & 1]), t[i]);
+}
+template <int N>
+__device__ __forceinline__ void add_to(float (&acc)[N], const float (&t)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] = __fadd_rn(acc[i], t[i]);
+}
+
+// ---- forward: one warpgroup per (b * H + h, 64 queries) -----------------
+// Shared memory: Q, then K and V of stage 0 and of stage 1.  The tensor
+// cores sum each k/v tile's P V into a fresh accumulator t (4 k16 steps);
+// O = O alpha + t in fp32 with round-to-nearest, so the long sum over the
+// tiles does not carry the tensor cores' truncation from tile to tile.
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kTcThreads) attn_fwd_kernel_tc(Params p) {
+  constexpr int kTileBytes = DP / 64 * kAtomBytes;
+  constexpr int kN = DP / 2;  // O's accumulator floats a thread
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
+  zero_smem(sQ, 5 * kTileBytes);
+  __syncthreads();
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcRows;  // longest first
+  const int lane = threadIdx.x & 31, c = lane & 3;
+  const int r = 16 * (threadIdx.x >> 5) + (lane >> 2);  // rows r, r + 8
+  const T* q = static_cast<const T*>(p.q);
+  const T* k = static_cast<const T*>(p.k);
+  const T* v = static_cast<const T*>(p.v);
+  const int last = last_kv_tile(p, q0);
+  const ChunkWalk w = chunk_walk(p.D);
+
+  load_tile_tc(sQ, q, p.sq, p.vq, b, h, q0, p.Sq, w);
+  load_tile_tc(sQ + kTileBytes, k, p.sk, p.vk, b, h, 0, p.Sk, w);
+  load_tile_tc(sQ + 2 * kTileBytes, v, p.sv, p.vv, b, h, 0, p.Sk, w);
+  cp_async_commit();
+  float m[2] = {kMask, kMask}, l[2] = {0.f, 0.f}, o[kN], t[kN], s[32];
+#pragma unroll
+  for (int i = 0; i < kN; ++i) o[i] = t[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  uint32_t a[4][4];
+  for (int j = 0; j <= last; ++j) {
+    const int k0 = j * kTcKeys;
+    const uint32_t sK = sQ + (1 + 2 * (j & 1)) * kTileBytes;
+    const uint32_t sV = sK + kTileBytes;
+    if (j < last) {  // the next k/v tile into the other stage
+      const uint32_t nK = sQ + (1 + 2 * ((j + 1) & 1)) * kTileBytes;
+      load_tile_tc(nK, k, p.sk, p.vk, b, h, k0 + kTcKeys, p.Sk, w);
+      load_tile_tc(nK + kTileBytes, v, p.sv, p.vv, b, h, k0 + kTcKeys, p.Sk,
+                   w);
+    }
+    cp_async_commit();
+    wait_tiles();
+
+    pin(s);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_ss<T>(s, kmajor_desc(sQ, kk), kmajor_desc(sK, kk), kk);
+    wg_commit_wait();
+    pin(s);
+
+    // S: scale, bias, mask (the diagonal and tail tiles only)
+    const bool edge = k0 + kTcKeys > p.Sk || q0 + kTcRows > p.Sq ||
+                      (p.causal && k0 + kTcKeys - 1 > q0 + p.off);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + 8 * jj + 2 * c + (e & 1);
+        float x = s[4 * jj + e] * p.scale;
+        if (p.bias != nullptr) x += key_bias(p, b, col);
+        if (edge) {
+          const int row = q0 + r + 8 * (e >> 1);
+          if (col >= p.Sk || row >= p.Sq || (p.causal && row + p.off < col))
+            x = kMask;
+        }
+        s[4 * jj + e] = x;
+      }
+    // the online softmax over the four threads of each row; exp of a
+    // difference (never kMask * log2 e, which overflows)
+    float mn[2], alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = s[2 * i];
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+        mx = fmaxf(mx, fmaxf(s[4 * jj + 2 * i], s[4 * jj + 2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mn[i] = fmaxf(m[i], mx);
+      alpha[i] = __expf(m[i] - mn[i]);
+    }
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pv = __expf(s[4 * jj + e] - mn[e >> 1]);
+        rs[e >> 1] += pv;
+        s[4 * jj + e] = pv;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
+      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
+      l[i] = l[i] * alpha[i] + rs[i];
+      m[i] = mn[i];
+    }
+    to_operand<T>(s, a);
+
+    // t = P V; O = O alpha + t
+    pin(t);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<T>(t, a[kk], mnmajor_desc(sV, kk), kk);
+    wg_commit_wait();
+    pin(t);
+    pin(a);
+    rescale_add(o, t, alpha);
+    __syncthreads();  // this stage is read: the next load may refill it
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float lsafe = l[i] == 0.f ? 1.f : l[i];
+#pragma unroll
+    for (int jj = 0; jj < kN / 4; ++jj) {
+      o[4 * jj + 2 * i] /= lsafe;
+      o[4 * jj + 2 * i + 1] /= lsafe;
+    }
+    const int row = q0 + r + 8 * i;
+    if (c == 0 && row < p.Sq)
+      p.lse_out[(static_cast<long long>(b) * p.H + h) * p.Sq + row] =
+          m[i] + logf(lsafe);
+  }
+  store_acc<T>(static_cast<T*>(p.out), p, b, h, q0, p.Sq, r, c, o);
+}
+
+// ---- dK, dV: one warpgroup per (b * H + h, 64 keys) ---------------------
+// Shared memory: K, V, then Q and dO of stage 0 and of stage 1, then lse
+// and Delta (64 floats each) of stage 0 and of stage 1.  Each q tile's
+// P^T dO and dS^T Q run into one fresh accumulator t in turn and are
+// added to dV and dK in fp32 with round-to-nearest, as in the forward.
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kTcThreads) attn_dkdv_kernel_tc(Params p) {
+  constexpr int kTileBytes = DP / 64 * kAtomBytes;
+  constexpr int kN = DP / 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t sK = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sV = sK + kTileBytes;
+  const uint32_t sRows = sK + 6 * kTileBytes;
+  const float* rows = reinterpret_cast<const float*>(
+      smem_raw + (sRows - smem_u32(smem_raw)));
+  zero_smem(sK, 6 * kTileBytes);
+  __syncthreads();
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int k0 = blockIdx.y * kTcKeys;  // longest causal blocks first
+  const int lane = threadIdx.x & 31, c = lane & 3;
+  const int r = 16 * (threadIdx.x >> 5) + (lane >> 2);  // keys k0 + r, + 8
+  const T* q = static_cast<const T*>(p.q);
+  const T* dout = static_cast<const T*>(p.dout);
+  const int nq = (p.Sq + kTcRows - 1) / kTcRows;
+  int first = 0;  // the first q tile that sees this k/v tile
+  if (p.causal) {
+    const int lo = k0 - p.off - kTcRows + 1;
+    first = lo > 0 ? (lo + kTcRows - 1) / kTcRows : 0;
+  }
+  const long long row_base = (static_cast<long long>(b) * p.H + h) * p.Sq;
+  const ChunkWalk w = chunk_walk(p.D);
+
+  load_tile_tc(sK, static_cast<const T*>(p.k), p.sk, p.vk, b, h, k0, p.Sk,
+               w);
+  load_tile_tc(sV, static_cast<const T*>(p.v), p.sv, p.vv, b, h, k0, p.Sk,
+               w);
+  load_tile_tc(sK + 2 * kTileBytes, q, p.sq, p.vq, b, h, first * kTcRows,
+               p.Sq, w);
+  load_tile_tc(sK + 3 * kTileBytes, dout, p.sdo, p.vdo, b, h,
+               first * kTcRows, p.Sq, w);
+  load_rows_tc(sRows, p, row_base, first * kTcRows);
+  cp_async_commit();
+  const float bias[2] = {key_bias(p, b, k0 + r), key_bias(p, b, k0 + r + 8)};
+  float dk[kN], dv[kN], t[kN], st[32], dpt[32];
+#pragma unroll
+  for (int i = 0; i < kN; ++i) dk[i] = dv[i] = t[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+  uint32_t pa[4][4], da[4][4];
+  for (int it = first; it < nq; ++it) {
+    const int q0 = it * kTcRows, stage = (it - first) & 1;
+    const uint32_t sQ = sK + (2 + 2 * stage) * kTileBytes;
+    const uint32_t sdO = sQ + kTileBytes;
+    const float* lse = rows + 128 * stage;
+    const float* delta = lse + 64;
+    if (it + 1 < nq) {  // the next q tile into the other stage
+      const uint32_t nQ = sK + (2 + 2 * (stage ^ 1)) * kTileBytes;
+      load_tile_tc(nQ, q, p.sq, p.vq, b, h, q0 + kTcRows, p.Sq, w);
+      load_tile_tc(nQ + kTileBytes, dout, p.sdo, p.vdo, b, h, q0 + kTcRows,
+                   p.Sq, w);
+      load_rows_tc(sRows + 512 * (stage ^ 1), p, row_base, q0 + kTcRows);
+    }
+    cp_async_commit();
+    wait_tiles();
+
+    // S^T = K Q^T, dP^T = V dO^T: each k16 step into fresh accumulators,
+    // added in fp32 with round-to-nearest (dS rounds dP: a fully masked
+    // row, P = 1, passes dP's error on to dK undamped)
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      float u[32], u2[32];
+      pin(u);
+      pin(u2);
+      wg_fence();
+      wgmma_ss<T>(u, kmajor_desc(sK, kk), kmajor_desc(sQ, kk), 0);
+      wgmma_ss<T>(u2, kmajor_desc(sV, kk), kmajor_desc(sdO, kk), 0);
+      wg_commit_wait();
+      pin(u);
+      pin(u2);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        st[i] = kk ? __fadd_rn(st[i], u[i]) : u[i];
+        dpt[i] = kk ? __fadd_rn(dpt[i], u2[i]) : u2[i];
+      }
+    }
+
+    // P^T = exp(S^T - lse) in fp32, dS^T = P^T (dP^T - Delta) scale
+    const bool edge = q0 + kTcRows > p.Sq || k0 + kTcKeys > p.Sk ||
+                      (p.causal && q0 + p.off < k0 + kTcKeys - 1);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = 8 * jj + 2 * c + (e & 1);
+        float x = st[4 * jj + e] * p.scale;
+        if (p.bias != nullptr) x += bias[e >> 1];
+        if (edge) {
+          const int key = k0 + r + 8 * (e >> 1), row = q0 + qi;
+          if (key >= p.Sk || row >= p.Sq || (p.causal && row + p.off < key))
+            x = kMask;
+        }
+        // expf, not __expf: P feeds dS, whose rounding an approximate exp
+        // would move more often
+        const float pv = expf(x - lse[qi]);
+        st[4 * jj + e] = pv;
+        dpt[4 * jj + e] = pv * (dpt[4 * jj + e] - delta[qi]) * p.scale;
+      }
+    to_operand<T>(st, pa);
+    to_operand<T>(dpt, da);
+
+    // dV += P^T dO, then dK += dS^T Q, each through t
+    pin(t);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<T>(t, pa[kk], mnmajor_desc(sdO, kk), kk);
+    wg_commit_wait();
+    pin(t);
+    pin(pa);
+    add_to(dv, t);
+    pin(t);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<T>(t, da[kk], mnmajor_desc(sQ, kk), kk);
+    wg_commit_wait();
+    pin(t);
+    pin(da);
+    add_to(dk, t);
+    __syncthreads();  // this stage is read: the next load may refill it
+  }
+  store_acc<T>(static_cast<T*>(p.dk), p, b, h, k0, p.Sk, r, c, dk);
+  store_acc<T>(static_cast<T*>(p.dv), p, b, h, k0, p.Sk, r, c, dv);
+}
+
+template <typename T, int DP>
+int launch_tc(int kind, const Params& p, cudaStream_t stream) {
+  constexpr size_t tile = DP / 64 * kAtomBytes;
+  const bool fwd = kind == 0;
+  // + 1024: the tiles start at the next 1024-byte boundary
+  const size_t bytes = fwd ? 5 * tile + 1024
+                           : 6 * tile + 4 * kTcRows * sizeof(float) + 1024;
+  const int rows = fwd ? p.Sq : p.Sk;
+  const dim3 grid(p.B * p.H, (rows + kTcRows - 1) / kTcRows);
+  void (*kernel)(Params) =
+      fwd ? attn_fwd_kernel_tc<T, DP> : attn_dkdv_kernel_tc<T, DP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, kTcThreads, bytes, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 size_t smem_bytes(int kind, int D) {
   const size_t tile = static_cast<size_t>(kTile) * (D + 4);
   const size_t score = static_cast<size_t>(kTile) * kLdS;
@@ -465,14 +1160,22 @@ size_t smem_bytes(int kind, int D) {
   }
 }
 
+// The route is the dtype's: fp32 takes the CUDA-core kernels, a half
+// dtype the tensor-core forward and dK/dV (the head dim padded to 64 or
+// 128) and the CUDA-core dQ.
 template <typename T>
 int launch(int kind, const Params& p, cudaStream_t stream) {
   const int rows = kind == 2 ? p.Sk : p.Sq;
   const dim3 grid(p.B * p.H, (rows + kTile - 1) / kTile);
   const size_t bytes = smem_bytes(kind, p.D);
-  void (*kernel)(Params) = kind == 0   ? attn_fwd_kernel<T>
-                           : kind == 1 ? attn_dq_kernel<T>
-                                       : attn_dkdv_kernel<T>;
+  void (*kernel)(Params) = attn_dq_kernel<T>;
+  if constexpr (std::is_same<T, float>::value) {
+    if (kind != 1)
+      kernel = kind == 0 ? attn_fwd_kernel<T> : attn_dkdv_kernel<T>;
+  } else if (kind != 1) {
+    return p.D <= 64 ? launch_tc<T, 64>(kind, p, stream)
+                     : launch_tc<T, 128>(kind, p, stream);
+  }
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
@@ -515,6 +1218,16 @@ int run(int kind, const long long* dims, const long long* strides,
   }
   p.sbias[0] = strides[16];
   p.sbias[1] = strides[17];
+  // cp.async's 16-byte chunks: a contiguous row at a 16-byte aligned start
+  auto vec = [](const void* ptr, const long long* st) {
+    return static_cast<int>(ptr != nullptr && st[3] == 1 && st[0] % 8 == 0 &&
+                            st[1] % 8 == 0 && st[2] % 8 == 0 &&
+                            reinterpret_cast<uintptr_t>(ptr) % 16 == 0);
+  };
+  p.vq = vec(q, p.sq);
+  p.vk = vec(k, p.sk);
+  p.vv = vec(v, p.sv);
+  p.vdo = vec(dout, p.sdo);
   p.B = static_cast<int>(B);
   p.H = static_cast<int>(H);
   p.Sq = static_cast<int>(Sq);

@@ -164,17 +164,25 @@ Phases, one or more lines each:
              8 x 512, bidirectional with a key bias masking a random suffix
              of each row and every key of the last row; causal Sq 384
              against Sk 1024 (bottom-right); a ragged 1000 x 1000 with D =
-             16 (fp32, bf16) and D = 80 (bias); a non-zero lse cotangent in
-             the last three.  lse and fp32 O atol = rtol 2e-5, dQ, dK,
-             dV 5e-5 in fp32 and bf16 alike (sums in another order; the
-             bf16 grads round the same fp32 sums).  A bf16 O 2e-2 from the
-             reference's arithmetic, which rounds the normalised P; and
-             against the kernels' own arithmetic in plain PyTorch (64-key
-             tiles, P rounded before P V) rtol 1e-2, atol 1e-3 (two ulps)
-             with at most 1e-2 of its elements off.  At gpt_base's bf16
-             shape, the plain versions with one rounding point skipped (P
-             before P V, P before dV, dS before dK and dQ) must fail those
-             limits.  A second launch bitwise equal.  Then at gpt_base's
+             16 (fp32, bf16) and D = 80 (bias; fp32, bf16, fp16); the same
+             causal with D = 24 (bf16: the tensor cores' padded depth); a
+             non-zero lse cotangent in the last four.  lse and fp32 O atol
+             = rtol 2e-5, dQ, dK, dV 5e-5 in fp32, and dQ (the CUDA-core
+             kernel, which rounds the same fp32 sums) in bf16 and fp16.  A
+             half O 2e-2 from the reference's arithmetic, which rounds the
+             normalised P.  The half O of the tensor-core forward against
+             the kernels' own arithmetic in plain PyTorch (64-key tiles, P
+             rounded before P V), and the half dK and dV of the tensor-core
+             dK/dV kernel: rtol 1e-2, atol 1e-3 (two ulps) with at most
+             1e-2 of the elements off, or 3 x the plain version's own
+             distance (worst element in two-ulp units, share off) from the
+             same arithmetic with correctly rounded fp32 sums, measured on
+             the same inputs, whichever is larger (the tensor cores sum in
+             another order).  At gpt_base's bf16 shape, the plain versions
+             with one rounding point skipped (P before P V, P before dV,
+             dS before dK and dQ) must fail those limits; one that moves a
+             rounding point (dS from the rounded P) is printed caught or
+             not.  A second launch bitwise equal.  Then at gpt_base's
              shape in fp32 and bf16 each
              kernel's, the plain version's and SDPA's (forward; backward,
              which computes dQ, dK and dV in one call) device times beside
@@ -193,8 +201,11 @@ Phases, one or more lines each:
              (fused_attention=True) and through the einsum path (False),
              both on the card: loss rtol 1e-5, each gradient within 1e-4 of
              its norm (the key biases, whose exact gradient is zero, of
-             their layer's query-bias gradient).  Then torch.profiler over
-             three O2 gpt2048 steps, as in 6.
+             their layer's query-bias gradient).  Then six O2 steps at 8 x
+             2048 through the trainer's state and step on each route: the
+             median step time and peak memory of each, on one line (the
+             kernels launched on the flash route only).  Then
+             torch.profiler over three O2 gpt2048 steps, as in 6.
 
 21. novograd — NovoGrad (fused_optim.cu: a per-tensor kernel for the
              second moments v and inv_denom, then the chunk kernel; run
@@ -325,9 +336,19 @@ ATTN_HALF_TOL = 2e-2
 # A bf16 O against the kernels' own arithmetic (attention_pair_tiled_plain):
 # within about two ulps (rtol, atol), and at most ATTN_HALF_FLIPS of its
 # elements off at all: sums in another order flip ~1e-3 of them, one
-# rounding point of P skipped or moved 18-40%.  bf16 dQ, dK and dV:
-# ATTN_BWD_TOL, as in fp32 (they round the same fp32 sums).
+# rounding point of P skipped or moved 18-40%.  A half dQ: ATTN_BWD_TOL,
+# as in fp32 (the CUDA-core kernel rounds the same fp32 sums).
 ATTN_HALF_O_RTOL, ATTN_HALF_O_ATOL, ATTN_HALF_FLIPS = 1e-2, 1e-3, 1e-2
+# The bf16 / fp16 forward and dK/dV run on the tensor cores, which sum in
+# another order than the plain version's fp32 FMA chains (the CUDA-core
+# dQ keeps ATTN_BWD_TOL): their half O (against the kernels' arithmetic),
+# dK and dV are held to the limits above, or to ATTN_FLOOR_FACTOR times
+# the plain version's own distance from the same arithmetic with each dot
+# product correctly rounded to fp32 (``attention_exact_sums``), measured in
+# the same run on the same inputs, whichever is larger.  That floor is ~1e-2
+# of an fp16 dK's elements at 1000 keys, and in a row whose keys are all
+# masked (P = 1) a flipped dS moves a cancelling dK by several ulps.
+ATTN_FLOOR_FACTOR = 3
 ROUTE_TOL = 1e-4          # flash vs dense step: |dgrad| / |grad|
 # a gradient that is zero in exact arithmetic (BERT's key biases), held as
 # rounding noise on each device: its norm against a real gradient of the
@@ -2020,7 +2041,9 @@ ATTN_CASES = (   # name, B, Sq, Sk, H, D, causal, key bias, dlse, dtypes
      (torch.float32,)),
     ("ragged", 2, 1000, 1000, 4, 16, True, False, True,
      (torch.float32, torch.bfloat16)),
-    ("ragged", 2, 1000, 1000, 4, 80, False, True, True, (torch.float32,)))
+    ("ragged", 2, 1000, 1000, 4, 80, False, True, True,
+     (torch.float32, torch.bfloat16, torch.float16)),
+    ("padded", 2, 1000, 1000, 4, 24, True, False, True, (torch.bfloat16,)))
 
 
 def _attn_inputs(b, sq, sk, h, d, dtype, gen, bias, dlse):
@@ -2052,12 +2075,32 @@ def _attn_work(b, sq, sk, h, d, causal, esize):
                   3 * qd + 2 * kd + 2 * rows)
 
 
-def _attn_check(name, got, ref, half):
+def _attn_rule(got, ref, rtol, atol):
+    """(the largest |got - ref| / (atol + rtol |ref|), the share of
+    elements not equal)."""
+    err = (got.double() - ref.double()).abs()
+    return (float((err / (atol + rtol * ref.double().abs())).max()),
+            float((got != ref).float().mean()))
+
+
+def _attn_check(name, got, ref, half, floor=None):
     """(max |got - ref|, the share of elements not equal, whether within
     the limits): lse and fp32 O against the reference ATTN_FWD_TOL, a half
     O ATTN_HALF_TOL; a half O against the kernels' arithmetic ("o_tiled")
     ATTN_HALF_O_RTOL and _ATOL with at most ATTN_HALF_FLIPS of it off; the
-    grads ATTN_BWD_TOL; atol = rtol but for o_tiled; the dtypes equal."""
+    grads ATTN_BWD_TOL; atol = rtol but for o_tiled; the dtypes equal.
+    ``floor`` (a half result of the tensor-core kernels: o_tiled, dk, dv)
+    is the plain version's (violation, share) against the plain versions'
+    arithmetic with correctly rounded sums (``attention_exact_sums``): the
+    result is held to the half O limits or to ATTN_FLOOR_FACTOR times the
+    floor, whichever is larger."""
+    if floor is not None:
+        viol, share = _attn_rule(got, ref, ATTN_HALF_O_RTOL,
+                                 ATTN_HALF_O_ATOL)
+        ok = (viol <= max(1.0, ATTN_FLOOR_FACTOR * floor[0])
+              and share <= max(ATTN_HALF_FLIPS, ATTN_FLOOR_FACTOR * floor[1]))
+        err = float((got.double() - ref.double()).abs().max())
+        return err, share, ok and got.dtype == ref.dtype
     if name == "o_tiled":
         err, ok = _close(got, ref, ATTN_HALF_O_RTOL, ATTN_HALF_O_ATOL)
     else:
@@ -2070,12 +2113,17 @@ def _attn_check(name, got, ref, half):
     return err, share, ok and got.dtype == ref.dtype
 
 
-def _planted_faults(att, q, k, v, causal, scale, o, lse, do, want):
+def _planted_faults(att, q, k, v, causal, scale, o, lse, do, want,
+                    floors):
     """The half limits against kernels that skip one bf16 rounding point
     each, built from the plain versions: P unrounded before P V (O), P
     before dV, dS before dK and dQ.  Each must fail the limit that the
-    kernels pass; ``o`` and ``lse`` are the reference forward's, ``want``
-    the plain results by name ("o_tiled", "dq", "dk", "dv")."""
+    kernels pass (``floors``: the tensor-core results' floors, as
+    ``_attn_check`` takes them).  Then one that moves a rounding point:
+    dS computed from the rounded P, for dK and dQ; whether the limits catch
+    it is printed, not required.  ``o`` and ``lse`` are the reference
+    forward's, ``want`` the plain results by name ("o_tiled", "dq", "dk",
+    "dv")."""
     dt = q.dtype
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
     faults = {"o_tiled": att.attention_pair_tiled_plain(
@@ -2083,15 +2131,20 @@ def _planted_faults(att, q, k, v, causal, scale, o, lse, do, want):
     p = torch.exp(att.scores_plain(q, k, None, causal, scale)
                   - lse[..., None])
     faults["dv"] = torch.einsum("bhqk,bqhd->bkhd", p, dof).to(dt)
-    ds = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
-    ds = p * (ds - att.delta(o, do)[..., None]) * scale
-    del p
+    dp = (torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+          - att.delta(o, do)[..., None])
+    ds = p * dp * scale
     faults["dk"] = torch.einsum("bhqk,bqhd->bkhd", ds, qf).to(dt)
     faults["dq"] = torch.einsum("bhqk,bkhd->bqhd", ds, kf).to(dt)
+    ds = (p.to(dt).float() * dp * scale).to(dt).float()
+    del p, dp
+    moved = {"dk": torch.einsum("bhqk,bqhd->bkhd", ds, qf).to(dt),
+             "dq": torch.einsum("bhqk,bkhd->bqhd", ds, kf).to(dt)}
     del ds
     text = []
     for name, bad in faults.items():
-        err, share, ok = _attn_check(name, bad, want[name], True)
+        err, share, ok = _attn_check(name, bad, want[name], True,
+                                     floors.get(name))
         text.append(f"{name} max|d| {err:.3g} ({share:.2e} off) "
                     f"{'PASSED' if ok else 'caught'}")
         if ok:
@@ -2099,6 +2152,14 @@ def _planted_faults(att, q, k, v, causal, scale, o, lse, do, want):
                              f"that skips a rounding point")
     print("attention: planted faults, one bf16 rounding point skipped "
           "(P before P V; P before dV; dS before dK and dQ): "
+          + "  ".join(text))
+    text = []
+    for name, bad in moved.items():
+        err, share, ok = _attn_check(name, bad, want[name], True,
+                                     floors.get(name))
+        text.append(f"{name} max|d| {err:.3g} ({share:.2e} off) "
+                    f"{'passes the limit' if ok else 'caught'}")
+    print("attention: planted fault, dS computed from the rounded P: "
           + "  ".join(text))
 
 
@@ -2136,20 +2197,38 @@ def phase_attention(att):
                       ("attn_dkdv", "dk", dk, want[1]),
                       ("attn_dkdv", "dv", dv, want[2]),
                       ("attn_dq", "dq", dq, want[0]))
-            o_t = None
+            o_t, floors = None, {}
             if half:
                 o_t = att.attention_pair_tiled_plain(q, k, v, kb, causal,
                                                      scale)[0]
                 checks += (("attn_fwd", "o_tiled", o, o_t),)
+                exact = att.attention_exact_sums(q, k, v, kb, causal, scale,
+                                                 do, dl, lse_p)
+                floors = {n: _attn_rule(f, e, ATTN_HALF_O_RTOL,
+                                        ATTN_HALF_O_ATOL)
+                          for n, f, e in zip(("o_tiled", "dk", "dv"),
+                                             (o_t, want[1], want[2]), exact)}
+                del exact
             ok, text = True, []
             for kernel, name, got, ref in checks:
-                err, share, good = _attn_check(name, got, ref, half)
+                err, share, good = _attn_check(name, got, ref, half,
+                                               floors.get(name))
                 ok = ok and good
+                ulps = ""
+                if name in floors:
+                    viol = _attn_rule(got, ref, ATTN_HALF_O_RTOL,
+                                      ATTN_HALF_O_ATOL)[0]
+                    ulps = f" {viol:.2f} x two ulps"
                 text.append(f"max|d{name}| {err:.3g}" + (
-                    f" ({share:.2e} off)" if half and name in ("o", "o_tiled")
-                    else ""))
+                    f" ({share:.2e} off)" if half and name != "lse" else "")
+                    + ulps)
                 if label == "gpt_base" and not (half and name == "o"):
                     errs[kernel] = max(errs[kernel], err)
+            if floors:
+                text.append("floor (plain vs exact sums: worst / two ulps, "
+                            "share off) " + ", ".join(
+                                f"{n} {v:.2f}/{f:.2e}"
+                                for n, (v, f) in floors.items()))
             same = all(torch.equal(a, r) for a, r in
                        zip((o, lse, dk, dv, dq), again))
             print(f"attention: {label} B{b} Sq{sq} Sk{sk} H{h} D{d} "
@@ -2163,7 +2242,7 @@ def phase_attention(att):
             if label == "gpt_base" and half:
                 _planted_faults(att, q, k, v, causal, scale, o_p, lse_p, do,
                                 dict(zip(("o_tiled", "dq", "dk", "dv"),
-                                         (o_t,) + tuple(want))))
+                                         (o_t,) + tuple(want))), floors)
             del o, lse, o_p, lse_p, o_t, dk, dv, dq, want, again
             torch.cuda.empty_cache()
     print(f"attention: checks took {time.perf_counter() - t0:.1f} s")
@@ -2829,6 +2908,57 @@ def phase_route_cross_check(counted, lm_batch):
         raise SystemExit("the flash and dense routes disagree")
 
 
+def phase_route_times(train, counted, steps=6):
+    """gpt_base at 8 x 2048 under amp O2, the trainer's state and step,
+    once with the attention modules on the flash kernels and once on the
+    dense einsum path (``fused_attention`` True / False; "auto" takes the
+    kernels at 2048): the median step time over steps 2..N and the peak
+    memory of each, on one line.  The flash route launches each attention
+    kernel 12 times a step, the dense route none."""
+    args = train.build_parser().parse_args(GPT2048_O2_ARGS)
+    step_fn = train.build_step(args)
+    text = []
+    for fused in (True, False):
+        route = "flash" if fused else "dense"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = train.build_state(args, "cuda")
+        for mod in state.model.modules():
+            if hasattr(mod, "fused_attention"):
+                mod.fused_attention = fused
+        _zero_counts(counted)
+        times = []
+        try:
+            for i in range(steps):
+                batch = train.batch_fn(args, state.model.vocab_size, i,
+                                       "cuda")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = step_fn(state, batch)
+                loss = float(metrics["loss"])
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        except torch.cuda.OutOfMemoryError as exc:
+            text.append(f"{route} does not fit in the card's memory ({exc})")
+            del state
+            continue
+        counts = _counts(counted)
+        want = 12 * steps if fused else 0
+        if any(counts[k] != want for k in ("attn_fwd", "attn_dkdv",
+                                           "attn_dq")):
+            raise SystemExit(f"the {route} route launched {counts}")
+        if not math.isfinite(loss):
+            raise SystemExit(f"the {route} route's loss is {loss}")
+        text.append(f"{route} {statistics.median(times[1:]):.2f} ms a step "
+                    f"(median of steps 2-{steps}), max memory "
+                    f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+                    f"last loss {loss:.4f}")
+        del state, metrics
+    torch.cuda.empty_cache()
+    print("route: gpt_base 8 x 2048 amp O2, the trainer's step: "
+          + "; ".join(text))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this check runs on "
@@ -2919,6 +3049,7 @@ def main() -> int:
                                         GPT2048_O0_ARGS, gpt2048_step)
     torch.cuda.empty_cache()
     phase_route_cross_check(counted, lm_batch)
+    phase_route_times(train, counted)
     phase_profile(train, GPT2048_O2_ARGS)
     torch.cuda.empty_cache()
     print(f"gpt2048: the sequence-2048 phases took "
