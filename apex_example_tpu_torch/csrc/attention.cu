@@ -26,43 +26,42 @@
 //
 // Two designs, chosen by dtype alone (`launch`):
 //
-// fp32, and dQ in every dtype: fp32 fused multiply-adds on the CUDA cores
-// (fp32 without TF32 is the port's fp32 contract; bf16 / fp16 operands
-// widen exactly to fp32, so dQ's products are those of JAX's
+// fp32 and fp16, and bf16's dK/dV and dQ: fp32 fused multiply-adds on the
+// CUDA cores (fp32 without TF32 is the port's fp32 contract; bf16 / fp16
+// operands widen exactly to fp32, so the products are those of JAX's
 // `preferred_element_type=float32` dots).  Tiles of 64 queries and 64 keys
 // in shared memory, held as fp32; 256 threads, each owning a 4 x 4 piece of
 // the score tile (4 rows, columns 16 apart) and 4 rows x 8 head-dim columns
-// of the output; row maxima and sums over the 16 threads of a row with warp
-// shuffles.  Causal tiles wholly above the diagonal are skipped, as
-// `_when_live` (:121) skips them.
+// of the output; 16-byte shared-memory loads along the head dimension; row
+// maxima and sums over the 16 threads of a row with warp shuffles.  Causal
+// tiles wholly above the diagonal are skipped, as `_when_live` (:121) skips
+// them.  A half dQ, dK and dV round the fp32 sums that the plain version on
+// the card forms in the same FMA order, which their limit asks (chip_smoke.py's ATTN_BWD_TOL, 5e-5 as in fp32); the
+// tensor cores sum in another order, which flips a bf16 ulp now and then.
+// An fp16 O, whose ulp is 8 x finer than bf16's, would flip in ~1% of its
+// elements against the plain version's tiled arithmetic (ATTN_HALF_FLIPS
+// allows 1e-2), so fp16 keeps the CUDA cores too.
 //
-// bf16 / fp16 forward and dK/dV (`attn_fwd_kernel_tc`, `attn_dkdv_kernel_tc`):
-// Hopper's tensor cores.  One warpgroup (128 threads) owns 64 rows: the
-// forward's queries, dK/dV's keys.  Every operand tile is 64 rows of the
-// head dim padded to 64 or 128 halves (pad columns zero), stored in
+// bf16 forward (`attn_fwd_kernel_tc`): Hopper's tensor cores.  One
+// warpgroup (128 threads) owns 64 queries.  Every operand tile is 64 rows
+// of the head dim padded to 64 or 128 elements (pad columns zero), stored in
 // wgmma's 128-byte-swizzle layout, so one tile serves as a K-major operand
-// (products over the head dim) and as a transposed, MN-major one (products
-// over the rows).  The streamed tiles (the forward's K and V, dK/dV's Q,
-// dO, lse and Delta) run through a ring of two stages filled by cp.async
-// while the previous tile computes; cp.async, not TMA, because the
-// operands arrive as strided (B, S, H, D) views with any strides: a row
-// that is contiguous and 16-byte aligned loads in 16-byte chunks, any
-// other through its strides, element by element, into the same layout.
-// Forward: S = Q K^T is a shared-memory wgmma (m64n64k16); the online
-// softmax runs on the fp32 accumulator fragments, each thread holding two
-// rows' m, l and O; P is rounded into the register A operand of P V
-// (m64nDk16, V transposed from shared memory), summed per k/v tile into a
-// fresh accumulator and added as O = O alpha + P V.  dK/dV: S^T = K Q^T
-// and dP^T = V dO^T are shared-memory wgmmas, each k16 step into fresh
-// accumulators added with round-to-nearest; P^T (fp32, for dS) and dS^T
-// are formed in registers and rounded into the A operands of dV += P^T dO
-// and dK += dS^T Q.  The forward's exp is __expf; dK/dV's is expf (P
-// feeds dS's rounding point).  Key tiles stay 64 wide (kTcKeys), so a half
-// O rounds P against the running max where attention_pair_tiled_plain
-// does.  Causal blocks launch longest first (the forward's last q tiles,
-// dK/dV's first k tiles).  The fp32 sums run in the tensor cores' order,
-// not the CUDA cores': a half result differs from the plain version's by
-// an ulp now and then (chip_smoke.py's ATTN_FLOOR_FACTOR).
+// (Q and K: S = Q K^T runs over the head dim) and as a transposed, MN-major
+// one (V: P V runs over the keys).  K and V run through a ring of two
+// stages filled by cp.async while the previous tile computes; cp.async,
+// not TMA, because the operands arrive as strided (B, S, H, D) views with
+// any strides: a row that is contiguous and 16-byte aligned loads in
+// 16-byte chunks, any other through its strides, element by element, into
+// the same layout.  S = Q K^T is a shared-memory wgmma (m64n64k16); the
+// online softmax runs on the fp32 accumulator fragments, each thread
+// holding two rows' m, l and O; P is rounded into the register A operand
+// of P V (m64nDk16, V transposed from shared memory), summed per k/v tile
+// into a fresh accumulator and added as O = O alpha + P V; exp is __expf.
+// Key tiles stay 64 wide (kTcKeys), so a bf16 O rounds P against the
+// running max where attention_pair_tiled_plain does.  Causal blocks launch
+// longest first (the last q tiles).  The fp32 sums run in the tensor
+// cores' order: a bf16 O differs from the plain version's tiled arithmetic
+// by an ulp in ~1e-3 of its elements (chip_smoke.py's ATTN_HALF_FLIPS).
 //
 // Layout: q, k, v, o and dO are read in their (B, S, H, D) layout through
 // four strides each (elements), so no transpose is copied; O, dQ, dK and
@@ -127,7 +126,7 @@ struct Params {
   void* dv;
   long long sq[4], sk[4], sv[4], sdo[4];  // strides of (B, S, H, D)
   long long sbias[2];                     // strides of (B, Sk)
-  int vq, vk, vv, vdo;  // rows contiguous and 16-byte aligned (cp.async)
+  int vq, vk, vv;  // rows contiguous and 16-byte aligned (cp.async)
   int B, H, Sq, Sk, D;
   int causal, off;  // off = Sk - Sq
   float scale;
@@ -482,10 +481,10 @@ __global__ void __launch_bounds__(kThreads) attn_dkdv_kernel(Params p) {
   store_rows(static_cast<T*>(p.dv), b, h, k0, p.Sk, p, r0, tx, dv);
 }
 
-// ---- bf16 / fp16 forward and dK/dV on the tensor cores ------------------
+// ---- the bf16 forward on the tensor cores --------------------------------
 
-constexpr int kTcKeys = 64;     // keys of a k/v tile (the plain TILE)
-constexpr int kTcRows = 64;     // rows of every other tile: q, dO
+constexpr int kTcKeys = 64;      // keys of a k/v tile (the plain TILE)
+constexpr int kTcRows = 64;      // queries of a q tile
 constexpr int kTcThreads = 128;  // one warpgroup
 constexpr int kAtomBytes = 64 * 128;  // a 64-row column of 64 halves
 static_assert(kTcKeys == kTcRows, "the tile helpers take 64-row tiles");
@@ -575,177 +574,78 @@ __device__ __forceinline__ void pin(uint32_t (&a)[4][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
+// The wgmma operand lists: a thread's 32 or 64 accumulator floats d[]
+// and their PTX names.
+#define APEX_D8(i)                                                      \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define APEX_D32 APEX_D8(0), APEX_D8(8), APEX_D8(16), APEX_D8(24)
+#define APEX_D64 APEX_D32, APEX_D8(32), APEX_D8(40), APEX_D8(48), APEX_D8(56)
+#define APEX_N32                                    \
+  "%0, %1, %2, %3, %4, %5, %6, %7, "                \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "          \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "        \
+  "%24, %25, %26, %27, %28, %29, %30, %31"
+#define APEX_N64                                    \
+  APEX_N32 ", "                                     \
+  "%32, %33, %34, %35, %36, %37, %38, %39, "        \
+  "%40, %41, %42, %43, %44, %45, %46, %47, "        \
+  "%48, %49, %50, %51, %52, %53, %54, %55, "        \
+  "%56, %57, %58, %59, %60, %61, %62, %63"
+
 // S (+)= A B^T, m64n64k16: A and B both K-major in shared memory
 // (descriptors da, db); scale_d = 0 overwrites d.
-template <typename T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
                                          uint64_t db, int scale_d) {
-  if constexpr (std::is_same<T, __half>::value) {
-    asm volatile(
+  asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" APEX_N32
       "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
+      : APEX_D32
       : "l"(da), "l"(db), "r"(scale_d));
-  } else {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-  }
 }
 
-// d (+)= A B, m64n64k16: A from registers (four 16-bit pairs a
-// thread), B an MN-major (transposed) shared-memory operand.
-template <typename T>
+// d (+)= A B, m64n64k16: A from registers (four bf16 pairs a thread), B
+// an MN-major (transposed) shared-memory operand.
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
                                          const uint32_t (&a)[4], uint64_t db,
                                          int scale_d) {
-  if constexpr (std::is_same<T, __half>::value) {
-    asm volatile(
+  asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" APEX_N32
       "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
+      : APEX_D32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-  } else {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-  }
 }
 
-// d (+)= A B, m64n128k16: A from registers (four 16-bit pairs a
-// thread), B an MN-major (transposed) shared-memory operand.
-template <typename T>
+// d (+)= A B, m64n128k16: as above, 128 columns.
 __device__ __forceinline__ void wgmma_rs(float (&d)[64],
                                          const uint32_t (&a)[4], uint64_t db,
                                          int scale_d) {
-  if constexpr (std::is_same<T, __half>::value) {
-    asm volatile(
+  asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" APEX_N64
       "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : APEX_D64
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-  } else {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-  }
 }
 
-// Two floats rounded to T, the lower column in the low half.
-template <typename T>
+// Two floats rounded to bf16, the lower column in the low half.
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  if constexpr (std::is_same<T, __half>::value) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  } else {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // A k16 slice of the 64 x 64 score accumulator as a wgmma A operand: the
 // accumulator's n8 blocks 2 kk and 2 kk + 1 are the operand's columns
 // 0-7 and 8-15, in the same thread and row.
-template <typename T>
 __device__ __forceinline__ void to_operand(const float (&s)[32],
                                            uint32_t (&a)[4][4]) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r)
-      a[kk][r] = pack2<T>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+      a[kk][r] = pack2(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
 }
 
 // This thread's share of the 16-byte chunks of a 64-row tile, D / 8
@@ -775,8 +675,8 @@ __device__ __forceinline__ ChunkWalk chunk_walk(int D) {
 // when the rows are contiguous and 16-byte aligned (`vec`), else 2-byte
 // loads through the strides.  Rows at or past n_rows are zero; the pad
 // columns past D are never written (zeroed at the kernel's start).
-template <typename T>
-__device__ __forceinline__ void load_tile_tc(uint32_t tile, const T* src,
+__device__ __forceinline__ void load_tile_tc(uint32_t tile,
+                                             const __nv_bfloat16* src,
                                              const long long* st, int vec,
                                              int b, int h, int row0,
                                              int n_rows, const ChunkWalk& w) {
@@ -810,37 +710,24 @@ __device__ __forceinline__ void load_tile_tc(uint32_t tile, const T* src,
   }
 }
 
-// Start copying lse and Delta of rows q0 .. q0 + 63 (zero past Sq) to
-// dst[0 .. 63] and dst[64 .. 127] (floats).
-__device__ __forceinline__ void load_rows_tc(uint32_t dst, const Params& p,
-                                             long long row_base, int q0) {
-  const int t = threadIdx.x & 63;
-  const float* src = threadIdx.x < 64 ? p.lse : p.delta;
-  const int row = q0 + t;
-  cp_async4(dst + 4 * threadIdx.x,
-            src + row_base + (row < p.Sq ? row : p.Sq - 1),
-            row < p.Sq ? 4 : 0);
-}
-
-// Rows r and r + 8 of a 64 x 2N accumulator in the input dtype: columns
-// below D of rows row0 + r (+ 8) that are below n_rows, contiguous
-// (B, n_rows, H, D).
-template <typename T, int N>
-__device__ __forceinline__ void store_acc(T* dst, const Params& p, int b,
-                                          int h, int row0, int n_rows,
+// Rows r and r + 8 of a 64 x 2N accumulator in bf16: columns below D of
+// rows row0 + r (+ 8) that are below n_rows, contiguous (B, n_rows, H, D).
+template <int N>
+__device__ __forceinline__ void store_acc(__nv_bfloat16* dst, const Params& p,
+                                          int b, int h, int row0, int n_rows,
                                           int r, int c, const float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + r + 8 * i;
     if (row >= n_rows) continue;
-    T* out = dst + ((static_cast<long long>(b) * n_rows + row) * p.H + h) *
-                       p.D;
+    __nv_bfloat16* out =
+        dst + ((static_cast<long long>(b) * n_rows + row) * p.H + h) * p.D;
 #pragma unroll
     for (int j = 0; j < N / 4; ++j) {
       const int col = 8 * j + 2 * c;
       if (col < p.D)
         *reinterpret_cast<uint32_t*>(out + col) =
-            pack2<T>(d[4 * j + 2 * i], d[4 * j + 2 * i + 1]);
+            pack2(d[4 * j + 2 * i], d[4 * j + 2 * i + 1]);
     }
   }
 }
@@ -855,11 +742,6 @@ __device__ __forceinline__ void rescale_add(float (&acc)[N],
   for (int i = 0; i < N; ++i)
     acc[i] = __fadd_rn(__fmul_rn(acc[i], alpha[(i >> 1) & 1]), t[i]);
 }
-template <int N>
-__device__ __forceinline__ void add_to(float (&acc)[N], const float (&t)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) acc[i] = __fadd_rn(acc[i], t[i]);
-}
 
 // ---- forward: one warpgroup per (b * H + h, 64 queries) -----------------
 // Shared memory: Q, then K and V of stage 0 and of stage 1.  The tensor
@@ -867,7 +749,7 @@ __device__ __forceinline__ void add_to(float (&acc)[N], const float (&t)[N]) {
 // O = O alpha + t in fp32 with round-to-nearest, so the long sum over the
 // tiles does not carry the tensor cores' truncation from tile to tile.
 
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kTcThreads) attn_fwd_kernel_tc(Params p) {
   constexpr int kTileBytes = DP / 64 * kAtomBytes;
   constexpr int kN = DP / 2;  // O's accumulator floats a thread
@@ -879,9 +761,9 @@ __global__ void __launch_bounds__(kTcThreads) attn_fwd_kernel_tc(Params p) {
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcRows;  // longest first
   const int lane = threadIdx.x & 31, c = lane & 3;
   const int r = 16 * (threadIdx.x >> 5) + (lane >> 2);  // rows r, r + 8
-  const T* q = static_cast<const T*>(p.q);
-  const T* k = static_cast<const T*>(p.k);
-  const T* v = static_cast<const T*>(p.v);
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q);
+  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k);
+  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v);
   const int last = last_kv_tile(p, q0);
   const ChunkWalk w = chunk_walk(p.D);
 
@@ -912,7 +794,7 @@ __global__ void __launch_bounds__(kTcThreads) attn_fwd_kernel_tc(Params p) {
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
-      wgmma_ss<T>(s, kmajor_desc(sQ, kk), kmajor_desc(sK, kk), kk);
+      wgmma_ss(s, kmajor_desc(sQ, kk), kmajor_desc(sK, kk), kk);
     wg_commit_wait();
     pin(s);
 
@@ -962,14 +844,14 @@ __global__ void __launch_bounds__(kTcThreads) attn_fwd_kernel_tc(Params p) {
       l[i] = l[i] * alpha[i] + rs[i];
       m[i] = mn[i];
     }
-    to_operand<T>(s, a);
+    to_operand(s, a);
 
     // t = P V; O = O alpha + t
     pin(t);
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs<T>(t, a[kk], mnmajor_desc(sV, kk), kk);
+      wgmma_rs(t, a[kk], mnmajor_desc(sV, kk), kk);
     wg_commit_wait();
     pin(t);
     pin(a);
@@ -989,156 +871,17 @@ __global__ void __launch_bounds__(kTcThreads) attn_fwd_kernel_tc(Params p) {
       p.lse_out[(static_cast<long long>(b) * p.H + h) * p.Sq + row] =
           m[i] + logf(lsafe);
   }
-  store_acc<T>(static_cast<T*>(p.out), p, b, h, q0, p.Sq, r, c, o);
+  store_acc(static_cast<__nv_bfloat16*>(p.out), p, b, h, q0, p.Sq, r, c,
+            o);
 }
 
-// ---- dK, dV: one warpgroup per (b * H + h, 64 keys) ---------------------
-// Shared memory: K, V, then Q and dO of stage 0 and of stage 1, then lse
-// and Delta (64 floats each) of stage 0 and of stage 1.  Each q tile's
-// P^T dO and dS^T Q run into one fresh accumulator t in turn and are
-// added to dV and dK in fp32 with round-to-nearest, as in the forward.
-
-template <typename T, int DP>
-__global__ void __launch_bounds__(kTcThreads) attn_dkdv_kernel_tc(Params p) {
-  constexpr int kTileBytes = DP / 64 * kAtomBytes;
-  constexpr int kN = DP / 2;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const uint32_t sK = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t sV = sK + kTileBytes;
-  const uint32_t sRows = sK + 6 * kTileBytes;
-  const float* rows = reinterpret_cast<const float*>(
-      smem_raw + (sRows - smem_u32(smem_raw)));
-  zero_smem(sK, 6 * kTileBytes);
-  __syncthreads();
-  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
-  const int k0 = blockIdx.y * kTcKeys;  // longest causal blocks first
-  const int lane = threadIdx.x & 31, c = lane & 3;
-  const int r = 16 * (threadIdx.x >> 5) + (lane >> 2);  // keys k0 + r, + 8
-  const T* q = static_cast<const T*>(p.q);
-  const T* dout = static_cast<const T*>(p.dout);
-  const int nq = (p.Sq + kTcRows - 1) / kTcRows;
-  int first = 0;  // the first q tile that sees this k/v tile
-  if (p.causal) {
-    const int lo = k0 - p.off - kTcRows + 1;
-    first = lo > 0 ? (lo + kTcRows - 1) / kTcRows : 0;
-  }
-  const long long row_base = (static_cast<long long>(b) * p.H + h) * p.Sq;
-  const ChunkWalk w = chunk_walk(p.D);
-
-  load_tile_tc(sK, static_cast<const T*>(p.k), p.sk, p.vk, b, h, k0, p.Sk,
-               w);
-  load_tile_tc(sV, static_cast<const T*>(p.v), p.sv, p.vv, b, h, k0, p.Sk,
-               w);
-  load_tile_tc(sK + 2 * kTileBytes, q, p.sq, p.vq, b, h, first * kTcRows,
-               p.Sq, w);
-  load_tile_tc(sK + 3 * kTileBytes, dout, p.sdo, p.vdo, b, h,
-               first * kTcRows, p.Sq, w);
-  load_rows_tc(sRows, p, row_base, first * kTcRows);
-  cp_async_commit();
-  const float bias[2] = {key_bias(p, b, k0 + r), key_bias(p, b, k0 + r + 8)};
-  float dk[kN], dv[kN], t[kN], st[32], dpt[32];
-#pragma unroll
-  for (int i = 0; i < kN; ++i) dk[i] = dv[i] = t[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
-  uint32_t pa[4][4], da[4][4];
-  for (int it = first; it < nq; ++it) {
-    const int q0 = it * kTcRows, stage = (it - first) & 1;
-    const uint32_t sQ = sK + (2 + 2 * stage) * kTileBytes;
-    const uint32_t sdO = sQ + kTileBytes;
-    const float* lse = rows + 128 * stage;
-    const float* delta = lse + 64;
-    if (it + 1 < nq) {  // the next q tile into the other stage
-      const uint32_t nQ = sK + (2 + 2 * (stage ^ 1)) * kTileBytes;
-      load_tile_tc(nQ, q, p.sq, p.vq, b, h, q0 + kTcRows, p.Sq, w);
-      load_tile_tc(nQ + kTileBytes, dout, p.sdo, p.vdo, b, h, q0 + kTcRows,
-                   p.Sq, w);
-      load_rows_tc(sRows + 512 * (stage ^ 1), p, row_base, q0 + kTcRows);
-    }
-    cp_async_commit();
-    wait_tiles();
-
-    // S^T = K Q^T, dP^T = V dO^T: each k16 step into fresh accumulators,
-    // added in fp32 with round-to-nearest (dS rounds dP: a fully masked
-    // row, P = 1, passes dP's error on to dK undamped)
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      float u[32], u2[32];
-      pin(u);
-      pin(u2);
-      wg_fence();
-      wgmma_ss<T>(u, kmajor_desc(sK, kk), kmajor_desc(sQ, kk), 0);
-      wgmma_ss<T>(u2, kmajor_desc(sV, kk), kmajor_desc(sdO, kk), 0);
-      wg_commit_wait();
-      pin(u);
-      pin(u2);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        st[i] = kk ? __fadd_rn(st[i], u[i]) : u[i];
-        dpt[i] = kk ? __fadd_rn(dpt[i], u2[i]) : u2[i];
-      }
-    }
-
-    // P^T = exp(S^T - lse) in fp32, dS^T = P^T (dP^T - Delta) scale
-    const bool edge = q0 + kTcRows > p.Sq || k0 + kTcKeys > p.Sk ||
-                      (p.causal && q0 + p.off < k0 + kTcKeys - 1);
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = 8 * jj + 2 * c + (e & 1);
-        float x = st[4 * jj + e] * p.scale;
-        if (p.bias != nullptr) x += bias[e >> 1];
-        if (edge) {
-          const int key = k0 + r + 8 * (e >> 1), row = q0 + qi;
-          if (key >= p.Sk || row >= p.Sq || (p.causal && row + p.off < key))
-            x = kMask;
-        }
-        // expf, not __expf: P feeds dS, whose rounding an approximate exp
-        // would move more often
-        const float pv = expf(x - lse[qi]);
-        st[4 * jj + e] = pv;
-        dpt[4 * jj + e] = pv * (dpt[4 * jj + e] - delta[qi]) * p.scale;
-      }
-    to_operand<T>(st, pa);
-    to_operand<T>(dpt, da);
-
-    // dV += P^T dO, then dK += dS^T Q, each through t
-    pin(t);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs<T>(t, pa[kk], mnmajor_desc(sdO, kk), kk);
-    wg_commit_wait();
-    pin(t);
-    pin(pa);
-    add_to(dv, t);
-    pin(t);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs<T>(t, da[kk], mnmajor_desc(sQ, kk), kk);
-    wg_commit_wait();
-    pin(t);
-    pin(da);
-    add_to(dk, t);
-    __syncthreads();  // this stage is read: the next load may refill it
-  }
-  store_acc<T>(static_cast<T*>(p.dk), p, b, h, k0, p.Sk, r, c, dk);
-  store_acc<T>(static_cast<T*>(p.dv), p, b, h, k0, p.Sk, r, c, dv);
-}
-
-template <typename T, int DP>
-int launch_tc(int kind, const Params& p, cudaStream_t stream) {
-  constexpr size_t tile = DP / 64 * kAtomBytes;
-  const bool fwd = kind == 0;
-  // + 1024: the tiles start at the next 1024-byte boundary
-  const size_t bytes = fwd ? 5 * tile + 1024
-                           : 6 * tile + 4 * kTcRows * sizeof(float) + 1024;
-  const int rows = fwd ? p.Sq : p.Sk;
-  const dim3 grid(p.B * p.H, (rows + kTcRows - 1) / kTcRows);
-  void (*kernel)(Params) =
-      fwd ? attn_fwd_kernel_tc<T, DP> : attn_dkdv_kernel_tc<T, DP>;
+template <int DP>
+int launch_tc(const Params& p, cudaStream_t stream) {
+  // Q, K and V of two stages; + 1024: the tiles start at the next
+  // 1024-byte boundary
+  constexpr size_t bytes = 5 * (DP / 64 * kAtomBytes) + 1024;
+  const dim3 grid(p.B * p.H, (p.Sq + kTcRows - 1) / kTcRows);
+  void (*kernel)(Params) = attn_fwd_kernel_tc<DP>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
@@ -1160,22 +903,20 @@ size_t smem_bytes(int kind, int D) {
   }
 }
 
-// The route is the dtype's: fp32 takes the CUDA-core kernels, a half
-// dtype the tensor-core forward and dK/dV (the head dim padded to 64 or
-// 128) and the CUDA-core dQ.
+// The route is the dtype's: the bf16 forward takes the tensor cores (the
+// head dim padded to 64 or 128), everything else the CUDA cores.
 template <typename T>
 int launch(int kind, const Params& p, cudaStream_t stream) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (kind == 0)
+      return p.D <= 64 ? launch_tc<64>(p, stream) : launch_tc<128>(p, stream);
+  }
   const int rows = kind == 2 ? p.Sk : p.Sq;
   const dim3 grid(p.B * p.H, (rows + kTile - 1) / kTile);
   const size_t bytes = smem_bytes(kind, p.D);
-  void (*kernel)(Params) = attn_dq_kernel<T>;
-  if constexpr (std::is_same<T, float>::value) {
-    if (kind != 1)
-      kernel = kind == 0 ? attn_fwd_kernel<T> : attn_dkdv_kernel<T>;
-  } else if (kind != 1) {
-    return p.D <= 64 ? launch_tc<T, 64>(kind, p, stream)
-                     : launch_tc<T, 128>(kind, p, stream);
-  }
+  void (*kernel)(Params) = kind == 0   ? attn_fwd_kernel<T>
+                           : kind == 1 ? attn_dq_kernel<T>
+                                       : attn_dkdv_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
@@ -1227,7 +968,6 @@ int run(int kind, const long long* dims, const long long* strides,
   p.vq = vec(q, p.sq);
   p.vk = vec(k, p.sk);
   p.vv = vec(v, p.sv);
-  p.vdo = vec(dout, p.sdo);
   p.B = static_cast<int>(B);
   p.H = static_cast<int>(H);
   p.Sq = static_cast<int>(Sq);

@@ -20,7 +20,7 @@ the kernels' math, against ``jax.vjp`` of the JAX op.
 ``flash_attention_dq_cuda`` launch csrc/attention.cu, the kernels that
 replace the Pallas bodies on the card (the source notes state the bounds
 and designs): the dtype alone picks the kernel, the tensor cores' forward
-and dK/dV for bf16 and fp16, the CUDA cores' for fp32 and for dQ; every
+for bf16, the CUDA cores' for fp32 and fp16 and for dK/dV and dQ; every
 kernel reads q, k, v and dO through their strides, so no view is copied.
 Delta is computed between them in PyTorch, as JAX leaves it to XLA.  Each
 validates its arguments, builds the library at first use, launches and
@@ -152,56 +152,6 @@ def attention_pair_tiled_plain(q: torch.Tensor, k: torch.Tensor,
     lsafe = torch.where(l == 0, torch.ones_like(l), l)
     o = (acc / lsafe).transpose(1, 2).to(q.dtype)
     return o, (m + torch.log(lsafe))[..., 0]
-
-
-def attention_exact_sums(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         bias: Optional[torch.Tensor], causal: bool,
-                         scale: float, do: torch.Tensor, dl: torch.Tensor,
-                         lse: torch.Tensor) -> Grads:
-    """``(o, dk, dv)``: the O of :func:`attention_pair_tiled_plain` and the
-    dK and dV of :func:`attention_bwd_plain` with every dot product summed
-    in fp64 and rounded once to fp32 (the scores, each k/v tile's P V, dP,
-    dV, dK), P and dS rounded to the input dtype where those round them;
-    ``dl`` and ``lse`` are the Delta and logsumexp the kernels read.  The
-    card checks measure the plain versions' own distance from it: a kernel
-    that sums in another order (the tensor cores') differs from the plain
-    versions by about that much."""
-    dt = q.dtype
-    q64, k64, v64, do64 = (t.double() for t in (q, k, v, do))
-    s = torch.einsum("bqhd,bkhd->bhqk", q64, k64).float() * scale
-    if bias is not None:
-        s = s + bias[:, None, None, :]
-    if causal:
-        sq, sk = q.shape[1], k.shape[1]
-        rows = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
-        s = torch.where(rows >= torch.arange(sk, device=q.device)[None],
-                        s, torch.full_like(s, MASK))
-    b, sq, h, d = q.shape
-    m = torch.full((b, h, sq, 1), MASK, device=q.device)
-    l = torch.zeros_like(m)
-    acc = torch.zeros(b, h, sq, d, device=q.device)
-    for j in range(0, k.shape[1], TILE):
-        sj = s[..., j:j + TILE]
-        m_new = torch.maximum(m, sj.amax(-1, keepdim=True))
-        alpha = torch.exp(m - m_new)
-        pj = torch.exp(sj - m_new)
-        l = l * alpha + pj.sum(-1, keepdim=True)
-        acc = acc * alpha + torch.einsum(
-            "bhqk,bkhd->bhqd", pj.to(dt).double(),
-            v64[:, j:j + TILE]).float()
-        m = m_new
-    lsafe = torch.where(l == 0, torch.ones_like(l), l)
-    o = (acc / lsafe).transpose(1, 2).to(dt)
-    del acc, sj, pj
-    p = torch.exp(s - lse[..., None])
-    del s
-    dp = torch.einsum("bqhd,bkhd->bhqk", do64, v64).float()
-    ds = (p * (dp - dl[..., None]) * scale).to(dt)
-    del dp
-    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).double(), do64).float()
-    del p
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds.double(), q64).float()
-    return o, dk.to(dt), dv.to(dt)
 
 
 def delta(o: torch.Tensor, do: torch.Tensor,

@@ -296,32 +296,10 @@ def _meta(*shape, dtype=torch.float32):
 QKV = (_meta(2, 64, 4, 64), _meta(2, 64, 4, 64), _meta(2, 64, 4, 64))
 
 
-def test_exact_sums_differ_from_the_plain_versions_by_rounding_only():
-    """``attention_exact_sums``, the card checks' floor, is the plain
-    versions' arithmetic with correctly rounded sums: on bf16 inputs its O,
-    dK and dV are within two ulps of ``attention_pair_tiled_plain``'s and
-    ``attention_bwd_plain``'s, with under 1e-2 of the elements off."""
-    rs = np.random.RandomState(3)
-    q, k, v, do = (torch.from_numpy(rs.randn(2, 96, 2, 24)).float()
-                   .to(torch.bfloat16) for _ in range(4))
-    scale = 24 ** -0.5
-    o_p, lse = att.attention_pair_plain(q, k, v, None, True, scale)
-    dl = att.delta(o_p, do)
-    got = att.attention_exact_sums(q, k, v, None, True, scale, do, dl, lse)
-    want = (att.attention_pair_tiled_plain(q, k, v, None, True, scale)[0],
-            ) + att.attention_bwd_plain(q, k, v, None, True, scale, o_p,
-                                        lse, do)[1:]
-    for g, w in zip(got, want):
-        assert g.dtype == w.dtype == torch.bfloat16
-        np.testing.assert_allclose(g.float().numpy(), w.float().numpy(),
-                                   rtol=1e-2, atol=1e-3)
-        assert float((g != w).float().mean()) <= 1e-2
-
-
 def test_wrapper_limits_are_the_kernel_sources():
     """MAX_D and TILE, which the wrappers check before a build, are the
     kMaxD and kTile that csrc/attention.cu compiles with; and the
-    tensor-core kernels' key tile kTcKeys is TILE too, the tile to whose
+    tensor-core forward's key tile kTcKeys is TILE too, the tile to whose
     rounding ``attention_pair_tiled_plain`` holds a half O."""
     src = pathlib.Path(att.__file__).parent.parent / "csrc" / "attention.cu"
     consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);",
@@ -360,26 +338,27 @@ def test_cuda_wrapper_raises_on_what_it_cannot_take(monkeypatch, args, kw,
     assert att.flash_attention_cuda.launches == before
 
 
-def test_wrappers_take_any_strides_up_to_the_device_check(monkeypatch):
+@pytest.mark.parametrize("wrapper", ["flash_attention_cuda",
+                                     "flash_attention_dkdv_cuda",
+                                     "flash_attention_dq_cuda"])
+def test_wrappers_take_any_strides_up_to_the_device_check(monkeypatch,
+                                                          wrapper):
     """bf16 q, k, v and dO whose head dim is not contiguous (every second
     element of a wider tensor), as the kernels took them before the
-    tensor-core route: each wrapper passes every argument check and
+    tensor-core forward: each wrapper passes every argument check and
     raises only at the last, the device check."""
     monkeypatch.setattr(_build, "load", lambda name: None)
     q, k, v, do = (_meta(2, 64, 4, 128, dtype=torch.bfloat16)[..., ::2]
                    for _ in range(4))
     assert q.stride(-1) == 2 and not q.is_contiguous()
     rows = _meta(2, 4, 64)
-    calls = ((att.flash_attention_cuda, (q, k, v, None, True, 0.125)),
-             (att.flash_attention_dkdv_cuda,
-              (q, k, v, None, True, 0.125, do, rows, rows)),
-             (att.flash_attention_dq_cuda,
-              (q, k, v, None, True, 0.125, do, rows, rows)))
-    for fn, args in calls:
-        before = fn.launches
-        with pytest.raises(ValueError, match="launches a CUDA kernel"):
-            fn(*args)
-        assert fn.launches == before
+    fn = getattr(att, wrapper)
+    args = (q, k, v, None, True, 0.125) + (
+        () if wrapper == "flash_attention_cuda" else (do, rows, rows))
+    before = fn.launches
+    with pytest.raises(ValueError, match="launches a CUDA kernel"):
+        fn(*args)
+    assert fn.launches == before
 
 
 def test_backward_wrappers_check_their_row_tensors(monkeypatch):

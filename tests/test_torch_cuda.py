@@ -31,15 +31,12 @@ dx against the CPU's 1e-4, its dscale and dbias rtol = atol 1e-4; the
 flash-attention kernels' lse, and O in fp32, atol = rtol 2e-5, their dQ,
 dK and dV 5e-5 in fp32 (tests/test_attention.py's limits: sums in another
 order); a half O 2e-2 from the reference's arithmetic (which rounds the
-normalised P); a half dQ rtol 1e-2 and atol 1e-3 (two bf16 ulps) with at
-most 1e-2 of its elements off at all (a rounding point of P or dS skipped
-or moved flips 18-42%); a half O against the kernels' own arithmetic
-(``attention_pair_tiled_plain``) and the half dK and dV, which the tensor
-cores sum in another order than the plain version's fp32 FMA chains, to
-the same two ulps and 1e-2 share or to 3 x the plain version's own
-distance from the same arithmetic with correctly rounded fp32 sums
-(``attention_exact_sums``), whichever is larger; every result bitwise
-repeatable.
+normalised P); a half O against the kernels' own arithmetic
+(``attention_pair_tiled_plain``) and the half dQ, dK and dV rtol 1e-2 and
+atol 1e-3 (two bf16 ulps) with at most 1e-2 of their elements off at all
+(the kernels' and cuBLAS's fp32 sums in another order flip an ulp now and
+then; a rounding point of P or dS skipped or moved flips 18-42%); every
+result bitwise repeatable.
 """
 
 import numpy as np
@@ -935,15 +932,6 @@ ATTN_CASES = [  # (B, Sq, Sk, H, D, causal, bias)
     (1, 96, 200, 2, 64, True, False), (1, 100, 100, 3, 16, True, False),
     (2, 100, 100, 2, 80, False, True), (1, 64, 64, 1, 128, True, False),
     (1, 200, 200, 2, 24, True, False)]   # D 24: the tensor cores' pad
-ATTN_FLOOR_FACTOR = 3   # chip_smoke.py's
-
-
-def _ulp_rule(got, ref):
-    """(the largest |got - ref| / (1e-3 + 1e-2 |ref|), the share of
-    elements not equal)."""
-    err = (got.double() - ref.double()).abs()
-    return (float((err / (1e-3 + 1e-2 * ref.double().abs())).max()),
-            float((got != ref).float().mean()))
 
 
 def _attn_inputs(device, b, sq, sk, h, d, bias, dtype, seed):
@@ -998,29 +986,16 @@ def test_attention_kernels_match_plain(cuda_device, dtype, case):
     grad_tol = (1e-2, 1e-3) if half else (5e-5, 5e-5)
     checks = [("o", o, o_p) + ((2e-2, 2e-2) if half else (2e-5, 2e-5)),
               ("lse", lse, lse_p, 2e-5, 2e-5),
-              ("dq", dq, want[0]) + grad_tol]
-    if not half:
-        checks += [("dk", dk, want[1]) + grad_tol,
-                   ("dv", dv, want[2]) + grad_tol]
-    else:
-        assert float((dq != want[0]).float().mean()) <= 1e-2, "dq"
-        # The tensor cores' O, dK and dV: two ulps with at most 1e-2 of the
-        # elements off, or ATTN_FLOOR_FACTOR times the plain version's own
-        # distance from correctly rounded sums, whichever is larger.
+              ("dq", dq, want[0]) + grad_tol,
+              ("dk", dk, want[1]) + grad_tol,
+              ("dv", dv, want[2]) + grad_tol]
+    if half:
         o_t = att.attention_pair_tiled_plain(q, k, v, key_bias, causal,
                                              scale)[0]
-        exact = att.attention_exact_sums(q, k, v, key_bias, causal, scale,
-                                         do, dl, lse_p)
-        for name, got, ref, ex in (("o_tiled", o, o_t, exact[0]),
-                                   ("dk", dk, want[1], exact[1]),
-                                   ("dv", dv, want[2], exact[2])):
-            assert got.dtype == ref.dtype and got.shape == ref.shape, name
-            viol, share = _ulp_rule(got, ref)
-            f_viol, f_share = _ulp_rule(ref, ex)
-            assert viol <= max(1.0, ATTN_FLOOR_FACTOR * f_viol), (
-                name, viol, f_viol)
-            assert share <= max(1e-2, ATTN_FLOOR_FACTOR * f_share), (
-                name, share, f_share)
+        checks.append(("o_tiled", o, o_t, 1e-2, 1e-3))
+        for name, got, ref in (("o_tiled", o, o_t), ("dq", dq, want[0]),
+                               ("dk", dk, want[1]), ("dv", dv, want[2])):
+            assert float((got != ref).float().mean()) <= 1e-2, name
     for name, got, ref, rtol, atol in checks:
         assert got.dtype == ref.dtype and got.shape == ref.shape, name
         np.testing.assert_allclose(got.float().cpu().numpy(),
