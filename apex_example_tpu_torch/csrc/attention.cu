@@ -22,47 +22,52 @@
 // Bound: operations.  Each live score costs 4 (forward), 8 (dK/dV) and 6
 // (dQ) flops per head-dimension element, and the bytes are O(S * D) per
 // head, so at gpt_base's 8 x 2048 x 12 x 64 the least time is the flops
-// over the card's fp32 rate, or its bf16 tensor-core rate for half inputs.
+// over the card's fp32 rate, or its bf16 / fp16 tensor-core rate for half
+// inputs.
 //
-// Two designs, chosen by dtype alone (`launch`):
+// Two designs, chosen by dtype alone (`launch`); no shape and no failure
+// sends a tensor to the other one:
 //
-// fp32 and fp16, and bf16's dK/dV and dQ: fp32 fused multiply-adds on the
-// CUDA cores (fp32 without TF32 is the port's fp32 contract; bf16 / fp16
-// operands widen exactly to fp32, so the products are those of JAX's
-// `preferred_element_type=float32` dots).  Tiles of 64 queries and 64 keys
-// in shared memory, held as fp32; 256 threads, each owning a 4 x 4 piece of
-// the score tile (4 rows, columns 16 apart) and 4 rows x 8 head-dim columns
-// of the output; 16-byte shared-memory loads along the head dimension; row
-// maxima and sums over the 16 threads of a row with warp shuffles.  Causal
-// tiles wholly above the diagonal are skipped, as `_when_live` (:121) skips
-// them.  A half dQ, dK and dV round the fp32 sums that the plain version on
-// the card forms in the same FMA order, which their limit asks (chip_smoke.py's ATTN_BWD_TOL, 5e-5 as in fp32); the
-// tensor cores sum in another order, which flips a bf16 ulp now and then.
-// An fp16 O, whose ulp is 8 x finer than bf16's, would flip in ~1% of its
-// elements against the plain version's tiled arithmetic (ATTN_HALF_FLIPS
-// allows 1e-2), so fp16 keeps the CUDA cores too.
+// fp32: fp32 fused multiply-adds on the CUDA cores for all three (fp32
+// without TF32 is the port's fp32 contract).  Tiles of 64 queries and 64
+// keys in shared memory, held as fp32; 256 threads, each owning a 4 x 4
+// piece of the score tile (4 rows, columns 16 apart) and 4 rows x 8
+// head-dim columns of the output; 16-byte shared-memory loads along the
+// head dimension; row maxima and sums over the 16 threads of a row with
+// warp shuffles.  Causal tiles wholly above the diagonal are skipped, as
+// `_when_live` (:121) skips them.
 //
-// bf16 forward (`attn_fwd_kernel_tc`): Hopper's tensor cores.  One
-// warpgroup (128 threads) owns 64 queries.  Every operand tile is 64 rows
-// of the head dim padded to 64 or 128 elements (pad columns zero), stored in
-// wgmma's 128-byte-swizzle layout, so one tile serves as a K-major operand
-// (Q and K: S = Q K^T runs over the head dim) and as a transposed, MN-major
-// one (V: P V runs over the keys).  K and V run through a ring of two
-// stages filled by cp.async while the previous tile computes; cp.async,
-// not TMA, because the operands arrive as strided (B, S, H, D) views with
-// any strides: a row that is contiguous and 16-byte aligned loads in
-// 16-byte chunks, any other through its strides, element by element, into
-// the same layout.  S = Q K^T is a shared-memory wgmma (m64n64k16); the
-// online softmax runs on the fp32 accumulator fragments, each thread
-// holding two rows' m, l and O; P is rounded into the register A operand
-// of P V (m64nDk16, V transposed from shared memory), summed per k/v tile
-// into a fresh accumulator and added as O = O alpha + P V; exp is __expf.
-// Key tiles stay 64 wide (kTcKeys), so a bf16 O rounds P against the
-// running max where attention_pair_tiled_plain does.  Causal blocks launch
-// longest first (the last q tiles).  The fp32 sums run in the tensor
-// cores' order: a bf16 O differs from the plain version's tiled arithmetic
-// by an ulp in ~1e-3 of its elements (chip_smoke.py's ATTN_HALF_FLIPS).
+// bf16 and fp16: Hopper's tensor cores for all three (`*_kernel_tc`).
+// One warpgroup (128 threads) owns 64 rows: queries in the forward and in
+// dQ, keys in dK/dV.  Every operand tile is 64 rows of the head dim padded
+// to 64 or 128 elements (pad columns zero), stored in wgmma's 128-byte-
+// swizzle layout, so one tile serves as a K-major operand (the products
+// over the head dim: S = Q K^T, dP = dO V^T and their transposes) and as
+// a transposed, MN-major one (the products over rows: P V, dS K, P^T dO,
+// dS^T Q).  The streamed tiles (K and V in the forward and dQ; Q, dO, lse
+// and Delta in dK/dV) run through a ring of two stages filled by cp.async
+// while the previous tile computes; cp.async, not TMA, because the
+// operands arrive as strided (B, S, H, D) views with any strides: a row
+// that is contiguous and 16-byte aligned loads in 16-byte chunks, any other
+// through its strides, element by element, into the same layout.  The
+// score-shaped products are shared-memory wgmma (m64n64k16); the softmax,
+// P and dS run on the fp32 accumulator fragments, each thread holding two
+// rows; P and dS are rounded into the register A operand of the next
+// product (m64n64k16 or m64n128k16, the B tile read MN-major).  Key tiles
+// stay 64 wide (kTcKeys), so a half O rounds P against the running max
+// where attention_pair_tiled_plain does.  Causal blocks launch longest
+// first.
 //
+// The tensor cores add the same fp32 products as the plain version in
+// another order, so a half result is not bitwise the plain version's.  It
+// is held to ops/attention.py's `half_result_check`: every element within
+// about two ulps (rtol 1e-2, atol 1e-3), at most 1e-2 (bf16) or 8e-2
+// (fp16, 3 more mantissa bits, 8 x the flips) of the elements off at all;
+// in a batch element whose key bias masks every key (P = 1 at every pair,
+// so its gradients are sums of unnormalised terms that cancel), each row
+// within 3 x the plain version's own distance from correctly rounded sums.
+// A rounding point skipped or moved flips 39-55% of the elements.
+
 // Layout: q, k, v, o and dO are read in their (B, S, H, D) layout through
 // four strides each (elements), so no transpose is copied; O, dQ, dK and
 // dV are written contiguous (B, S, H, D); lse and Delta are contiguous
@@ -126,7 +131,7 @@ struct Params {
   void* dv;
   long long sq[4], sk[4], sv[4], sdo[4];  // strides of (B, S, H, D)
   long long sbias[2];                     // strides of (B, Sk)
-  int vq, vk, vv;  // rows contiguous and 16-byte aligned (cp.async)
+  int vq, vk, vv, vdo;  // rows contiguous, 16-byte aligned (cp.async)
   int B, H, Sq, Sk, D;
   int causal, off;  // off = Sk - Sq
   float scale;
@@ -481,13 +486,21 @@ __global__ void __launch_bounds__(kThreads) attn_dkdv_kernel(Params p) {
   store_rows(static_cast<T*>(p.dv), b, h, k0, p.Sk, p, r0, tx, dv);
 }
 
-// ---- the bf16 forward on the tensor cores --------------------------------
+// ---- bf16 / fp16 on the tensor cores -------------------------------------
 
 constexpr int kTcKeys = 64;      // keys of a k/v tile (the plain TILE)
-constexpr int kTcRows = 64;      // queries of a q tile
+constexpr int kTcRows = 64;      // rows of every other tile: q, dO
 constexpr int kTcThreads = 128;  // one warpgroup
 constexpr int kAtomBytes = 64 * 128;  // a 64-row column of 64 halves
 static_assert(kTcKeys == kTcRows, "the tile helpers take 64-row tiles");
+
+// 1 builds the backward kernels with each k16 step of S and dP and each
+// tile's P^T dO, dS^T Q and dS K summed into fresh accumulators and added
+// in fp32 with round-to-nearest; 0 (the default) lets the tensor cores
+// accumulate straight into S, dP, dQ, dK and dV.
+#ifndef APEX_ATTN_PARTIALS
+#define APEX_ATTN_PARTIALS 0
+#endif
 
 __device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
@@ -548,6 +561,13 @@ __device__ __forceinline__ void st_shared_v4(uint32_t dst, uint32_t a,
                "r"(a), "r"(b), "r"(c), "r"(d)
                : "memory");
 }
+__device__ __forceinline__ uint4 ld_shared_v4(uint32_t src) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(src));
+  return v;
+}
 __device__ __forceinline__ void zero_smem(uint32_t dst, int bytes) {
   for (int i = 16 * threadIdx.x; i < bytes; i += 16 * kTcThreads)
     st_shared_v4(dst + i, 0u, 0u, 0u, 0u);
@@ -593,59 +613,85 @@ __device__ __forceinline__ void pin(uint32_t (&a)[4][4]) {
   "%48, %49, %50, %51, %52, %53, %54, %55, "        \
   "%56, %57, %58, %59, %60, %61, %62, %63"
 
+// One asm body per shape; TY is the operands' wgmma type, "bf16" or "f16".
 // S (+)= A B^T, m64n64k16: A and B both K-major in shared memory
 // (descriptors da, db); scale_d = 0 overwrites d.
+#define APEX_WGMMA_SS(TY)                                               \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"             \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY \
+               " {" APEX_N32 "}, %32, %33, p, 1, 1, 0, 0;\n}\n"        \
+               : APEX_D32                                              \
+               : "l"(da), "l"(db), "r"(scale_d))
+// d (+)= A B, m64n64k16: A from registers (four 16-bit pairs a thread),
+// B an MN-major (transposed) shared-memory operand.
+#define APEX_WGMMA_RS64(TY)                                                \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY    \
+               " {" APEX_N32 "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n" \
+               "}\n"                                                      \
+               : APEX_D32                                                 \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),     \
+                 "r"(scale_d))
+// d (+)= A B, m64n128k16: as above, 128 columns.
+#define APEX_WGMMA_RS128(TY)                                               \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY   \
+               " {" APEX_N64 "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n" \
+               "}\n"                                                      \
+               : APEX_D64                                                 \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),     \
+                 "r"(scale_d))
+
+template <typename T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
                                          uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" APEX_N32
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : APEX_D32
-      : "l"(da), "l"(db), "r"(scale_d));
+  if constexpr (std::is_same<T, __half>::value)
+    APEX_WGMMA_SS("f16");
+  else
+    APEX_WGMMA_SS("bf16");
 }
-
-// d (+)= A B, m64n64k16: A from registers (four bf16 pairs a thread), B
-// an MN-major (transposed) shared-memory operand.
+template <typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
                                          const uint32_t (&a)[4], uint64_t db,
                                          int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" APEX_N32
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : APEX_D32
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  if constexpr (std::is_same<T, __half>::value)
+    APEX_WGMMA_RS64("f16");
+  else
+    APEX_WGMMA_RS64("bf16");
 }
-
-// d (+)= A B, m64n128k16: as above, 128 columns.
+template <typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[64],
                                          const uint32_t (&a)[4], uint64_t db,
                                          int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" APEX_N64
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : APEX_D64
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  if constexpr (std::is_same<T, __half>::value)
+    APEX_WGMMA_RS128("f16");
+  else
+    APEX_WGMMA_RS128("bf16");
 }
 
-// Two floats rounded to bf16, the lower column in the low half.
+// Two floats rounded to T, the lower column in the low half.
+template <typename T>
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+  if constexpr (std::is_same<T, __half>::value) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
 }
 
 // A k16 slice of the 64 x 64 score accumulator as a wgmma A operand: the
 // accumulator's n8 blocks 2 kk and 2 kk + 1 are the operand's columns
 // 0-7 and 8-15, in the same thread and row.
+template <typename T>
 __device__ __forceinline__ void to_operand(const float (&s)[32],
                                            uint32_t (&a)[4][4]) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r)
-      a[kk][r] = pack2(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+      a[kk][r] = pack2<T>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
 }
 
 // This thread's share of the 16-byte chunks of a 64-row tile, D / 8
@@ -675,8 +721,8 @@ __device__ __forceinline__ ChunkWalk chunk_walk(int D) {
 // when the rows are contiguous and 16-byte aligned (`vec`), else 2-byte
 // loads through the strides.  Rows at or past n_rows are zero; the pad
 // columns past D are never written (zeroed at the kernel's start).
-__device__ __forceinline__ void load_tile_tc(uint32_t tile,
-                                             const __nv_bfloat16* src,
+template <typename T>
+__device__ __forceinline__ void load_tile_tc(uint32_t tile, const T* src,
                                              const long long* st, int vec,
                                              int b, int h, int row0,
                                              int n_rows, const ChunkWalk& w) {
@@ -710,24 +756,37 @@ __device__ __forceinline__ void load_tile_tc(uint32_t tile,
   }
 }
 
-// Rows r and r + 8 of a 64 x 2N accumulator in bf16: columns below D of
-// rows row0 + r (+ 8) that are below n_rows, contiguous (B, n_rows, H, D).
-template <int N>
-__device__ __forceinline__ void store_acc(__nv_bfloat16* dst, const Params& p,
-                                          int b, int h, int row0, int n_rows,
+// Start copying lse and Delta of rows q0 .. q0 + 63 (zero past Sq) to
+// dst[0 .. 63] and dst[64 .. 127] (floats).
+__device__ __forceinline__ void load_rows_tc(uint32_t dst, const Params& p,
+                                             long long row_base, int q0) {
+  const int t = threadIdx.x & 63;
+  const float* src = threadIdx.x < 64 ? p.lse : p.delta;
+  const int row = q0 + t;
+  cp_async4(dst + 4 * threadIdx.x,
+            src + row_base + (row < p.Sq ? row : p.Sq - 1),
+            row < p.Sq ? 4 : 0);
+}
+
+// Rows r and r + 8 of a 64 x 2N accumulator in the input dtype: columns
+// below D of rows row0 + r (+ 8) that are below n_rows, contiguous
+// (B, n_rows, H, D).
+template <typename T, int N>
+__device__ __forceinline__ void store_acc(T* dst, const Params& p, int b,
+                                          int h, int row0, int n_rows,
                                           int r, int c, const float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + r + 8 * i;
     if (row >= n_rows) continue;
-    __nv_bfloat16* out =
-        dst + ((static_cast<long long>(b) * n_rows + row) * p.H + h) * p.D;
+    T* out = dst + ((static_cast<long long>(b) * n_rows + row) * p.H + h) *
+                       p.D;
 #pragma unroll
     for (int j = 0; j < N / 4; ++j) {
       const int col = 8 * j + 2 * c;
       if (col < p.D)
         *reinterpret_cast<uint32_t*>(out + col) =
-            pack2(d[4 * j + 2 * i], d[4 * j + 2 * i + 1]);
+            pack2<T>(d[4 * j + 2 * i], d[4 * j + 2 * i + 1]);
     }
   }
 }
@@ -743,13 +802,167 @@ __device__ __forceinline__ void rescale_add(float (&acc)[N],
     acc[i] = __fadd_rn(__fmul_rn(acc[i], alpha[(i >> 1) & 1]), t[i]);
 }
 
+// The 16 bits of a T (the low half of `bits`) widened to fp32.
+template <typename T>
+__device__ __forceinline__ float widen(uint32_t bits) {
+  if constexpr (std::is_same<T, __half>::value)
+    return __half2float(__ushort_as_half(static_cast<unsigned short>(bits)));
+  else
+    return __uint_as_float(bits << 16);
+}
+
+// Row ra of tile a dotted with row rb of tile b over the head dim, in fp32
+// with one fused multiply-add per column in order: the CUDA-core kernels'
+// chain, which the plain version on the card matches bitwise.
+template <typename T>
+__device__ float dot_rows(uint32_t a, int ra, uint32_t b, int rb, int D) {
+  float s = 0.f;
+  for (int c = 0; c < D / 8; ++c) {
+    const uint4 x = ld_shared_v4(a + chunk_off(ra, c));
+    const uint4 y = ld_shared_v4(b + chunk_off(rb, c));
+    const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
+    const uint32_t ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      s = fmaf(widen<T>(xs[i] & 0xFFFFu), widen<T>(ys[i] & 0xFFFFu), s);
+      s = fmaf(widen<T>(xs[i] >> 16), widen<T>(ys[i] >> 16), s);
+    }
+  }
+  return s;
+}
+
+// A (query, key) pair, as sequence positions.
+struct Pair {
+  int query, key;
+};
+
+// A query row whose every key is masked by the bias: its lse is -1e9 (+ a
+// log Sk that rounds away), where a row with a live key has lse >= its
+// largest score.  Only a key bias can mask every key of a row.
+constexpr float kDeadLse = -1e8f;
+
+// dP of the dead query rows of a 64 x 64 accumulator tile, in place, by
+// dot_rows: in such a row P = 1 at every pair, not ~1 / Sk, so a dS that
+// rounds the other way moves dQ and dK by a whole ulp of dS, and the plain
+// version's FMA chain keeps dS where the plain version rounds it.  Element
+// i of the thread's fragment, at row r + 8 ((i & 3) >> 1) and column
+// 8 (i >> 2) + 2 c + (i & 1), is that row of tile a dotted with that
+// column's row of tile b; dead(row, column) says whether its query is
+// dead.  The loop is not unrolled, so the hot path keeps its size; the
+// fixes go through a scratch array and come back by predicated moves.
+template <typename T, typename Dead>
+__device__ __forceinline__ void dead_rows_dp(float (&dp)[32], uint32_t a,
+                                             uint32_t b, int D, int r, int c,
+                                             Dead dead) {
+  auto row = [&](int i) { return r + 8 * ((i & 3) >> 1); };
+  auto col = [&](int i) { return 8 * (i >> 2) + 2 * c + (i & 1); };
+  bool any = false;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) any = any || dead(row(i), col(i));
+  if (!any) return;
+  float fix[32];
+#pragma unroll 1
+  for (int i = 0; i < 32; ++i)
+    if (dead(row(i), col(i))) fix[i] = dot_rows<T>(a, row(i), b, col(i), D);
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    if (dead(row(i), col(i))) dp[i] = fix[i];
+}
+
+// The backward's two score-shaped products over the padded head dim:
+// d1 = A1 B1^T and d2 = A2 B2^T, the four tiles K-major in shared memory.
+template <typename T, int DP>
+__device__ __forceinline__ void score_products(float (&d1)[32], uint32_t a1,
+                                               uint32_t b1, float (&d2)[32],
+                                               uint32_t a2, uint32_t b2) {
+#if APEX_ATTN_PARTIALS
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    float u1[32], u2[32];
+    pin(u1);
+    pin(u2);
+    wg_fence();
+    wgmma_ss<T>(u1, kmajor_desc(a1, kk), kmajor_desc(b1, kk), 0);
+    wgmma_ss<T>(u2, kmajor_desc(a2, kk), kmajor_desc(b2, kk), 0);
+    wg_commit_wait();
+    pin(u1);
+    pin(u2);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      d1[i] = kk ? __fadd_rn(d1[i], u1[i]) : u1[i];
+      d2[i] = kk ? __fadd_rn(d2[i], u2[i]) : u2[i];
+    }
+  }
+#else
+  pin(d1);
+  pin(d2);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    wgmma_ss<T>(d1, kmajor_desc(a1, kk), kmajor_desc(b1, kk), kk);
+    wgmma_ss<T>(d2, kmajor_desc(a2, kk), kmajor_desc(b2, kk), kk);
+  }
+  wg_commit_wait();
+  pin(d1);
+  pin(d2);
+#endif
+}
+
+// acc += A B over 64 rows: A a 64 x 64 tile rounded into registers (four
+// k16 slices), B a 64-row shared tile read MN-major; t is scratch of acc's
+// size (the fresh accumulator of APEX_ATTN_PARTIALS).
+template <typename T, int N>
+__device__ __forceinline__ void accumulate(float (&acc)[N],
+                                           uint32_t (&a)[4][4], uint32_t b,
+                                           float (&t)[N]) {
+#if APEX_ATTN_PARTIALS
+  pin(t);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs<T>(t, a[kk], mnmajor_desc(b, kk), kk);
+  wg_commit_wait();
+  pin(t);
+  pin(a);
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] = __fadd_rn(acc[i], t[i]);
+#else
+  pin(acc);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs<T>(acc, a[kk], mnmajor_desc(b, kk), 1);
+  wg_commit_wait();
+  pin(acc);
+  pin(a);
+#endif
+}
+
+// P = exp(S - lse) and dS = P (dP - Delta) scale on a 64 x 64 accumulator
+// tile, in place: s holds the raw Q K^T dots of the (query, key) pairs
+// that `at` names for element i (two rows of the thread), dp the dO V^T
+// dots; lse and Delta are the query's.  On return s holds P, dp holds dS
+// (both fp32, rounded to the input dtype by to_operand).  expf, not
+// __expf: P feeds dS, whose rounding an approximate exp would move more
+// often.
+__device__ __forceinline__ void p_and_ds(const Params& p, float& s,
+                                         float& dp, float bias, Pair at,
+                                         bool edge, float lse, float delta) {
+  float x = s * p.scale;
+  if (p.bias != nullptr) x += bias;
+  if (edge && (at.key >= p.Sk || at.query >= p.Sq ||
+               (p.causal && at.query + p.off < at.key)))
+    x = kMask;
+  const float pv = expf(x - lse);
+  s = pv;
+  dp = pv * (dp - delta) * p.scale;
+}
+
 // ---- forward: one warpgroup per (b * H + h, 64 queries) -----------------
 // Shared memory: Q, then K and V of stage 0 and of stage 1.  The tensor
 // cores sum each k/v tile's P V into a fresh accumulator t (4 k16 steps);
 // O = O alpha + t in fp32 with round-to-nearest, so the long sum over the
 // tiles does not carry the tensor cores' truncation from tile to tile.
 
-template <int DP>
+template <typename T, int DP>
 __global__ void __launch_bounds__(kTcThreads) attn_fwd_kernel_tc(Params p) {
   constexpr int kTileBytes = DP / 64 * kAtomBytes;
   constexpr int kN = DP / 2;  // O's accumulator floats a thread
@@ -761,9 +974,9 @@ __global__ void __launch_bounds__(kTcThreads) attn_fwd_kernel_tc(Params p) {
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcRows;  // longest first
   const int lane = threadIdx.x & 31, c = lane & 3;
   const int r = 16 * (threadIdx.x >> 5) + (lane >> 2);  // rows r, r + 8
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q);
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k);
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v);
+  const T* q = static_cast<const T*>(p.q);
+  const T* k = static_cast<const T*>(p.k);
+  const T* v = static_cast<const T*>(p.v);
   const int last = last_kv_tile(p, q0);
   const ChunkWalk w = chunk_walk(p.D);
 
@@ -794,7 +1007,7 @@ __global__ void __launch_bounds__(kTcThreads) attn_fwd_kernel_tc(Params p) {
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
-      wgmma_ss(s, kmajor_desc(sQ, kk), kmajor_desc(sK, kk), kk);
+      wgmma_ss<T>(s, kmajor_desc(sQ, kk), kmajor_desc(sK, kk), kk);
     wg_commit_wait();
     pin(s);
 
@@ -844,14 +1057,14 @@ __global__ void __launch_bounds__(kTcThreads) attn_fwd_kernel_tc(Params p) {
       l[i] = l[i] * alpha[i] + rs[i];
       m[i] = mn[i];
     }
-    to_operand(s, a);
+    to_operand<T>(s, a);
 
     // t = P V; O = O alpha + t
     pin(t);
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs(t, a[kk], mnmajor_desc(sV, kk), kk);
+      wgmma_rs<T>(t, a[kk], mnmajor_desc(sV, kk), kk);
     wg_commit_wait();
     pin(t);
     pin(a);
@@ -871,17 +1084,198 @@ __global__ void __launch_bounds__(kTcThreads) attn_fwd_kernel_tc(Params p) {
       p.lse_out[(static_cast<long long>(b) * p.H + h) * p.Sq + row] =
           m[i] + logf(lsafe);
   }
-  store_acc(static_cast<__nv_bfloat16*>(p.out), p, b, h, q0, p.Sq, r, c,
-            o);
+  store_acc<T>(static_cast<T*>(p.out), p, b, h, q0, p.Sq, r, c, o);
 }
 
-template <int DP>
-int launch_tc(const Params& p, cudaStream_t stream) {
-  // Q, K and V of two stages; + 1024: the tiles start at the next
-  // 1024-byte boundary
-  constexpr size_t bytes = 5 * (DP / 64 * kAtomBytes) + 1024;
-  const dim3 grid(p.B * p.H, (p.Sq + kTcRows - 1) / kTcRows);
-  void (*kernel)(Params) = attn_fwd_kernel_tc<DP>;
+// ---- dQ: one warpgroup per (b * H + h, 64 queries) ----------------------
+// The forward's skeleton with the queries stationary.  Shared memory: Q
+// and dO, then K and V of stage 0 and of stage 1.  Each thread holds lse
+// and Delta of its two rows.  Per k/v tile: S = Q K^T and dP = dO V^T,
+// dS on the accumulator fragments, rounded into the A operand of
+// dQ += dS K (K read MN-major, as V is in the forward's P V).
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kTcThreads) attn_dq_kernel_tc(Params p) {
+  constexpr int kTileBytes = DP / 64 * kAtomBytes;
+  constexpr int kN = DP / 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sdO = sQ + kTileBytes;
+  zero_smem(sQ, 6 * kTileBytes);
+  __syncthreads();
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcRows;  // longest first
+  const int lane = threadIdx.x & 31, c = lane & 3;
+  const int r = 16 * (threadIdx.x >> 5) + (lane >> 2);  // rows r, r + 8
+  const T* k = static_cast<const T*>(p.k);
+  const T* v = static_cast<const T*>(p.v);
+  const int last = last_kv_tile(p, q0);
+  const ChunkWalk w = chunk_walk(p.D);
+
+  load_tile_tc(sQ, static_cast<const T*>(p.q), p.sq, p.vq, b, h, q0, p.Sq,
+               w);
+  load_tile_tc(sdO, static_cast<const T*>(p.dout), p.sdo, p.vdo, b, h, q0,
+               p.Sq, w);
+  load_tile_tc(sQ + 2 * kTileBytes, k, p.sk, p.vk, b, h, 0, p.Sk, w);
+  load_tile_tc(sQ + 3 * kTileBytes, v, p.sv, p.vv, b, h, 0, p.Sk, w);
+  cp_async_commit();
+  const long long row_base = (static_cast<long long>(b) * p.H + h) * p.Sq;
+  float lse[2], delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r + 8 * i;
+    lse[i] = row < p.Sq ? p.lse[row_base + row] : 0.f;
+    delta[i] = row < p.Sq ? p.delta[row_base + row] : 0.f;
+  }
+  float dq[kN], t[kN], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < kN; ++i) dq[i] = t[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+  uint32_t a[4][4];
+  for (int j = 0; j <= last; ++j) {
+    const int k0 = j * kTcKeys;
+    const uint32_t sK = sQ + (2 + 2 * (j & 1)) * kTileBytes;
+    const uint32_t sV = sK + kTileBytes;
+    if (j < last) {  // the next k/v tile into the other stage
+      const uint32_t nK = sQ + (2 + 2 * ((j + 1) & 1)) * kTileBytes;
+      load_tile_tc(nK, k, p.sk, p.vk, b, h, k0 + kTcKeys, p.Sk, w);
+      load_tile_tc(nK + kTileBytes, v, p.sv, p.vv, b, h, k0 + kTcKeys, p.Sk,
+                   w);
+    }
+    cp_async_commit();
+    wait_tiles();
+
+    score_products<T, DP>(s, sQ, sK, dp, sdO, sV);
+    if (p.bias != nullptr)  // only a key bias can mask every key of a row
+      dead_rows_dp<T>(dp, sdO, sV, p.D, r, c, [&](int row, int) {
+        return (row == r ? lse[0] : lse[1]) <= kDeadLse;
+      });
+    const bool edge = k0 + kTcKeys > p.Sk || q0 + kTcRows > p.Sq ||
+                      (p.causal && k0 + kTcKeys - 1 > q0 + p.off);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + 8 * jj + 2 * c + (e & 1);
+        p_and_ds(p, s[4 * jj + e], dp[4 * jj + e], key_bias(p, b, col),
+                 Pair{q0 + r + 8 * (e >> 1), col}, edge, lse[e >> 1],
+                 delta[e >> 1]);
+      }
+    to_operand<T>(dp, a);
+    accumulate<T>(dq, a, sK, t);
+    __syncthreads();  // this stage is read: the next load may refill it
+  }
+  store_acc<T>(static_cast<T*>(p.out), p, b, h, q0, p.Sq, r, c, dq);
+}
+
+// ---- dK, dV: one warpgroup per (b * H + h, 64 keys) ---------------------
+// Shared memory: K, V, then Q and dO of stage 0 and of stage 1, then lse
+// and Delta (64 floats each) of stage 0 and of stage 1.  Per q tile:
+// S^T = K Q^T and dP^T = V dO^T, then P^T and dS^T on the accumulator
+// fragments, rounded into the A operands of dV += P^T dO and
+// dK += dS^T Q (dO and Q read MN-major).
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kTcThreads) attn_dkdv_kernel_tc(Params p) {
+  constexpr int kTileBytes = DP / 64 * kAtomBytes;
+  constexpr int kN = DP / 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t sK = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sV = sK + kTileBytes;
+  const uint32_t sRows = sK + 6 * kTileBytes;
+  const float* rows = reinterpret_cast<const float*>(
+      smem_raw + (sRows - smem_u32(smem_raw)));
+  zero_smem(sK, 6 * kTileBytes);
+  __syncthreads();
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int k0 = blockIdx.y * kTcKeys;  // longest causal blocks first
+  const int lane = threadIdx.x & 31, c = lane & 3;
+  const int r = 16 * (threadIdx.x >> 5) + (lane >> 2);  // keys k0 + r, + 8
+  const T* q = static_cast<const T*>(p.q);
+  const T* dout = static_cast<const T*>(p.dout);
+  const int nq = (p.Sq + kTcRows - 1) / kTcRows;
+  int first = 0;  // the first q tile that sees this k/v tile
+  if (p.causal) {
+    const int lo = k0 - p.off - kTcRows + 1;
+    first = lo > 0 ? (lo + kTcRows - 1) / kTcRows : 0;
+  }
+  const long long row_base = (static_cast<long long>(b) * p.H + h) * p.Sq;
+  const ChunkWalk w = chunk_walk(p.D);
+
+  load_tile_tc(sK, static_cast<const T*>(p.k), p.sk, p.vk, b, h, k0, p.Sk,
+               w);
+  load_tile_tc(sV, static_cast<const T*>(p.v), p.sv, p.vv, b, h, k0, p.Sk,
+               w);
+  load_tile_tc(sK + 2 * kTileBytes, q, p.sq, p.vq, b, h, first * kTcRows,
+               p.Sq, w);
+  load_tile_tc(sK + 3 * kTileBytes, dout, p.sdo, p.vdo, b, h,
+               first * kTcRows, p.Sq, w);
+  load_rows_tc(sRows, p, row_base, first * kTcRows);
+  cp_async_commit();
+  const float bias[2] = {key_bias(p, b, k0 + r), key_bias(p, b, k0 + r + 8)};
+  float dk[kN], dv[kN], t[kN], st[32], dpt[32];
+#pragma unroll
+  for (int i = 0; i < kN; ++i) dk[i] = dv[i] = t[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+  uint32_t pa[4][4], da[4][4];
+  for (int it = first; it < nq; ++it) {
+    const int q0 = it * kTcRows, stage = (it - first) & 1;
+    const uint32_t sQ = sK + (2 + 2 * stage) * kTileBytes;
+    const uint32_t sdO = sQ + kTileBytes;
+    const float* lse = rows + 128 * stage;
+    const float* delta = lse + 64;
+    if (it + 1 < nq) {  // the next q tile into the other stage
+      const uint32_t nQ = sK + (2 + 2 * (stage ^ 1)) * kTileBytes;
+      load_tile_tc(nQ, q, p.sq, p.vq, b, h, q0 + kTcRows, p.Sq, w);
+      load_tile_tc(nQ + kTileBytes, dout, p.sdo, p.vdo, b, h, q0 + kTcRows,
+                   p.Sq, w);
+      load_rows_tc(sRows + 512 * (stage ^ 1), p, row_base, q0 + kTcRows);
+    }
+    cp_async_commit();
+    wait_tiles();
+
+    score_products<T, DP>(st, sK, sQ, dpt, sV, sdO);
+    if (p.bias != nullptr)  // dP^T: key rows of sV, query rows of sdO
+      dead_rows_dp<T>(dpt, sV, sdO, p.D, r, c, [&](int, int col) {
+        return lse[col] <= kDeadLse;
+      });
+    const bool edge = q0 + kTcRows > p.Sq || k0 + kTcKeys > p.Sk ||
+                      (p.causal && q0 + p.off < k0 + kTcKeys - 1);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = 8 * jj + 2 * c + (e & 1);
+        p_and_ds(p, st[4 * jj + e], dpt[4 * jj + e], bias[e >> 1],
+                 Pair{q0 + qi, k0 + r + 8 * (e >> 1)}, edge, lse[qi],
+                 delta[qi]);
+      }
+    to_operand<T>(st, pa);
+    to_operand<T>(dpt, da);
+    accumulate<T>(dv, pa, sdO, t);
+    accumulate<T>(dk, da, sQ, t);
+    __syncthreads();  // this stage is read: the next load may refill it
+  }
+  store_acc<T>(static_cast<T*>(p.dk), p, b, h, k0, p.Sk, r, c, dk);
+  store_acc<T>(static_cast<T*>(p.dv), p, b, h, k0, p.Sk, r, c, dv);
+}
+
+// kind 0 forward, 1 dQ, 2 dK/dV.
+template <typename T, int DP>
+int launch_tc(int kind, const Params& p, cudaStream_t stream) {
+  constexpr size_t tile = DP / 64 * kAtomBytes;
+  // + 1024: the tiles start at the next 1024-byte boundary
+  const size_t bytes = kind == 0   ? 5 * tile + 1024
+                       : kind == 1 ? 6 * tile + 1024
+                                   : 6 * tile + 4 * kTcRows * sizeof(float) +
+                                         1024;
+  const int rows = kind == 2 ? p.Sk : p.Sq;
+  const dim3 grid(p.B * p.H, (rows + kTcRows - 1) / kTcRows);
+  void (*kernel)(Params) = kind == 0   ? attn_fwd_kernel_tc<T, DP>
+                           : kind == 1 ? attn_dq_kernel_tc<T, DP>
+                                       : attn_dkdv_kernel_tc<T, DP>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
@@ -903,26 +1297,27 @@ size_t smem_bytes(int kind, int D) {
   }
 }
 
-// The route is the dtype's: the bf16 forward takes the tensor cores (the
-// head dim padded to 64 or 128), everything else the CUDA cores.
+// The route is the dtype's: fp32 takes the CUDA-core kernels, bf16 and
+// fp16 the tensor cores' (the head dim padded to 64 or 128).
 template <typename T>
 int launch(int kind, const Params& p, cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (kind == 0)
-      return p.D <= 64 ? launch_tc<64>(p, stream) : launch_tc<128>(p, stream);
+  if constexpr (!std::is_same<T, float>::value) {
+    return p.D <= 64 ? launch_tc<T, 64>(kind, p, stream)
+                     : launch_tc<T, 128>(kind, p, stream);
+  } else {
+    const int rows = kind == 2 ? p.Sk : p.Sq;
+    const dim3 grid(p.B * p.H, (rows + kTile - 1) / kTile);
+    const size_t bytes = smem_bytes(kind, p.D);
+    void (*kernel)(Params) = kind == 0   ? attn_fwd_kernel<T>
+                             : kind == 1 ? attn_dq_kernel<T>
+                                         : attn_dkdv_kernel<T>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, kThreads, bytes, stream>>>(p);
+    return static_cast<int>(cudaGetLastError());
   }
-  const int rows = kind == 2 ? p.Sk : p.Sq;
-  const dim3 grid(p.B * p.H, (rows + kTile - 1) / kTile);
-  const size_t bytes = smem_bytes(kind, p.D);
-  void (*kernel)(Params) = kind == 0   ? attn_fwd_kernel<T>
-                           : kind == 1 ? attn_dq_kernel<T>
-                                       : attn_dkdv_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, kThreads, bytes, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // dims: B, H, Sq, Sk, D, causal.  strides: 4 each for q, k, v, dO (the
@@ -968,6 +1363,7 @@ int run(int kind, const long long* dims, const long long* strides,
   p.vq = vec(q, p.sq);
   p.vk = vec(k, p.sk);
   p.vv = vec(v, p.sv);
+  p.vdo = vec(dout, p.sdo);
   p.B = static_cast<int>(B);
   p.H = static_cast<int>(H);
   p.Sq = static_cast<int>(Sq);

@@ -19,12 +19,21 @@ the kernels' math, against ``jax.vjp`` of the JAX op.
 ``flash_attention_cuda`` (the forward), ``flash_attention_dkdv_cuda`` and
 ``flash_attention_dq_cuda`` launch csrc/attention.cu, the kernels that
 replace the Pallas bodies on the card (the source notes state the bounds
-and designs): the dtype alone picks the kernel, the tensor cores' forward
-for bf16, the CUDA cores' for fp32 and fp16 and for dK/dV and dQ; every
-kernel reads q, k, v and dO through their strides, so no view is copied.
+and designs): the dtype alone picks the kernel, the tensor cores' for
+bf16 and fp16, the CUDA cores' for fp32; every kernel reads q, k, v and
+dO through their strides, so no view is copied.
 Delta is computed between them in PyTorch, as JAX leaves it to XLA.  Each
 validates its arguments, builds the library at first use, launches and
 counts its launches in ``.launches``.
+
+The limits the card checks hold the kernels to live here, once:
+``ATTN_FWD_TOL`` / ``ATTN_BWD_TOL`` for fp32 results, and
+``half_result_check`` for a half (bf16, fp16) O, dQ, dK or dV, which the
+tensor cores sum in another order than the plain version: every element
+within about two ulps, a bounded share of elements off at all, and in a
+batch element whose key bias masks every key (``dead_batch``) a per-row
+floor of 3 x the plain version's own distance from correctly rounded
+sums (``attention_exact_sums``).
 
 ``attention_fwd`` / ``attention_bwd`` choose by where the tensors lie: a
 CPU tensor takes the plain version, a CUDA tensor the kernels, whose
@@ -41,7 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -59,6 +68,31 @@ _ARG_ERRORS = {-1: "unsupported dtype", -2: "head dim out of range",
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+# The limits of the card checks (chip_smoke.py, tests/test_torch_cuda.py).
+# fp32: lse, O, dQ, dK and dV, atol = rtol (sums in another order).
+ATTN_FWD_TOL, ATTN_BWD_TOL = 2e-5, 5e-5
+# A half O against the reference's arithmetic (``attention_pair_plain``),
+# which rounds the normalised P and so moves ~half of O's roundings by an
+# ulp: atol = rtol.
+ATTN_HALF_TOL = 2e-2
+# A half O against ``attention_pair_tiled_plain`` and a half dQ, dK and dV
+# against ``attention_bwd_plain``: within about two bf16 ulps (rtol,
+# atol), and at most ATTN_HALF_FLIPS (bf16) or ATTN_HALF_FLIPS_FP16 of the
+# elements not bitwise equal.  The tensor cores add the same fp32 products
+# in another order; a sum that moves by a few fp32 ulps crosses a rounding
+# boundary of the output dtype with a chance that scales with its
+# precision, and fp16 keeps 3 more mantissa bits than bf16 (2^3 = 8 x the
+# flips).  A rounding point of P or dS skipped or moved flips 39-55%.
+ATTN_HALF_O_RTOL, ATTN_HALF_O_ATOL = 1e-2, 1e-3
+ATTN_HALF_FLIPS, ATTN_HALF_FLIPS_FP16 = 1e-2, 8e-2
+# A batch element is dead when its key bias masks every key (every bias
+# at or below DEAD_BIAS): lse = -1e9 + log Sk rounds to -1e9 in fp32, so
+# P = exp(S - lse) is 1 at every pair and its gradients are sums of
+# unnormalised terms that cancel.  Each row of a dead element's dQ, dK or
+# dV may be off by DEAD_FLOOR_X x that row's max |plain - exact sums|.
+DEAD_BIAS = -1e8
+DEAD_FLOOR_X = 3
 
 
 def _acc(t: torch.Tensor) -> torch.Tensor:
@@ -85,7 +119,15 @@ def scores_plain(q: torch.Tensor, k: torch.Tensor,
                  scale: float) -> torch.Tensor:
     """fp32 (B, H, Sq, Sk) scores: (Q K^T) * scale, + bias, causal mask
     (``_scores_reference`` :74)."""
-    s = torch.einsum("bqhd,bkhd->bhqk", _acc(q), _acc(k)) * scale
+    return _scores(torch.einsum("bqhd,bkhd->bhqk", _acc(q), _acc(k)), q, k,
+                   bias, causal, scale)
+
+
+def _scores(dots: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+            bias: Optional[torch.Tensor], causal: bool,
+            scale: float) -> torch.Tensor:
+    """The scores from the (B, H, Sq, Sk) Q K^T dot products."""
+    s = dots * scale
     if bias is not None:
         s = s + bias[:, None, None, :].to(s.dtype)
     if causal:
@@ -152,6 +194,91 @@ def attention_pair_tiled_plain(q: torch.Tensor, k: torch.Tensor,
     lsafe = torch.where(l == 0, torch.ones_like(l), l)
     o = (acc / lsafe).transpose(1, 2).to(q.dtype)
     return o, (m + torch.log(lsafe))[..., 0]
+
+
+def attention_exact_sums(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         bias: Optional[torch.Tensor], causal: bool,
+                         scale: float, do: torch.Tensor, dl: torch.Tensor,
+                         lse: torch.Tensor) -> Grads:
+    """(dq, dk, dv) of :func:`attention_bwd_plain` with every dot product
+    summed in fp64 and rounded once to fp32 (the scores, dP, dV, dK, dQ),
+    at the plain version's rounding points: P and dS rounded to the input
+    dtype, each output once.  ``dl`` and ``lse`` are the Delta and
+    logsumexp the kernels read.  The half checks measure the plain
+    version's own distance from it in dead batch elements; call it on
+    their slices, it holds (B, H, Sq, Sk) fp64 products."""
+    dt = q.dtype
+    q64, k64, v64, do64 = (t.double() for t in (q, k, v, do))
+    s = _scores(torch.einsum("bqhd,bkhd->bhqk", q64, k64).float(), q, k,
+                bias, causal, scale)
+    p = torch.exp(s - lse.float()[..., None])
+    del s
+    dp = torch.einsum("bqhd,bkhd->bhqk", do64, v64).float()
+    ds = (p * (dp - dl.float()[..., None]) * scale).to(dt).double()
+    del dp
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).double(), do64).float()
+    del p
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q64).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k64).float()
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def dead_batch(bias: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """(B,) bool: the batch elements whose key bias masks every key (every
+    bias <= DEAD_BIAS); None without a bias."""
+    return None if bias is None else (bias <= DEAD_BIAS).all(dim=1)
+
+
+class HalfCheck(NamedTuple):
+    err: float     # max |got - ref| over every element
+    share: float   # elements not bitwise equal, of the live batch elements
+    ok: bool       # within the limit
+    floor: float   # the largest dead-row floor (0 without a dead element)
+
+
+def half_result_check(name: str, got: torch.Tensor, ref: torch.Tensor,
+                      dead: Optional[torch.Tensor] = None,
+                      exact: Optional[torch.Tensor] = None) -> HalfCheck:
+    """Hold a half (bf16, fp16) result ``got`` of a kernel to ``ref``, the
+    plain version's: a half O ("o") to ``attention_pair_tiled_plain``, a
+    dQ, dK or dV ("dq", "dk", "dv") to ``attention_bwd_plain`` fed the
+    plain forward's lse and Delta; all (B, S, H, D).
+
+    1. Every element within ATTN_HALF_O_ATOL + ATTN_HALF_O_RTOL |ref|.
+    2. At most ATTN_HALF_FLIPS (bf16) or ATTN_HALF_FLIPS_FP16 (fp16) of the
+       elements of the live batch elements not bitwise equal.
+    3. In the gradients' dead batch elements (``dead``, (B,) bool, from
+       :func:`dead_batch`), each row (the last dim: one (b, key, h) of dK
+       or dV, one (b, query, h) of dQ) within the larger of 1.'s bound and
+       DEAD_FLOOR_X x that row's max |ref - exact|; ``exact`` is
+       :func:`attention_exact_sums`'s result on those elements' slices.
+       No other row, and no O, takes a floor.
+    The dtypes and shapes must be equal."""
+    if name not in ("o", "dq", "dk", "dv"):
+        raise ValueError(f"no half limit for {name!r}")
+    if got.dtype != ref.dtype or got.shape != ref.shape:
+        return HalfCheck(float("inf"), 1.0, False, 0.0)
+    gd, rd = got.double(), ref.double()
+    err = (gd - rd).abs()
+    bound = ATTN_HALF_O_ATOL + ATTN_HALF_O_RTOL * rd.abs()
+    live, floor = slice(None), 0.0
+    if dead is not None and bool(dead.any()):
+        if name == "o":
+            raise ValueError("a half O takes no dead-row floor")
+        if exact is None or exact.shape != got[dead].shape:
+            raise ValueError(f"{name}: the dead elements' exact sums must be "
+                             f"shaped {tuple(got[dead].shape)}")
+        rows = DEAD_FLOOR_X * (rd[dead] - exact.double()).abs().amax(
+            -1, keepdim=True)
+        bound[dead] = torch.maximum(bound[dead], rows)
+        live, floor = ~dead, float(rows.max())
+    flips = (ATTN_HALF_FLIPS_FP16 if got.dtype == torch.float16
+             else ATTN_HALF_FLIPS)
+    kept = got[live]
+    share = (float((kept != ref[live]).float().mean()) if kept.numel()
+             else 0.0)
+    ok = bool((err <= bound).all()) and share <= flips
+    return HalfCheck(float(err.max()), share, ok, floor)
 
 
 def delta(o: torch.Tensor, do: torch.Tensor,

@@ -287,7 +287,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_OPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
-BF16_OPS_PER_S = 989e12          # H100 SXM bf16 tensor cores, dense
+BF16_OPS_PER_S = 989e12          # H100 SXM bf16 / fp16 tensor cores, dense
 FP32_TOL = 1e-5
 TIE_TOL = 1e-4
 SLOTS, BLOCK = 8, 16
@@ -324,16 +324,6 @@ GPT2048_O2_ARGS = GPT2048_ARGS + ["--opt-level", "O2",
                                   "--steps-per-epoch", "10"]
 GPT2048_O0_ARGS = GPT2048_ARGS + ["--opt-level", "O0",
                                   "--steps-per-epoch", "5"]
-ATTN_FWD_TOL, ATTN_BWD_TOL = 2e-5, 5e-5   # fp32: atol = rtol
-# A bf16 O against the reference's arithmetic, which rounds the normalised
-# P (and so moves ~half of O's roundings by an ulp): atol = rtol.
-ATTN_HALF_TOL = 2e-2
-# A bf16 O against the kernels' own arithmetic (attention_pair_tiled_plain):
-# within about two ulps (rtol, atol), and at most ATTN_HALF_FLIPS of its
-# elements off at all: sums in another order flip ~1e-3 of them, one
-# rounding point of P skipped or moved 18-40%.  bf16 dQ, dK and dV:
-# ATTN_BWD_TOL, as in fp32 (they round the same fp32 sums).
-ATTN_HALF_O_RTOL, ATTN_HALF_O_ATOL, ATTN_HALF_FLIPS = 1e-2, 1e-3, 1e-2
 ROUTE_TOL = 1e-4          # flash vs dense step: |dgrad| / |grad|
 # a gradient that is zero in exact arithmetic (BERT's key biases), held as
 # rounding noise on each device: its norm against a real gradient of the
@@ -2019,7 +2009,7 @@ def phase_bn(bn, sync_batchnorm_cls, counted):
 
 ATTN_CASES = (   # name, B, Sq, Sk, H, D, causal, key bias, dlse, dtypes
     ("gpt_base", 8, 2048, 2048, 12, 64, True, False, False,
-     (torch.float32, torch.bfloat16)),
+     (torch.float32, torch.bfloat16, torch.float16)),
     ("bert_base", 8, 512, 512, 12, 64, False, True, False,
      (torch.float32, torch.bfloat16)),
     ("rectangular", 2, 384, 1024, 12, 64, True, False, True,
@@ -2060,32 +2050,37 @@ def _attn_work(b, sq, sk, h, d, causal, esize):
                   3 * qd + 2 * kd + 2 * rows)
 
 
-def _attn_check(name, got, ref, half):
+def _attn_check(att, name, got, ref, half, dead=None, exact=None):
     """(max |got - ref|, the share of elements not equal, whether within
-    the limits): lse and fp32 O against the reference ATTN_FWD_TOL, a half
-    O ATTN_HALF_TOL; a half O against the kernels' arithmetic ("o_tiled")
-    ATTN_HALF_O_RTOL and _ATOL with at most ATTN_HALF_FLIPS of it off; the
-    grads ATTN_BWD_TOL; atol = rtol but for o_tiled; the dtypes equal."""
-    if name == "o_tiled":
-        err, ok = _close(got, ref, ATTN_HALF_O_RTOL, ATTN_HALF_O_ATOL)
-    else:
-        tol = (ATTN_BWD_TOL if name not in ("o", "lse")
-               else ATTN_HALF_TOL if name == "o" and half else ATTN_FWD_TOL)
-        err, ok = _close(got, ref, tol, tol)
+    the limits, the largest dead-row floor), by the limits of
+    ops/attention.py: lse and an fp32 O against the reference
+    ATTN_FWD_TOL, fp32 grads ATTN_BWD_TOL (atol = rtol), a half O against
+    the reference ATTN_HALF_TOL; a half O against the kernels' arithmetic
+    ("o_tiled") and the half grads ``half_result_check`` (``dead`` and
+    ``exact`` the grads' dead batch elements and their exact sums)."""
+    if half and name not in ("o", "lse"):
+        r = att.half_result_check("o" if name == "o_tiled" else name, got,
+                                  ref, None if name == "o_tiled" else dead,
+                                  exact)
+        return r.err, r.share, r.ok, r.floor
+    tol = (att.ATTN_HALF_TOL if name == "o" and half
+           else att.ATTN_FWD_TOL if name in ("o", "lse")
+           else att.ATTN_BWD_TOL)
+    err, ok = _close(got, ref, tol, tol)
     share = float((got != ref).float().mean())
-    if name == "o_tiled":
-        ok = ok and share <= ATTN_HALF_FLIPS
-    return err, share, ok and got.dtype == ref.dtype
+    return err, share, ok and got.dtype == ref.dtype, 0.0
 
 
 def _planted_faults(att, q, k, v, causal, scale, o, lse, do, want):
-    """The half limits against kernels that skip one bf16 rounding point
-    each, built from the plain versions: P unrounded before P V (O), P
-    before dV, dS before dK and dQ.  Each must fail the limit that the
-    kernels pass.  Then one that moves a rounding point: dS computed from
-    the rounded P, for dK and dQ; whether the limits catch it is printed,
-    not required.  ``o`` and ``lse`` are the reference forward's, ``want``
-    the plain results by name ("o_tiled", "dq", "dk", "dv")."""
+    """The half limits against kernels that skip one rounding point each,
+    built from the plain versions: P unrounded before P V (O), P before
+    dV, dS before dK and dQ; against one that moves a rounding point: dS
+    computed from the rounded P, for dK and dQ; and against one confined
+    to under 1% of the elements: the last key row of dK and the last query
+    row of dQ of one (b, h) scaled by 1.05, caught when either fails.
+    Each must fail the limit that the kernels pass.  ``o`` and ``lse`` are
+    the reference forward's, ``want`` the plain results by name
+    ("o_tiled", "dq", "dk", "dv")."""
     dt = q.dtype
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
     faults = {"o_tiled": att.attention_pair_tiled_plain(
@@ -2103,33 +2098,36 @@ def _planted_faults(att, q, k, v, causal, scale, o, lse, do, want):
     moved = {"dk": torch.einsum("bhqk,bqhd->bkhd", ds, qf).to(dt),
              "dq": torch.einsum("bhqk,bkhd->bqhd", ds, kf).to(dt)}
     del ds
-    text = []
-    for name, bad in faults.items():
-        err, share, ok = _attn_check(name, bad, want[name], True)
-        text.append(f"{name} max|d| {err:.3g} ({share:.2e} off) "
-                    f"{'PASSED' if ok else 'caught'}")
-        if ok:
-            raise SystemExit(f"the bf16 limit of {name} passes a kernel "
-                             f"that skips a rounding point")
-    print("attention: planted faults, one bf16 rounding point skipped "
-          "(P before P V; P before dV; dS before dK and dQ): "
-          + "  ".join(text))
-    text = []
-    for name, bad in moved.items():
-        err, share, ok = _attn_check(name, bad, want[name], True)
-        text.append(f"{name} max|d| {err:.3g} ({share:.2e} off) "
-                    f"{'passes the limit' if ok else 'caught'}")
-    print("attention: planted fault, dS computed from the rounded P: "
-          + "  ".join(text))
+    rows = {"dk": want["dk"].clone(), "dq": want["dq"].clone()}
+    for t in rows.values():
+        t[0, -1, 0] *= 1.05
+    name_dt = str(dt)[6:]
+    for what, bad_set, need_all in (
+            ("one rounding point skipped (P before P V; P before dV; dS "
+             "before dK and dQ)", faults, True),
+            ("dS computed from the rounded P", moved, True),
+            ("the last key row of dK and the last query row of dQ of (b 0, "
+             "h 0) scaled by 1.05", rows, False)):
+        text, caught = [], []
+        for name, bad in bad_set.items():
+            err, share, ok, _ = _attn_check(att, name, bad, want[name], True)
+            caught.append(not ok)
+            text.append(f"{name} max|d| {err:.3g} ({share:.2e} off) "
+                        f"{'PASSED' if ok else 'caught'}")
+        print(f"attention: planted fault {name_dt}, {what}: "
+              + "  ".join(text))
+        if not (all(caught) if need_all else any(caught)):
+            raise SystemExit(f"the {name_dt} limit passes a planted fault: "
+                             f"{what}")
 
 
 def phase_attention(att):
     """The three flash-attention kernels against their plain versions at
     the shapes of ATTN_CASES (O and lse, then dK/dV and dQ from the plain
     forward's lse and Delta) within the limits of ``_attn_check``, and the
-    bf16 limits against planted faults at gpt_base's shape; a second
-    launch bitwise equal; then each kernel's, its plain version's and
-    SDPA's times at gpt_base's shape."""
+    bf16 and fp16 limits against planted faults at gpt_base's shape; a
+    second launch bitwise equal; then each kernel's, its plain version's
+    and SDPA's times at gpt_base's shape in each dtype."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     names = ("attn_fwd", "attn_dkdv", "attn_dq")
     errs = dict.fromkeys(names, 0.0)
@@ -2157,19 +2155,28 @@ def phase_attention(att):
                       ("attn_dkdv", "dk", dk, want[1]),
                       ("attn_dkdv", "dv", dv, want[2]),
                       ("attn_dq", "dq", dq, want[0]))
-            o_t = None
+            o_t, dead, exact = None, att.dead_batch(kb), {}
             if half:
                 o_t = att.attention_pair_tiled_plain(q, k, v, kb, causal,
                                                      scale)[0]
                 checks += (("attn_fwd", "o_tiled", o, o_t),)
-            ok, text = True, []
+                if dead is not None and bool(dead.any()):
+                    exact = dict(zip(("dq", "dk", "dv"),
+                                     att.attention_exact_sums(
+                                         *(t[dead] for t in (q, k, v, kb)),
+                                         causal, scale, do[dead], dl[dead],
+                                         lse_p[dead])))
+            ok, text, floor = True, [], 0.0
             for kernel, name, got, ref in checks:
-                err, share, good = _attn_check(name, got, ref, half)
-                ok = ok and good
+                err, share, good, fl = _attn_check(att, name, got, ref, half,
+                                                   dead, exact.get(name))
+                ok, floor = ok and good, max(floor, fl)
                 text.append(f"max|d{name}| {err:.3g}" + (
                     f" ({share:.2e} off)" if half and name != "lse" else ""))
                 if label == "gpt_base" and not (half and name == "o"):
                     errs[kernel] = max(errs[kernel], err)
+            if exact:
+                text.append(f"largest dead-row floor {floor:.3g}")
             same = all(torch.equal(a, r) for a, r in
                        zip((o, lse, dk, dv, dq), again))
             print(f"attention: {label} B{b} Sq{sq} Sk{sk} H{h} D{d} "
@@ -2184,13 +2191,22 @@ def phase_attention(att):
                 _planted_faults(att, q, k, v, causal, scale, o_p, lse_p, do,
                                 dict(zip(("o_tiled", "dq", "dk", "dv"),
                                          (o_t,) + tuple(want))))
-            del o, lse, o_p, lse_p, o_t, dk, dv, dq, want, again
+            if label == "bert_base" and dtype == torch.bfloat16:
+                bad = want[1].clone()
+                bad[dead.nonzero()[0, 0], 0, 0] = 0
+                err, share, good, _ = _attn_check(att, "dk", bad, want[1],
+                                                  True, dead, exact["dk"])
+                print(f"attention: planted fault bfloat16, key 0 of dK's dead "
+                      f"batch element, head 0, zeroed: max|d| {err:.3g} "
+                      f"{'passes the limit' if good else 'caught'} "
+                      f"(printed, not required)")
+            del o, lse, o_p, lse_p, o_t, dk, dv, dq, want, again, exact
             torch.cuda.empty_cache()
     print(f"attention: checks took {time.perf_counter() - t0:.1f} s")
 
     b, sq, sk, h, d, causal = 8, 2048, 2048, 12, 64, True
     by_dtype = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         q, k, v, do, _, _ = _attn_inputs(b, sq, sk, h, d, dtype, gen, False,
                                          False)
         scale = d ** -0.5

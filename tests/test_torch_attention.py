@@ -14,6 +14,15 @@ rounded to bf16 at the kernels' points, the outputs once more).  The
 kernels' forward arithmetic in plain PyTorch (``attention_pair_tiled_plain``,
 which the card checks hold a half O to) rounds P where JAX's kernel does.
 
+The limit the card checks hold a half (bf16, fp16) result of the tensor
+cores to (``half_result_check``) is tested here on the plain versions at
+small sizes with one dead batch element (every key masked): the exact
+sums (``attention_exact_sums``) agree with the plain backward, the exact
+sums pass the limit against the plain version and it against them, each
+planted fault (a skipped rounding point, dS from the rounded P, one live
+row scaled by 1.05) fails it, and a dead row's floor covers its own row
+and no other.
+
 The CUDA wrappers' argument checks run on meta tensors: they raise before
 anything is built, and a tensor that is not on the CPU never reaches the
 plain version.  The card's route (the kernels replaced by fakes on meta
@@ -287,6 +296,158 @@ def test_plain_backward_is_the_gradient_of_the_plain_pair():
                                   dlse)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-12, atol=1e-12)
+
+
+LIMIT_CASES = {   # B 2, H 2; (Sq, Sk, D, causal)
+    "causal": (130, 130, 24, True), "rectangular": (96, 130, 16, False)}
+HALF = {"bf16": torch.bfloat16, "fp16": torch.float16}
+GRADS = ("dq", "dk", "dv")
+
+
+@pytest.fixture(scope="module")
+def limit_case(request):
+    """The plain results at a small shape whose key bias masks the last
+    quarter of batch element 0's keys and every key of element 1 (dead),
+    with the exact sums of both elements and of the dead slice alone."""
+    dtype, (sq, sk, d, causal) = HALF[request.param[0]], \
+        LIMIT_CASES[request.param[1]]
+    rs = np.random.RandomState(7)
+    q, k, v, do = (torch.from_numpy(rs.randn(2, s, 2, d).astype(np.float32))
+                   .to(dtype) for s in (sq, sk, sk, sq))
+    bias = np.zeros((2, sk), np.float32)
+    bias[0, 3 * sk // 4:] = -1e9
+    bias[1] = -1e9
+    bias = torch.from_numpy(bias)
+    scale = d ** -0.5
+    o, lse = att.attention_pair_plain(q, k, v, bias, causal, scale)
+    dl = att.delta(o, do)
+    dead = att.dead_batch(bias)
+    return dict(
+        q=q, k=k, v=v, do=do, bias=bias, causal=causal, scale=scale, o=o,
+        lse=lse, dl=dl, dead=dead, key=3 * sk // 4 - 1,
+        plain=dict(zip(GRADS, att.attention_bwd_plain(
+            q, k, v, bias, causal, scale, o, lse, do))),
+        exact=dict(zip(GRADS, att.attention_exact_sums(
+            q, k, v, bias, causal, scale, do, dl, lse))),
+        exact_dead=dict(zip(GRADS, att.attention_exact_sums(
+            *(t[dead] for t in (q, k, v, bias)), causal, scale, do[dead],
+            dl[dead], lse[dead]))))
+
+
+def _ids(params):
+    return [f"{a}-{b}" for a, b in params]
+
+
+LIMIT_PARAMS = [(dt, case) for dt in HALF for case in LIMIT_CASES]
+
+
+@pytest.mark.parametrize("limit_case", LIMIT_PARAMS, indirect=True,
+                         ids=_ids(LIMIT_PARAMS))
+def test_exact_sums_agree_with_the_plain_backward_off_dead_rows(limit_case):
+    """dQ, dK and dV summed in fp64 are within part 1 of the limit (two
+    ulps) of the plain backward in the live batch element, and computed on
+    the dead slice alone they are those of the whole batch."""
+    c = limit_case
+    live = ~c["dead"]
+    for name in GRADS:
+        got, want = c["exact"][name], c["plain"][name]
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_allclose(
+            got[live].float().numpy(), want[live].float().numpy(),
+            rtol=att.ATTN_HALF_O_RTOL, atol=att.ATTN_HALF_O_ATOL,
+            err_msg=name)
+        assert torch.equal(c["exact_dead"][name], got[c["dead"]]), name
+
+
+@pytest.mark.parametrize("limit_case", LIMIT_PARAMS, indirect=True,
+                         ids=_ids(LIMIT_PARAMS))
+def test_plain_and_exact_sums_pass_the_half_limit(limit_case):
+    """Correctly rounded sums pass as a kernel's result against the plain
+    version (the dead rows under their floor), and the plain version
+    passes against them where no floor applies."""
+    c = limit_case
+    live = ~c["dead"]
+    for name in GRADS:
+        r = att.half_result_check(name, c["exact"][name], c["plain"][name],
+                                  c["dead"], c["exact_dead"][name])
+        assert r.ok, (name, r)
+        r = att.half_result_check(name, c["plain"][name][live],
+                                  c["exact"][name][live])
+        assert r.ok and r.floor == 0.0, (name, r)
+
+
+def _planted(c, fault):
+    """(name, a plain result with one fault planted): a rounding point
+    skipped, dS from the rounded P, or one live row scaled by 1.05."""
+    dt = c["q"].dtype
+    qf, kf, vf, dof = (c[n].float() for n in ("q", "k", "v", "do"))
+    if fault == "p_unrounded_o":
+        return "o", att.attention_pair_tiled_plain(
+            qf, kf, vf, c["bias"], c["causal"], c["scale"])[0].to(dt)
+    p = torch.exp(att.scores_plain(c["q"], c["k"], c["bias"], c["causal"],
+                                   c["scale"]) - c["lse"][..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf) - c["dl"][..., None]
+    name = fault[-2:]
+    if fault == "p_unrounded_dv":
+        return name, torch.einsum("bhqk,bqhd->bkhd", p, dof).to(dt)
+    ds = p * dp * c["scale"]
+    if fault.startswith("ds_from_rounded_p"):
+        ds = (p.to(dt).float() * dp * c["scale"]).to(dt).float()
+    if fault.startswith("ds"):
+        eq, other = (("bhqk,bqhd->bkhd", qf) if name == "dk"
+                     else ("bhqk,bkhd->bqhd", kf))
+        return name, torch.einsum(eq, ds, other).to(dt)
+    bad = c["plain"][name].clone()   # live_row_*: element 0, head 0
+    bad[0, c["key"] if name != "dq" else -1, 0] *= 1.05
+    return name, bad
+
+
+FAULTS = ["p_unrounded_o", "p_unrounded_dv", "ds_unrounded_dk",
+          "ds_unrounded_dq", "ds_from_rounded_p_dk", "ds_from_rounded_p_dq",
+          "live_row_dq", "live_row_dk", "live_row_dv"]
+
+
+@pytest.mark.parametrize("fault", FAULTS)
+@pytest.mark.parametrize("limit_case", LIMIT_PARAMS, indirect=True,
+                         ids=_ids(LIMIT_PARAMS))
+def test_half_limit_catches_planted_faults(limit_case, fault):
+    c = limit_case
+    name, bad = _planted(c, fault)
+    if name == "o":
+        ref = att.attention_pair_tiled_plain(
+            c["q"], c["k"], c["v"], c["bias"], c["causal"], c["scale"])[0]
+        r = att.half_result_check("o", bad, ref)
+    else:
+        r = att.half_result_check(name, bad, c["plain"][name], c["dead"],
+                                  c["exact_dead"][name])
+    assert not r.ok, (fault, r)
+
+
+@pytest.mark.parametrize("limit_case", [("bf16", "rectangular"),
+                                        ("fp16", "causal")], indirect=True,
+                         ids=["bf16-rectangular", "fp16-causal"])
+def test_dead_row_floor_covers_its_own_row_only(limit_case):
+    """A dead row whose plain result is 0.5 from its exact sum may be off
+    by up to 3 x 0.5; a dead row beside it, and a live row, may not."""
+    c = limit_case
+    ref = c["plain"]["dk"]
+    exact = ref[c["dead"]].clone()
+    exact[0, 5, 1] += 0.5               # dead key 5, head 1: floor 1.5
+    floor = 3 * float((ref[c["dead"]][0, 5, 1].double()
+                       - exact[0, 5, 1].double()).abs().max())
+    got = ref.clone()
+    got[1, 5, 1] += 1.0
+    r = att.half_result_check("dk", got, ref, c["dead"], exact)
+    assert r.ok and r.floor == floor, r
+    other = got.clone()
+    other[1, 6, 1] += 1.0               # the next dead key: no floor
+    assert not att.half_result_check("dk", other, ref, c["dead"],
+                                     exact).ok
+    live = got.clone()
+    live[0, c["key"], 0] *= 1.05        # a live key of element 0
+    assert not att.half_result_check("dk", live, ref, c["dead"], exact).ok
+    with pytest.raises(ValueError, match="no dead-row floor"):
+        att.half_result_check("o", got, ref, c["dead"], exact)
 
 
 def _meta(*shape, dtype=torch.float32):
