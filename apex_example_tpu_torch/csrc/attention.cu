@@ -29,7 +29,8 @@
 // sends a tensor to the other one:
 //
 // fp32: fp32 fused multiply-adds on the CUDA cores for all three (fp32
-// without TF32 is the port's fp32 contract).  Tiles of 64 queries and 64
+// without TF32 is the port's fp32 contract; P and dS round to fp32, so
+// those roundings are none).  Tiles of 64 queries and 64
 // keys in shared memory, held as fp32; 256 threads, each owning a 4 x 4
 // piece of the score tile (4 rows, columns 16 apart) and 4 rows x 8
 // head-dim columns of the output; 16-byte shared-memory loads along the
@@ -53,20 +54,34 @@
 // score-shaped products are shared-memory wgmma (m64n64k16); the softmax,
 // P and dS run on the fp32 accumulator fragments, each thread holding two
 // rows; P and dS are rounded into the register A operand of the next
-// product (m64n64k16 or m64n128k16, the B tile read MN-major).  Key tiles
-// stay 64 wide (kTcKeys), so a half O rounds P against the running max
-// where attention_pair_tiled_plain does.  Causal blocks launch longest
-// first.
+// product (m64n64k16 or m64n128k16, the B tile read MN-major).  The
+// backward's tensor cores accumulate straight into S, dP, dQ, dK and dV
+// (fresh per-k16 partials added with round-to-nearest were slower and
+// passed nothing more: PERF.md).  Key tiles stay 64 wide (kTcKeys), so a
+// half O rounds P against the running max where
+// attention_pair_tiled_plain does.  Causal blocks launch longest first.
 //
 // The tensor cores add the same fp32 products as the plain version in
 // another order, so a half result is not bitwise the plain version's.  It
 // is held to ops/attention.py's `half_result_check`: every element within
 // about two ulps (rtol 1e-2, atol 1e-3), at most 1e-2 (bf16) or 8e-2
 // (fp16, 3 more mantissa bits, 8 x the flips) of the elements off at all;
-// in a batch element whose key bias masks every key (P = 1 at every pair,
-// so its gradients are sums of unnormalised terms that cancel), each row
-// within 3 x the plain version's own distance from correctly rounded sums.
-// A rounding point skipped or moved flips 39-55% of the elements.
+// in a batch element whose key bias masks every key, each row within 3 x
+// the plain version's own distance from correctly rounded sums.  A
+// rounding point skipped or moved flips 39-55% of the elements.  The
+// atol has no floor outside dead rows, and one rounding of P or dS that
+// flips at a pair where P or |dS| is large (at least flip_limit: 1/64 in
+// bf16, 1/8 in fp16) moves a whole row of dV, dK or dQ by an ulp of P or
+// dS times an operand, up to ~4e-3: past it where the row's elements
+// cancel near zero.  Correctly rounded sums do that too, against the
+// plain version, on a peaked softmax; in a dead row (P = 1 at every key)
+// dS is unnormalised at every key.  So the backward kernels take the S and
+// dP of a large pair whose P or dS lies near a rounding tie of the input
+// dtype again with the CUDA-core kernels' fp32 FMA chain (`plain_pairs`),
+// which the plain version on the card matches bitwise: their P and dS
+// round where the plain version's do.  Every other pair keeps the tensor
+// cores' values: far from a tie they round the same, and a small P or dS
+// that flips moves an output by at most 2^-14 times an operand.
 
 // Layout: q, k, v, o and dO are read in their (B, S, H, D) layout through
 // four strides each (elements), so no transpose is copied; O, dQ, dK and
@@ -88,34 +103,6 @@ constexpr int kThreads = 256;  // 16 row groups of 4 rows x 16 lanes
 constexpr int kMaxD = 128;
 constexpr int kLdS = kTile + 4;  // row stride of a score tile in smem
 constexpr float kMask = -0.7f * 3.402823466e38f;  // attention.py:60
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-template <>
-__device__ __forceinline__ __half from_float<__half>(float v) {
-  return __float2half_rn(v);
-}
-
-// v rounded to T and widened back: where the Pallas bodies cast P or dS
-// to the input dtype before a product.
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return to_float(from_float<T>(v));
-}
 
 struct Params {
   const void* q;
@@ -139,8 +126,7 @@ struct Params {
 
 // dst[r][d] (row stride ld) = src row (row0 + r) of head (b, h), for r <
 // kTile and d < D; rows at or past n_rows are zero.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
+__device__ __forceinline__ void load_tile(float* dst, int ld, const float* src,
                                           const long long* st, int b, int h,
                                           int row0, int n_rows, int D) {
   const long long base = b * st[0] + h * st[2];
@@ -149,7 +135,7 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
     const int d = idx - r * D;
     const int row = row0 + r;
     float val = 0.f;
-    if (row < n_rows) val = to_float(src[base + row * st[1] + d * st[3]]);
+    if (row < n_rows) val = src[base + row * st[1] + d * st[3]];
     dst[r * ld + d] = val;
   }
 }
@@ -259,8 +245,7 @@ __device__ __forceinline__ int last_kv_tile(const Params& p, int q0) {
   return min(nk - 1, (q0 + p.off + kTile - 1) / kTile);
 }
 
-template <typename T>
-__device__ __forceinline__ void store_rows(T* dst, int b, int h, int row0,
+__device__ __forceinline__ void store_rows(float* dst, int b, int h, int row0,
                                            int n_rows, const Params& p,
                                            int r0, int tx,
                                            const float acc[4][8]) {
@@ -268,22 +253,21 @@ __device__ __forceinline__ void store_rows(T* dst, int b, int h, int row0,
   for (int i = 0; i < 4; ++i) {
     const int row = row0 + r0 + i;
     if (row >= n_rows) continue;
-    T* out = dst + ((static_cast<long long>(b) * n_rows + row) * p.H + h) *
-                       p.D;
+    float* out =
+        dst + ((static_cast<long long>(b) * n_rows + row) * p.H + h) * p.D;
 #pragma unroll
     for (int jj = 0; jj < 2; ++jj) {
       const int d0 = 4 * tx + 64 * jj;
       if (d0 >= p.D) continue;
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        out[d0 + e] = from_float<T>(acc[i][4 * jj + e]);
+        out[d0 + e] = acc[i][4 * jj + e];
     }
   }
 }
 
 // ---- forward: one block per (b * H + h, q tile) -------------------------
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(Params p) {
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
@@ -294,9 +278,9 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(Params p) {
   const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
   const int q0 = blockIdx.y * kTile;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15, r0 = 4 * ty;
-  const T* q = static_cast<const T*>(p.q);
-  const T* k = static_cast<const T*>(p.k);
-  const T* v = static_cast<const T*>(p.v);
+  const float* q = static_cast<const float*>(p.q);
+  const float* k = static_cast<const float*>(p.k);
+  const float* v = static_cast<const float*>(p.v);
 
   load_tile(sQ, ld, q, p.sq, b, h, q0, p.Sq, p.D);
   float m[4], l[4], acc[4][8];
@@ -334,7 +318,7 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(Params p) {
       for (int c = 0; c < 4; ++c) {
         const float pv = expf(s[i][c] - m_new);
         rs += pv;
-        sP[(r0 + i) * kLdS + tx + 16 * c] = round_to<T>(pv);
+        sP[(r0 + i) * kLdS + tx + 16 * c] = pv;
       }
       l[i] = l[i] * alpha + row_sum(rs);
 #pragma unroll
@@ -354,12 +338,11 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(Params p) {
       p.lse_out[(static_cast<long long>(b) * p.H + h) * p.Sq + row] =
           m[i] + logf(lsafe);
   }
-  store_rows(static_cast<T*>(p.out), b, h, q0, p.Sq, p, r0, tx, acc);
+  store_rows(static_cast<float*>(p.out), b, h, q0, p.Sq, p, r0, tx, acc);
 }
 
 // ---- dQ: one block per (b * H + h, q tile) ------------------------------
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads) attn_dq_kernel(Params p) {
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
@@ -372,8 +355,8 @@ __global__ void __launch_bounds__(kThreads) attn_dq_kernel(Params p) {
   const int q0 = blockIdx.y * kTile;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15, r0 = 4 * ty;
 
-  load_tile(sQ, ld, static_cast<const T*>(p.q), p.sq, b, h, q0, p.Sq, p.D);
-  load_tile(sdO, ld, static_cast<const T*>(p.dout), p.sdo, b, h, q0, p.Sq,
+  load_tile(sQ, ld, static_cast<const float*>(p.q), p.sq, b, h, q0, p.Sq, p.D);
+  load_tile(sdO, ld, static_cast<const float*>(p.dout), p.sdo, b, h, q0, p.Sq,
             p.D);
   float lse[4], delta[4], dq[4][8];
   const long long row_base = (static_cast<long long>(b) * p.H + h) * p.Sq;
@@ -389,8 +372,8 @@ __global__ void __launch_bounds__(kThreads) attn_dq_kernel(Params p) {
   for (int j = 0; j <= last; ++j) {
     const int k0 = j * kTile;
     __syncthreads();
-    load_tile(sK, ld, static_cast<const T*>(p.k), p.sk, b, h, k0, p.Sk, p.D);
-    load_tile(sV, ld, static_cast<const T*>(p.v), p.sv, b, h, k0, p.Sk, p.D);
+    load_tile(sK, ld, static_cast<const float*>(p.k), p.sk, b, h, k0, p.Sk, p.D);
+    load_tile(sV, ld, static_cast<const float*>(p.v), p.sv, b, h, k0, p.Sk, p.D);
     __syncthreads();
     float s[4][4], dp[4][4];
     dot_tile(sQ, sK, ld, p.D, r0, tx, s);
@@ -404,13 +387,13 @@ __global__ void __launch_bounds__(kThreads) attn_dq_kernel(Params p) {
         const float pv =
             expf(score(p, s[i][c], bias, q0 + r0 + i, kcol) - lse[i]);
         sdS[(r0 + i) * kLdS + tx + 16 * c] =
-            round_to<T>(pv * (dp[i][c] - delta[i]) * p.scale);
+            pv * (dp[i][c] - delta[i]) * p.scale;
       }
     }
     __syncthreads();
     acc_tile(sdS, sK, ld, p.D, r0, tx, dq);
   }
-  store_rows(static_cast<T*>(p.out), b, h, q0, p.Sq, p, r0, tx, dq);
+  store_rows(static_cast<float*>(p.out), b, h, q0, p.Sq, p, r0, tx, dq);
 }
 
 // ---- dK, dV: one block per (b * H + h, k/v tile) ------------------------
@@ -418,7 +401,6 @@ __global__ void __launch_bounds__(kThreads) attn_dq_kernel(Params p) {
 // thread owns 4 keys and 4 queries (16 apart) of the transposed score
 // tile, and 4 keys x 8 head-dim columns of dK and dV.
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads) attn_dkdv_kernel(Params p) {
   extern __shared__ float4 smem4[];
   float* sK = reinterpret_cast<float*>(smem4);
@@ -434,8 +416,8 @@ __global__ void __launch_bounds__(kThreads) attn_dkdv_kernel(Params p) {
   const int k0 = blockIdx.y * kTile;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15, r0 = 4 * ty;
 
-  load_tile(sK, ld, static_cast<const T*>(p.k), p.sk, b, h, k0, p.Sk, p.D);
-  load_tile(sV, ld, static_cast<const T*>(p.v), p.sv, b, h, k0, p.Sk, p.D);
+  load_tile(sK, ld, static_cast<const float*>(p.k), p.sk, b, h, k0, p.Sk, p.D);
+  load_tile(sV, ld, static_cast<const float*>(p.v), p.sv, b, h, k0, p.Sk, p.D);
   float bias[4], dk[4][8], dv[4][8];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -453,8 +435,8 @@ __global__ void __launch_bounds__(kThreads) attn_dkdv_kernel(Params p) {
   for (int i_tile = first; i_tile < nq; ++i_tile) {
     const int q0 = i_tile * kTile;
     __syncthreads();
-    load_tile(sQ, ld, static_cast<const T*>(p.q), p.sq, b, h, q0, p.Sq, p.D);
-    load_tile(sdO, ld, static_cast<const T*>(p.dout), p.sdo, b, h, q0, p.Sq,
+    load_tile(sQ, ld, static_cast<const float*>(p.q), p.sq, b, h, q0, p.Sq, p.D);
+    load_tile(sdO, ld, static_cast<const float*>(p.dout), p.sdo, b, h, q0, p.Sq,
               p.D);
     if (threadIdx.x < kTile) {
       const int row = q0 + threadIdx.x;
@@ -473,17 +455,17 @@ __global__ void __launch_bounds__(kThreads) attn_dkdv_kernel(Params p) {
         const float pv =
             expf(score(p, st[i][c], bias[i], q0 + qc, k0 + r0 + i) -
                  sLse[qc]);
-        sPT[(r0 + i) * kLdS + qc] = round_to<T>(pv);
+        sPT[(r0 + i) * kLdS + qc] = pv;
         sdST[(r0 + i) * kLdS + qc] =
-            round_to<T>(pv * (dpt[i][c] - sDelta[qc]) * p.scale);
+            pv * (dpt[i][c] - sDelta[qc]) * p.scale;
       }
     }
     __syncthreads();
     acc_tile(sPT, sdO, ld, p.D, r0, tx, dv);
     acc_tile(sdST, sQ, ld, p.D, r0, tx, dk);
   }
-  store_rows(static_cast<T*>(p.dk), b, h, k0, p.Sk, p, r0, tx, dk);
-  store_rows(static_cast<T*>(p.dv), b, h, k0, p.Sk, p, r0, tx, dv);
+  store_rows(static_cast<float*>(p.dk), b, h, k0, p.Sk, p, r0, tx, dk);
+  store_rows(static_cast<float*>(p.dv), b, h, k0, p.Sk, p, r0, tx, dv);
 }
 
 // ---- bf16 / fp16 on the tensor cores -------------------------------------
@@ -493,14 +475,6 @@ constexpr int kTcRows = 64;      // rows of every other tile: q, dO
 constexpr int kTcThreads = 128;  // one warpgroup
 constexpr int kAtomBytes = 64 * 128;  // a 64-row column of 64 halves
 static_assert(kTcKeys == kTcRows, "the tile helpers take 64-row tiles");
-
-// 1 builds the backward kernels with each k16 step of S and dP and each
-// tile's P^T dO, dS^T Q and dS K summed into fresh accumulators and added
-// in fp32 with round-to-nearest; 0 (the default) lets the tensor cores
-// accumulate straight into S, dP, dQ, dK and dV.
-#ifndef APEX_ATTN_PARTIALS
-#define APEX_ATTN_PARTIALS 0
-#endif
 
 __device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
@@ -811,89 +785,42 @@ __device__ __forceinline__ float widen(uint32_t bits) {
     return __uint_as_float(bits << 16);
 }
 
-// Row ra of tile a dotted with row rb of tile b over the head dim, in fp32
-// with one fused multiply-add per column in order: the CUDA-core kernels'
-// chain, which the plain version on the card matches bitwise.
+// Row r1 of tile a1 dotted with row r2 of tile b1, and the same rows of a2
+// and b2, over the head dim, in fp32 with one fused multiply-add per column
+// in order: the CUDA-core kernels' chain, which the plain version on the
+// card matches bitwise.  The two chains run interleaved.
 template <typename T>
-__device__ float dot_rows(uint32_t a, int ra, uint32_t b, int rb, int D) {
-  float s = 0.f;
+__device__ void dot_rows2(uint32_t a1, uint32_t b1, uint32_t a2, uint32_t b2,
+                          int r1, int r2, int D, float& s1, float& s2) {
+  s1 = s2 = 0.f;
   for (int c = 0; c < D / 8; ++c) {
-    const uint4 x = ld_shared_v4(a + chunk_off(ra, c));
-    const uint4 y = ld_shared_v4(b + chunk_off(rb, c));
-    const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
-    const uint32_t ys[4] = {y.x, y.y, y.z, y.w};
+    const uint4 x1 = ld_shared_v4(a1 + chunk_off(r1, c));
+    const uint4 y1 = ld_shared_v4(b1 + chunk_off(r2, c));
+    const uint4 x2 = ld_shared_v4(a2 + chunk_off(r1, c));
+    const uint4 y2 = ld_shared_v4(b2 + chunk_off(r2, c));
+    const uint32_t u1[4] = {x1.x, x1.y, x1.z, x1.w};
+    const uint32_t v1[4] = {y1.x, y1.y, y1.z, y1.w};
+    const uint32_t u2[4] = {x2.x, x2.y, x2.z, x2.w};
+    const uint32_t v2[4] = {y2.x, y2.y, y2.z, y2.w};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      s = fmaf(widen<T>(xs[i] & 0xFFFFu), widen<T>(ys[i] & 0xFFFFu), s);
-      s = fmaf(widen<T>(xs[i] >> 16), widen<T>(ys[i] >> 16), s);
-    }
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int h = 0; h < 32; h += 16) {
+        s1 = fmaf(widen<T>((u1[i] >> h) & 0xFFFFu),
+                  widen<T>((v1[i] >> h) & 0xFFFFu), s1);
+        s2 = fmaf(widen<T>((u2[i] >> h) & 0xFFFFu),
+                  widen<T>((v2[i] >> h) & 0xFFFFu), s2);
+      }
   }
-  return s;
-}
-
-// A (query, key) pair, as sequence positions.
-struct Pair {
-  int query, key;
-};
-
-// A query row whose every key is masked by the bias: its lse is -1e9 (+ a
-// log Sk that rounds away), where a row with a live key has lse >= its
-// largest score.  Only a key bias can mask every key of a row.
-constexpr float kDeadLse = -1e8f;
-
-// dP of the dead query rows of a 64 x 64 accumulator tile, in place, by
-// dot_rows: in such a row P = 1 at every pair, not ~1 / Sk, so a dS that
-// rounds the other way moves dQ and dK by a whole ulp of dS, and the plain
-// version's FMA chain keeps dS where the plain version rounds it.  Element
-// i of the thread's fragment, at row r + 8 ((i & 3) >> 1) and column
-// 8 (i >> 2) + 2 c + (i & 1), is that row of tile a dotted with that
-// column's row of tile b; dead(row, column) says whether its query is
-// dead.  The loop is not unrolled, so the hot path keeps its size; the
-// fixes go through a scratch array and come back by predicated moves.
-template <typename T, typename Dead>
-__device__ __forceinline__ void dead_rows_dp(float (&dp)[32], uint32_t a,
-                                             uint32_t b, int D, int r, int c,
-                                             Dead dead) {
-  auto row = [&](int i) { return r + 8 * ((i & 3) >> 1); };
-  auto col = [&](int i) { return 8 * (i >> 2) + 2 * c + (i & 1); };
-  bool any = false;
-#pragma unroll
-  for (int i = 0; i < 32; ++i) any = any || dead(row(i), col(i));
-  if (!any) return;
-  float fix[32];
-#pragma unroll 1
-  for (int i = 0; i < 32; ++i)
-    if (dead(row(i), col(i))) fix[i] = dot_rows<T>(a, row(i), b, col(i), D);
-#pragma unroll
-  for (int i = 0; i < 32; ++i)
-    if (dead(row(i), col(i))) dp[i] = fix[i];
 }
 
 // The backward's two score-shaped products over the padded head dim:
-// d1 = A1 B1^T and d2 = A2 B2^T, the four tiles K-major in shared memory.
+// d1 = A1 B1^T and d2 = A2 B2^T, the four tiles K-major in shared memory,
+// the tensor cores accumulating straight into d1 and d2.
 template <typename T, int DP>
 __device__ __forceinline__ void score_products(float (&d1)[32], uint32_t a1,
                                                uint32_t b1, float (&d2)[32],
                                                uint32_t a2, uint32_t b2) {
-#if APEX_ATTN_PARTIALS
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    float u1[32], u2[32];
-    pin(u1);
-    pin(u2);
-    wg_fence();
-    wgmma_ss<T>(u1, kmajor_desc(a1, kk), kmajor_desc(b1, kk), 0);
-    wgmma_ss<T>(u2, kmajor_desc(a2, kk), kmajor_desc(b2, kk), 0);
-    wg_commit_wait();
-    pin(u1);
-    pin(u2);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      d1[i] = kk ? __fadd_rn(d1[i], u1[i]) : u1[i];
-      d2[i] = kk ? __fadd_rn(d2[i], u2[i]) : u2[i];
-    }
-  }
-#else
   pin(d1);
   pin(d2);
   wg_fence();
@@ -905,27 +832,14 @@ __device__ __forceinline__ void score_products(float (&d1)[32], uint32_t a1,
   wg_commit_wait();
   pin(d1);
   pin(d2);
-#endif
 }
 
-// acc += A B over 64 rows: A a 64 x 64 tile rounded into registers (four
-// k16 slices), B a 64-row shared tile read MN-major; t is scratch of acc's
-// size (the fresh accumulator of APEX_ATTN_PARTIALS).
+// acc += A B over 64 rows, the tensor cores accumulating straight into
+// acc: A a 64 x 64 tile rounded into registers (four k16 slices), B a
+// 64-row shared tile read MN-major.
 template <typename T, int N>
 __device__ __forceinline__ void accumulate(float (&acc)[N],
-                                           uint32_t (&a)[4][4], uint32_t b,
-                                           float (&t)[N]) {
-#if APEX_ATTN_PARTIALS
-  pin(t);
-  wg_fence();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs<T>(t, a[kk], mnmajor_desc(b, kk), kk);
-  wg_commit_wait();
-  pin(t);
-  pin(a);
-#pragma unroll
-  for (int i = 0; i < N; ++i) acc[i] = __fadd_rn(acc[i], t[i]);
-#else
+                                           uint32_t (&a)[4][4], uint32_t b) {
   pin(acc);
   wg_fence();
 #pragma unroll
@@ -933,27 +847,110 @@ __device__ __forceinline__ void accumulate(float (&acc)[N],
   wg_commit_wait();
   pin(acc);
   pin(a);
-#endif
 }
 
-// P = exp(S - lse) and dS = P (dP - Delta) scale on a 64 x 64 accumulator
-// tile, in place: s holds the raw Q K^T dots of the (query, key) pairs
-// that `at` names for element i (two rows of the thread), dp the dO V^T
-// dots; lse and Delta are the query's.  On return s holds P, dp holds dS
-// (both fp32, rounded to the input dtype by to_operand).  expf, not
-// __expf: P feeds dS, whose rounding an approximate exp would move more
-// often.
+// A (query, key) pair, as sequence positions.
+struct Pair {
+  int query, key;
+};
+
+// P = exp(S - lse) and dS = P (dP - Delta) scale of one pair, in place: s
+// holds its raw Q K^T dot, dp its dO V^T dot; lse and Delta are the
+// query's.  On return s holds P, dp holds dS (both fp32, rounded to the
+// input dtype by to_operand).  S * scale and + bias round apart, as the
+// plain version's do.  expf, not __expf: P feeds dS, whose rounding an
+// approximate exp would move more often.
 __device__ __forceinline__ void p_and_ds(const Params& p, float& s,
                                          float& dp, float bias, Pair at,
                                          bool edge, float lse, float delta) {
-  float x = s * p.scale;
-  if (p.bias != nullptr) x += bias;
+  float x = __fmul_rn(s, p.scale);
+  if (p.bias != nullptr) x = __fadd_rn(x, bias);
   if (edge && (at.key >= p.Sk || at.query >= p.Sq ||
                (p.causal && at.query + p.off < at.key)))
     x = kMask;
   const float pv = expf(x - lse);
   s = pv;
   dp = pv * (dp - delta) * p.scale;
+}
+
+// The P or |dS| from which one ulp of T is at least 2^-13: 2^-6 in bf16
+// (8 significant bits), 2^-3 in fp16 (11).  A rounding of P or dS to T
+// that flips (the tensor cores' sums move S and dP by some fp32 ulps)
+// moves a row of dV, dK or dQ by that ulp times an operand: from this
+// size on, up to ~4e-3 for unit-normal operands, past the half limit's
+// atol of 1e-3 where the row's elements cancel near zero.  Below it, a
+// flip moves an output by at most 2^-14 times an operand, under the atol
+// for operands under 16.
+template <typename T>
+__device__ __forceinline__ float flip_limit() {
+  return std::is_same<T, __half>::value ? 0.125f : 1.f / 64;
+}
+
+// Whether the rounding of an fp32 x to T could go the other way if x
+// moved by fewer than kTieUlps fp32 ulps: x lies that close to a midpoint
+// between two values of T.  The tensor cores' S and dP and the plain
+// chain's differ by ~40-540 ulps of P and dS at unit-normal operands.
+constexpr int kTieUlps = 2048;
+template <typename T>
+__device__ __forceinline__ bool near_tie(float x) {
+  constexpr int kDrop = std::is_same<T, __half>::value ? 13 : 16;  // bits
+  const int low = static_cast<int>(__float_as_uint(x) & ((1u << kDrop) - 1));
+  return abs(low - (1 << (kDrop - 1))) < kTieUlps;
+}
+
+// A pair of a 64 x 64 tile: its rows in the query and key tiles, and its
+// query's lse and Delta and its key's bias.
+struct TilePair {
+  int qt, kt;
+  float lse, delta, bias;
+};
+
+// P and dS of the tile's pairs where P or |dS| is at least flip_limit and
+// near a tie of T, again from S and dP summed in the plain version's fp32
+// chain (dot_rows2), in place: there P and dS round where the plain
+// version's do, so no flip shows (a tie-and-recompute test, as correctly
+// rounded math libraries take).  A row whose keys are all masked has
+// P = 1 at every key and dS unnormalised, so its dS is often such a pair.
+// at(i) names element i of the thread's fragment; q0, k0 and edge are
+// the tiles' as p_and_ds takes them.  The loop over the few pairs is not
+// unrolled, so the hot path keeps its size: the new values go through
+// scratch arrays and come back by predicated moves.
+template <typename T, typename At>
+__device__ __forceinline__ void plain_pairs(const Params& p, float (&pv)[32],
+                                            float (&ds)[32], uint32_t sQ,
+                                            uint32_t sK, uint32_t sdO,
+                                            uint32_t sV, int q0, int k0,
+                                            bool edge, At at) {
+  const float limit = flip_limit<T>();
+  float top = 0.f;  // most tiles hold no large pair: one max an element
+#pragma unroll
+  for (int i = 0; i < 32; ++i) top = fmaxf(top, fmaxf(pv[i], fabsf(ds[i])));
+  if (top < limit) return;
+  uint32_t flag = 0;
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    if ((pv[i] >= limit && near_tie<T>(pv[i])) ||
+        (fabsf(ds[i]) >= limit && near_tie<T>(ds[i])))
+      flag |= 1u << i;
+  if (flag == 0) return;
+  float fp[32], fd[32];
+#pragma unroll 1
+  for (int i = 0; i < 32; ++i) {
+    if (!((flag >> i) & 1u)) continue;
+    const TilePair a = at(i);
+    float sv, dv;
+    dot_rows2<T>(sQ, sK, sdO, sV, a.qt, a.kt, p.D, sv, dv);
+    p_and_ds(p, sv, dv, a.bias, Pair{q0 + a.qt, k0 + a.kt}, edge, a.lse,
+             a.delta);
+    fp[i] = sv;
+    fd[i] = dv;
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    if ((flag >> i) & 1u) {
+      pv[i] = fp[i];
+      ds[i] = fd[i];
+    }
 }
 
 // ---- forward: one warpgroup per (b * H + h, 64 queries) -----------------
@@ -1094,8 +1091,11 @@ __global__ void __launch_bounds__(kTcThreads) attn_fwd_kernel_tc(Params p) {
 // dS on the accumulator fragments, rounded into the A operand of
 // dQ += dS K (K read MN-major, as V is in the forward's P V).
 
+// At a padded D of 64 the register budget keeps four blocks an SM (dQ)
+// and three (dK/dV), the occupancy of the kernels before plain_pairs.
 template <typename T, int DP>
-__global__ void __launch_bounds__(kTcThreads) attn_dq_kernel_tc(Params p) {
+__global__ void __launch_bounds__(kTcThreads, DP == 64 ? 4 : 1)
+    attn_dq_kernel_tc(Params p) {
   constexpr int kTileBytes = DP / 64 * kAtomBytes;
   constexpr int kN = DP / 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -1127,9 +1127,9 @@ __global__ void __launch_bounds__(kTcThreads) attn_dq_kernel_tc(Params p) {
     lse[i] = row < p.Sq ? p.lse[row_base + row] : 0.f;
     delta[i] = row < p.Sq ? p.delta[row_base + row] : 0.f;
   }
-  float dq[kN], t[kN], s[32], dp[32];
+  float dq[kN], s[32], dp[32];
 #pragma unroll
-  for (int i = 0; i < kN; ++i) dq[i] = t[i] = 0.f;
+  for (int i = 0; i < kN; ++i) dq[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
   uint32_t a[4][4];
@@ -1147,10 +1147,6 @@ __global__ void __launch_bounds__(kTcThreads) attn_dq_kernel_tc(Params p) {
     wait_tiles();
 
     score_products<T, DP>(s, sQ, sK, dp, sdO, sV);
-    if (p.bias != nullptr)  // only a key bias can mask every key of a row
-      dead_rows_dp<T>(dp, sdO, sV, p.D, r, c, [&](int row, int) {
-        return (row == r ? lse[0] : lse[1]) <= kDeadLse;
-      });
     const bool edge = k0 + kTcKeys > p.Sk || q0 + kTcRows > p.Sq ||
                       (p.causal && k0 + kTcKeys - 1 > q0 + p.off);
 #pragma unroll
@@ -1162,8 +1158,14 @@ __global__ void __launch_bounds__(kTcThreads) attn_dq_kernel_tc(Params p) {
                  Pair{q0 + r + 8 * (e >> 1), col}, edge, lse[e >> 1],
                  delta[e >> 1]);
       }
+    plain_pairs<T>(p, s, dp, sQ, sK, sdO, sV, q0, k0, edge, [&](int i) {
+      const bool lo = (i & 2) == 0;  // rows r, r + 8 (no dynamic index)
+      const int kt = 8 * (i >> 2) + 2 * c + (i & 1);
+      return TilePair{r + (lo ? 0 : 8), kt, lo ? lse[0] : lse[1],
+                      lo ? delta[0] : delta[1], key_bias(p, b, k0 + kt)};
+    });
     to_operand<T>(dp, a);
-    accumulate<T>(dq, a, sK, t);
+    accumulate<T>(dq, a, sK);
     __syncthreads();  // this stage is read: the next load may refill it
   }
   store_acc<T>(static_cast<T*>(p.out), p, b, h, q0, p.Sq, r, c, dq);
@@ -1177,7 +1179,8 @@ __global__ void __launch_bounds__(kTcThreads) attn_dq_kernel_tc(Params p) {
 // dK += dS^T Q (dO and Q read MN-major).
 
 template <typename T, int DP>
-__global__ void __launch_bounds__(kTcThreads) attn_dkdv_kernel_tc(Params p) {
+__global__ void __launch_bounds__(kTcThreads, DP == 64 ? 3 : 1)
+    attn_dkdv_kernel_tc(Params p) {
   constexpr int kTileBytes = DP / 64 * kAtomBytes;
   constexpr int kN = DP / 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -1214,9 +1217,9 @@ __global__ void __launch_bounds__(kTcThreads) attn_dkdv_kernel_tc(Params p) {
   load_rows_tc(sRows, p, row_base, first * kTcRows);
   cp_async_commit();
   const float bias[2] = {key_bias(p, b, k0 + r), key_bias(p, b, k0 + r + 8)};
-  float dk[kN], dv[kN], t[kN], st[32], dpt[32];
+  float dk[kN], dv[kN], st[32], dpt[32];
 #pragma unroll
-  for (int i = 0; i < kN; ++i) dk[i] = dv[i] = t[i] = 0.f;
+  for (int i = 0; i < kN; ++i) dk[i] = dv[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
   uint32_t pa[4][4], da[4][4];
@@ -1237,10 +1240,6 @@ __global__ void __launch_bounds__(kTcThreads) attn_dkdv_kernel_tc(Params p) {
     wait_tiles();
 
     score_products<T, DP>(st, sK, sQ, dpt, sV, sdO);
-    if (p.bias != nullptr)  // dP^T: key rows of sV, query rows of sdO
-      dead_rows_dp<T>(dpt, sV, sdO, p.D, r, c, [&](int, int col) {
-        return lse[col] <= kDeadLse;
-      });
     const bool edge = q0 + kTcRows > p.Sq || k0 + kTcKeys > p.Sk ||
                       (p.causal && q0 + p.off < k0 + kTcKeys - 1);
 #pragma unroll
@@ -1252,10 +1251,16 @@ __global__ void __launch_bounds__(kTcThreads) attn_dkdv_kernel_tc(Params p) {
                  Pair{q0 + qi, k0 + r + 8 * (e >> 1)}, edge, lse[qi],
                  delta[qi]);
       }
+    plain_pairs<T>(p, st, dpt, sQ, sK, sdO, sV, q0, k0, edge, [&](int i) {
+      const bool lo = (i & 2) == 0;  // keys r, r + 8 (no dynamic index)
+      const int qt = 8 * (i >> 2) + 2 * c + (i & 1);
+      return TilePair{qt, r + (lo ? 0 : 8), lse[qt], delta[qt],
+                      lo ? bias[0] : bias[1]};
+    });
     to_operand<T>(st, pa);
     to_operand<T>(dpt, da);
-    accumulate<T>(dv, pa, sdO, t);
-    accumulate<T>(dk, da, sQ, t);
+    accumulate<T>(dv, pa, sdO);
+    accumulate<T>(dk, da, sQ);
     __syncthreads();  // this stage is read: the next load may refill it
   }
   store_acc<T>(static_cast<T*>(p.dk), p, b, h, k0, p.Sk, r, c, dk);
@@ -1308,9 +1313,9 @@ int launch(int kind, const Params& p, cudaStream_t stream) {
     const int rows = kind == 2 ? p.Sk : p.Sq;
     const dim3 grid(p.B * p.H, (rows + kTile - 1) / kTile);
     const size_t bytes = smem_bytes(kind, p.D);
-    void (*kernel)(Params) = kind == 0   ? attn_fwd_kernel<T>
-                             : kind == 1 ? attn_dq_kernel<T>
-                                         : attn_dkdv_kernel<T>;
+    void (*kernel)(Params) = kind == 0   ? attn_fwd_kernel
+                             : kind == 1 ? attn_dq_kernel
+                                         : attn_dkdv_kernel;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(bytes));

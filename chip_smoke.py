@@ -160,31 +160,37 @@ Phases, one or more lines each:
 
 18. attention — the flash-attention kernels (attention.cu; run after 7,
              before 4) against their plain versions: at gpt_base's 8 x
-             2048 x 12 heads x 64, causal, in fp32 and bf16; at bert_base's
-             8 x 512, bidirectional with a key bias masking a random suffix
-             of each row and every key of the last row; causal Sq 384
-             against Sk 1024 (bottom-right); a ragged 1000 x 1000 with D =
-             16 (fp32, bf16) and D = 80 (bias; fp32, bf16, fp16); the same
-             causal with D = 24 (bf16: the tensor cores' padded depth); a
-             non-zero lse cotangent in the last four.  lse and fp32 O atol
-             = rtol 2e-5, dQ, dK, dV 5e-5 in fp32 and bf16 / fp16 alike
-             (sums in another order; the half grads round the same fp32
-             sums).  A half O 2e-2 from the reference's arithmetic, which
-             rounds the normalised P; and against the kernels' own
-             arithmetic in plain PyTorch (64-key tiles, P rounded before P
-             V) rtol 1e-2, atol 1e-3 (two ulps) with at most 1e-2 of its
-             elements off.  At gpt_base's bf16 shape, the plain versions
-             with one rounding point skipped (P before P V, P before dV,
-             dS before dK and dQ) must fail those limits; one that moves a
-             rounding point (dS from the rounded P) is printed caught or
-             not.  A second launch bitwise equal.  Then at gpt_base's
-             shape in fp32 and bf16 each
-             kernel's, the plain version's and SDPA's (forward; backward,
-             which computes dQ, dK and dV in one call) device times beside
-             the bound: the live flops (Sq * off + Sq (Sq + 1) / 2 scores a
-             head under the causal mask; 4, 8 and 6 flops per score per
-             head-dim element) over 67 TFLOP/s (fp32) or 989 TFLOP/s (bf16
-             tensor cores), or the bytes over 3.35 TB/s.
+             2048 x 12 heads x 64, causal, in fp32, bf16 and fp16; at
+             bert_base's 8 x 512, bidirectional with a key bias masking a
+             random suffix of each row and every key of the last row (a
+             dead batch element); causal Sq 384 against Sk 1024
+             (bottom-right); a ragged 1000 x 1000 with D = 16 (fp32, bf16)
+             and D = 80 (bias; fp32, bf16, fp16); the same causal with D =
+             24 (bf16: the tensor cores' padded depth); a non-zero lse
+             cotangent in the last four.  The limits are ops/attention.py's:
+             lse and fp32 O atol = rtol 2e-5, fp32 dQ, dK, dV 5e-5 (sums in
+             another order); a half O 2e-2 from the reference's arithmetic,
+             which rounds the normalised P; a half O against the kernels'
+             own arithmetic in plain PyTorch (64-key tiles, P rounded before
+             P V) and the half dQ, dK, dV against the plain backward by
+             `half_result_check`: rtol 1e-2, atol 1e-3 (two ulps), at most
+             1e-2 (bf16) or 8e-2 (fp16) of the elements off, each row of a
+             dead batch element within 3 x the plain version's own distance
+             from exact sums (the largest such floor printed).  At gpt_base's
+             bf16 and fp16 shapes, the plain versions with one rounding
+             point skipped (P before P V, P before dV, dS before dK and dQ)
+             or moved (dS from the rounded P) must fail those limits, and so
+             must the last key row of dK and the last query row of dQ of one
+             (b, h) scaled by 1.05 (through either); a zeroed dead row of
+             bert_base's bf16 dK is printed caught or not.  A second launch
+             bitwise equal.  Then at gpt_base's shape in fp32, bf16 and
+             fp16 each kernel's, the plain version's and SDPA's (forward;
+             backward, which computes dQ, dK and dV in one call) device
+             times beside the bound: the live flops (Sq * off + Sq (Sq + 1)
+             / 2 scores a head under the causal mask; 4, 8 and 6 flops per
+             score per head-dim element) over 67 TFLOP/s (fp32) or 989
+             TFLOP/s (bf16 and fp16 tensor cores), or the bytes over 3.35
+             TB/s.
 19. gpt2048 — the tentpole's entry point, bench.py's gpt row at sequence
              2048: gpt_base, batch 8 x 2048, FusedAdam (lr 1e-4, weight
              decay 0.01), 10 steps at amp O2 (bf16) and 5 at O0 (fp32):
@@ -2071,6 +2077,31 @@ def _attn_check(att, name, got, ref, half, dead=None, exact=None):
     return err, share, ok and got.dtype == ref.dtype, 0.0
 
 
+def _half_failure(att, got, ref, dead, exact):
+    """Where a half result is furthest past part 1's bound (rtol 1e-2, atol
+    1e-3) or its dead row's floor: dead or live element, index, |ref|,
+    got - ref, the bound there, and (dead) exact - ref."""
+    gd, rd = got.double(), ref.double()
+    bound = att.ATTN_HALF_O_ATOL + att.ATTN_HALF_O_RTOL * rd.abs()
+    if exact is not None:
+        rows = att.DEAD_FLOOR_X * (rd[dead] - exact.double()).abs().amax(
+            -1, keepdim=True)
+        bound[dead] = torch.maximum(bound[dead], rows)
+    ratio = (gd - rd).abs() / bound
+    idx = tuple(int(i) for i in torch.unravel_index(ratio.argmax(),
+                                                    ratio.shape))
+    where = ("dead" if dead is not None and bool(dead[idx[0]]) else "live")
+    text = (f"{int((ratio > 1).sum())} elements past their bound, the worst "
+            f"at {idx} ({where}): |ref| {float(rd[idx].abs()):.4g}, got - "
+            f"ref {float(gd[idx] - rd[idx]):.4g}, bound "
+            f"{float(bound[idx]):.4g}")
+    if where == "dead":
+        j = int(dead[:idx[0]].sum())
+        text += (f", exact - ref "
+                 f"{float(exact.double()[(j,) + idx[1:]] - rd[idx]):.4g}")
+    return text
+
+
 def _planted_faults(att, q, k, v, causal, scale, o, lse, do, want):
     """The half limits against kernels that skip one rounding point each,
     built from the plain versions: P unrounded before P V (O), P before
@@ -2172,7 +2203,12 @@ def phase_attention(att):
                                                    dead, exact.get(name))
                 ok, floor = ok and good, max(floor, fl)
                 text.append(f"max|d{name}| {err:.3g}" + (
-                    f" ({share:.2e} off)" if half and name != "lse" else ""))
+                    f" ({share:.2e} off)" if half and name != "lse" else "")
+                    + ("" if good else " FAILS"))
+                if half and not good and name not in ("o", "lse"):
+                    print(f"attention: {label} {str(dtype)[6:]} {name}: "
+                          + _half_failure(att, got, ref, dead,
+                                          exact.get(name)))
                 if label == "gpt_base" and not (half and name == "o"):
                     errs[kernel] = max(errs[kernel], err)
             if exact:

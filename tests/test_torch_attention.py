@@ -20,8 +20,10 @@ small sizes with one dead batch element (every key masked): the exact
 sums (``attention_exact_sums``) agree with the plain backward, the exact
 sums pass the limit against the plain version and it against them, each
 planted fault (a skipped rounding point, dS from the rounded P, one live
-row scaled by 1.05) fails it, and a dead row's floor covers its own row
-and no other.
+row scaled by 1.05) fails it, a dead row's floor covers its own row and no
+other, and S and dP summed in another order than the plain version's
+fail it (a dead row, a peaked softmax) unless the pairs whose P or |dS|
+is large take the plain chain, as the kernels do.
 
 The CUDA wrappers' argument checks run on meta tensors: they raise before
 anything is built, and a tensor that is not on the CPU never reaches the
@@ -448,6 +450,101 @@ def test_dead_row_floor_covers_its_own_row_only(limit_case):
     assert not att.half_result_check("dk", live, ref, c["dead"], exact).ok
     with pytest.raises(ValueError, match="no dead-row floor"):
         att.half_result_check("o", got, ref, c["dead"], exact)
+
+
+# csrc/attention.cu's flip_limit (the P or |dS| from which one ulp of the
+# dtype is at least 2^-13) and kTieUlps (how near a rounding tie of the
+# dtype an fp32 P or dS must lie to be taken again in the plain chain)
+FLIP_LIMIT = {torch.bfloat16: 1 / 64, torch.float16: 1 / 8}
+TIE_ULPS = 2048
+
+
+def test_flip_limits_are_the_kernel_source():
+    src = (pathlib.Path(att.__file__).parent.parent / "csrc"
+           / "attention.cu").read_text()
+    assert ("return std::is_same<T, __half>::value ? 0.125f : 1.f / 64;"
+            in src)
+    assert f"constexpr int kTieUlps = {TIE_ULPS};" in src
+    for dtype, limit in FLIP_LIMIT.items():
+        ulp = torch.finfo(dtype).eps * limit     # of a value in [limit, 2x)
+        assert ulp == 2.0 ** -13
+
+
+def _retaken(p, ds, dtype):
+    """The pairs the kernels take again in the plain chain: P or |dS| at
+    least FLIP_LIMIT and within TIE_ULPS fp32 ulps of a rounding tie of
+    the dtype."""
+    drop = 16 if dtype == torch.bfloat16 else 13
+    limit = FLIP_LIMIT[dtype]
+
+    def near_tie(x):
+        low = x.contiguous().view(torch.int32) & ((1 << drop) - 1)
+        return (low - (1 << (drop - 1))).abs() < TIE_ULPS
+
+    return (((p >= limit) & near_tie(p))
+            | ((ds.abs() >= limit) & near_tie(ds)))
+
+
+@pytest.mark.parametrize("case", ["dead", "peaked"])
+@pytest.mark.parametrize("dtype", list(HALF.values()), ids=list(HALF))
+def test_large_pairs_need_the_plain_chain(dtype, case):
+    """Why the backward kernels take S and dP of the pairs with P or |dS| at
+    least FLIP_LIMIT and near a rounding tie again with the plain version's
+    fp32 chain: a rounding of P or dS that flips there moves a row of dV,
+    dK or dQ by an ulp of P or dS times an operand, past the limit's atol
+    where the row cancels near zero.  At bert_base's head shape, with a
+    batch element whose keys are all masked (P = 1) or a peaked softmax (q
+    x 4), S and dP summed in another order (the head dim's two halves
+    apart, as a kernel's k16 steps split it) fail the limit; the same with
+    those pairs' P and dS from the plain order passes, as the kernels
+    compute them (the halves' sums differ from the chain's by fp32
+    reordering, as the tensor cores' do)."""
+    b, s, h, d = 2, 512, 12, 64
+    gen = torch.Generator().manual_seed(0)
+    q, k, v, do = (torch.randn(b, s, h, d, generator=gen) for _ in range(4))
+    bias = None
+    if case == "peaked":
+        q = q * 4
+    else:
+        bias = torch.zeros(b, s)
+        bias[0, 3 * s // 4:] = -1e9
+        bias[1] = -1e9
+    q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
+    scale = d ** -0.5
+    o, lse = att.attention_pair_plain(q, k, v, bias, False, scale)
+    dl = att.delta(o, do)
+    plain = att.attention_bwd_plain(q, k, v, bias, False, scale, o, lse, do)
+    dead = att.dead_batch(bias)
+    exact = (att.attention_exact_sums(*(t[dead] for t in (q, k, v, bias)),
+                                      False, scale, do[dead], dl[dead],
+                                      lse[dead]) if bias is not None
+             else (None,) * 3)
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+
+    def p_ds(s_dots, dp_dots):    # P and dS from (B, H, Sq, Sk) dots
+        p = torch.exp(att._scores(s_dots, q, k, bias, False, scale)
+                      - lse[..., None])
+        return p, p * (dp_dots - dl[..., None]) * scale
+
+    def halves(x, y):
+        return sum(torch.einsum("bqhd,bkhd->bhqk", x[..., i:i + d // 2],
+                                y[..., i:i + d // 2]) for i in (d // 2, 0))
+
+    chain = p_ds(torch.einsum("bqhd,bkhd->bhqk", qf, kf),
+                 torch.einsum("bqhd,bkhd->bhqk", dof, vf))
+    other = p_ds(halves(qf, kf), halves(dof, vf))
+    large = _retaken(other[0], other[1], dtype)
+    mixed = tuple(torch.where(large, c, o_) for c, o_ in zip(chain, other))
+    for (p, ds), ok in ((other, False), (mixed, True)):
+        ds = ds.to(dtype).float()
+        grads = {"dq": torch.einsum("bhqk,bkhd->bqhd", ds, kf),
+                 "dk": torch.einsum("bhqk,bqhd->bkhd", ds, qf),
+                 "dv": torch.einsum("bhqk,bqhd->bkhd", p.to(dtype).float(),
+                                    dof)}
+        got = [att.half_result_check(n, grads[n].to(dtype), plain[i], dead,
+                                     exact[i]).ok
+               for i, n in enumerate(GRADS)]
+        assert all(got) if ok else not all(got), (case, ok, got)
 
 
 def _meta(*shape, dtype=torch.float32):
