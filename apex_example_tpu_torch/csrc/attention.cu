@@ -30,13 +30,52 @@
 //
 // fp32: fp32 fused multiply-adds on the CUDA cores for all three (fp32
 // without TF32 is the port's fp32 contract; P and dS round to fp32, so
-// those roundings are none).  Tiles of 64 queries and 64
-// keys in shared memory, held as fp32; 256 threads, each owning a 4 x 4
-// piece of the score tile (4 rows, columns 16 apart) and 4 rows x 8
-// head-dim columns of the output; 16-byte shared-memory loads along the
-// head dimension; row maxima and sums over the 16 threads of a row with
-// warp shuffles.  Causal tiles wholly above the diagonal are skipped, as
-// `_when_live` (:121) skips them.
+// those roundings are none).  Causal tiles wholly above the diagonal are
+// skipped, as `_when_live` (:121) skips them.
+//
+// The fp32 forward (`attn_fwd_kernel`): tiles of 64 queries and 64 keys
+// in shared memory; 256 threads, each owning a 4 x 4 piece of the score
+// tile (4 rows, columns 16 apart) and 4 rows x 8 head-dim columns of the
+// output; 16-byte shared-memory loads along the head dimension; row maxima
+// and sums over the 16 threads of a row with warp shuffles.
+//
+// The fp32 backward (`attn_dkdv_kernel`, `attn_dq_kernel`) is SIMT GEMM.
+// Its bound is the fp32 FMA rate: 8 (dK/dV) and 6 (dQ) flops per live
+// score and head-dim element, 1.54 and 1.15 ms at gpt_base's 8 x 2048 x
+// 12 x 64 causal over 67 TFLOP/s.  Three things keep a simple kernel far
+// from it, and the design answers each:
+// - Shared-memory bandwidth.  A 4 x 4 register tile reads a float for
+//   every two FMAs, and an SM's shared memory gives 32 floats a clock
+//   against 128 FMAs.  Here a thread holds 8 x 8 tiles (8 x 3 for the
+//   score products at D 128, where shared memory runs out; 4 x 8 for
+//   dQ's row product, below): 4 FMAs per float read, every read a 16-byte
+//   load that a warp takes without a bank conflict.  The stationary
+//   operand of the products over the head dim (S = Q K^T, dP = dO V^T) is
+//   stored d-major (K^T, V^T in dK/dV; Q^T, dO^T in dQ), the streamed one
+//   row-major with rows 4 floats past the padded head dim apart; the
+//   products over rows (dV += P^T dO, dK += dS^T Q, dQ += dS K) read P
+//   and dS from a [col][row] tile and the streamed tile row-major.
+// - Synchronous loads.  The streamed tiles (Q, dO, lse and Delta in
+//   dK/dV; K, V and the key bias in dQ) run through a two-stage cp.async
+//   ring, the next tile in flight while the block computes: 16-byte
+//   copies when `vq/vk/vv/vdo` say the rows are contiguous and aligned
+//   (the models' (B, L, H, D) views), else 4-byte copies through the
+//   strides into the same layout.  The stationary tiles load once a
+//   block, behind the first tile's copies.
+// - Occupancy and order.  A thread's two register tiles (an 8 x 8
+//   accumulator and the score tile) take 213-255 registers at D 64, so a
+//   block is one per SM: 256 threads, two groups of 128 that run the two
+//   products of each step side by side.  dK/dV: 128 keys a block (64 at D
+//   128) against q tiles of 64 (48); group 0 sums S^T = K Q^T, then dV,
+//   group 1 dP^T = V dO^T, then dK.  dQ: 128 queries (64) against k/v
+//   tiles of 64 (48); group 0 sums S = Q K^T, group 1 dP = dO V^T, and
+//   each then sums dQ for half of the queries (4 x 8 tiles, 2.67 FMAs a
+//   float).  Between the products every thread turns its share of the
+//   tile's pairs into P and dS in shared memory, so both groups share the
+//   exp.  Causal blocks launch longest first.  No atomics, and every
+//   output element is one fused multiply-add chain in order, as the plain
+//   version's matrix products on the card sum: fp32 dQ, dK and dV come out
+//   bitwise equal to it, and a second launch repeats bitwise.
 //
 // bf16 and fp16: Hopper's tensor cores for all three (`*_kernel_tc`).
 // One warpgroup (128 threads) owns 64 rows: queries in the forward and in
@@ -339,133 +378,6 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(Params p) {
           m[i] + logf(lsafe);
   }
   store_rows(static_cast<float*>(p.out), b, h, q0, p.Sq, p, r0, tx, acc);
-}
-
-// ---- dQ: one block per (b * H + h, q tile) ------------------------------
-
-__global__ void __launch_bounds__(kThreads) attn_dq_kernel(Params p) {
-  extern __shared__ float4 smem4[];
-  float* sQ = reinterpret_cast<float*>(smem4);
-  const int ld = p.D + 4;
-  float* sdO = sQ + kTile * ld;
-  float* sK = sdO + kTile * ld;
-  float* sV = sK + kTile * ld;
-  float* sdS = sV + kTile * ld;
-  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
-  const int q0 = blockIdx.y * kTile;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15, r0 = 4 * ty;
-
-  load_tile(sQ, ld, static_cast<const float*>(p.q), p.sq, b, h, q0, p.Sq, p.D);
-  load_tile(sdO, ld, static_cast<const float*>(p.dout), p.sdo, b, h, q0, p.Sq,
-            p.D);
-  float lse[4], delta[4], dq[4][8];
-  const long long row_base = (static_cast<long long>(b) * p.H + h) * p.Sq;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + r0 + i;
-    lse[i] = row < p.Sq ? p.lse[row_base + row] : 0.f;
-    delta[i] = row < p.Sq ? p.delta[row_base + row] : 0.f;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) dq[i][e] = 0.f;
-  }
-  const int last = last_kv_tile(p, q0);
-  for (int j = 0; j <= last; ++j) {
-    const int k0 = j * kTile;
-    __syncthreads();
-    load_tile(sK, ld, static_cast<const float*>(p.k), p.sk, b, h, k0, p.Sk, p.D);
-    load_tile(sV, ld, static_cast<const float*>(p.v), p.sv, b, h, k0, p.Sk, p.D);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    dot_tile(sQ, sK, ld, p.D, r0, tx, s);
-    dot_tile(sdO, sV, ld, p.D, r0, tx, dp);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int kcol = k0 + tx + 16 * c;
-      const float bias = key_bias(p, b, kcol);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float pv =
-            expf(score(p, s[i][c], bias, q0 + r0 + i, kcol) - lse[i]);
-        sdS[(r0 + i) * kLdS + tx + 16 * c] =
-            pv * (dp[i][c] - delta[i]) * p.scale;
-      }
-    }
-    __syncthreads();
-    acc_tile(sdS, sK, ld, p.D, r0, tx, dq);
-  }
-  store_rows(static_cast<float*>(p.out), b, h, q0, p.Sq, p, r0, tx, dq);
-}
-
-// ---- dK, dV: one block per (b * H + h, k/v tile) ------------------------
-// The thread layout of the two kernels above with keys as the rows: a
-// thread owns 4 keys and 4 queries (16 apart) of the transposed score
-// tile, and 4 keys x 8 head-dim columns of dK and dV.
-
-__global__ void __launch_bounds__(kThreads) attn_dkdv_kernel(Params p) {
-  extern __shared__ float4 smem4[];
-  float* sK = reinterpret_cast<float*>(smem4);
-  const int ld = p.D + 4;
-  float* sV = sK + kTile * ld;
-  float* sQ = sV + kTile * ld;
-  float* sdO = sQ + kTile * ld;
-  float* sPT = sdO + kTile * ld;
-  float* sdST = sPT + kTile * kLdS;
-  float* sLse = sdST + kTile * kLdS;
-  float* sDelta = sLse + kTile;
-  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
-  const int k0 = blockIdx.y * kTile;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15, r0 = 4 * ty;
-
-  load_tile(sK, ld, static_cast<const float*>(p.k), p.sk, b, h, k0, p.Sk, p.D);
-  load_tile(sV, ld, static_cast<const float*>(p.v), p.sv, b, h, k0, p.Sk, p.D);
-  float bias[4], dk[4][8], dv[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    bias[i] = key_bias(p, b, k0 + r0 + i);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) dk[i][e] = dv[i][e] = 0.f;
-  }
-  const int nq = (p.Sq + kTile - 1) / kTile;
-  int first = 0;  // the first q tile that sees this k/v tile
-  if (p.causal) {
-    const int lo = k0 - p.off - kTile + 1;
-    first = lo > 0 ? (lo + kTile - 1) / kTile : 0;
-  }
-  const long long row_base = (static_cast<long long>(b) * p.H + h) * p.Sq;
-  for (int i_tile = first; i_tile < nq; ++i_tile) {
-    const int q0 = i_tile * kTile;
-    __syncthreads();
-    load_tile(sQ, ld, static_cast<const float*>(p.q), p.sq, b, h, q0, p.Sq, p.D);
-    load_tile(sdO, ld, static_cast<const float*>(p.dout), p.sdo, b, h, q0, p.Sq,
-              p.D);
-    if (threadIdx.x < kTile) {
-      const int row = q0 + threadIdx.x;
-      sLse[threadIdx.x] = row < p.Sq ? p.lse[row_base + row] : 0.f;
-      sDelta[threadIdx.x] = row < p.Sq ? p.delta[row_base + row] : 0.f;
-    }
-    __syncthreads();
-    float st[4][4], dpt[4][4];
-    dot_tile(sK, sQ, ld, p.D, r0, tx, st);
-    dot_tile(sV, sdO, ld, p.D, r0, tx, dpt);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int qc = tx + 16 * c;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float pv =
-            expf(score(p, st[i][c], bias[i], q0 + qc, k0 + r0 + i) -
-                 sLse[qc]);
-        sPT[(r0 + i) * kLdS + qc] = pv;
-        sdST[(r0 + i) * kLdS + qc] =
-            pv * (dpt[i][c] - sDelta[qc]) * p.scale;
-      }
-    }
-    __syncthreads();
-    acc_tile(sPT, sdO, ld, p.D, r0, tx, dv);
-    acc_tile(sdST, sQ, ld, p.D, r0, tx, dk);
-  }
-  store_rows(static_cast<float*>(p.dk), b, h, k0, p.Sk, p, r0, tx, dk);
-  store_rows(static_cast<float*>(p.dv), b, h, k0, p.Sk, p, r0, tx, dv);
 }
 
 // ---- bf16 / fp16 on the tensor cores -------------------------------------
@@ -1267,6 +1179,517 @@ __global__ void __launch_bounds__(kTcThreads, DP == 64 ? 3 : 1)
   store_acc<T>(static_cast<T*>(p.dv), p, b, h, k0, p.Sk, r, c, dv);
 }
 
+// ---- fp32 backward on the CUDA cores --------------------------------------
+// SIMT-GEMM register tiles (the note at the head of the file).  A block of
+// kF32Threads is two groups of 128 threads (warps 0-3 and 4-7) over the
+// same kRows stationary rows: keys in dK/dV, queries in dQ.  In a group,
+// thread (rg, cg) owns the rows row(i) = (i / 4) kRows / 2 + 4 rg + i % 4
+// (i < 8), the streamed rows col(j) = cg + kCG j of a tile (j < kTC) and
+// the head-dim columns dcol(e) = (e / 4) DP / 2 + 4 cg + e % 4 (e < 8), so
+// that every shared-memory read is a 16-byte load that a warp takes
+// without a bank conflict (row strides kLd and kLdP are 4 past a multiple
+// of 32 floats).
+
+constexpr int kF32Threads = 256;
+constexpr int kF32Group = 128;
+// Stationary rows a block and streamed rows a tile, at a head dim padded to
+// 64 and to 128 (tests/test_torch_attention.py reads these four).
+constexpr int kF32Rows64 = 128;
+constexpr int kF32Cols64 = 64;
+constexpr int kF32Rows128 = 64;
+constexpr int kF32Cols128 = 48;
+
+template <int DP>
+struct F32Tiles {
+  static constexpr int kRows = DP == 64 ? kF32Rows64 : kF32Rows128;
+  static constexpr int kCols = DP == 64 ? kF32Cols64 : kF32Cols128;
+  static constexpr int kRG = kRows / 8;        // row groups of 8 rows
+  static constexpr int kCG = kF32Group / kRG;  // column groups: DP / 8
+  static constexpr int kTC = kCols / kCG;      // streamed rows a thread
+  static constexpr int kLd = DP + 4;           // a streamed tile's row stride
+  static constexpr int kLdP = kRows + 4;       // P and dS, [col][row]
+  // A ring stage: two streamed tiles and two floats a streamed row (dK/dV:
+  // lse and Delta; dQ: the key bias).
+  static constexpr int kStage = 2 * kCols * kLd + 2 * kCols;
+  // Floats of shared memory: two transposed stationary tiles, two stages,
+  // P and dS, two floats a stationary row (dK/dV: the key bias; dQ: lse
+  // and Delta).
+  static constexpr int kSmem =
+      2 * DP * kRows + 2 * kStage + 2 * kCols * kLdP + 2 * kRows;
+  static_assert(kCG * 8 == DP, "a thread accumulates 8 head-dim columns");
+  static_assert(kTC * kCG == kCols, "a tile splits evenly over a group");
+  static_assert(kCols * 4 <= kF32Threads, "four threads load a row");
+};
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ void st4(float* p, float a, float b, float c,
+                                    float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ float comp(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// The 128 threads of group g alone (barrier 1 + g; __syncthreads is 0).
+__device__ __forceinline__ void group_sync(int g) {
+  if (g == 0)
+    asm volatile("bar.sync 1, 128;\n" ::: "memory");
+  else
+    asm volatile("bar.sync 2, 128;\n" ::: "memory");
+}
+
+// The transposed tile dst[d][r] (R rows, d < D) of rows row0 .. row0 +
+// R - 1 of head (b, h); rows at or past n_rows are zero.  Once a block:
+// the stationary tiles.  Consecutive threads take consecutive rows, so
+// the stores meet no bank conflict: when the rows are contiguous and
+// 16-byte aligned (`vec`), a thread loads 16 bytes of its row and stores
+// them as four columns (ready at the next barrier); otherwise it starts
+// 4-byte cp.async copies through the strides.
+template <int R>
+__device__ __forceinline__ void f32_load_t(float* dst, const float* src,
+                                           const long long* st, int vec,
+                                           int b, int h, int row0,
+                                           int n_rows, int D) {
+  const int r = threadIdx.x % R;
+  const int row = row0 + r;
+  const bool in = row < n_rows;
+  const float* s =
+      src + b * st[0] + h * st[2] + (in ? row : n_rows - 1) * st[1];
+  if (vec) {  // 16-byte loads, four stores
+#pragma unroll 4
+    for (int d = 4 * (threadIdx.x / R); d < D; d += 4 * (kF32Threads / R)) {
+      const float4 x = in ? __ldg(reinterpret_cast<const float4*>(s + d))
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+      dst[d * R + r] = x.x;
+      dst[(d + 1) * R + r] = x.y;
+      dst[(d + 2) * R + r] = x.z;
+      dst[(d + 3) * R + r] = x.w;
+    }
+  } else {
+    const uint32_t base = smem_u32(dst);
+    for (int d = threadIdx.x / R; d < D; d += kF32Threads / R)
+      cp_async4(base + 4 * (d * R + r), s + d * st[3], in ? 4 : 0);
+  }
+}
+
+// Start copying rows row0 .. row0 + kCols - 1 of head (b, h) into the
+// row-major tile dst[r][d] (row stride kLd), four threads a row: 16-byte
+// chunks when the rows are contiguous and 16-byte aligned (`vec`), else
+// 4-byte copies through the strides into the same layout.  Rows at or past
+// n_rows are zero.
+template <int DP>
+__device__ __forceinline__ void f32_load_rows(uint32_t dst, const float* src,
+                                              const long long* st, int vec,
+                                              int b, int h, int row0,
+                                              int n_rows, int D) {
+  using T = F32Tiles<DP>;
+  const int r = threadIdx.x >> 2, part = threadIdx.x & 3;
+  if (r >= T::kCols) return;
+  const int row = row0 + r;
+  const bool in = row < n_rows;
+  const float* s =
+      src + b * st[0] + h * st[2] + (in ? row : n_rows - 1) * st[1];
+  const uint32_t d_row = dst + 4 * r * T::kLd;
+  if (vec) {
+    for (int d = 4 * part; d < D; d += 16)
+      cp_async16(d_row + 4 * d, s + d, in ? 16 : 0);
+  } else {
+    for (int d = part; d < D; d += 4)
+      cp_async4(d_row + 4 * d, s + d * st[3], in ? 4 : 0);
+  }
+}
+
+// Start copying dst[i] = src[(row0 + i) * stride] for i < n (zero at or
+// past n_rows), one float a thread from thread t0 on.
+__device__ __forceinline__ void f32_load_vec(uint32_t dst, const float* src,
+                                             long long stride, int row0,
+                                             int n_rows, int n, int t0) {
+  const int i = static_cast<int>(threadIdx.x) - t0;
+  if (i < 0 || i >= n) return;
+  const int row = row0 + i;
+  cp_async4(dst + 4 * i, src + (row < n_rows ? row : n_rows - 1) * stride,
+            row < n_rows ? 4 : 0);
+}
+
+// s[i][j] = sum over d < D of At[d][row(i)] * Bt[col(j)][d], one fused
+// multiply-add per d in order: At a transposed stationary tile
+// ([DP][kRows]), Bt a row-major streamed one ([kCols][kLd]).  Per four d a
+// thread reads kTC + 8 float4 for 32 kTC multiply-adds: 4 a float read at
+// kTC = 8.  Four steps unrolled: the next step's loads issue early (the
+// whole loop unrolled at D = 64 was slower: PERF.md).
+template <int DP>
+__device__ __forceinline__ void f32_scores(
+    const float* At, const float* Bt, int D, int rg, int cg,
+    float (&s)[8][F32Tiles<DP>::kTC]) {
+  using T = F32Tiles<DP>;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < T::kTC; ++j) s[i][j] = 0.f;
+  const float* a_at = At + 4 * rg;
+  const float* b_at = Bt + cg * T::kLd;
+  auto step = [&](int d0) {  // d0 .. d0 + 3
+    float4 bv[T::kTC];
+#pragma unroll
+    for (int j = 0; j < T::kTC; ++j)
+      bv[j] = ld4(b_at + j * T::kCG * T::kLd + d0);
+#pragma unroll
+    for (int dd = 0; dd < 4; ++dd) {
+      const float* ad = a_at + (d0 + dd) * T::kRows;
+      const float4 a0 = ld4(ad), a1 = ld4(ad + T::kRows / 2);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+      for (int j = 0; j < T::kTC; ++j) {
+        const float bj = comp(bv[j], dd);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) s[i][j] = fmaf(a[i], bj, s[i][j]);
+      }
+    }
+  };
+#pragma unroll 4
+  for (int d0 = 0; d0 < D; d0 += 4) step(d0);
+}
+
+// acc[i][e] += sum over c < kCols of Pt[c][row(i)] * M[c][dcol(e)], one
+// fused multiply-add per c in order: Pt is P or dS stored [col][row] (row
+// stride kLdP), M a row-major streamed tile.  The thread's R rows are
+// row0 + (i / 4) kRows / 2 + i % 4.  Per c a thread reads R / 4 + 2 float4
+// for 8 R multiply-adds: 4 a float read at R = 8, 2.67 at R = 4.
+template <int DP, int R>
+__device__ __forceinline__ void f32_accumulate(const float* Pt,
+                                               const float* M, int row0,
+                                               int cg, float (&acc)[R][8]) {
+  using T = F32Tiles<DP>;
+  const float* p_at = Pt + row0;
+  const float* m_at = M + 4 * cg;
+#pragma unroll 8
+  for (int c = 0; c < T::kCols; ++c) {
+    float pv[R];
+#pragma unroll
+    for (int h = 0; h < R / 4; ++h) {
+      const float4 x = ld4(p_at + c * T::kLdP + h * (T::kRows / 2));
+      pv[4 * h] = x.x, pv[4 * h + 1] = x.y, pv[4 * h + 2] = x.z,
+      pv[4 * h + 3] = x.w;
+    }
+    const float4 m0 = ld4(m_at + c * T::kLd);
+    const float4 m1 = ld4(m_at + c * T::kLd + DP / 2);
+    const float mv[8] = {m0.x, m0.y, m0.z, m0.w, m1.x, m1.y, m1.z, m1.w};
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[i][e] = fmaf(pv[i], mv[e], acc[i][e]);
+  }
+}
+
+// Column j of the thread's score tile into Pt[col][row(i)].
+template <int DP>
+__device__ __forceinline__ void f32_put(float* Pt, int rg, int col,
+                                        const float (&s)[8][F32Tiles<DP>::kTC],
+                                        int j) {
+  using T = F32Tiles<DP>;
+  float* at = Pt + col * T::kLdP + 4 * rg;
+  st4(at, s[0][j], s[1][j], s[2][j], s[3][j]);
+  st4(at + T::kRows / 2, s[4][j], s[5][j], s[6][j], s[7][j]);
+}
+
+// The scaled, biased, masked score of (query, key) from its raw Q K^T dot,
+// rounded as the plain version rounds: dot * scale, then + bias (no fused
+// multiply-add); the mask (checked on edge tiles only) replaces it.
+__device__ __forceinline__ float f32_score(const Params& p, float dot,
+                                           float bias, bool edge, int query,
+                                           int key) {
+  float x = __fmul_rn(dot, p.scale);
+  if (p.bias != nullptr) x = __fadd_rn(x, bias);
+  if (edge && (key >= p.Sk || query >= p.Sq ||
+               (p.causal && query + p.off < key)))
+    x = kMask;
+  return x;
+}
+
+// P = exp(x - lse) and dS = P (dP - Delta) scale of one pair, in place: x
+// holds its score, dp its dO V^T dot; on return x holds P and dp dS.
+__device__ __forceinline__ void f32_p_ds(const Params& p, float& x, float& dp,
+                                         float lse, float delta) {
+  x = expf(x - lse);
+  dp = x * (dp - delta) * p.scale;
+}
+
+// Rows row0 + (i / 4) kRows / 2 + i % 4 (i < R) below n_rows of a
+// contiguous (B, n_rows, H, D) output, the head-dim columns below D.
+template <int DP, int R>
+__device__ __forceinline__ void f32_store(float* dst, const Params& p, int b,
+                                          int h, int row0, int n_rows,
+                                          int cg, const float (&acc)[R][8]) {
+  using T = F32Tiles<DP>;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = row0 + (i >> 2) * (T::kRows / 2) + (i & 3);
+    if (row >= n_rows) continue;
+    float* out =
+        dst + ((static_cast<long long>(b) * n_rows + row) * p.H + h) * p.D;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int d0 = half * (DP / 2) + 4 * cg;
+      if (d0 < p.D)
+        st4(out + d0, acc[i][4 * half], acc[i][4 * half + 1],
+            acc[i][4 * half + 2], acc[i][4 * half + 3]);
+    }
+  }
+}
+
+// ---- dK, dV: one block per (b * H + h, kRows keys) ----------------------
+// Shared memory: K^T and V^T ([d][key]), two ring stages of Q and dO
+// (row-major) with lse and Delta, P^T and dS^T stored [query][key], the
+// keys' bias.  Per q tile: group 0 sums S^T = K Q^T and writes the scores,
+// group 1 sums dP^T = V dO^T and writes it; after a barrier every thread
+// turns a quarter of its score tile's pairs (group g the rows of chunk g)
+// into P^T and dS^T in place; after another, group 0 sums dV += P^T dO and
+// group 1 dK += dS^T Q, each row of them one chain over the queries in
+// order.
+
+template <int DP>
+__global__ void __launch_bounds__(kF32Threads, 1) attn_dkdv_kernel(Params p) {
+  using T = F32Tiles<DP>;
+  extern __shared__ float4 smem4[];
+  float* sKt = reinterpret_cast<float*>(smem4);
+  float* sVt = sKt + DP * T::kRows;
+  float* sStage = sVt + DP * T::kRows;
+  float* sP = sStage + 2 * T::kStage;
+  float* sdS = sP + T::kCols * T::kLdP;
+  float* sBias = sdS + T::kCols * T::kLdP;
+  for (int i = threadIdx.x; i < T::kSmem / 4; i += kF32Threads)
+    smem4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int k0 = blockIdx.y * T::kRows;  // the longest causal blocks first
+  const int group = threadIdx.x / kF32Group, t = threadIdx.x % kF32Group;
+  const int rg = t / T::kCG, cg = t % T::kCG;
+  const float* q = static_cast<const float*>(p.q);
+  const float* dout = static_cast<const float*>(p.dout);
+  const int nq = (p.Sq + T::kCols - 1) / T::kCols;
+  // the first q tile that sees the block's first key
+  const int first = p.causal && k0 > p.off ? (k0 - p.off) / T::kCols : 0;
+  const long long row_base = (static_cast<long long>(b) * p.H + h) * p.Sq;
+  auto load_stage = [&](int it) {
+    float* st = sStage + ((it - first) & 1) * T::kStage;
+    const int q0 = it * T::kCols;
+    f32_load_rows<DP>(smem_u32(st), q, p.sq, p.vq, b, h, q0, p.Sq, p.D);
+    f32_load_rows<DP>(smem_u32(st + T::kCols * T::kLd), dout, p.sdo, p.vdo,
+                      b, h, q0, p.Sq, p.D);
+    const uint32_t rows = smem_u32(st + 2 * T::kCols * T::kLd);
+    f32_load_vec(rows, p.lse + row_base, 1, q0, p.Sq, T::kCols, 0);
+    f32_load_vec(rows + 4 * T::kCols, p.delta + row_base, 1, q0, p.Sq,
+                 T::kCols, kF32Group);
+  };
+
+  // the first tile's copies first: they fly while the stationary tiles load
+  load_stage(first);
+  if (p.bias != nullptr)
+    f32_load_vec(smem_u32(sBias), p.bias + b * p.sbias[0], p.sbias[1], k0,
+                 p.Sk, T::kRows, 0);
+  f32_load_t<T::kRows>(sKt, static_cast<const float*>(p.k), p.sk, p.vk, b,
+                       h, k0, p.Sk, p.D);
+  f32_load_t<T::kRows>(sVt, static_cast<const float*>(p.v), p.sv, p.vv, b,
+                       h, k0, p.Sk, p.D);
+  cp_async_commit();
+  float acc[8][8], s[8][T::kTC];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[i][e] = 0.f;
+
+  for (int it = first; it < nq; ++it) {
+    const int q0 = it * T::kCols;
+    const float* sQ = sStage + ((it - first) & 1) * T::kStage;
+    const float* sdO = sQ + T::kCols * T::kLd;
+    const float* sLse = sdO + T::kCols * T::kLd;
+    const float* sDelta = sLse + T::kCols;
+    cp_async_wait_all();
+    __syncthreads();  // tile `it` is in; every read of tile it - 1 is done
+    if (it + 1 < nq) load_stage(it + 1);
+    cp_async_commit();
+
+    // S^T (group 0) or dP^T (group 1) into sP or sdS
+    f32_scores<DP>(group ? sVt : sKt, group ? sdO : sQ, p.D, rg, cg, s);
+    if (group == 0) {
+      const bool edge = q0 + T::kCols > p.Sq || k0 + T::kRows > p.Sk ||
+                        (p.causal && q0 + p.off < k0 + T::kRows - 1);
+      float bias[8];
+      const float4 b0 = ld4(sBias + 4 * rg);
+      const float4 b1 = ld4(sBias + T::kRows / 2 + 4 * rg);
+      bias[0] = b0.x, bias[1] = b0.y, bias[2] = b0.z, bias[3] = b0.w;
+      bias[4] = b1.x, bias[5] = b1.y, bias[6] = b1.z, bias[7] = b1.w;
+#pragma unroll
+      for (int j = 0; j < T::kTC; ++j) {
+        const int col = cg + T::kCG * j;
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          s[i][j] = f32_score(p, s[i][j], bias[i], edge, q0 + col,
+                              k0 + (i >> 2) * (T::kRows / 2) + 4 * rg +
+                                  (i & 3));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < T::kTC; ++j)
+      f32_put<DP>(group ? sdS : sP, rg, cg + T::kCG * j, s, j);
+    __syncthreads();  // the scores and dP^T are in
+#pragma unroll
+    for (int j = 0; j < T::kTC; ++j) {  // P^T and dS^T, rows of chunk group
+      const int col = cg + T::kCG * j;
+      const int at = col * T::kLdP + group * (T::kRows / 2) + 4 * rg;
+      float4 x = ld4(sP + at), dp = ld4(sdS + at);
+      const float lse = sLse[col], delta = sDelta[col];
+      f32_p_ds(p, x.x, dp.x, lse, delta);
+      f32_p_ds(p, x.y, dp.y, lse, delta);
+      f32_p_ds(p, x.z, dp.z, lse, delta);
+      f32_p_ds(p, x.w, dp.w, lse, delta);
+      st4(sP + at, x.x, x.y, x.z, x.w);
+      st4(sdS + at, dp.x, dp.y, dp.z, dp.w);
+    }
+    __syncthreads();  // P^T and dS^T are in
+    if (group == 0)
+      f32_accumulate<DP, 8>(sP, sdO, 4 * rg, cg, acc);  // dV += P^T dO
+    else
+      f32_accumulate<DP, 8>(sdS, sQ, 4 * rg, cg, acc);  // dK += dS^T Q
+  }
+  f32_store<DP, 8>(static_cast<float*>(group ? p.dk : p.dv), p, b, h,
+                   k0 + 4 * rg, p.Sk, cg, acc);
+}
+
+// ---- dQ: one block per (b * H + h, kRows queries) -----------------------
+// Shared memory: Q^T and dO^T ([d][query]), two ring stages of K and V
+// (row-major) with the keys' bias, the scores and dP (then dS) stored
+// [key][query], the queries' lse and Delta.  Per k/v tile: group 0 sums
+// S = Q K^T and writes the scores, group 1 sums dP = dO V^T and writes it;
+// after a barrier group g turns the pairs of its half of the queries into
+// dS = P (dP - Delta) scale and, after its own barrier, sums dQ += dS K
+// for those queries, each element one chain over the keys in order.
+
+template <int DP>
+__global__ void __launch_bounds__(kF32Threads, 1) attn_dq_kernel(Params p) {
+  using T = F32Tiles<DP>;
+  extern __shared__ float4 smem4[];
+  float* sQt = reinterpret_cast<float*>(smem4);
+  float* sdOt = sQt + DP * T::kRows;
+  float* sStage = sdOt + DP * T::kRows;
+  float* sX = sStage + 2 * T::kStage;
+  float* sdS = sX + T::kCols * T::kLdP;
+  float* sLse = sdS + T::kCols * T::kLdP;
+  float* sDelta = sLse + T::kRows;
+  for (int i = threadIdx.x; i < T::kSmem / 4; i += kF32Threads)
+    smem4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * T::kRows;  // longest first
+  const int group = threadIdx.x / kF32Group, t = threadIdx.x % kF32Group;
+  const int rg = t / T::kCG, cg = t % T::kCG;
+  const int row0 = group * (T::kRows / 2) + 4 * rg;  // the dQ rows' first
+  const float* k = static_cast<const float*>(p.k);
+  const float* v = static_cast<const float*>(p.v);
+  const int nk = (p.Sk + T::kCols - 1) / T::kCols;
+  // the last k/v tile that the block's last query sees
+  const int last =
+      p.causal
+          ? min(nk - 1, (min(q0 + T::kRows, p.Sq) - 1 + p.off) / T::kCols)
+          : nk - 1;
+  const long long row_base = (static_cast<long long>(b) * p.H + h) * p.Sq;
+  auto load_stage = [&](int j) {
+    float* st = sStage + (j & 1) * T::kStage;
+    const int k0 = j * T::kCols;
+    f32_load_rows<DP>(smem_u32(st), k, p.sk, p.vk, b, h, k0, p.Sk, p.D);
+    f32_load_rows<DP>(smem_u32(st + T::kCols * T::kLd), v, p.sv, p.vv, b, h,
+                      k0, p.Sk, p.D);
+    if (p.bias != nullptr)
+      f32_load_vec(smem_u32(st + 2 * T::kCols * T::kLd),
+                   p.bias + b * p.sbias[0], p.sbias[1], k0, p.Sk, T::kCols,
+                   0);
+  };
+
+  // the first tile's copies first: they fly while the stationary tiles load
+  load_stage(0);
+  f32_load_vec(smem_u32(sLse), p.lse + row_base, 1, q0, p.Sq, T::kRows, 0);
+  f32_load_vec(smem_u32(sDelta), p.delta + row_base, 1, q0, p.Sq, T::kRows,
+               kF32Group);
+  f32_load_t<T::kRows>(sQt, static_cast<const float*>(p.q), p.sq, p.vq, b, h,
+                       q0, p.Sq, p.D);
+  f32_load_t<T::kRows>(sdOt, static_cast<const float*>(p.dout), p.sdo, p.vdo,
+                       b, h, q0, p.Sq, p.D);
+  cp_async_commit();
+  float acc[4][8], s[8][T::kTC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[i][e] = 0.f;
+
+  for (int j = 0; j <= last; ++j) {
+    const int k0 = j * T::kCols;
+    const float* sK = sStage + (j & 1) * T::kStage;
+    const float* sV = sK + T::kCols * T::kLd;
+    const float* sBias = sV + T::kCols * T::kLd;
+    cp_async_wait_all();
+    __syncthreads();  // tile j is in; every read of tile j - 1 is done
+    if (j < last) load_stage(j + 1);
+    cp_async_commit();
+
+    // S (group 0) or dP (group 1) into sX or sdS
+    f32_scores<DP>(group ? sdOt : sQt, group ? sV : sK, p.D, rg, cg, s);
+    if (group == 0) {
+      const bool edge = k0 + T::kCols > p.Sk || q0 + T::kRows > p.Sq ||
+                        (p.causal && k0 + T::kCols - 1 > q0 + p.off);
+#pragma unroll
+      for (int jj = 0; jj < T::kTC; ++jj) {
+        const int col = cg + T::kCG * jj;
+        const float bias = sBias[col];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          s[i][jj] = f32_score(
+              p, s[i][jj], bias, edge,
+              q0 + (i >> 2) * (T::kRows / 2) + 4 * rg + (i & 3), k0 + col);
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < T::kTC; ++jj)
+      f32_put<DP>(group ? sdS : sX, rg, cg + T::kCG * jj, s, jj);
+    __syncthreads();  // the scores and dP are in
+    const float4 lse = ld4(sLse + row0), delta = ld4(sDelta + row0);
+#pragma unroll
+    for (int jj = 0; jj < T::kTC; ++jj) {  // dS of the group's queries
+      const int at = (cg + T::kCG * jj) * T::kLdP + row0;
+      float4 x = ld4(sX + at), dp = ld4(sdS + at);
+      f32_p_ds(p, x.x, dp.x, lse.x, delta.x);
+      f32_p_ds(p, x.y, dp.y, lse.y, delta.y);
+      f32_p_ds(p, x.z, dp.z, lse.z, delta.z);
+      f32_p_ds(p, x.w, dp.w, lse.w, delta.w);
+      st4(sdS + at, dp.x, dp.y, dp.z, dp.w);
+    }
+    group_sync(group);  // the group's dS is in
+    f32_accumulate<DP, 4>(sdS, sK, row0, cg, acc);  // dQ += dS K
+  }
+  f32_store<DP, 4>(static_cast<float*>(p.out), p, b, h, q0 + row0, p.Sq, cg,
+                   acc);
+}
+
+// kind 1 dQ, 2 dK/dV; the head dim padded to 64 or 128.
+template <int DP>
+int launch_f32_bwd(int kind, const Params& p, cudaStream_t stream) {
+  using T = F32Tiles<DP>;
+  const size_t bytes = T::kSmem * sizeof(float);
+  const int rows = kind == 2 ? p.Sk : p.Sq;
+  const dim3 grid(p.B * p.H, (rows + T::kRows - 1) / T::kRows);
+  void (*kernel)(Params) =
+      kind == 1 ? attn_dq_kernel<DP> : attn_dkdv_kernel<DP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, kF32Threads, bytes, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // kind 0 forward, 1 dQ, 2 dK/dV.
 template <typename T, int DP>
 int launch_tc(int kind, const Params& p, cudaStream_t stream) {
@@ -1289,17 +1712,11 @@ int launch_tc(int kind, const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-size_t smem_bytes(int kind, int D) {
-  const size_t tile = static_cast<size_t>(kTile) * (D + 4);
-  const size_t score = static_cast<size_t>(kTile) * kLdS;
-  switch (kind) {
-    case 0:  // forward: Q, K, V, P
-      return (3 * tile + score) * sizeof(float);
-    case 1:  // dQ: Q, dO, K, V, dS
-      return (4 * tile + score) * sizeof(float);
-    default:  // dK/dV: K, V, Q, dO, P^T, dS^T, lse, Delta
-      return (4 * tile + 2 * score + 2 * kTile) * sizeof(float);
-  }
+// The fp32 forward's: Q, K, V and P.
+size_t fwd_smem_bytes(int D) {
+  return (3 * static_cast<size_t>(kTile) * (D + 4) +
+          static_cast<size_t>(kTile) * kLdS) *
+         sizeof(float);
 }
 
 // The route is the dtype's: fp32 takes the CUDA-core kernels, bf16 and
@@ -1309,18 +1726,17 @@ int launch(int kind, const Params& p, cudaStream_t stream) {
   if constexpr (!std::is_same<T, float>::value) {
     return p.D <= 64 ? launch_tc<T, 64>(kind, p, stream)
                      : launch_tc<T, 128>(kind, p, stream);
+  } else if (kind != 0) {
+    return p.D <= 64 ? launch_f32_bwd<64>(kind, p, stream)
+                     : launch_f32_bwd<128>(kind, p, stream);
   } else {
-    const int rows = kind == 2 ? p.Sk : p.Sq;
-    const dim3 grid(p.B * p.H, (rows + kTile - 1) / kTile);
-    const size_t bytes = smem_bytes(kind, p.D);
-    void (*kernel)(Params) = kind == 0   ? attn_fwd_kernel
-                             : kind == 1 ? attn_dq_kernel
-                                         : attn_dkdv_kernel;
+    const dim3 grid(p.B * p.H, (p.Sq + kTile - 1) / kTile);
+    const size_t bytes = fwd_smem_bytes(p.D);
     cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        attn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<grid, kThreads, bytes, stream>>>(p);
+    attn_fwd_kernel<<<grid, kThreads, bytes, stream>>>(p);
     return static_cast<int>(cudaGetLastError());
   }
 }

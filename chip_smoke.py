@@ -166,8 +166,11 @@ Phases, one or more lines each:
              dead batch element); causal Sq 384 against Sk 1024
              (bottom-right); a ragged 1000 x 1000 with D = 16 (fp32, bf16)
              and D = 80 (bias; fp32, bf16, fp16); the same causal with D =
-             24 (bf16: the tensor cores' padded depth); a non-zero lse
-             cotangent in the last four.  The limits are ops/attention.py's:
+             24 (bf16: the tensor cores' padded depth); in fp32 the same
+             causal with D = 128 (the fp32 backward's D-128 tiles) and
+             with D = 64 as x[..., ::2] views of tensors twice as wide
+             (with a key bias; the element loads); a non-zero lse
+             cotangent in the last six.  The limits are ops/attention.py's:
              lse and fp32 O atol = rtol 2e-5, fp32 dQ, dK, dV 5e-5 (sums in
              another order); a half O 2e-2 from the reference's arithmetic,
              which rounds the normalised P; a half O against the kernels'
@@ -190,7 +193,8 @@ Phases, one or more lines each:
              / 2 scores a head under the causal mask; 4, 8 and 6 flops per
              score per head-dim element) over 67 TFLOP/s (fp32) or 989
              TFLOP/s (bf16 and fp16 tensor cores), or the bytes over 3.35
-             TB/s.
+             TB/s; and, from torch.profiler, the device kernels of SDPA's
+             fp32 forward and backward at that shape, by name.
 19. gpt2048 — the tentpole's entry point, bench.py's gpt row at sequence
              2048: gpt_base, batch 8 x 2048, FusedAdam (lr 1e-4, weight
              decay 0.01), 10 steps at amp O2 (bf16) and 5 at O0 (fp32):
@@ -206,7 +210,9 @@ Phases, one or more lines each:
              2048 through the trainer's state and step on each route: the
              median step time and peak memory of each, on one line (the
              kernels launched on the flash route only).  Then
-             torch.profiler over three O2 gpt2048 steps, as in 6.
+             torch.profiler over three O2 gpt2048 steps and three O0 ones,
+             as in 6, each with the attention kernels' share of the step's
+             device time.
 
 21. novograd — NovoGrad (fused_optim.cu: a per-tensor kernel for the
              second moments v and inv_denom, then the chunk kernel; run
@@ -2024,15 +2030,21 @@ ATTN_CASES = (   # name, B, Sq, Sk, H, D, causal, key bias, dlse, dtypes
      (torch.float32, torch.bfloat16)),
     ("ragged", 2, 1000, 1000, 4, 80, False, True, True,
      (torch.float32, torch.bfloat16, torch.float16)),
-    ("padded", 2, 1000, 1000, 4, 24, True, False, True, (torch.bfloat16,)))
+    ("padded", 2, 1000, 1000, 4, 24, True, False, True, (torch.bfloat16,)),
+    # the fp32 backward's tiles at D 128 (64 keys or queries a block, 48
+    # streamed rows a tile); "strided": q, k, v and dO are x[..., ::2] of
+    # tensors twice as wide, which the kernels load element by element
+    ("wide", 2, 1000, 1000, 8, 128, True, False, True, (torch.float32,)),
+    ("strided", 2, 1000, 1000, 8, 64, True, True, True, (torch.float32,)))
 
 
-def _attn_inputs(b, sq, sk, h, d, dtype, gen, bias, dlse):
-    """q, k, v, dO (normal), dlse or None, and a (B, Sk) key bias masking a
-    random suffix of each row at -1e9, the last row's every key, or None."""
+def _attn_inputs(b, sq, sk, h, d, dtype, gen, bias, dlse, step=1):
+    """q, k, v, dO (normal; views x[..., ::step] of tensors step x as
+    wide), dlse or None, and a (B, Sk) key bias masking a random suffix of
+    each row at -1e9, the last row's every key, or None."""
     dev = "cuda"
-    q, k, v, do = (torch.randn(b, s, h, d, device=dev, generator=gen)
-                   .to(dtype) for s in (sq, sk, sk, sq))
+    q, k, v, do = (torch.randn(b, s, h, step * d, device=dev, generator=gen)
+                   .to(dtype)[..., ::step] for s in (sq, sk, sk, sq))
     dl = (torch.randn(b, h, sq, device=dev, generator=gen) if dlse
           else None)
     key_bias = None
@@ -2152,6 +2164,27 @@ def _planted_faults(att, q, k, v, causal, scale, o, lse, do, want):
                              f"{what}")
 
 
+def _device_kernels(fn):
+    """The device kernels of one call of ``fn`` under torch.profiler, by
+    name, with their device time (ms), the longest first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ms = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name[:100]
+            ms[name] = ms.get(name, 0.0) + (e.time_range.end
+                                            - e.time_range.start) / 1e3
+    return sorted(ms.items(), key=lambda kv: -kv[1])
+
+
 def phase_attention(att):
     """The three flash-attention kernels against their plain versions at
     the shapes of ATTN_CASES (O and lse, then dK/dV and dQ from the plain
@@ -2165,8 +2198,9 @@ def phase_attention(att):
     t0 = time.perf_counter()
     for (label, b, sq, sk, h, d, causal, bias, dlse, dtypes) in ATTN_CASES:
         for dtype in dtypes:
-            q, k, v, do, dl_in, kb = _attn_inputs(b, sq, sk, h, d, dtype,
-                                                  gen, bias, dlse)
+            q, k, v, do, dl_in, kb = _attn_inputs(
+                b, sq, sk, h, d, dtype, gen, bias, dlse,
+                2 if label == "strided" else 1)
             scale = d ** -0.5
             o, lse = att.flash_attention_cuda(q, k, v, kb, causal, scale)
             o_p, lse_p = att.attention_pair_plain(q, k, v, kb, causal, scale)
@@ -2271,6 +2305,13 @@ def phase_attention(att):
         fwd_lib = _device_ms(sdpa, reps=20, warmup=3)
         bwd_lib = _device_ms(lambda: torch.autograd.grad(
             out, (qt, kt, vt), dot, retain_graph=True), reps=20, warmup=3)
+        if dtype == torch.float32:
+            for what, fn in (("forward", sdpa), ("backward", lambda:
+                             torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                 retain_graph=True))):
+                print(f"attention: SDPA's fp32 {what} at gpt_base's shape "
+                      f"runs " + "; ".join(f"{n} {ms:.4f} ms" for n, ms in
+                                           _device_kernels(fn)))
         kernels = (
             ("attn_fwd", lambda: att.flash_attention_cuda(
                 q, k, v, None, causal, scale), fwd_plain, fwd_lib),
@@ -2656,6 +2697,11 @@ def phase_profile(train, argv, steps=3):
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"profile:   top kernel {us / 1e3 / steps:8.3f} ms a step  "
               f"{name[:90]}")
+    attn = by_group.get("ported: attention", 0.0)
+    if attn:
+        print(f"profile: {args.arch} {args.opt_level}: the attention "
+              f"kernels {attn / 1e3 / steps:.3f} ms a step, "
+              f"{attn / busy:.2%} of the device busy time")
     del state, model
     torch.cuda.empty_cache()
     return busy / 1e3 / steps
@@ -3047,6 +3093,8 @@ def main() -> int:
     phase_route_cross_check(counted, lm_batch)
     phase_route_times(train, counted)
     phase_profile(train, GPT2048_O2_ARGS)
+    torch.cuda.empty_cache()
+    phase_profile(train, GPT2048_O0_ARGS)
     torch.cuda.empty_cache()
     print(f"gpt2048: the sequence-2048 phases took "
           f"{time.perf_counter() - t0:.1f} s")

@@ -567,6 +567,33 @@ def test_wrapper_limits_are_the_kernel_sources():
     assert int(consts["kTcKeys"]) == att.TILE
 
 
+@pytest.mark.parametrize("dp", [64, att.MAX_D])
+def test_fp32_backward_tiles_fit_the_card(dp):
+    """The fp32 dQ and dK/dV kernels' tiles (csrc/attention.cu kF32Rows*:
+    rows a block owns, kF32Cols*: rows of a streamed tile, at a head dim
+    padded to 64 and to kMaxD): their shared memory, ``F32Tiles::kSmem``
+    floats, fits the 232,448 bytes an H100 block may take, and their grid
+    keeps the wrappers' 65535 * TILE sequence limit (a block owns at least
+    TILE rows, so the longest sequence takes at most 65535 blocks, the
+    grid's y limit)."""
+    src = pathlib.Path(att.__file__).parent.parent / "csrc" / "attention.cu"
+    consts = {k: int(v) for k, v in re.findall(
+        r"constexpr int (k\w+) = (\d+);", src.read_text())}
+    rows, cols = consts[f"kF32Rows{dp}"], consts[f"kF32Cols{dp}"]
+    # kSmem: K^T and V^T (or Q^T and dO^T), two ring stages of two
+    # row-major tiles (row stride dp + 4) and two floats a streamed row, P
+    # and dS ([col][row], row stride rows + 4), two floats a block row
+    stage = 2 * cols * (dp + 4) + 2 * cols
+    floats = 2 * dp * rows + 2 * stage + 2 * cols * (rows + 4) + 2 * rows
+    assert 4 * floats <= 232_448
+    assert rows >= att.TILE
+    assert -(-65535 * att.TILE // rows) <= 65535
+    # a thread's 8 x 8 accumulator tile covers the padded head dim, and a
+    # tile's rows split evenly over the 128 threads of a group
+    groups = 128 // (rows // 8)
+    assert groups * 8 == dp and cols % groups == 0
+
+
 @pytest.mark.parametrize("args,kw,err,match", [
     ((_meta(2, 64, 4, 64, dtype=torch.float64),) * 3, {}, TypeError,
      "float32"),

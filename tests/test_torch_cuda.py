@@ -1016,6 +1016,60 @@ def test_attention_kernels_match_plain(cuda_device, dtype, case):
         assert torch.equal(got, rep)                  # bitwise repeat
 
 
+# The fp32 dK/dV and dQ kernels' tiles: 128 keys or queries a block and 64
+# streamed rows a tile at D <= 64, 64 and 48 at D <= 128 (csrc/attention.cu
+# kF32Rows*, kF32Cols*).  Lengths that none of them divide; causal Sq < Sk
+# (bottom-right); a key bias whose last batch element masks every key; q,
+# k, v and dO as x[..., ::2] of a tensor twice as wide ("strided", the
+# kernels' 4-byte element loads) beside contiguous ones (16-byte copies).
+FP32_BWD_CASES = [  # (B, Sq, Sk, H, D, causal, bias, layout)
+    (1, 100, 100, 2, 8, True, False, "contiguous"),
+    (2, 96, 200, 2, 128, True, False, "contiguous"),
+    (2, 130, 130, 2, 128, False, True, "contiguous"),
+    (2, 150, 310, 2, 64, True, True, "contiguous"),
+    (2, 150, 310, 2, 64, True, True, "strided"),
+    (1, 200, 260, 2, 64, True, False, "strided")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FP32_BWD_CASES)
+def test_fp32_attention_backward_matches_plain(cuda_device, case):
+    """The fp32 dK/dV and dQ kernels against ``attention_bwd_plain`` within
+    ATTN_BWD_TOL, from the plain forward's lse and Delta; one launch each
+    a call, and a second launch bitwise equal."""
+    b, sq, sk, h, d, causal, bias, layout = case
+    step = 2 if layout == "strided" else 1
+    q, k, v, do, dlse, key_bias = _attn_inputs(cuda_device, b, sq, sk, h,
+                                               step * d, bias,
+                                               torch.float32, sq + sk + d)
+    q, k, v, do = (t[..., ::step] for t in (q, k, v, do))
+    assert q.stride(-1) == step
+    if bias:
+        assert bool(att.dead_batch(key_bias)[-1])
+    scale = d ** -0.5
+    o_p, lse_p = att.attention_pair_plain(q, k, v, key_bias, causal, scale)
+    dl = att.delta(o_p, do, dlse)
+    bwd = (q, k, v, key_bias, causal, scale, do, lse_p, dl)
+    kernels = (att.flash_attention_dkdv_cuda, att.flash_attention_dq_cuda)
+    before = [fn.launches for fn in kernels]
+    dk, dv = att.flash_attention_dkdv_cuda(*bwd)
+    dq = att.flash_attention_dq_cuda(*bwd)
+    again = att.flash_attention_dkdv_cuda(*bwd) + (
+        att.flash_attention_dq_cuda(*bwd),)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in kernels] == [n + 2 for n in before]
+    want = att.attention_bwd_plain(q, k, v, key_bias, causal, scale, o_p,
+                                   lse_p, do, dlse)
+    for name, got, ref in (("dq", dq, want[0]), ("dk", dk, want[1]),
+                           ("dv", dv, want[2])):
+        assert got.dtype == ref.dtype and got.shape == ref.shape, name
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=att.ATTN_BWD_TOL,
+                                   atol=att.ATTN_BWD_TOL, err_msg=name)
+    for got, rep in zip((dk, dv, dq), again):
+        assert torch.equal(got, rep)                  # bitwise repeat
+
+
 @pytest.mark.cuda
 def test_attention_kernels_raise_on_what_they_cannot_take(cuda_device):
     q = torch.zeros(1, 64, 2, 64, device=cuda_device)

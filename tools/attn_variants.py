@@ -14,6 +14,9 @@ runs.
 
 - ``no_retake``: no pair's S and dP are taken again in the plain chain
   (flip_limit beyond any P or |dS|): the tensor cores' values everywhere.
+- ``t_async``: the fp32 backward copies its stationary tiles with 4-byte
+  cp.async copies through the strides, as it does for any view that is
+  not contiguous, in place of 16-byte loads.
 """
 
 import ctypes
@@ -27,6 +30,8 @@ ROOT = Path(__file__).resolve().parent.parent
 VARIANTS = {
     "no_retake": ("return std::is_same<T, __half>::value ? 0.125f : 1.f / 64;",
                   "return 1e30f;"),
+    "t_async": ("  if (vec) {  // 16-byte loads, four stores",
+                "  if (false) {  // 16-byte loads, four stores"),
 }
 ENTRIES = ("apex_attn_fwd", "apex_attn_dq", "apex_attn_dkdv",
            "apex_cuda_error_string")
