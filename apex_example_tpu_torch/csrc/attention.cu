@@ -71,8 +71,8 @@
 //   tiles of 64 (48); group 0 sums S = Q K^T, group 1 dP = dO V^T, and
 //   each then sums dQ for half of the queries (4 x 8 tiles, 2.67 FMAs a
 //   float).  Between the products every thread turns its share of the
-//   tile's pairs into P and dS in shared memory, so both groups share the
-//   exp.  Causal blocks launch longest first.  No atomics, and every
+//   tile's pairs into P and dS in shared memory (in dQ from the raw dots),
+//   so both groups share the exp.  Causal blocks launch longest first.  No atomics, and every
 //   output element is one fused multiply-add chain in order, as the plain
 //   version's matrix products on the card sum: fp32 dQ, dK and dV come out
 //   bitwise equal to it, and a second launch repeats bitwise.
@@ -1562,10 +1562,10 @@ __global__ void __launch_bounds__(kF32Threads, 1) attn_dkdv_kernel(Params p) {
 
 // ---- dQ: one block per (b * H + h, kRows queries) -----------------------
 // Shared memory: Q^T and dO^T ([d][query]), two ring stages of K and V
-// (row-major) with the keys' bias, the scores and dP (then dS) stored
+// (row-major) with the keys' bias, the Q K^T dots and dP (then dS) stored
 // [key][query], the queries' lse and Delta.  Per k/v tile: group 0 sums
-// S = Q K^T and writes the scores, group 1 sums dP = dO V^T and writes it;
-// after a barrier group g turns the pairs of its half of the queries into
+// Q K^T, group 1 dP = dO V^T, and each writes its tile; after a barrier
+// group g turns the pairs of its half of the queries into scores, P and
 // dS = P (dP - Delta) scale and, after its own barrier, sums dQ += dS K
 // for those queries, each element one chain over the keys in order.
 
@@ -1635,31 +1635,28 @@ __global__ void __launch_bounds__(kF32Threads, 1) attn_dq_kernel(Params p) {
     if (j < last) load_stage(j + 1);
     cp_async_commit();
 
-    // S (group 0) or dP (group 1) into sX or sdS
+    // the Q K^T dots (group 0) or dP (group 1) into sX or sdS
     f32_scores<DP>(group ? sdOt : sQt, group ? sV : sK, p.D, rg, cg, s);
-    if (group == 0) {
-      const bool edge = k0 + T::kCols > p.Sk || q0 + T::kRows > p.Sq ||
-                        (p.causal && k0 + T::kCols - 1 > q0 + p.off);
-#pragma unroll
-      for (int jj = 0; jj < T::kTC; ++jj) {
-        const int col = cg + T::kCG * jj;
-        const float bias = sBias[col];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          s[i][jj] = f32_score(
-              p, s[i][jj], bias, edge,
-              q0 + (i >> 2) * (T::kRows / 2) + 4 * rg + (i & 3), k0 + col);
-      }
-    }
 #pragma unroll
     for (int jj = 0; jj < T::kTC; ++jj)
       f32_put<DP>(group ? sdS : sX, rg, cg + T::kCG * jj, s, jj);
-    __syncthreads();  // the scores and dP are in
+    __syncthreads();  // the dots and dP are in
+    // dS of the group's queries; the scores' scale, bias and mask here too,
+    // not in group 0 before the barrier: dQ 3.4% faster, while the same
+    // move made dK/dV 5.8% slower (PERF.md)
+    const bool edge = k0 + T::kCols > p.Sk || q0 + T::kRows > p.Sq ||
+                      (p.causal && k0 + T::kCols - 1 > q0 + p.off);
     const float4 lse = ld4(sLse + row0), delta = ld4(sDelta + row0);
 #pragma unroll
-    for (int jj = 0; jj < T::kTC; ++jj) {  // dS of the group's queries
-      const int at = (cg + T::kCG * jj) * T::kLdP + row0;
+    for (int jj = 0; jj < T::kTC; ++jj) {
+      const int col = cg + T::kCG * jj;
+      const int at = col * T::kLdP + row0;
       float4 x = ld4(sX + at), dp = ld4(sdS + at);
+      const float bias = sBias[col];
+      x.x = f32_score(p, x.x, bias, edge, q0 + row0, k0 + col);
+      x.y = f32_score(p, x.y, bias, edge, q0 + row0 + 1, k0 + col);
+      x.z = f32_score(p, x.z, bias, edge, q0 + row0 + 2, k0 + col);
+      x.w = f32_score(p, x.w, bias, edge, q0 + row0 + 3, k0 + col);
       f32_p_ds(p, x.x, dp.x, lse.x, delta.x);
       f32_p_ds(p, x.y, dp.y, lse.y, delta.y);
       f32_p_ds(p, x.z, dp.z, lse.z, delta.z);
