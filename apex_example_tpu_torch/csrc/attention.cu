@@ -1641,9 +1641,9 @@ __global__ void __launch_bounds__(kF32Threads, 1) attn_dq_kernel(Params p) {
     for (int jj = 0; jj < T::kTC; ++jj)
       f32_put<DP>(group ? sdS : sX, rg, cg + T::kCG * jj, s, jj);
     __syncthreads();  // the dots and dP are in
-    // dS of the group's queries; the scores' scale, bias and mask here too,
-    // not in group 0 before the barrier: dQ 3.4% faster, while the same
-    // move made dK/dV 5.8% slower (PERF.md)
+    // dS of the group's queries; the scores' scale, bias and mask here too:
+    // faster than in group 0 before the barrier, while dK/dV is faster the
+    // other way (tools/attn_variants.py dq_scores_g0, dkdv_scores_shared)
     const bool edge = k0 + T::kCols > p.Sk || q0 + T::kRows > p.Sq ||
                       (p.causal && k0 + T::kCols - 1 > q0 + p.off);
     const float4 lse = ld4(sLse + row0), delta = ld4(sDelta + row0);
