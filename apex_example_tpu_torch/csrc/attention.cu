@@ -33,17 +33,12 @@
 // those roundings are none).  Causal tiles wholly above the diagonal are
 // skipped, as `_when_live` (:121) skips them.
 //
-// The fp32 forward (`attn_fwd_kernel`): tiles of 64 queries and 64 keys
-// in shared memory; 256 threads, each owning a 4 x 4 piece of the score
-// tile (4 rows, columns 16 apart) and 4 rows x 8 head-dim columns of the
-// output; 16-byte shared-memory loads along the head dimension; row maxima
-// and sums over the 16 threads of a row with warp shuffles.
-//
-// The fp32 backward (`attn_dkdv_kernel`, `attn_dq_kernel`) is SIMT GEMM.
-// Its bound is the fp32 FMA rate: 8 (dK/dV) and 6 (dQ) flops per live
-// score and head-dim element, 1.54 and 1.15 ms at gpt_base's 8 x 2048 x
-// 12 x 64 causal over 67 TFLOP/s.  Three things keep a simple kernel far
-// from it, and the design answers each:
+// The fp32 kernels (`attn_fwd_kernel`, `attn_dkdv_kernel`,
+// `attn_dq_kernel`) are SIMT GEMM.  Their bound is the fp32 FMA rate: 4
+// (forward), 8 (dK/dV) and 6 (dQ) flops per live score and head-dim
+// element, 0.77, 1.54 and 1.15 ms at gpt_base's 8 x 2048 x 12 x 64 causal
+// over 67 TFLOP/s.  Three things keep a simple kernel far from it, and the
+// design answers each:
 // - Shared-memory bandwidth.  A 4 x 4 register tile reads a float for
 //   every two FMAs, and an SM's shared memory gives 32 floats a clock
 //   against 128 FMAs.  Here a thread holds 8 x 8 tiles (8 x 3 for the
@@ -51,31 +46,40 @@
 //   dQ's row product, below): 4 FMAs per float read, every read a 16-byte
 //   load that a warp takes without a bank conflict.  The stationary
 //   operand of the products over the head dim (S = Q K^T, dP = dO V^T) is
-//   stored d-major (K^T, V^T in dK/dV; Q^T, dO^T in dQ), the streamed one
-//   row-major with rows 4 floats past the padded head dim apart; the
-//   products over rows (dV += P^T dO, dK += dS^T Q, dQ += dS K) read P
-//   and dS from a [col][row] tile and the streamed tile row-major.
-// - Synchronous loads.  The streamed tiles (Q, dO, lse and Delta in
-//   dK/dV; K, V and the key bias in dQ) run through a two-stage cp.async
-//   ring, the next tile in flight while the block computes: 16-byte
-//   copies when `vq/vk/vv/vdo` say the rows are contiguous and aligned
-//   (the models' (B, L, H, D) views), else 4-byte copies through the
-//   strides into the same layout.  The stationary tiles load once a
+//   stored d-major (Q^T in the forward; K^T, V^T in dK/dV; Q^T, dO^T in
+//   dQ), the streamed one row-major with rows 4 floats past the padded
+//   head dim apart; the products over rows (O += P V, dV += P^T dO, dK +=
+//   dS^T Q, dQ += dS K) read P and dS from a [col][row] tile and the
+//   streamed tile row-major.
+// - Synchronous loads.  The streamed tiles (K, V and the key bias in the
+//   forward and dQ; Q, dO, lse and Delta in dK/dV) run through a two-stage
+//   cp.async ring, the next tile in flight while the block computes:
+//   16-byte copies when `vq/vk/vv/vdo` say the rows are contiguous and
+//   aligned (the models' (B, L, H, D) views), else 4-byte copies through
+//   the strides into the same layout.  The stationary tiles load once a
 //   block, behind the first tile's copies.
-// - Occupancy and order.  A thread's two register tiles (an 8 x 8
-//   accumulator and the score tile) take 213-255 registers at D 64, so a
-//   block is one per SM: 256 threads, two groups of 128 that run the two
-//   products of each step side by side.  dK/dV: 128 keys a block (64 at D
-//   128) against q tiles of 64 (48); group 0 sums S^T = K Q^T, then dV,
-//   group 1 dP^T = V dO^T, then dK.  dQ: 128 queries (64) against k/v
-//   tiles of 64 (48); group 0 sums S = Q K^T, group 1 dP = dO V^T, and
-//   each then sums dQ for half of the queries (4 x 8 tiles, 2.67 FMAs a
-//   float).  Between the products every thread turns its share of the
-//   tile's pairs into P and dS in shared memory (in dQ from the raw dots),
-//   so both groups share the exp.  Causal blocks launch longest first.  No atomics, and every
-//   output element is one fused multiply-add chain in order, as the plain
-//   version's matrix products on the card sum: fp32 dQ, dK and dV come out
-//   bitwise equal to it, and a second launch repeats bitwise.
+// - Occupancy and order.  A thread's register tiles take 168-255
+//   registers at D 64, so a block is one per SM: 256 threads, two groups of
+//   128 that run two products of each step side by side.  The forward: 128
+//   queries a block (64 at D 128) against k/v tiles of 64 (48), pipelined
+//   over the tiles: at step t group 0 sums S = Q K^T of tile t and runs the
+//   online softmax (row max, alpha = exp(m_old - m_new), P, l), while group
+//   1 rescales O by tile t - 1's alpha and adds its P V; each group has a
+//   loop of its own, so O's registers live in group 1's code only (255
+//   registers with one loop, 168 with two), and one barrier a step.  dK/dV:
+//   128 keys a block (64 at D 128) against q tiles of 64 (48); group 0 sums
+//   S^T = K Q^T, then dV, group 1 dP^T = V dO^T, then dK.  dQ: 128 queries
+//   (64) against k/v tiles of 64 (48); group 0 sums S = Q K^T, group 1 dP =
+//   dO V^T, and each then sums dQ for half of the queries (4 x 8 tiles,
+//   2.67 FMAs a float).  Between the products every thread turns its share
+//   of the tile's pairs into P and dS in shared memory (in dQ from the raw
+//   dots), so both groups share the exp.  Causal blocks launch longest
+//   first.  No atomics, and every output element is one fused multiply-add
+//   chain in order (the forward's O rescaled between tiles): fp32 dQ, dK
+//   and dV come out bitwise equal to the plain version, whose matrix
+//   products on the card sum in that order, and a second launch repeats
+//   bitwise.  ptxas: the forward 168 / 139 registers at D 64 / 128, dK/dV
+//   255 / 165, dQ 229 / 161, no spill.
 //
 // bf16 and fp16: Hopper's tensor cores for all three (`*_kernel_tc`).
 // One warpgroup (128 threads) owns 64 rows: queries in the forward and in
@@ -137,10 +141,8 @@
 
 namespace {
 
-constexpr int kTile = 64;      // queries of a q tile, keys of a k/v tile
-constexpr int kThreads = 256;  // 16 row groups of 4 rows x 16 lanes
+constexpr int kTile = 64;  // last_kv_tile's keys; a sequence is <= 65535 tiles
 constexpr int kMaxD = 128;
-constexpr int kLdS = kTile + 4;  // row stride of a score tile in smem
 constexpr float kMask = -0.7f * 3.402823466e38f;  // attention.py:60
 
 struct Params {
@@ -163,113 +165,6 @@ struct Params {
   float scale;
 };
 
-// dst[r][d] (row stride ld) = src row (row0 + r) of head (b, h), for r <
-// kTile and d < D; rows at or past n_rows are zero.
-__device__ __forceinline__ void load_tile(float* dst, int ld, const float* src,
-                                          const long long* st, int b, int h,
-                                          int row0, int n_rows, int D) {
-  const long long base = b * st[0] + h * st[2];
-  for (int idx = threadIdx.x; idx < kTile * D; idx += kThreads) {
-    const int r = idx / D;
-    const int d = idx - r * D;
-    const int row = row0 + r;
-    float val = 0.f;
-    if (row < n_rows) val = src[base + row * st[1] + d * st[3]];
-    dst[r * ld + d] = val;
-  }
-}
-
-// out[i][j] = sum_d A[r0 + i][d] * Bm[c0 + 16 j][d] over d < D (A and Bm
-// with row stride ld, D a multiple of 4).
-__device__ __forceinline__ void dot_tile(const float* A, const float* Bm,
-                                         int ld, int D, int r0, int c0,
-                                         float out[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) out[i][j] = 0.f;
-  for (int d = 0; d < D; d += 4) {
-    float4 a[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      a[i] = *reinterpret_cast<const float4*>(A + (r0 + i) * ld + d);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      bv[j] = *reinterpret_cast<const float4*>(Bm + (c0 + 16 * j) * ld + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float s = out[i][j];
-        s = fmaf(a[i].x, bv[j].x, s);
-        s = fmaf(a[i].y, bv[j].y, s);
-        s = fmaf(a[i].z, bv[j].z, s);
-        s = fmaf(a[i].w, bv[j].w, s);
-        out[i][j] = s;
-      }
-  }
-}
-
-// acc[i][4 jj + e] += sum_c P[r0 + i][c] * M[c][4 tx + 64 jj + e] over the
-// kTile columns c of P (row stride kLdS) and the head-dim columns below D
-// (M with row stride ld).
-__device__ __forceinline__ void acc_tile(const float* P, const float* M,
-                                         int ld, int D, int r0, int tx,
-                                         float acc[4][8]) {
-  for (int c = 0; c < kTile; c += 4) {
-    float4 p[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      p[i] = *reinterpret_cast<const float4*>(P + (r0 + i) * kLdS + c);
-#pragma unroll
-    for (int jj = 0; jj < 2; ++jj) {
-      const int d0 = 4 * tx + 64 * jj;
-      if (d0 >= D) continue;
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        const float4 m =
-            *reinterpret_cast<const float4*>(M + (c + cc) * ld + d0);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float pv = cc == 0 ? p[i].x
-                           : cc == 1 ? p[i].y
-                           : cc == 2 ? p[i].z
-                                     : p[i].w;
-          acc[i][4 * jj + 0] = fmaf(pv, m.x, acc[i][4 * jj + 0]);
-          acc[i][4 * jj + 1] = fmaf(pv, m.y, acc[i][4 * jj + 1]);
-          acc[i][4 * jj + 2] = fmaf(pv, m.z, acc[i][4 * jj + 2]);
-          acc[i][4 * jj + 3] = fmaf(pv, m.w, acc[i][4 * jj + 3]);
-        }
-      }
-    }
-  }
-}
-
-// Max and sum over the 16 lanes that share a row (a half warp).
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// The scaled, biased, masked fp32 score of query `qrow` against key `kcol`
-// (`_scores` :132): the mask replaces the value; keys or queries past the
-// sequence are masked too.
-__device__ __forceinline__ float score(const Params& p, float dot, float bias,
-                                       int qrow, int kcol) {
-  float s = dot * p.scale;
-  if (p.bias != nullptr) s += bias;
-  if (kcol >= p.Sk || qrow >= p.Sq || (p.causal && qrow + p.off < kcol))
-    s = kMask;
-  return s;
-}
-
 __device__ __forceinline__ float key_bias(const Params& p, int b, int kcol) {
   return (p.bias != nullptr && kcol < p.Sk)
              ? p.bias[b * p.sbias[0] + kcol * p.sbias[1]]
@@ -282,102 +177,6 @@ __device__ __forceinline__ int last_kv_tile(const Params& p, int q0) {
   const int nk = (p.Sk + kTile - 1) / kTile;
   if (!p.causal) return nk - 1;
   return min(nk - 1, (q0 + p.off + kTile - 1) / kTile);
-}
-
-__device__ __forceinline__ void store_rows(float* dst, int b, int h, int row0,
-                                           int n_rows, const Params& p,
-                                           int r0, int tx,
-                                           const float acc[4][8]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + r0 + i;
-    if (row >= n_rows) continue;
-    float* out =
-        dst + ((static_cast<long long>(b) * n_rows + row) * p.H + h) * p.D;
-#pragma unroll
-    for (int jj = 0; jj < 2; ++jj) {
-      const int d0 = 4 * tx + 64 * jj;
-      if (d0 >= p.D) continue;
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        out[d0 + e] = acc[i][4 * jj + e];
-    }
-  }
-}
-
-// ---- forward: one block per (b * H + h, q tile) -------------------------
-
-__global__ void __launch_bounds__(kThreads) attn_fwd_kernel(Params p) {
-  extern __shared__ float4 smem4[];
-  float* sQ = reinterpret_cast<float*>(smem4);
-  const int ld = p.D + 4;
-  float* sK = sQ + kTile * ld;
-  float* sV = sK + kTile * ld;
-  float* sP = sV + kTile * ld;
-  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
-  const int q0 = blockIdx.y * kTile;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15, r0 = 4 * ty;
-  const float* q = static_cast<const float*>(p.q);
-  const float* k = static_cast<const float*>(p.k);
-  const float* v = static_cast<const float*>(p.v);
-
-  load_tile(sQ, ld, q, p.sq, b, h, q0, p.Sq, p.D);
-  float m[4], l[4], acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kMask;
-    l[i] = 0.f;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) acc[i][e] = 0.f;
-  }
-  const int last = last_kv_tile(p, q0);
-  for (int j = 0; j <= last; ++j) {
-    const int k0 = j * kTile;
-    __syncthreads();  // the previous tile's sK, sV and sP are read
-    load_tile(sK, ld, k, p.sk, b, h, k0, p.Sk, p.D);
-    load_tile(sV, ld, v, p.sv, b, h, k0, p.Sk, p.D);
-    __syncthreads();
-    float s[4][4];
-    dot_tile(sQ, sK, ld, p.D, r0, tx, s);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int kcol = k0 + tx + 16 * c;
-      const float bias = key_bias(p, b, kcol);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        s[i][c] = score(p, s[i][c], bias, q0 + r0 + i, kcol);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float pv = expf(s[i][c] - m_new);
-        rs += pv;
-        sP[(r0 + i) * kLdS + tx + 16 * c] = pv;
-      }
-      l[i] = l[i] * alpha + row_sum(rs);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc[i][e] *= alpha;
-      m[i] = m_new;
-    }
-    __syncthreads();
-    acc_tile(sP, sV, ld, p.D, r0, tx, acc);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float lsafe = l[i] == 0.f ? 1.f : l[i];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) acc[i][e] /= lsafe;
-    const int row = q0 + r0 + i;
-    if (tx == 0 && row < p.Sq)
-      p.lse_out[(static_cast<long long>(b) * p.H + h) * p.Sq + row] =
-          m[i] + logf(lsafe);
-  }
-  store_rows(static_cast<float*>(p.out), b, h, q0, p.Sq, p, r0, tx, acc);
 }
 
 // ---- bf16 / fp16 on the tensor cores -------------------------------------
@@ -1179,16 +978,16 @@ __global__ void __launch_bounds__(kTcThreads, DP == 64 ? 3 : 1)
   store_acc<T>(static_cast<T*>(p.dv), p, b, h, k0, p.Sk, r, c, dv);
 }
 
-// ---- fp32 backward on the CUDA cores --------------------------------------
+// ---- fp32 on the CUDA cores ----------------------------------------------
 // SIMT-GEMM register tiles (the note at the head of the file).  A block of
 // kF32Threads is two groups of 128 threads (warps 0-3 and 4-7) over the
-// same kRows stationary rows: keys in dK/dV, queries in dQ.  In a group,
-// thread (rg, cg) owns the rows row(i) = (i / 4) kRows / 2 + 4 rg + i % 4
-// (i < 8), the streamed rows col(j) = cg + kCG j of a tile (j < kTC) and
-// the head-dim columns dcol(e) = (e / 4) DP / 2 + 4 cg + e % 4 (e < 8), so
-// that every shared-memory read is a 16-byte load that a warp takes
-// without a bank conflict (row strides kLd and kLdP are 4 past a multiple
-// of 32 floats).
+// same kRows stationary rows: keys in dK/dV, queries in dQ and the
+// forward.  In a group, thread (rg, cg) owns the rows row(i) = (i / 4)
+// kRows / 2 + 4 rg + i % 4 (i < 8), the streamed rows col(j) = cg + kCG j
+// of a tile (j < kTC) and the head-dim columns dcol(e) = (e / 4) DP / 2 +
+// 4 cg + e % 4 (e < 8), so that every shared-memory read is a 16-byte load
+// that a warp takes without a bank conflict (row strides kLd and kLdP are
+// 4 past a multiple of 32 floats).
 
 constexpr int kF32Threads = 256;
 constexpr int kF32Group = 128;
@@ -1216,9 +1015,13 @@ struct F32Tiles {
   // and Delta).
   static constexpr int kSmem =
       2 * DP * kRows + 2 * kStage + 2 * kCols * kLdP + 2 * kRows;
+  // The forward's: Q^T, two stages, P twice, each row's alpha twice and l.
+  static constexpr int kFwdSmem =
+      DP * kRows + 2 * kStage + 2 * kCols * kLdP + 3 * kRows;
   static_assert(kCG * 8 == DP, "a thread accumulates 8 head-dim columns");
   static_assert(kTC * kCG == kCols, "a tile splits evenly over a group");
   static_assert(kCols * 4 <= kF32Threads, "four threads load a row");
+  static_assert(kCG <= 32 && 32 % kCG == 0, "a row group lies in one warp");
 };
 
 __device__ __forceinline__ float4 ld4(const float* p) {
@@ -1438,6 +1241,188 @@ __device__ __forceinline__ void f32_store(float* dst, const Params& p, int b,
         st4(out + d0, acc[i][4 * half], acc[i][4 * half + 1],
             acc[i][4 * half + 2], acc[i][4 * half + 3]);
     }
+  }
+}
+
+// The max (kMax) or the sum of v over the kCG threads of a row group,
+// which are kCG neighbouring lanes of one warp.
+template <int kCG, bool kMax>
+__device__ __forceinline__ float row_reduce(float v) {
+#pragma unroll
+  for (int o = 1; o < kCG; o <<= 1) {
+    const float w = __shfl_xor_sync(0xffffffffu, v, o);
+    v = kMax ? fmaxf(v, w) : v + w;
+  }
+  return v;
+}
+
+// Barrier 0 for all kF32Threads threads, reached from the two groups' own
+// loops (each warp arrives; where in the code does not matter).
+__device__ __forceinline__ void block_sync() {
+  asm volatile("bar.sync 0, 256;\n" ::: "memory");
+}
+
+// ---- forward: one block per (b * H + h, kRows queries) ------------------
+// Shared memory: Q^T ([d][query]), two ring stages of K and V (row-major)
+// with the keys' bias, P stored [key][query] twice, each row's rescale
+// alpha twice, and each row's l.  Step t: group 0 sums S = Q K^T of k/v
+// tile t, scales, biases and masks it (edge tiles), and runs the online
+// softmax: the row max over its kTC columns and the row group's lanes,
+// alpha = exp(m_old - m_new), P = exp(S - m_new), l = l alpha + the row
+// sum; it writes P and alpha to buffer t & 1.  Meanwhile group 1 scales
+// its O tile by tile t - 1's alpha and adds P V of tile t - 1.  So the
+// block runs last + 2 steps with one barrier each.  Each group has its own
+// loop, so that O's 64 registers are live in group 1's code alone and S's
+// in group 0's; a row's m and l live in one lane of its row group (lane
+// cg holds row cg's), shuffled to the others once a tile.  The ring is
+// staggered: step t starts K and the bias of tile t + 1 and V of tile t,
+// each into the stage of its tile's parity, which the step before
+// finished reading.  Each element of O is one in-order fused multiply-add
+// chain over the keys, rescaled between tiles.
+
+template <int DP>
+__global__ void __launch_bounds__(kF32Threads, 1) attn_fwd_kernel(Params p) {
+  using T = F32Tiles<DP>;
+  extern __shared__ float4 smem4[];
+  float* sQt = reinterpret_cast<float*>(smem4);
+  float* sStage = sQt + DP * T::kRows;
+  float* sP = sStage + 2 * T::kStage;
+  float* sAlpha = sP + 2 * T::kCols * T::kLdP;
+  float* sL = sAlpha + 2 * T::kRows;
+  for (int i = threadIdx.x; i < T::kFwdSmem / 4; i += kF32Threads)
+    smem4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * T::kRows;  // longest first
+  const int group = threadIdx.x / kF32Group, t = threadIdx.x % kF32Group;
+  const int rg = t / T::kCG, cg = t % T::kCG;
+  const float* k = static_cast<const float*>(p.k);
+  const float* v = static_cast<const float*>(p.v);
+  const int nk = (p.Sk + T::kCols - 1) / T::kCols;
+  // the last k/v tile that the block's last query sees
+  const int last =
+      p.causal
+          ? min(nk - 1, (min(q0 + T::kRows, p.Sq) - 1 + p.off) / T::kCols)
+          : nk - 1;
+  // Start of step it, in both groups: tile it's K and it - 1's V are in,
+  // step it - 1 is done; start K of tile it + 1 and V of tile it.
+  auto step = [&](int it) {
+    cp_async_wait_all();
+    block_sync();
+    if (it < last) {
+      float* st = sStage + ((it + 1) & 1) * T::kStage;
+      const int k0 = (it + 1) * T::kCols;
+      f32_load_rows<DP>(smem_u32(st), k, p.sk, p.vk, b, h, k0, p.Sk, p.D);
+      if (p.bias != nullptr)
+        f32_load_vec(smem_u32(st + 2 * T::kCols * T::kLd),
+                     p.bias + b * p.sbias[0], p.sbias[1], k0, p.Sk, T::kCols,
+                     0);
+    }
+    if (it <= last)
+      f32_load_rows<DP>(
+          smem_u32(sStage + (it & 1) * T::kStage + T::kCols * T::kLd), v,
+          p.sv, p.vv, b, h, it * T::kCols, p.Sk, p.D);
+    cp_async_commit();
+  };
+
+  // tile 0's K and bias first: they fly while Q^T loads
+  f32_load_rows<DP>(smem_u32(sStage), k, p.sk, p.vk, b, h, 0, p.Sk, p.D);
+  if (p.bias != nullptr)
+    f32_load_vec(smem_u32(sStage + 2 * T::kCols * T::kLd),
+                 p.bias + b * p.sbias[0], p.sbias[1], 0, p.Sk, T::kCols, 0);
+  f32_load_t<T::kRows>(sQt, static_cast<const float*>(p.q), p.sq, p.vq, b, h,
+                       q0, p.Sq, p.D);
+  cp_async_commit();
+
+  if (group == 0) {  // S and the online softmax
+    const int lane0 = (threadIdx.x & 31) & ~(T::kCG - 1);
+    float m_own = kMask, l_own = 0.f;  // row cg's (cg < 8)
+    for (int it = 0; it <= last + 1; ++it) {
+      step(it);
+      if (it > last) continue;
+      const int k0 = it * T::kCols;
+      const float* sK = sStage + (it & 1) * T::kStage;
+      const float* sBias = sK + 2 * T::kCols * T::kLd;
+      float s[8][T::kTC];
+      f32_scores<DP>(sQt, sK, p.D, rg, cg, s);
+      const bool edge = k0 + T::kCols > p.Sk || q0 + T::kRows > p.Sq ||
+                        (p.causal && k0 + T::kCols - 1 > q0 + p.off);
+#pragma unroll
+      for (int j = 0; j < T::kTC; ++j) {
+        const int col = cg + T::kCG * j;
+        const float bias = sBias[col];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          s[i][j] = f32_score(p, s[i][j], bias, edge,
+                              q0 + (i >> 2) * (T::kRows / 2) + 4 * rg + (i & 3),
+                              k0 + col);
+      }
+      float* alpha = sAlpha + (it & 1) * T::kRows;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float m_old = __shfl_sync(0xffffffffu, m_own, lane0 + i);
+        float mx = s[i][0];
+#pragma unroll
+        for (int j = 1; j < T::kTC; ++j) mx = fmaxf(mx, s[i][j]);
+        const float m_new = fmaxf(m_old, row_reduce<T::kCG, true>(mx));
+        // exp of a difference (never kMask * log2 e, which overflows)
+        const float a = expf(m_old - m_new);
+        float rs = 0.f;
+#pragma unroll
+        for (int j = 0; j < T::kTC; ++j) {
+          s[i][j] = expf(s[i][j] - m_new);
+          rs += s[i][j];
+        }
+        rs = row_reduce<T::kCG, false>(rs);
+        if (cg == i) {
+          l_own = l_own * a + rs;
+          m_own = m_new;
+          alpha[(i >> 2) * (T::kRows / 2) + 4 * rg + (i & 3)] = a;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < T::kTC; ++j)
+        f32_put<DP>(sP + (it & 1) * T::kCols * T::kLdP, rg, cg + T::kCG * j,
+                    s, j);
+      if (it == last && cg < 8) {  // row cg's l for group 1, and its lse
+        const int row = (cg >> 2) * (T::kRows / 2) + 4 * rg + (cg & 3);
+        const float lsafe = l_own == 0.f ? 1.f : l_own;
+        sL[row] = lsafe;
+        if (q0 + row < p.Sq)
+          p.lse_out[(static_cast<long long>(b) * p.H + h) * p.Sq + q0 + row] =
+              m_own + logf(lsafe);
+      }
+    }
+  } else {  // O = O alpha + P V
+    float acc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[i][e] = 0.f;
+    for (int it = 0; it <= last + 1; ++it) {
+      step(it);
+      if (it == 0) continue;
+      const int j = it - 1;
+      const float* al = sAlpha + (j & 1) * T::kRows + 4 * rg;
+      const float4 a0 = ld4(al), a1 = ld4(al + T::kRows / 2);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[i][e] *= a[i];
+      f32_accumulate<DP, 8>(sP + (j & 1) * T::kCols * T::kLdP,
+                            sStage + (j & 1) * T::kStage + T::kCols * T::kLd,
+                            4 * rg, cg, acc);
+    }
+    // O = acc / l; group 0 wrote l at step last, before step last + 1
+    const float4 l0 = ld4(sL + 4 * rg), l1 = ld4(sL + T::kRows / 2 + 4 * rg);
+    const float ls[8] = {l0.x, l0.y, l0.z, l0.w, l1.x, l1.y, l1.z, l1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[i][e] /= ls[i];
+    f32_store<DP, 8>(static_cast<float*>(p.out), p, b, h, q0 + 4 * rg, p.Sq,
+                     cg, acc);
   }
 }
 
@@ -1670,15 +1655,16 @@ __global__ void __launch_bounds__(kF32Threads, 1) attn_dq_kernel(Params p) {
                    acc);
 }
 
-// kind 1 dQ, 2 dK/dV; the head dim padded to 64 or 128.
+// kind 0 forward, 1 dQ, 2 dK/dV; the head dim padded to 64 or 128.
 template <int DP>
-int launch_f32_bwd(int kind, const Params& p, cudaStream_t stream) {
+int launch_f32(int kind, const Params& p, cudaStream_t stream) {
   using T = F32Tiles<DP>;
-  const size_t bytes = T::kSmem * sizeof(float);
+  const size_t bytes = (kind == 0 ? T::kFwdSmem : T::kSmem) * sizeof(float);
   const int rows = kind == 2 ? p.Sk : p.Sq;
   const dim3 grid(p.B * p.H, (rows + T::kRows - 1) / T::kRows);
-  void (*kernel)(Params) =
-      kind == 1 ? attn_dq_kernel<DP> : attn_dkdv_kernel<DP>;
+  void (*kernel)(Params) = kind == 0   ? attn_fwd_kernel<DP>
+                           : kind == 1 ? attn_dq_kernel<DP>
+                                       : attn_dkdv_kernel<DP>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
@@ -1709,13 +1695,6 @@ int launch_tc(int kind, const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The fp32 forward's: Q, K, V and P.
-size_t fwd_smem_bytes(int D) {
-  return (3 * static_cast<size_t>(kTile) * (D + 4) +
-          static_cast<size_t>(kTile) * kLdS) *
-         sizeof(float);
-}
-
 // The route is the dtype's: fp32 takes the CUDA-core kernels, bf16 and
 // fp16 the tensor cores' (the head dim padded to 64 or 128).
 template <typename T>
@@ -1723,18 +1702,9 @@ int launch(int kind, const Params& p, cudaStream_t stream) {
   if constexpr (!std::is_same<T, float>::value) {
     return p.D <= 64 ? launch_tc<T, 64>(kind, p, stream)
                      : launch_tc<T, 128>(kind, p, stream);
-  } else if (kind != 0) {
-    return p.D <= 64 ? launch_f32_bwd<64>(kind, p, stream)
-                     : launch_f32_bwd<128>(kind, p, stream);
   } else {
-    const dim3 grid(p.B * p.H, (p.Sq + kTile - 1) / kTile);
-    const size_t bytes = fwd_smem_bytes(p.D);
-    cudaError_t err = cudaFuncSetAttribute(
-        attn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attn_fwd_kernel<<<grid, kThreads, bytes, stream>>>(p);
-    return static_cast<int>(cudaGetLastError());
+    return p.D <= 64 ? launch_f32<64>(kind, p, stream)
+                     : launch_f32<128>(kind, p, stream);
   }
 }
 

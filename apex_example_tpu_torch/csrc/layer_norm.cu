@@ -233,6 +233,19 @@ int dispatch(const void* x, const float* gamma, const float* beta, void* y,
 // bitwise.  Per thread 32 elements at most (the warp layout) or 16 (the
 // block layout), so the four register arrays stay within 128 floats.
 //
+// Few rows (ops/layer_norm.py `bwd_row_groups`: up to 256, a group a row).
+// Four rows a group left most SMs idle and each warp's rows in series:
+// 128 x 768 took 8 blocks, and the column pass cost a launch of its own.
+// There every row gets its own group.  A row of at most 1024 elements
+// takes `ln_bwd_rows_kernel`: eight rows a block, a warp a row, the
+// block's partials added in row order into one workspace row, and the last
+// block (an integer ticket behind __threadfence, reset by that block) adds
+// the workspace rows per column in order: one launch, still no float
+// atomics.  (Its warps each taking every eighth row, all 32 columns of a
+// lane loaded at once, was slower at 128 x 768; four rows a block too:
+// PERF.md.)  Wider rows take a 512-thread block a row and the column
+// pass.
+//
 // RMSNorm backward: the same kernels with kMean = false.  Replaces
 // apex_example_tpu/ops/layer_norm.py:285 `_rms_bwd_kernel` (launched by
 // `_norm_bwd_pallas` with mean None, :161 / :192).  Same arithmetic
@@ -248,6 +261,69 @@ int dispatch(const void* x, const float* gamma, const float* beta, void* y,
 constexpr int kBwdWarpElems = 32;   // elements per thread, warp layout
 constexpr int kBwdColTile = 32;     // columns per block of the column sum
 constexpr int kBwdColSegs = 16;     // workspace-row segments per block
+constexpr int kFewWarps = 8;        // rows a block of ln_bwd_rows_kernel
+
+// One row of the backward: dx, and the row's dy * x_hat and dy added into
+// the thread's column partials pg and pb.  kMean: LayerNorm; without it
+// RMSNorm (mean_in null, pb untouched).
+template <typename T, int VEC, int TPR, int CHUNKS, bool kMean>
+__device__ __forceinline__ void bwd_row(
+    const T* __restrict__ x, const T* __restrict__ dy,
+    const float* __restrict__ gamma, const float* __restrict__ mean_in,
+    const float* __restrict__ rstd_in, T* __restrict__ dx, int64_t row, int h,
+    int tid, float* smem, float (&pg)[CHUNKS][VEC], float (&pb)[CHUNKS][VEC]) {
+  const float fh = static_cast<float>(h);
+  const float mu = kMean ? mean_in[row] : 0.f;
+  const float rs = rstd_in[row];
+  const T* xr = x + row * h;
+  const T* dyr = dy + row * h;
+  float xh[CHUNKS][VEC], d[CHUNKS][VEC];
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int c = 0; c < CHUNKS; ++c) {
+    const int col = (c * TPR + tid) * VEC;
+    if (col < h) {
+      const Pack<T, VEC> px = *reinterpret_cast<const Pack<T, VEC>*>(xr + col);
+      const Pack<T, VEC> pd =
+          *reinterpret_cast<const Pack<T, VEC>*>(dyr + col);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        xh[c][i] = (to_float(px.v[i]) - mu) * rs;
+        d[c][i] = to_float(pd.v[i]);
+        pg[c][i] += d[c][i] * xh[c][i];
+        if (kMean) pb[c][i] += d[c][i];
+        // __fmul_rn: never fused into an FMA, so the sums and dx below
+        // see the same rounded wdy (at H = 1, wdy - c1 must be 0 exactly,
+        // and rstd = 1/sqrt(eps) would magnify a fused product's error).
+        const float wdy = __fmul_rn(d[c][i], gamma[col + i]);
+        if (kMean) s1 += wdy;
+        s2 += wdy * xh[c][i];
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) xh[c][i] = d[c][i] = 0.f;
+    }
+  }
+  const float c1 = kMean ? group_sum<TPR>(s1, smem) / fh : 0.f;
+  const float c2 = group_sum<TPR>(s2, smem) / fh;
+  T* dxr = dx + row * h;
+#pragma unroll
+  for (int c = 0; c < CHUNKS; ++c) {
+    const int col = (c * TPR + tid) * VEC;
+    if (col < h) {
+      Pack<T, VEC> p;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float wdy = __fmul_rn(d[c][i], gamma[col + i]);
+        if constexpr (kMean)
+          p.v[i] = from_float<T>(rs * (wdy - c1 - xh[c][i] * c2));
+        else
+          p.v[i] = from_float<T>(rs * (wdy - xh[c][i] * c2));
+      }
+      *reinterpret_cast<Pack<T, VEC>*>(dxr + col) = p;
+    }
+  }
+}
 
 // kMean: LayerNorm.  Without it RMSNorm: mean_in and ws_db are null.
 template <typename T, int VEC, int TPR, int CHUNKS, bool kMean>
@@ -271,61 +347,9 @@ __global__ void __launch_bounds__(TPR == 32 ? 128 : TPR)
   for (int c = 0; c < CHUNKS; ++c)
 #pragma unroll
     for (int i = 0; i < VEC; ++i) pg[c][i] = pb[c][i] = 0.f;
-
-  const float fh = static_cast<float>(h);
-  for (int64_t row = group; row < n_rows; row += n_groups) {
-    const float mu = kMean ? mean_in[row] : 0.f;
-    const float rs = rstd_in[row];
-    const T* xr = x + row * h;
-    const T* dyr = dy + row * h;
-    float xh[CHUNKS][VEC], d[CHUNKS][VEC];
-    float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int c = 0; c < CHUNKS; ++c) {
-      const int col = (c * TPR + tid) * VEC;
-      if (col < h) {
-        const Pack<T, VEC> px =
-            *reinterpret_cast<const Pack<T, VEC>*>(xr + col);
-        const Pack<T, VEC> pd =
-            *reinterpret_cast<const Pack<T, VEC>*>(dyr + col);
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) {
-          xh[c][i] = (to_float(px.v[i]) - mu) * rs;
-          d[c][i] = to_float(pd.v[i]);
-          pg[c][i] += d[c][i] * xh[c][i];
-          if (kMean) pb[c][i] += d[c][i];
-          // __fmul_rn: never fused into an FMA, so the sums and dx below
-          // see the same rounded wdy (at H = 1, wdy - c1 must be 0 exactly,
-          // and rstd = 1/sqrt(eps) would magnify a fused product's error).
-          const float wdy = __fmul_rn(d[c][i], gamma[col + i]);
-          if (kMean) s1 += wdy;
-          s2 += wdy * xh[c][i];
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) xh[c][i] = d[c][i] = 0.f;
-      }
-    }
-    const float c1 = kMean ? group_sum<TPR>(s1, smem) / fh : 0.f;
-    const float c2 = group_sum<TPR>(s2, smem) / fh;
-    T* dxr = dx + row * h;
-#pragma unroll
-    for (int c = 0; c < CHUNKS; ++c) {
-      const int col = (c * TPR + tid) * VEC;
-      if (col < h) {
-        Pack<T, VEC> p;
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) {
-          const float wdy = __fmul_rn(d[c][i], gamma[col + i]);
-          if constexpr (kMean)
-            p.v[i] = from_float<T>(rs * (wdy - c1 - xh[c][i] * c2));
-          else
-            p.v[i] = from_float<T>(rs * (wdy - xh[c][i] * c2));
-        }
-        *reinterpret_cast<Pack<T, VEC>*>(dxr + col) = p;
-      }
-    }
-  }
+  for (int64_t row = group; row < n_rows; row += n_groups)
+    bwd_row<T, VEC, TPR, CHUNKS, kMean>(x, dy, gamma, mean_in, rstd_in, dx,
+                                        row, h, tid, smem, pg, pb);
 
   float* wg = ws_dg + group * h;
 #pragma unroll
@@ -339,6 +363,70 @@ __global__ void __launch_bounds__(TPR == 32 ? 128 : TPR)
       }
     }
   }
+}
+
+// Few rows, each its own group, in the warp layout: one launch.  Warp w of
+// block k takes row kFewWarps k + w (dx as ln_bwd_kernel's rows); the block
+// adds its rows' dy * x_hat (and dy) per column in row order through
+// shared memory into workspace row k; the last block to finish, told by
+// an integer ticket behind __threadfence, adds the workspace rows per
+// column in order into dgamma (and dbeta) and sets the ticket back to 0
+// for the next launch.  No float atomics: the sums repeat bitwise.
+template <typename T, int VEC, bool kMean>
+__global__ void __launch_bounds__(kFewWarps * 32, 1) ln_bwd_rows_kernel(
+    const T* __restrict__ x, const T* __restrict__ dy,
+    const float* __restrict__ gamma, const float* __restrict__ mean_in,
+    const float* __restrict__ rstd_in, T* __restrict__ dx,
+    float* __restrict__ ws_dg, float* __restrict__ ws_db,
+    float* __restrict__ dgamma, float* __restrict__ dbeta,
+    unsigned int* ticket, int64_t n_rows, int h) {
+  constexpr int kChunks = kBwdWarpElems / VEC;
+  constexpr int kThreads = kFewWarps * 32;
+  __shared__ float part[kFewWarps][kBwdWarpElems * 32];
+  __shared__ bool last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kFewWarps + warp;
+  float pg[kChunks][VEC], pb[kChunks][VEC];
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) pg[c][i] = pb[c][i] = 0.f;
+  if (row < n_rows)
+    bwd_row<T, VEC, 32, kChunks, kMean>(x, dy, gamma, mean_in, rstd_in, dx,
+                                        row, h, lane, nullptr, pg, pb);
+
+  for (int pass = 0; pass < (kMean ? 2 : 1); ++pass) {
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+      for (int i = 0; i < VEC; ++i)
+        part[warp][(c * 32 + lane) * VEC + i] = pass ? pb[c][i] : pg[c][i];
+    __syncthreads();
+    float* ws = (pass ? ws_db : ws_dg) + blockIdx.x * static_cast<int64_t>(h);
+    for (int col = threadIdx.x; col < h; col += kThreads) {
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < kFewWarps; ++w) s += part[w][col];
+      ws[col] = s;
+    }
+    __syncthreads();  // part is written again by the next pass
+  }
+  __threadfence();  // this block's workspace row before its ticket
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int col = threadIdx.x; col < h; col += kThreads) {
+    float s = 0.f, t = 0.f;
+    for (unsigned k = 0; k < gridDim.x; ++k) {
+      s += __ldcg(ws_dg + k * static_cast<int64_t>(h) + col);
+      if (kMean) t += __ldcg(ws_db + k * static_cast<int64_t>(h) + col);
+    }
+    dgamma[col] = s;
+    if (kMean) dbeta[col] = t;
+  }
+  if (threadIdx.x == 0) *ticket = 0u;
 }
 
 // dgamma[col] = sum over the workspace's rows, in a fixed order: segment s
@@ -376,17 +464,28 @@ __global__ void __launch_bounds__(kBwdColTile * kBwdColSegs)
   }
 }
 
+// A group a row (n_groups == n) in the warp layout takes the one-launch
+// ln_bwd_rows_kernel, which needs the ticket; anything else ln_bwd_kernel
+// and the column pass.
 template <typename T, int VEC, bool kMean>
 int launch_bwd(const void* x, const void* dy, const float* gamma,
                const float* mean, const float* rstd, void* dx, float* dgamma,
-               float* dbeta, float* ws, int64_t n, int h, int64_t n_groups,
-               cudaStream_t stream) {
+               float* dbeta, float* ws, unsigned int* ticket, int64_t n,
+               int h, int64_t n_groups, cudaStream_t stream) {
   const T* xt = static_cast<const T*>(x);
   const T* dyt = static_cast<const T*>(dy);
   T* dxt = static_cast<T*>(dx);
   float* ws_dg = ws;
   float* ws_db = kMean ? ws + n_groups * h : nullptr;
   constexpr int kChunks = kBwdWarpElems / VEC;
+  if (h <= kChunks * 32 * VEC && n_groups == n && ticket != nullptr) {
+    ln_bwd_rows_kernel<T, VEC, kMean>
+        <<<static_cast<unsigned>((n + kFewWarps - 1) / kFewWarps),
+           kFewWarps * 32, 0, stream>>>(xt, dyt, gamma, mean, rstd, dxt,
+                                        ws_dg, ws_db, dgamma, dbeta, ticket,
+                                        n, h);
+    return static_cast<int>(cudaGetLastError());
+  }
   if (h <= kChunks * 32 * VEC) {
     ln_bwd_kernel<T, VEC, 32, kChunks, kMean>
         <<<static_cast<unsigned>((n_groups + 3) / 4), 128, 0, stream>>>(
@@ -409,8 +508,8 @@ int launch_bwd(const void* x, const void* dy, const float* gamma,
 template <typename T, bool kMean>
 int dispatch_bwd(const void* x, const void* dy, const float* gamma,
                  const float* mean, const float* rstd, void* dx,
-                 float* dgamma, float* dbeta, float* ws, int64_t n, int h,
-                 int64_t n_groups, cudaStream_t stream) {
+                 float* dgamma, float* dbeta, float* ws, unsigned int* ticket,
+                 int64_t n, int h, int64_t n_groups, cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
   const bool vec = h % kVec == 0 &&
                    reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
@@ -418,20 +517,23 @@ int dispatch_bwd(const void* x, const void* dy, const float* gamma,
                    reinterpret_cast<uintptr_t>(dx) % 16 == 0;
   if (vec)
     return launch_bwd<T, kVec, kMean>(x, dy, gamma, mean, rstd, dx, dgamma,
-                                      dbeta, ws, n, h, n_groups, stream);
+                                      dbeta, ws, ticket, n, h, n_groups,
+                                      stream);
   return launch_bwd<T, 1, kMean>(x, dy, gamma, mean, rstd, dx, dgamma, dbeta,
-                                 ws, n, h, n_groups, stream);
+                                 ws, ticket, n, h, n_groups, stream);
 }
 
 }  // namespace
 
 // Backward.  dx in x's dtype (dy has it too); dgamma, dbeta fp32 (H,);
-// workspace 2 * n_groups * H floats of scratch.  Argument errors are
-// negative; a launch error is the cudaError_t value.
+// workspace 2 * n_groups * H floats of scratch; ticket one uint32 that is 0
+// at the launch and is 0 again after it (null: never the one-launch
+// kernel).  Argument errors are negative; a launch error is the
+// cudaError_t value.
 extern "C" int apex_layer_norm_bwd(const void* x, const void* dy,
                                    const void* gamma, const void* mean,
                                    const void* rstd, void* dx, void* dgamma,
-                                   void* dbeta, void* workspace,
+                                   void* dbeta, void* workspace, void* ticket,
                                    long long n_rows, int h,
                                    long long n_groups, int dtype,
                                    void* stream) {
@@ -444,16 +546,17 @@ extern "C" int apex_layer_norm_bwd(const void* x, const void* dy,
   float* dg = static_cast<float*>(dgamma);
   float* db = static_cast<float*>(dbeta);
   float* ws = static_cast<float*>(workspace);
+  unsigned int* tk = static_cast<unsigned int*>(ticket);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return dispatch_bwd<float, true>(x, dy, g, m, r, dx, dg, db, ws, n_rows,
-                                       h, n_groups, s);
+      return dispatch_bwd<float, true>(x, dy, g, m, r, dx, dg, db, ws, tk,
+                                       n_rows, h, n_groups, s);
     case 1:
       return dispatch_bwd<__nv_bfloat16, true>(x, dy, g, m, r, dx, dg, db, ws,
-                                               n_rows, h, n_groups, s);
+                                               tk, n_rows, h, n_groups, s);
     case 2:
-      return dispatch_bwd<__half, true>(x, dy, g, m, r, dx, dg, db, ws,
+      return dispatch_bwd<__half, true>(x, dy, g, m, r, dx, dg, db, ws, tk,
                                         n_rows, h, n_groups, s);
     default:
       return -1;
@@ -511,13 +614,14 @@ extern "C" int apex_rms_norm_fwd(const void* x, const void* gamma, void* y,
 }
 
 // RMSNorm backward: dx in x's dtype (dy has it too), dgamma fp32 (H,);
-// workspace n_groups * H floats of scratch.  Argument errors are negative;
-// a launch error is the cudaError_t value.
+// workspace n_groups * H floats of scratch; the ticket as LayerNorm's.
+// Argument errors are negative; a launch error is the cudaError_t value.
 extern "C" int apex_rms_norm_bwd(const void* x, const void* dy,
                                  const void* gamma, const void* rstd,
                                  void* dx, void* dgamma, void* workspace,
-                                 long long n_rows, int h, long long n_groups,
-                                 int dtype, void* stream) {
+                                 void* ticket, long long n_rows, int h,
+                                 long long n_groups, int dtype,
+                                 void* stream) {
   if (h < 1 || h > kMaxH) return -2;
   if (n_rows < 1 || n_rows > 0x7fffffffLL) return -3;
   if (n_groups < 1 || n_groups > n_rows) return -4;
@@ -525,18 +629,20 @@ extern "C" int apex_rms_norm_bwd(const void* x, const void* dy,
   const float* r = static_cast<const float*>(rstd);
   float* dg = static_cast<float*>(dgamma);
   float* ws = static_cast<float*>(workspace);
+  unsigned int* tk = static_cast<unsigned int*>(ticket);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
       return dispatch_bwd<float, false>(x, dy, g, nullptr, r, dx, dg, nullptr,
-                                        ws, n_rows, h, n_groups, s);
+                                        ws, tk, n_rows, h, n_groups, s);
     case 1:
       return dispatch_bwd<__nv_bfloat16, false>(x, dy, g, nullptr, r, dx, dg,
-                                                nullptr, ws, n_rows, h,
+                                                nullptr, ws, tk, n_rows, h,
                                                 n_groups, s);
     case 2:
       return dispatch_bwd<__half, false>(x, dy, g, nullptr, r, dx, dg,
-                                         nullptr, ws, n_rows, h, n_groups, s);
+                                         nullptr, ws, tk, n_rows, h, n_groups,
+                                         s);
     default:
       return -1;
   }

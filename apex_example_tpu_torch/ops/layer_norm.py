@@ -47,6 +47,7 @@ _ARG_ERRORS = {-1: "unsupported dtype", -2: "hidden size out of range",
                -3: "row count out of range", -4: "row groups out of range"}
 BWD_ROWS_PER_GROUP = 4  # rows one warp (or block) of the backward takes
 BWD_MAX_GROUPS = 1024   # rows of the backward's dgamma/dbeta workspace
+BWD_FEW_ROWS = 256      # up to this many rows, a group a row
 
 Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -111,7 +112,7 @@ def _library() -> ctypes.CDLL:
         ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
         ctypes.c_void_p]
     lib.apex_layer_norm_fwd.restype = ctypes.c_int
-    lib.apex_layer_norm_bwd.argtypes = [ctypes.c_void_p] * 9 + [
+    lib.apex_layer_norm_bwd.argtypes = [ctypes.c_void_p] * 10 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_void_p]
     lib.apex_layer_norm_bwd.restype = ctypes.c_int
@@ -119,7 +120,7 @@ def _library() -> ctypes.CDLL:
         ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
         ctypes.c_void_p]
     lib.apex_rms_norm_fwd.restype = ctypes.c_int
-    lib.apex_rms_norm_bwd.argtypes = [ctypes.c_void_p] * 7 + [
+    lib.apex_rms_norm_bwd.argtypes = [ctypes.c_void_p] * 8 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_void_p]
     lib.apex_rms_norm_bwd.restype = ctypes.c_int
@@ -220,6 +221,24 @@ def bwd_groups(n: int) -> int:
     return max(1, min(-(-n // BWD_ROWS_PER_GROUP), BWD_MAX_GROUPS))
 
 
+def bwd_row_groups(n: int) -> int:
+    """The groups the backward launches with: a group a row up to
+    ``BWD_FEW_ROWS`` rows, where four rows a group would leave most of the
+    card's 132 SMs idle (128 rows: 8 blocks); then :func:`bwd_groups`.  A
+    group a row of at most 1024 elements takes the kernel's one-launch
+    layout, which sums dgamma and dbeta in its last block."""
+    return n if n <= BWD_FEW_ROWS else bwd_groups(n)
+
+
+@functools.lru_cache(maxsize=None)
+def _ticket(device: torch.device, stream: int) -> torch.Tensor:
+    """The one-launch backward's ticket on ``device`` for launches on
+    ``stream``: a uint32 the launch's blocks count themselves on, zero
+    before and after each launch (the last block resets it).  Launches on
+    one stream run in order, so they share it."""
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
 def layer_norm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor,
                         mean: torch.Tensor, rstd: torch.Tensor,
                         dy: torch.Tensor) -> Grads:
@@ -233,15 +252,16 @@ def layer_norm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor,
     db = torch.empty(h, dtype=torch.float32, device=x.device)
     if n == 0:
         return dx, dg.zero_(), db.zero_()
-    groups = bwd_groups(n)
+    groups = bwd_row_groups(n)
     ws = torch.empty(2 * groups * h, dtype=torch.float32, device=x.device)
     lib = _library()
     with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
         rc = lib.apex_layer_norm_bwd(
             x.data_ptr(), dy.data_ptr(), gamma.data_ptr(), mean.data_ptr(),
             rstd.data_ptr(), dx.data_ptr(), dg.data_ptr(), db.data_ptr(),
-            ws.data_ptr(), n, h, groups, _build.DTYPE_CODES[x.dtype],
-            torch.cuda.current_stream().cuda_stream)
+            ws.data_ptr(), _ticket(x.device, stream).data_ptr(), n, h,
+            groups, _build.DTYPE_CODES[x.dtype], stream)
     _build.raise_on(rc, lib, "layer_norm backward", _ARG_ERRORS)
     layer_norm_bwd_cuda.launches += 1
     return dx, dg, db
@@ -371,15 +391,16 @@ def rms_norm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor,
     dg = torch.empty(h, dtype=torch.float32, device=x.device)
     if n == 0:
         return dx, dg.zero_()
-    groups = bwd_groups(n)
+    groups = bwd_row_groups(n)
     ws = torch.empty(groups * h, dtype=torch.float32, device=x.device)
     lib = _library()
     with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
         rc = lib.apex_rms_norm_bwd(
             x.data_ptr(), dy.data_ptr(), gamma.data_ptr(), rstd.data_ptr(),
-            dx.data_ptr(), dg.data_ptr(), ws.data_ptr(), n, h, groups,
-            _build.DTYPE_CODES[x.dtype],
-            torch.cuda.current_stream().cuda_stream)
+            dx.data_ptr(), dg.data_ptr(), ws.data_ptr(),
+            _ticket(x.device, stream).data_ptr(), n, h, groups,
+            _build.DTYPE_CODES[x.dtype], stream)
     _build.raise_on(rc, lib, "rms_norm backward", _ARG_ERRORS)
     rms_norm_bwd_cuda.launches += 1
     return dx, dg

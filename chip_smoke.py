@@ -18,17 +18,19 @@ Phases, one or more lines each:
              and at H = 8192: fp32 atol = rtol = 1e-5; bf16 one bf16 ulp of
              the output plus 1e-5 (the fp32 rounding of a result that
              cancels to near zero).  LayerNorm backward at the three
-             training shapes in fp32 and bf16, at 1000 rows, at H = 64, at
-             an odd H and at H = 8192: dx as the forward's y; dgamma and
-             dbeta rtol = atol = 1e-4 (sums over thousands of O(1) rows in
-             another order; atol for sums that cancel near zero).  The
+             training shapes in fp32 and bf16, at 1000 rows, at 128 rows
+             (the one-launch few-rows layout), at H = 64, at an odd H and
+             at H = 8192: dx as the forward's y; dgamma and dbeta rtol =
+             atol = 1e-4 (sums over thousands of O(1) rows in another
+             order; atol for sums that cancel near zero).  The
              multi-tensor L2 norm and LAMB stages 1 and 2 over 201 tensors
              shaped like bert_base's parameters: norms rtol 1e-5; m, v, u
              and p atol 1e-6, rtol 1e-5.  dgamma and the norms must repeat
              bitwise on a second call.  Then each kernel's, its plain
              version's and (where one exists) a PyTorch call's median
              device time, beside the kernel's bound; the LayerNorm kernels'
-             at transformer_xl's 6144 x 410 too.
+             at transformer_xl's 6144 x 410 too, the backward's also at
+             few rows (128 x 768, 37 x 777, 64 x 8192).
 4. main    — gpt_base at full width (random weights from seed 0) served
              through the port's run_serve on cuda: 32 requests with a
              shared prefix through 8 slots of a block-paged cache.  Every
@@ -193,8 +195,9 @@ Phases, one or more lines each:
              / 2 scores a head under the causal mask; 4, 8 and 6 flops per
              score per head-dim element) over 67 TFLOP/s (fp32) or 989
              TFLOP/s (bf16 and fp16 tensor cores), or the bytes over 3.35
-             TB/s; and, from torch.profiler, the device kernels of SDPA's
-             fp32 forward and backward at that shape, by name.
+             TB/s, with ptxas's registers for the fp32 forward; and, from
+             torch.profiler, the device kernels of SDPA's fp32 forward and
+             backward at that shape, by name.
 19. gpt2048 — the tentpole's entry point, bench.py's gpt row at sequence
              2048: gpt_base, batch 8 x 2048, FusedAdam (lr 1e-4, weight
              decay 0.01), 10 steps at amp O2 (bf16) and 5 at O0 (fp32):
@@ -459,9 +462,28 @@ def phase_env():
           f"count {torch.cuda.device_count()}")
 
 
+BUILD_REPORTS = {}   # source name -> ptxas's report, from phase_build
+
+
+def _registers(source, mangled):
+    """ptxas's register count of the first kernel of ``source`` whose
+    mangled name contains ``mangled`` (None if none was built in this
+    process)."""
+    entry = None
+    for line in BUILD_REPORTS.get(source, "").splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None and mangled in entry:
+            return int(m.group(1))
+    return None
+
+
 def phase_build(build):
     t0 = time.perf_counter()
     reports = build.build(SOURCES)
+    BUILD_REPORTS.update(reports)
     dt = time.perf_counter() - t0
     print(f"build: {', '.join(n + '.cu' for n in SOURCES)} in {dt:.1f} s"
           + ("" if reports else " (already built)"))
@@ -566,6 +588,8 @@ def phase_ln_bwd(ln):
              (TXL_ROWS, TXL_H, torch.bfloat16),
              (GPT_ROWS, 768, torch.float32), (GPT_ROWS, 768, torch.bfloat16),
              (1000, 768, torch.float32), (1000, 768, torch.bfloat16),
+             (SLOTS * BLOCK, 768, torch.float32),
+             (SLOTS * BLOCK, 768, torch.bfloat16),
              (TRAIN_ROWS, 64, torch.float32), (37, 777, torch.float32),
              (64, 8192, torch.float32), (64, 8192, torch.bfloat16)]
     path_shapes = {(TRAIN_ROWS, 768), (TXL_ROWS, TXL_H), (GPT_ROWS, 768)}
@@ -597,7 +621,9 @@ def phase_ln_bwd(ln):
                              f"plain version at {n}x{h} {dtype}")
         if dtype == torch.float32 and (n, h) in path_shapes:
             path_err = max(path_err, dx_err, dg_err, db_err)
-        if (n, h, dtype) == (TRAIN_ROWS, 768, torch.float32):
+        # the four-rows-a-group layout and the one-launch few-rows one
+        if dtype == torch.float32 and (n, h) in ((TRAIN_ROWS, 768),
+                                                 (SLOTS * BLOCK, 768)):
             again = ln.layer_norm_bwd_cuda(x, g, mean, rstd, dy)
             same = all(torch.equal(u, w) for u, w in
                        zip(again, (dx, dg, db)))
@@ -608,8 +634,10 @@ def phase_ln_bwd(ln):
                                  "repeat bitwise")
 
     by_shape = {}
-    # the train phase's shape last: its times are the row's
-    for n, h in ((TXL_ROWS, TXL_H), (TRAIN_ROWS, 768)):
+    # few rows (a group a row), then the training paths' shapes; the train
+    # phase's shape last: its times are the row's
+    for n, h in ((SLOTS * BLOCK, 768), (37, 777), (64, 8192),
+                 (TXL_ROWS, TXL_H), (TRAIN_ROWS, 768)):
         x = torch.randn(n, h, device=dev, generator=gen)
         g = torch.randn(h, device=dev, generator=gen) * 0.2 + 1
         b = torch.randn(h, device=dev, generator=gen) * 0.2
@@ -2329,13 +2357,21 @@ def phase_attention(att):
             rows[name] = {"ms": ms, "plain_ms": plain_ms,
                           "library_ms": lib_ms, "bound_ms": bound_ms,
                           "bound_by": bound_by}
+            regs = ""
+            if name == "attn_fwd" and dtype == torch.float32:
+                # attn_fwd_kernel<64> and <128> (the _tc ones: "_tcI")
+                found = [_registers("attention", f"attn_fwd_kernelILi{dp}E")
+                         for dp in (64, 128)]
+                regs = (f"  ptxas {found[0]} / {found[1]} registers at D 64 "
+                        f"/ 128" if None not in found else
+                        "  ptxas registers: not built in this process")
             print(f"attention: {name} gpt_base {str(dtype)[6:]} device "
                   f"time: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
                   f"SDPA {'forward' if name == 'attn_fwd' else 'backward'} "
                   f"{lib_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}: "
                   f"{flops * d * live / 1e9:.2f} GFLOP over "
                   f"{peak / 1e12:.0f} TFLOP/s, {nb} bytes)  "
-                  f"{flops * d * live / ms / 1e9:.2f} TFLOP/s")
+                  f"{flops * d * live / ms / 1e9:.2f} TFLOP/s{regs}")
         print(f"attention: SDPA forward against the kernel, gpt_base "
               f"{str(dtype)[6:]}: max|diff| {lib_err:.3g} (the yardstick "
               f"computes the same function)")
@@ -2609,7 +2645,8 @@ def phase_bn_share(train, argv, sync_batchnorm_cls, busy_ms):
 KERNEL_GROUPS = (            # device-time categories, first match wins
     ("ported: sgd", ("sgd_chunks",)),
     ("ported: layer_norm fwd", ("ln_fwd_kernel",)),
-    ("ported: layer_norm bwd", ("ln_bwd_kernel", "ln_bwd_colsum")),
+    ("ported: layer_norm bwd", ("ln_bwd_kernel", "ln_bwd_colsum",
+                                "ln_bwd_rows")),
     ("ported: batch_norm sums", ("colsum_kernel",)),
     ("ported: multi_tensor_l2norm", ("sqsum_chunks", "global_norm",
                                      "tensor_sums")),

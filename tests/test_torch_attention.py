@@ -594,6 +594,33 @@ def test_fp32_backward_tiles_fit_the_card(dp):
     assert groups * 8 == dp and cols % groups == 0
 
 
+@pytest.mark.parametrize("dp", [64, att.MAX_D])
+def test_fp32_forward_tiles_fit_the_card(dp):
+    """The fp32 forward's tiles (csrc/attention.cu: the backward's
+    kF32Rows* queries a block against kF32Cols* keys a k/v tile, at a head
+    dim padded to 64 and to kMaxD): its shared memory,
+    ``F32Tiles::kFwdSmem`` floats, fits the 232,448 bytes an H100 block may
+    take, and its grid keeps the wrappers' 65535 * TILE sequence limit."""
+    src = pathlib.Path(att.__file__).parent.parent / "csrc" / "attention.cu"
+    text = src.read_text()
+    consts = {k: int(v) for k, v in re.findall(
+        r"constexpr int (k\w+) = (\d+);", text)}
+    rows, cols = consts[f"kF32Rows{dp}"], consts[f"kF32Cols{dp}"]
+    # kFwdSmem: Q^T, two ring stages of K and V (row stride dp + 4) and two
+    # floats a key, P twice ([key][query], row stride rows + 4), each
+    # query's alpha twice and its l
+    stage = 2 * cols * (dp + 4) + 2 * cols
+    floats = dp * rows + 2 * stage + 2 * cols * (rows + 4) + 3 * rows
+    assert "DP * kRows + 2 * kStage + 2 * kCols * kLdP + 3 * kRows" in text
+    assert 4 * floats <= 232_448
+    assert floats % 4 == 0          # zeroed as float4
+    assert -(-65535 * att.TILE // rows) <= 65535
+    # a row group's lanes lie in one warp (the softmax's shuffles), and a
+    # thread's 8 x 8 O tile covers the padded head dim
+    groups = 128 // (rows // 8)
+    assert groups * 8 == dp and 32 % groups == 0 and cols % groups == 0
+
+
 @pytest.mark.parametrize("args,kw,err,match", [
     ((_meta(2, 64, 4, 64, dtype=torch.float64),) * 3, {}, TypeError,
      "float32"),

@@ -121,7 +121,8 @@ def test_layer_norm_dispatch_takes_the_kernel_on_the_card(cuda_device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("n,h", [(4096, 768), (1000, 768), (6144, 410),
-                                 (37, 64), (8, 8192), (5, 777), (3, 1)])
+                                 (128, 768), (37, 64), (8, 8192), (5, 777),
+                                 (3, 1)])
 def test_layer_norm_bwd_kernel_matches_plain(cuda_device, dtype, n, h):
     gen = torch.Generator(device=cuda_device).manual_seed(n + h)
     x = (torch.randn(n, h, device=cuda_device, generator=gen) * 2 + 0.5)
@@ -169,8 +170,8 @@ def test_layer_norm_autograd_runs_both_kernels(cuda_device):
 @pytest.mark.parametrize("misaligned", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
-@pytest.mark.parametrize("n,h", [(4096, 768), (6144, 410), (37, 777),
-                                 (64, 8192), (1000, 64), (3, 1)])
+@pytest.mark.parametrize("n,h", [(4096, 768), (6144, 410), (128, 768),
+                                 (37, 777), (64, 8192), (1000, 64), (3, 1)])
 def test_rms_norm_kernels_match_plain(cuda_device, dtype, n, h, misaligned):
     """Forward and backward against the plain versions, at the vector path
     (H a multiple of the vector width, 16-byte aligned), the scalar path
@@ -1016,12 +1017,13 @@ def test_attention_kernels_match_plain(cuda_device, dtype, case):
         assert torch.equal(got, rep)                  # bitwise repeat
 
 
-# The fp32 dK/dV and dQ kernels' tiles: 128 keys or queries a block and 64
-# streamed rows a tile at D <= 64, 64 and 48 at D <= 128 (csrc/attention.cu
-# kF32Rows*, kF32Cols*).  Lengths that none of them divide; causal Sq < Sk
-# (bottom-right); a key bias whose last batch element masks every key; q,
-# k, v and dO as x[..., ::2] of a tensor twice as wide ("strided", the
-# kernels' 4-byte element loads) beside contiguous ones (16-byte copies).
+# The fp32 kernels' tiles: 128 keys or queries a block and 64 streamed rows
+# a tile at D <= 64, 64 and 48 at D <= 128 (csrc/attention.cu kF32Rows*,
+# kF32Cols*; the forward's too).  Lengths that none of them divide; causal
+# Sq < Sk (bottom-right); a key bias whose last batch element masks every
+# key; q, k, v and dO as x[..., ::2] of a tensor twice as wide ("strided",
+# the kernels' 4-byte element loads) beside contiguous ones (16-byte
+# copies).
 FP32_BWD_CASES = [  # (B, Sq, Sk, H, D, causal, bias, layout)
     (1, 100, 100, 2, 8, True, False, "contiguous"),
     (2, 96, 200, 2, 128, True, False, "contiguous"),
@@ -1067,6 +1069,39 @@ def test_fp32_attention_backward_matches_plain(cuda_device, case):
                                    rtol=att.ATTN_BWD_TOL,
                                    atol=att.ATTN_BWD_TOL, err_msg=name)
     for got, rep in zip((dk, dv, dq), again):
+        assert torch.equal(got, rep)                  # bitwise repeat
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FP32_BWD_CASES)
+def test_fp32_attention_forward_matches_plain(cuda_device, case):
+    """The fp32 forward kernel against ``attention_pair_plain``: O and lse
+    within ATTN_FWD_TOL at the backward's cases (D 8 and 128, lengths no
+    tile divides, causal Sq < Sk, a dead batch element, strided and
+    contiguous views); one launch a call, and a second launch bitwise
+    equal."""
+    b, sq, sk, h, d, causal, bias, layout = case
+    step = 2 if layout == "strided" else 1
+    q, k, v, _, _, key_bias = _attn_inputs(cuda_device, b, sq, sk, h,
+                                           step * d, bias, torch.float32,
+                                           2 * sq + sk + d)
+    q, k, v = (t[..., ::step] for t in (q, k, v))
+    assert q.stride(-1) == step
+    if bias:
+        assert bool(att.dead_batch(key_bias)[-1])
+    scale = d ** -0.5
+    before = att.flash_attention_cuda.launches
+    o, lse = att.flash_attention_cuda(q, k, v, key_bias, causal, scale)
+    again = att.flash_attention_cuda(q, k, v, key_bias, causal, scale)
+    torch.cuda.synchronize()
+    assert att.flash_attention_cuda.launches == before + 2
+    o_p, lse_p = att.attention_pair_plain(q, k, v, key_bias, causal, scale)
+    for name, got, ref in (("o", o, o_p), ("lse", lse, lse_p)):
+        assert got.dtype == ref.dtype and got.shape == ref.shape, name
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=att.ATTN_FWD_TOL,
+                                   atol=att.ATTN_FWD_TOL, err_msg=name)
+    for got, rep in zip((o, lse), again):
         assert torch.equal(got, rep)                  # bitwise repeat
 
 

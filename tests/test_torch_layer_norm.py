@@ -298,3 +298,14 @@ def test_bwd_dispatch_raises_instead_of_falling_back(monkeypatch):
 def test_bwd_row_groups_cover_the_rows(n, groups):
     assert port_ln.bwd_groups(n) == groups
     assert 1 <= port_ln.bwd_groups(n) <= n
+
+
+@pytest.mark.parametrize("n,groups", [(1, 1), (37, 37), (128, 128),
+                                      (256, 256), (257, 65), (4096, 1024)])
+def test_bwd_few_rows_take_a_group_a_row(n, groups):
+    """Up to BWD_FEW_ROWS rows the backward launches a group a row (the
+    one-launch layout for rows of up to 1024 elements); above, bwd_groups'
+    four rows a group."""
+    assert port_ln.bwd_row_groups(n) == groups
+    assert 1 <= port_ln.bwd_row_groups(n) <= n
+    assert (port_ln.bwd_row_groups(n) == n) == (n <= port_ln.BWD_FEW_ROWS)
