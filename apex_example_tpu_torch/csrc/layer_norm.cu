@@ -14,15 +14,22 @@
 // shape (128 x 768, fp32) that is ~0.79 MB, ~0.24 us: there the launch's
 // fixed cost, not the memory, sets the time.  What the design does about
 // the bytes: one pass over device memory.  Each row is loaded once into
-// registers (16-byte vector loads where H and the pointers allow, a scalar
-// path otherwise, e.g. for odd H), both reductions and the normalisation
-// read the registers, and nothing but y, mean and rstd is stored.
+// registers, both reductions and the normalisation read the registers, and
+// nothing but y, mean and rstd is stored.
 //
-// Layout: a row group of TPR threads owns one row.  Rows of up to
-// kWarpChunks * 32 * VEC elements take one warp each (TPR = 32, four rows
-// in a 128-thread block) and reduce with warp shuffles alone; wider rows,
-// up to kMaxH, take a 512-thread block each and reduce across its warps
-// through shared memory.
+// Packs.  VEC neighbouring elements move as one load or store: the widest
+// power of two up to 16 bytes that divides H and keeps x, y, gamma and
+// beta aligned (`vec_width`).  So H = 410 (transformer_xl) takes 8-byte
+// fp32 pairs and 4-byte bf16 pairs, an odd H or a pointer off alignment
+// single elements.  gamma and beta are read in packs of up to 4 floats.
+//
+// Layout: a row group of TPR threads owns one row.  Every row of up to
+// 1024 elements, whatever VEC, takes one warp (TPR = 32, four rows in a
+// 128-thread block): at most 32 floats a lane, warp shuffles alone, no
+// __syncthreads; bf16 and fp16 rows in 16-byte packs keep the warp up to
+// 2048 elements (64 floats a lane).  Wider rows, up to kMaxH, take a
+// 512-thread block each and reduce across its warps through shared
+// memory.  A lane issues all its loads of the row before it uses one.
 //
 // RMSNorm forward: the same kernel with kMean = false.  Replaces
 // apex_example_tpu/ops/layer_norm.py:278 `_rms_fwd_kernel` (launched by
@@ -31,9 +38,8 @@
 // dtype, rstd stored as fp32; no mean, no beta.  Bound: bytes,
 // N*H*(in + out bytes) + 4*H (gamma) + 4*N (rstd), one pass over memory as
 // above: at 4096 x 768 fp32, 25.2 MB, ~7.5 us.  Its one reduction (the sum
-// of squares) is taken while the row is loaded.  It inherits the layout
-// above: an H that is not a multiple of the vector width (410, for one)
-// takes VEC = 1, and above 256 elements a 512-thread block per row.
+// of squares) is taken while the row is loaded.  It takes the packs and
+// the layout above.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -43,8 +49,15 @@
 namespace {
 
 constexpr int kMaxH = 8192;
-constexpr int kWarpChunks = 8;
+constexpr int kWarpElems = 32;  // floats a lane holds in a warp layout
 constexpr int kBlockThreads = 512;
+
+// Packs a lane of the forward's warp layout takes: 32 elements, or eight
+// 16-byte half packs (64 elements: a bf16 or fp16 row up to 2048).
+template <int VEC>
+constexpr int fwd_warp_chunks() {
+  return VEC == 8 ? 8 : kWarpElems / VEC;
+}
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -73,6 +86,21 @@ template <typename T, int VEC>
 struct alignas(sizeof(T) * VEC) Pack {
   T v[VEC];
 };
+
+// VEC floats of gamma or beta from p + col, in packs of up to 4 floats
+// (the caller keeps p 4 * min(VEC, 4)-byte aligned).
+template <int VEC>
+__device__ __forceinline__ void load_params(const float* p, int col,
+                                            float (&out)[VEC]) {
+  constexpr int W = VEC < 4 ? VEC : 4;
+#pragma unroll
+  for (int i = 0; i < VEC; i += W) {
+    const Pack<float, W> q = *reinterpret_cast<const Pack<float, W>*>(
+        p + col + i);
+#pragma unroll
+    for (int j = 0; j < W; ++j) out[i + j] = q.v[j];
+  }
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -114,23 +142,27 @@ __global__ void __launch_bounds__(TPR == 32 ? 128 : TPR)
   const T* xr = x + row * h;
   T* yr = y + row * h;
 
+  // The row's loads first, none used in its branch, so that they are all
+  // in flight together; then the sum (lanes past the row hold 0).
   float v[CHUNKS][VEC];
-  float sum = 0.f;
 #pragma unroll
   for (int c = 0; c < CHUNKS; ++c) {
     const int col = (c * TPR + tid) * VEC;
     if (col < h) {
       const Pack<T, VEC> p = *reinterpret_cast<const Pack<T, VEC>*>(xr + col);
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        v[c][i] = to_float(p.v[i]);
-        sum += kMean ? v[c][i] : v[c][i] * v[c][i];
-      }
+      for (int i = 0; i < VEC; ++i) v[c][i] = to_float(p.v[i]);
     } else {
 #pragma unroll
       for (int i = 0; i < VEC; ++i) v[c][i] = 0.f;
     }
   }
+  float sum = 0.f;
+#pragma unroll
+  for (int c = 0; c < CHUNKS; ++c)
+#pragma unroll
+    for (int i = 0; i < VEC; ++i)
+      sum += kMean ? v[c][i] : v[c][i] * v[c][i];
   const float fh = static_cast<float>(h);
   float mean = 0.f, rstd;
   if constexpr (kMean) {
@@ -156,14 +188,16 @@ __global__ void __launch_bounds__(TPR == 32 ? 128 : TPR)
   for (int c = 0; c < CHUNKS; ++c) {
     const int col = (c * TPR + tid) * VEC;
     if (col < h) {
+      float gv[VEC], bv[VEC];
+      load_params<VEC>(gamma, col, gv);
+      if constexpr (kMean) load_params<VEC>(beta, col, bv);
       Pack<T, VEC> p;
 #pragma unroll
       for (int i = 0; i < VEC; ++i) {
         if constexpr (kMean)
-          p.v[i] = from_float<T>((v[c][i] - mean) * rstd * gamma[col + i] +
-                                 beta[col + i]);
+          p.v[i] = from_float<T>((v[c][i] - mean) * rstd * gv[i] + bv[i]);
         else
-          p.v[i] = from_float<T>(v[c][i] * rstd * gamma[col + i]);
+          p.v[i] = from_float<T>(v[c][i] * rstd * gv[i]);
       }
       *reinterpret_cast<Pack<T, VEC>*>(yr + col) = p;
     }
@@ -180,9 +214,10 @@ int launch(const void* x, const float* gamma, const float* beta, void* y,
            cudaStream_t stream) {
   const T* xt = static_cast<const T*>(x);
   T* yt = static_cast<T*>(y);
-  if (h <= kWarpChunks * 32 * VEC) {
+  constexpr int kChunks = fwd_warp_chunks<VEC>();
+  if (h <= kChunks * 32 * VEC) {
     const int64_t blocks = (n + 3) / 4;
-    ln_fwd_kernel<T, VEC, 32, kWarpChunks, kMean>
+    ln_fwd_kernel<T, VEC, 32, kChunks, kMean>
         <<<static_cast<unsigned>(blocks), 128, 0, stream>>>(
             xt, gamma, beta, yt, mean, rstd, n, h, eps);
   } else {
@@ -193,17 +228,41 @@ int launch(const void* x, const float* gamma, const float* beta, void* y,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The forward's pack width: the widest power of two up to 16 / sizeof(T)
+// that divides h and to whose packs x and y are aligned, and gamma and
+// beta (null for RMSNorm) to theirs of min(VEC, 4) floats.
+template <typename T>
+int vec_width(const void* x, const void* y, const float* gamma,
+              const float* beta, int h) {
+  const auto aligned = [](const void* p, int bytes) {
+    return p == nullptr || reinterpret_cast<uintptr_t>(p) % bytes == 0;
+  };
+  for (int v = 16 / static_cast<int>(sizeof(T)); v > 1; v /= 2) {
+    const int pb = static_cast<int>(sizeof(T)) * v;
+    const int gb = 4 * (v < 4 ? v : 4);
+    if (h % v == 0 && aligned(x, pb) && aligned(y, pb) &&
+        aligned(gamma, gb) && aligned(beta, gb))
+      return v;
+  }
+  return 1;
+}
+
 template <typename T, bool kMean>
 int dispatch(const void* x, const float* gamma, const float* beta, void* y,
              float* mean, float* rstd, int64_t n, int h, float eps,
              cudaStream_t stream) {
-  constexpr int kVec = 16 / sizeof(T);
-  const bool vec = h % kVec == 0 &&
-                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(y) % 16 == 0;
-  if (vec)
-    return launch<T, kVec, kMean>(x, gamma, beta, y, mean, rstd, n, h, eps,
-                                  stream);
+  const int v = vec_width<T>(x, y, gamma, beta, h);
+  if constexpr (sizeof(T) == 2) {  // 16-byte packs of 8 halves
+    if (v == 8)
+      return launch<T, 8, kMean>(x, gamma, beta, y, mean, rstd, n, h, eps,
+                                 stream);
+  }
+  if (v == 4)
+    return launch<T, 4, kMean>(x, gamma, beta, y, mean, rstd, n, h, eps,
+                               stream);
+  if (v == 2)
+    return launch<T, 2, kMean>(x, gamma, beta, y, mean, rstd, n, h, eps,
+                               stream);
   return launch<T, 1, kMean>(x, gamma, beta, y, mean, rstd, n, h, eps,
                              stream);
 }
@@ -258,7 +317,6 @@ int dispatch(const void* x, const float* gamma, const float* beta, void* y,
 // (:292); here the per-group partials and the fixed-order column pass
 // again, so dgamma repeats bitwise.
 
-constexpr int kBwdWarpElems = 32;   // elements per thread, warp layout
 constexpr int kBwdColTile = 32;     // columns per block of the column sum
 constexpr int kBwdColSegs = 16;     // workspace-row segments per block
 constexpr int kFewWarps = 8;        // rows a block of ln_bwd_rows_kernel
@@ -380,9 +438,9 @@ __global__ void __launch_bounds__(kFewWarps * 32, 1) ln_bwd_rows_kernel(
     float* __restrict__ ws_dg, float* __restrict__ ws_db,
     float* __restrict__ dgamma, float* __restrict__ dbeta,
     unsigned int* ticket, int64_t n_rows, int h) {
-  constexpr int kChunks = kBwdWarpElems / VEC;
+  constexpr int kChunks = kWarpElems / VEC;
   constexpr int kThreads = kFewWarps * 32;
-  __shared__ float part[kFewWarps][kBwdWarpElems * 32];
+  __shared__ float part[kFewWarps][kWarpElems * 32];
   __shared__ bool last;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int64_t row = static_cast<int64_t>(blockIdx.x) * kFewWarps + warp;
@@ -477,7 +535,7 @@ int launch_bwd(const void* x, const void* dy, const float* gamma,
   T* dxt = static_cast<T*>(dx);
   float* ws_dg = ws;
   float* ws_db = kMean ? ws + n_groups * h : nullptr;
-  constexpr int kChunks = kBwdWarpElems / VEC;
+  constexpr int kChunks = kWarpElems / VEC;
   if (h <= kChunks * 32 * VEC && n_groups == n && ticket != nullptr) {
     ln_bwd_rows_kernel<T, VEC, kMean>
         <<<static_cast<unsigned>((n + kFewWarps - 1) / kFewWarps),

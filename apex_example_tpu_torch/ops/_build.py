@@ -15,7 +15,8 @@ Every library shares one calling convention: an entry point returns 0, a
 negative code for an argument it refused, or a positive ``cudaError_t``
 that the library's ``apex_cuda_error_string`` names; a dtype crosses as
 its code in ``DTYPE_CODES``.  ``raise_on`` turns a nonzero status into an
-exception.
+exception.  A kernel whose last block finishes a sum counts its blocks on
+the int32 counters of ``tickets``.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Mapping
+from typing import Dict, Iterable, Mapping, Tuple
 
 import torch
 
@@ -39,6 +40,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}       # guarded-by: _lock
+_tickets: Dict[Tuple[torch.device, int],
+               torch.Tensor] = {}       # guarded-by: _lock
 
 
 def nvcc() -> str:
@@ -119,3 +122,18 @@ def raise_on(rc: int, lib: ctypes.CDLL, what: str,
     if rc != 0:
         why = arg_errors.get(rc) or lib.apex_cuda_error_string(rc).decode()
         raise RuntimeError(f"{what} kernel launch failed ({rc}): {why}")
+
+
+def tickets(device: torch.device, stream: int, n: int = 1) -> torch.Tensor:
+    """At least ``n`` int32 counters on ``device`` for launches on
+    ``stream``, zero before and after every launch: a launch's blocks
+    count themselves on one, and the last of them, which finishes the sum,
+    sets it back to 0.  Launches on one stream run in order, so they share
+    the counters (the norm backward at few rows takes the first, the
+    BatchNorm sums one per channel slab); another stream has its own."""
+    with _lock:
+        t = _tickets.get((device, stream))
+        if t is None or t.numel() < n:
+            t = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+            _tickets[(device, stream)] = t
+        return t

@@ -34,8 +34,7 @@ import torch
 from apex_example_tpu_torch.ops import _build
 
 THREADS = 256            # threads per block (kThreads)
-TARGET_BLOCKS = 1024     # first-pass blocks to aim for: ~8 per SM of 132
-_ARG_ERRORS = {-1: "unsupported dtype", -2: "bad launch geometry"}
+_ARG_ERRORS = {-1: "unsupported dtype or mode", -2: "bad launch geometry"}
 
 Sums = Tuple[torch.Tensor, torch.Tensor]
 
@@ -60,16 +59,18 @@ def _pow2_at_most_32(n: int) -> int:
     return min(32, 1 << max(n - 1, 0).bit_length())
 
 
-def geometry(rows: int, C: int, vec: int) -> Tuple[int, int, int]:
-    """``(tx, n_rb, tx2)``: channel groups per block row and row blocks of
-    the first pass, channel groups of the second (which sums the
-    [n_rb, 2C] partials)."""
+def geometry(rows: int, C: int, vec: int, sms: int,
+             resident: int) -> Tuple[int, int]:
+    """``(tx, n_rb)``: channel groups per block row and row blocks.  The
+    grid holds ``sms * resident`` blocks (``resident``: the kernel's
+    blocks on one SM), dealt over the channel slabs, so every block is
+    resident at once; never more row blocks than block rows, so that each
+    row block's share (csrc/batch_norm.cu ``share``) holds one at least."""
     tx = _pow2_at_most_32(-(-C // vec))
     slabs = -(-C // (tx * vec))
-    n_rb = max(1, min(TARGET_BLOCKS // slabs, -(-rows // (THREADS // tx)),
+    n_rb = max(1, min(sms * resident // slabs, -(-rows // (THREADS // tx)),
                       65535))
-    vec2 = 4 if (2 * C) % 4 == 0 else 1
-    return tx, n_rb, _pow2_at_most_32(2 * C // vec2)
+    return tx, n_rb
 
 
 def _vec(C: int, *tensors: torch.Tensor) -> int:
@@ -115,28 +116,49 @@ def _check(who: str, x2: torch.Tensor, vecs, others=()) -> None:
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.load("batch_norm")
-    geo = [ctypes.c_int] * 6       # C, dtype, vec, tx_n, n_rb, tx2_n
+    geo = [ctypes.c_int] * 5       # C, dtype, vec, tx_n, n_rb
     lib.apex_bn_stats.argtypes = [ctypes.c_void_p] * 2 + [
-        ctypes.c_longlong] + geo + [ctypes.c_void_p] * 3
+        ctypes.c_longlong] + geo + [ctypes.c_void_p] * 4
     lib.apex_bn_stats.restype = ctypes.c_int
     lib.apex_bn_bwd_sums.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_longlong] + geo + [ctypes.c_void_p] * 3
+        ctypes.c_longlong] + geo + [ctypes.c_void_p] * 4
     lib.apex_bn_bwd_sums.restype = ctypes.c_int
+    lib.apex_bn_resident.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.apex_bn_resident.restype = ctypes.c_int
     return lib
 
 
-def _launch(who: str, entry: str, ptrs, x2: torch.Tensor, vec: int) -> Sums:
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(lib: ctypes.CDLL, device: torch.device, mode: int,
+                   dtype: int, vec: int) -> Tuple[int, int]:
+    """``(sms, resident)``: the SMs of ``device`` and how many blocks of the
+    kernel that ``lib`` launches for these arguments one SM holds (mode 0
+    the statistics, 1 the backward sums)."""
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = lib.apex_bn_resident(mode, dtype, vec, ctypes.byref(blocks))
+    _build.raise_on(rc, lib, "batch_norm occupancy", _ARG_ERRORS)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms, max(1, blocks.value)
+
+
+def _launch(who: str, entry: str, mode: int, ptrs, x2: torch.Tensor,
+            vec: int) -> Sums:
     rows, C = x2.shape
+    dtype = _build.DTYPE_CODES[x2.dtype]
+    lib = _library()
+    tx, n_rb = geometry(rows, C, vec,
+                        *_blocks_per_sm(lib, x2.device, mode, dtype, vec))
     out = torch.empty(2, C, dtype=torch.float32, device=x2.device)
-    tx, n_rb, tx2 = geometry(rows, C, vec)
     partial = torch.empty(n_rb * 2 * C, dtype=torch.float32,
                           device=x2.device)
-    lib = _library()
     with torch.cuda.device(x2.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        tickets = _build.tickets(x2.device, stream, -(-C // (tx * vec)))
         rc = getattr(lib, entry)(
-            *ptrs, rows, C, _build.DTYPE_CODES[x2.dtype], vec, tx, n_rb,
-            tx2, partial.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            *ptrs, rows, C, dtype, vec, tx, n_rb, partial.data_ptr(),
+            out.data_ptr(), tickets.data_ptr(), stream)
     _build.raise_on(rc, lib, who, _ARG_ERRORS)
     return out[0], out[1]
 
@@ -149,7 +171,7 @@ def bn_stats_cuda(x2: torch.Tensor, c: torch.Tensor) -> Sums:
     if x2.shape[0] == 0:
         z = torch.zeros(x2.shape[1], dtype=torch.float32, device=x2.device)
         return z, z.clone()
-    sums = _launch("bn_stats", "apex_bn_stats",
+    sums = _launch("bn_stats", "apex_bn_stats", 0,
                    (x2.data_ptr(), c.data_ptr()), x2, _vec(x2.shape[1], x2))
     bn_stats_cuda.launches += 1
     return sums
@@ -168,7 +190,7 @@ def bn_bwd_sums_cuda(x2: torch.Tensor, dy2: torch.Tensor, mean: torch.Tensor,
     if x2.shape[0] == 0:
         z = torch.zeros(x2.shape[1], dtype=torch.float32, device=x2.device)
         return z, z.clone()
-    sums = _launch("bn_bwd_sums", "apex_bn_bwd_sums",
+    sums = _launch("bn_bwd_sums", "apex_bn_bwd_sums", 1,
                    (x2.data_ptr(), dy2.data_ptr(), mean.data_ptr(),
                     inv.data_ptr()), x2, _vec(x2.shape[1], x2, dy2))
     bn_bwd_sums_cuda.launches += 1

@@ -230,15 +230,6 @@ def bwd_row_groups(n: int) -> int:
     return n if n <= BWD_FEW_ROWS else bwd_groups(n)
 
 
-@functools.lru_cache(maxsize=None)
-def _ticket(device: torch.device, stream: int) -> torch.Tensor:
-    """The one-launch backward's ticket on ``device`` for launches on
-    ``stream``: a uint32 the launch's blocks count themselves on, zero
-    before and after each launch (the last block resets it).  Launches on
-    one stream run in order, so they share it."""
-    return torch.zeros(1, dtype=torch.int32, device=device)
-
-
 def layer_norm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor,
                         mean: torch.Tensor, rstd: torch.Tensor,
                         dy: torch.Tensor) -> Grads:
@@ -260,7 +251,7 @@ def layer_norm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor,
         rc = lib.apex_layer_norm_bwd(
             x.data_ptr(), dy.data_ptr(), gamma.data_ptr(), mean.data_ptr(),
             rstd.data_ptr(), dx.data_ptr(), dg.data_ptr(), db.data_ptr(),
-            ws.data_ptr(), _ticket(x.device, stream).data_ptr(), n, h,
+            ws.data_ptr(), _build.tickets(x.device, stream).data_ptr(), n, h,
             groups, _build.DTYPE_CODES[x.dtype], stream)
     _build.raise_on(rc, lib, "layer_norm backward", _ARG_ERRORS)
     layer_norm_bwd_cuda.launches += 1
@@ -399,7 +390,7 @@ def rms_norm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor,
         rc = lib.apex_rms_norm_bwd(
             x.data_ptr(), dy.data_ptr(), gamma.data_ptr(), rstd.data_ptr(),
             dx.data_ptr(), dg.data_ptr(), ws.data_ptr(),
-            _ticket(x.device, stream).data_ptr(), n, h, groups,
+            _build.tickets(x.device, stream).data_ptr(), n, h, groups,
             _build.DTYPE_CODES[x.dtype], stream)
     _build.raise_on(rc, lib, "rms_norm backward", _ARG_ERRORS)
     rms_norm_bwd_cuda.launches += 1

@@ -14,9 +14,10 @@ Phases, one or more lines each:
              LayerNorm forward at the serving shape (slots * block_size
              rows x 768) and the three training paths' shapes (bert 4096
              x 768, transformer_xl 6144 x 410, gpt 8192 x 768), each in
-             fp32 and bf16, at a ragged row count, at H = 64, at an odd H
-             and at H = 8192: fp32 atol = rtol = 1e-5; bf16 one bf16 ulp of
-             the output plus 1e-5 (the fp32 rounding of a result that
+             fp32 and bf16, at a ragged row count, at H = 64, at an odd H,
+             at H = 1022 (pairs, a warp a row) and 1026 (pairs, a block a
+             row) and at H = 8192: fp32 atol = rtol = 1e-5; bf16 one bf16
+             ulp of the output plus 1e-5 (the fp32 rounding of a result that
              cancels to near zero).  LayerNorm backward at the three
              training shapes in fp32 and bf16, at 1000 rows, at 128 rows
              (the one-launch few-rows layout), at H = 64, at an odd H and
@@ -125,7 +126,7 @@ Phases, one or more lines each:
              atol 1e-5.  Then each
              kernel's, its plain version's and torch.batch_norm_stats's /
              torch.batch_norm_backward_reduce's times (checked against the
-             kernel first), beside the bound.
+             kernel first), beside the bound, and the kernel's TB/s.
 13. c2      — resnet50 on ImageNet-shaped batches (224 px, 1000 classes)
              trained through train.main on cuda under amp O2 (bf16, fp32
              BatchNorm statistics and master weights): batch 256, 20 steps
@@ -506,7 +507,8 @@ def phase_kernels(ln):
              (TXL_ROWS, TXL_H, torch.bfloat16),
              (GPT_ROWS, 768, torch.float32), (GPT_ROWS, 768, torch.bfloat16),
              (path_rows, 64, torch.float32), (path_rows, 64, torch.bfloat16),
-             (37, 777, torch.float32), (64, 8192, torch.float32)]
+             (37, 777, torch.float32), (64, 8192, torch.float32),
+             (512, 1022, torch.float32), (64, 1026, torch.bfloat16)]
     path_shapes = {(path_rows, 768), (TRAIN_ROWS, 768), (TXL_ROWS, TXL_H),
                    (GPT_ROWS, 768)}
     path_err = 0.0
@@ -2027,8 +2029,9 @@ def phase_bn(bn, sync_batchnorm_cls, counted):
             lib_txt = (f"{lib_name} {l_ms:.5f} ms" if l_ms is not None
                        else f"{lib_name} -")
             print(f"kernels: {name} {rows}x{C} float32 device time: kernel "
-                  f"{k_ms:.5f} ms  plain {p_ms:.5f} ms  {lib_txt}  bound "
-                  f"{bound_ms:.6f} ms ({nbytes} bytes over 3.35 TB/s)")
+                  f"{k_ms:.5f} ms ({nbytes / k_ms / 1e9:.3f} TB/s)  plain "
+                  f"{p_ms:.5f} ms  {lib_txt}  bound {bound_ms:.6f} ms "
+                  f"({nbytes} bytes over 3.35 TB/s)")
             by_shape[name][f"{rows}x{C}"] = {
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
                 "library_ms": l_ms}

@@ -190,19 +190,26 @@ def test_cross_device_statistics_are_refused():
         SyncBatchNorm(8, axis_name="data", device="cpu")
 
 
+@pytest.mark.parametrize("sms", [132, 114])
 @pytest.mark.parametrize("rows,C", [(256 * 112 * 112, 64),
                                     (256 * 14 * 14, 1024),
                                     (256 * 7 * 7, 2048), (50171, 1024),
                                     (777, 37), (1, 3)])
-def test_launch_geometry_covers_every_row_and_channel(rows, C):
+def test_launch_geometry_covers_every_row_and_channel(rows, C, sms):
+    """The persistent grid: at most ``sms * resident`` blocks (or one per
+    slab), the slabs cover every channel, and no more row blocks than
+    block rows, so every row block's share holds one at least (the
+    kernel's split itself is checked on the card,
+    test_torch_cuda.py::test_bn_sums_count_every_row_once)."""
     for vec in ((1, 4) if C % 4 == 0 else (1,)):
-        tx, n_rb, tx2 = bn.geometry(rows, C, vec)
-        assert tx in (1, 2, 4, 8, 16, 32) and tx2 in (1, 2, 4, 8, 16, 32)
-        assert 1 <= n_rb <= 65535
-        slabs = -(-C // (tx * vec))
-        assert slabs * tx * vec >= C > (slabs - 1) * tx * vec
-        assert -(-rows // n_rb) * n_rb >= rows
-        assert slabs * n_rb <= max(bn.TARGET_BLOCKS, slabs)
+        for resident in (1, 3, 8):
+            tx, n_rb = bn.geometry(rows, C, vec, sms, resident)
+            assert tx in (1, 2, 4, 8, 16, 32)
+            assert 1 <= n_rb <= 65535
+            slabs = -(-C // (tx * vec))
+            assert slabs * tx * vec >= C > (slabs - 1) * tx * vec
+            assert slabs * n_rb <= max(sms * resident, slabs)
+            assert n_rb <= -(-rows // (bn.THREADS // tx))
 
 
 def _meta(*shape, dtype=torch.float32):

@@ -77,14 +77,23 @@ def _bf16_tol(a, b, atol=FP32_TOL):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("misaligned", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("n,h", [(128, 768), (1000, 768), (6144, 410),
-                                 (37, 64), (8, 8192), (5, 777), (3, 1)])
-def test_layer_norm_kernel_matches_plain(cuda_device, dtype, n, h):
+                                 (37, 64), (8, 8192), (5, 777), (3, 1),
+                                 (96, 514), (512, 1022), (64, 1026)])
+def test_layer_norm_kernel_matches_plain(cuda_device, dtype, n, h,
+                                         misaligned):
+    """Every layout of the pack width and row length: 16-byte packs, pairs
+    (410, 514, 1022) and single elements (odd H; or x only 4 (fp32) or 2
+    (half) bytes past alignment) in the warp layout, and a block a row past
+    it (1026 in pairs, 8192)."""
     gen = torch.Generator(device=cuda_device).manual_seed(n * h)
     x = (torch.randn(n, h, device=cuda_device, generator=gen) * 2 + 0.5)
     x = x.to(dtype)
+    if misaligned:
+        x = _misaligned(x)
     g = torch.randn(h, device=cuda_device, generator=gen) * 0.2 + 1
     b = torch.randn(h, device=cuda_device, generator=gen) * 0.2
     launches = port_ln.layer_norm_cuda.launches
@@ -171,12 +180,14 @@ def test_layer_norm_autograd_runs_both_kernels(cuda_device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("n,h", [(4096, 768), (6144, 410), (128, 768),
-                                 (37, 777), (64, 8192), (1000, 64), (3, 1)])
+                                 (37, 777), (64, 8192), (1000, 64), (3, 1),
+                                 (96, 514), (512, 1022), (64, 1026)])
 def test_rms_norm_kernels_match_plain(cuda_device, dtype, n, h, misaligned):
     """Forward and backward against the plain versions, at the vector path
-    (H a multiple of the vector width, 16-byte aligned), the scalar path
-    (odd H, or every pointer 4 bytes past alignment) and the block layout
-    (H = 8192); dgamma, and dx, bitwise on a second launch."""
+    (H a multiple of the vector width, 16-byte aligned), the forward's
+    pairs (410, 514, 1022; 1026 a block a row), the scalar path (odd H, or
+    every pointer 4 bytes past alignment) and the block layout (H = 8192);
+    dgamma, and dx, bitwise on a second launch."""
     gen = torch.Generator(device=cuda_device).manual_seed(3 * n + h)
     x = (torch.randn(n, h, device=cuda_device, generator=gen) * 2 + 0.5)
     x = x.to(dtype)
@@ -839,8 +850,9 @@ def test_first_step_overflow_is_skipped_with_no_host_sync(cuda_device, cls):
         assert torch.equal(opt._v[0], sq)
 
 
+# (49997, 64): the last block row short; (100352, 64): the stem at batch 8
 BN_CASES = [(1000, 64), (777, 37), (4096, 1024), (12544 // 8, 2048),
-            (33, 3), (1, 8)]
+            (33, 3), (1, 8), (49997, 64), (8 * 112 * 112, 64)]
 
 
 @pytest.mark.cuda
@@ -871,6 +883,77 @@ def test_bn_kernels_match_plain(cuda_device, dtype, rows, C):
         assert bool((err <= 1e-4 * w.abs() + 4e-6 * m).all()), float(
             err.max())
         assert torch.equal(a, r)                      # bitwise repeat
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [64, 37, 1024, 2048])
+def test_bn_sums_count_every_row_once(cuda_device, C):
+    """The kernel's split of the rows over the row blocks, at row counts
+    around the grid's size (one block row short, even, one over, a short
+    last block row): small integer inputs make every partial sum exact in
+    fp32, so each sum equals the float64 one bitwise, and a row dropped or
+    taken twice would show."""
+    lib = bn._library()
+    for mode in (0, 1):
+        vec = 4 if C % 4 == 0 else 1
+        sms, resident = bn._blocks_per_sm(lib, cuda_device, mode, 0, vec)
+        tx, _ = bn.geometry(1, C, vec, sms, resident)
+        chunk = bn.THREADS // tx
+        grid = max(1, sms * resident // -(-C // (tx * vec)))
+        for k in (grid - 1, grid, grid + 1, 3 * grid + 1, 7 * grid + 5):
+            for short in (0, 1, chunk - 1):
+                rows = max(1, k * chunk - short)
+                r = torch.arange(rows, device=cuda_device)[:, None]
+                ch = torch.arange(C, device=cuda_device)
+                x = ((r % 7) + 1 + ch % 3).float()
+                dy = ((r % 5) - 2 + 0 * ch).float()
+                zero = torch.zeros(C, device=cuda_device)
+                one = torch.ones(C, device=cuda_device)
+                if mode == 0:
+                    got = bn.bn_stats_cuda(x, zero)
+                    want = (x.double().sum(0), (x.double() ** 2).sum(0))
+                else:
+                    got = bn.bn_bwd_sums_cuda(x, dy, zero, one)
+                    want = (dy.double().sum(0),
+                            (dy.double() * x.double()).sum(0))
+                for a, w in zip(got, want):
+                    assert torch.equal(a.double(), w), (mode, rows)
+
+
+@pytest.mark.cuda
+def test_tickets_reset_across_kernels_and_streams(cuda_device):
+    """bn_stats, bn_bwd_sums (8 channel slabs, a ticket each) and the
+    LayerNorm backward at few rows (one launch, ticket 0) interleaved on
+    one stream, then on two streams at once: every sum repeats bitwise and
+    every stream's tickets are back at 0."""
+    from apex_example_tpu_torch.ops import _build
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    rnd = lambda *s: torch.randn(*s, device=cuda_device,  # noqa: E731
+                                 generator=gen)
+    x, dy = rnd(20000, 1024) + 3, rnd(20000, 1024)
+    c, mean, inv = rnd(1024) + 3, rnd(1024) + 3, rnd(1024).abs() + 0.5
+    lx, ldy, lg = rnd(128, 768), rnd(128, 768), rnd(768) * 0.2 + 1
+    _, lmean, lrstd = port_ln.layer_norm_plain(lx, lg, lg)
+
+    def run():
+        return (bn.bn_stats_cuda(x, c) + bn.bn_bwd_sums_cuda(x, dy, mean, inv)
+                + port_ln.layer_norm_bwd_cuda(lx, lg, lmean, lrstd, ldy))
+
+    want = run()
+    one = [run() for _ in range(3)]
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    two = []
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(3):
+        for s in streams:
+            with torch.cuda.stream(s):
+                two.append(run())
+    torch.cuda.synchronize()
+    for got in one + two:
+        assert all(torch.equal(a, w) for a, w in zip(got, want))
+    for stream in [torch.cuda.current_stream()] + streams:
+        assert not bool(_build.tickets(x.device, stream.cuda_stream).any())
 
 
 @pytest.mark.cuda
