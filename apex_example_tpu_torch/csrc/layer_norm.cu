@@ -280,30 +280,48 @@ int dispatch(const void* x, const float* gamma, const float* beta, void* y,
 // plus gamma, the stats and dgamma/dbeta; ~15 operations per element.  At
 // the training shape (4096 x 768 fp32) that is 37.8 MB, ~11.3 us.
 //
-// Design.  The TPU kernel sums dgamma/dbeta into one output block across
-// grid steps that run in order; GPU blocks run concurrently.  So the rows are
-// dealt to n_groups row groups (a warp each for H <= 1024, a 512-thread
-// block each above), group g taking rows g, g + n_groups, ... in that order.
-// A group holds one row at a time in registers (loaded once: x_hat and dy),
-// reduces c1 and c2 with shuffles, writes dx, and keeps running column sums
-// of dy * x_hat and dy in registers; at the end it writes them as row g of a
-// [n_groups, H] fp32 workspace.  A second launch adds the workspace's rows
-// per column in a fixed order.  No float atomics, so dgamma and dbeta repeat
-// bitwise.  Per thread 32 elements at most (the warp layout) or 16 (the
-// block layout), so the four register arrays stay within 128 floats.
+// The TPU kernel sums dgamma/dbeta into one output block across grid steps
+// that run in order; GPU blocks run concurrently, in no order.  So every
+// layout adds per-group partials in a fixed order, with no float atomics:
+// dgamma and dbeta repeat bitwise on one card.  ops/layer_norm.py
+// `bwd_geometry` picks the layout, the grid and the pack width (VEC
+// neighbouring elements a load or store).
 //
-// Few rows (ops/layer_norm.py `bwd_row_groups`: up to 256, a group a row).
-// Four rows a group left most SMs idle and each warp's rows in series:
-// 128 x 768 took 8 blocks, and the column pass cost a launch of its own.
-// There every row gets its own group.  A row of at most 1024 elements
-// takes `ln_bwd_rows_kernel`: eight rows a block, a warp a row, the
-// block's partials added in row order into one workspace row, and the last
-// block (an integer ticket behind __threadfence, reset by that block) adds
-// the workspace rows per column in order: one launch, still no float
-// atomics.  (Its warps each taking every eighth row, all 32 columns of a
-// lane loaded at once, was slower at 128 x 768; four rows a block too:
-// PERF.md.)  Wider rows take a 512-thread block a row and the column
-// pass.
+// Rows of up to 1024 elements: `ln_bwd_persist_kernel`, one launch of a
+// persistent grid.
+// - The grid holds SMs x resident blocks of kBwdWarps warps (the occupancy
+//   on this device, cached per library: `apex_norm_bwd_resident`), or fewer
+//   where fewer give every warp a row (up to 256 rows: a warp a row), and
+//   warp w of W takes rows [w N / W, (w + 1) N / W): contiguous shares that
+//   differ by one row at most, every row in one share.
+// - Loads ahead of use.  A lane issues all its x and dy loads of a row
+//   (zero packs past H; the branch guards the loads and the stores, never
+//   a use) before it uses one, and the next row's go out before this row's
+//   reductions and stores: two register sets, for rows of up to 768
+//   elements (kAhead).  A ring of three rows a warp in shared memory,
+//   filled by cp.async, was 1% faster at 4096 and 8192 x 768 fp32, 9% at
+//   16384 x 768 bf16 and 17% slower at 6144 x 410 on an H100 (PERF.md).
+// - gamma is loaded once per warp into registers, in packs of up to four
+//   floats (rows over 768 elements reload it per row, from L1); the row's
+//   packs are held as loaded (a half row in half the registers) and
+//   converted where they are used.
+// - Packs of the widest power of two up to 16 bytes that divides H with
+//   the pointers aligned: 410 takes fp32 and bf16 pairs.
+// - One launch.  Each warp keeps its dgamma/dbeta partials in registers;
+//   the block adds its warps' in warp order through shared memory into one
+//   workspace row.  Then a two-level finish, each level told by an integer
+//   ticket behind __threadfence: the last block of each group of
+//   kBwdTreeGroup blocks adds the group's rows in order into a tree row,
+//   and the last of those adds the tree rows in order into dgamma and
+//   dbeta (a grid of one group adds its rows into them at once).  Each
+//   resets its ticket for the next launch.  (One last block adding all
+//   SMs x resident rows alone would read ~1 MB at 4096 x 768 through one
+//   SM: several microseconds of tail.)
+//
+// Wider rows, up to kMaxH: `ln_bwd_kernel`, a 512-thread block per
+// group of rows (a row each up to 256 rows; group g takes rows g,
+// g + n_groups, ...), and `ln_bwd_colsum_kernel`, a second launch that
+// adds the groups' workspace rows per column in a fixed order.
 //
 // RMSNorm backward: the same kernels with kMean = false.  Replaces
 // apex_example_tpu/ops/layer_norm.py:285 `_rms_bwd_kernel` (launched by
@@ -311,15 +329,16 @@ int dispatch(const void* x, const float* gamma, const float* beta, void* y,
 // (:285-294): x_hat = x * rstd, wdy = dy * gamma, c2 = mean(wdy * x_hat),
 // dx = rstd * (wdy - x_hat * c2) in x's dtype, dgamma = sum over rows of
 // dy * x_hat in fp32; no c1 and no dbeta.  Bound: bytes, 3*N*H elements
-// (x, dy read; dx written) + 4*H + 4*N, plus the workspace, now one
-// [n_groups, H] plane (4096 x 768 fp32: 37.8 MB, ~11.3 us without it).
-// The Pallas kernel adds dgamma across grid steps that run in order
-// (:292); here the per-group partials and the fixed-order column pass
-// again, so dgamma repeats bitwise.
+// (x, dy read; dx written) + 4*H + 4*N (4096 x 768 fp32: 37.8 MB, ~11.3
+// us).  The Pallas kernel adds dgamma across grid steps that run in order
+// (:292); here the layouts above, one plane of partials.
 
 constexpr int kBwdColTile = 32;     // columns per block of the column sum
 constexpr int kBwdColSegs = 16;     // workspace-row segments per block
-constexpr int kFewWarps = 8;        // rows a block of ln_bwd_rows_kernel
+constexpr int kBwdWarps = 8;        // warps a block of ln_bwd_persist_kernel
+constexpr int kBwdTreeGroup = 16;   // blocks whose rows one block adds first
+
+enum BwdLayout { kWide = 0, kPersist = 1 };
 
 // One row of the backward: dx, and the row's dy * x_hat and dy added into
 // the thread's column partials pg and pb.  kMean: LayerNorm; without it
@@ -383,22 +402,19 @@ __device__ __forceinline__ void bwd_row(
   }
 }
 
-// kMean: LayerNorm.  Without it RMSNorm: mean_in and ws_db are null.
-template <typename T, int VEC, int TPR, int CHUNKS, bool kMean>
-__global__ void __launch_bounds__(TPR == 32 ? 128 : TPR)
+// Wide rows: a 512-thread block per row group.  kMean: LayerNorm.  Without
+// it RMSNorm: mean_in and ws_db are null.
+template <typename T, int VEC, int CHUNKS, bool kMean>
+__global__ void __launch_bounds__(kBlockThreads)
     ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                   const float* __restrict__ gamma,
                   const float* __restrict__ mean_in,
                   const float* __restrict__ rstd_in, T* __restrict__ dx,
                   float* __restrict__ ws_dg, float* __restrict__ ws_db,
-                  int64_t n_rows, int h, int64_t n_groups) {
+                  int64_t n_rows, int h) {
   __shared__ float smem[32];
-  constexpr int kGroupsPerBlock = TPR == 32 ? 4 : 1;
-  const int tid = TPR == 32 ? (threadIdx.x & 31) : threadIdx.x;
-  const int64_t group = static_cast<int64_t>(blockIdx.x) * kGroupsPerBlock +
-                        (TPR == 32 ? (threadIdx.x >> 5) : 0);
-  // A whole row group leaves together (see ln_fwd_kernel).
-  if (group >= n_groups) return;
+  const int tid = threadIdx.x;
+  const int64_t group = blockIdx.x, n_groups = gridDim.x;
 
   float pg[CHUNKS][VEC], pb[CHUNKS][VEC];
 #pragma unroll
@@ -406,13 +422,13 @@ __global__ void __launch_bounds__(TPR == 32 ? 128 : TPR)
 #pragma unroll
     for (int i = 0; i < VEC; ++i) pg[c][i] = pb[c][i] = 0.f;
   for (int64_t row = group; row < n_rows; row += n_groups)
-    bwd_row<T, VEC, TPR, CHUNKS, kMean>(x, dy, gamma, mean_in, rstd_in, dx,
-                                        row, h, tid, smem, pg, pb);
+    bwd_row<T, VEC, kBlockThreads, CHUNKS, kMean>(
+        x, dy, gamma, mean_in, rstd_in, dx, row, h, tid, smem, pg, pb);
 
   float* wg = ws_dg + group * h;
 #pragma unroll
   for (int c = 0; c < CHUNKS; ++c) {
-    const int col = (c * TPR + tid) * VEC;
+    const int col = (c * kBlockThreads + tid) * VEC;
     if (col < h) {
 #pragma unroll
       for (int i = 0; i < VEC; ++i) {
@@ -423,68 +439,307 @@ __global__ void __launch_bounds__(TPR == 32 ? 128 : TPR)
   }
 }
 
-// Few rows, each its own group, in the warp layout: one launch.  Warp w of
-// block k takes row kFewWarps k + w (dx as ln_bwd_kernel's rows); the block
-// adds its rows' dy * x_hat (and dy) per column in row order through
-// shared memory into workspace row k; the last block to finish, told by
-// an integer ticket behind __threadfence, adds the workspace rows per
-// column in order into dgamma (and dbeta) and sets the ticket back to 0
-// for the next launch.  No float atomics: the sums repeat bitwise.
-template <typename T, int VEC, bool kMean>
-__global__ void __launch_bounds__(kFewWarps * 32, 1) ln_bwd_rows_kernel(
-    const T* __restrict__ x, const T* __restrict__ dy,
-    const float* __restrict__ gamma, const float* __restrict__ mean_in,
-    const float* __restrict__ rstd_in, T* __restrict__ dx,
-    float* __restrict__ ws_dg, float* __restrict__ ws_db,
-    float* __restrict__ dgamma, float* __restrict__ dbeta,
-    unsigned int* ticket, int64_t n_rows, int h) {
-  constexpr int kChunks = kWarpElems / VEC;
-  constexpr int kThreads = kFewWarps * 32;
-  __shared__ float part[kFewWarps][kWarpElems * 32];
-  __shared__ bool last;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * kFewWarps + warp;
-  float pg[kChunks][VEC], pb[kChunks][VEC];
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c)
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) pg[c][i] = pb[c][i] = 0.f;
-  if (row < n_rows)
-    bwd_row<T, VEC, 32, kChunks, kMean>(x, dy, gamma, mean_in, rstd_in, dx,
-                                        row, h, lane, nullptr, pg, pb);
+// Whether this block is the last of `count` to take a number from
+// `ticket`: every thread's writes are fenced before thread 0 takes it, and
+// the last block fences again before it reads what the others wrote.
+__device__ __forceinline__ bool last_to_arrive(unsigned int* ticket,
+                                               unsigned count, bool* last) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) *last = atomicAdd(ticket, 1u) == count - 1;
+  __syncthreads();
+  if (*last) __threadfence();
+  return *last;
+}
 
-  for (int pass = 0; pass < (kMean ? 2 : 1); ++pass) {
+// W floats at p (W * 4-byte aligned), read through L2 only: other blocks
+// wrote them in this launch.
+template <int W>
+__device__ __forceinline__ Pack<float, W> ldcg_pack(const float* p) {
+  Pack<float, W> r;
+  if constexpr (W == 4) {
+    const float4 v = __ldcg(reinterpret_cast<const float4*>(p));
+    r.v[0] = v.x, r.v[1] = v.y, r.v[2] = v.z, r.v[3] = v.w;
+  } else if constexpr (W == 2) {
+    const float2 v = __ldcg(reinterpret_cast<const float2*>(p));
+    r.v[0] = v.x, r.v[1] = v.y;
+  } else {
+    r.v[0] = __ldcg(p);
+  }
+  return r;
+}
+
+constexpr unsigned kSumBatch = 8;  // rows whose loads go out together
+
+// acc[p] += rows k .. k + n - 1 of plane p of src at column j, in order,
+// every load issued before the first add (kFull: n is kSumBatch).
+template <int W, int P, bool kFull>
+__device__ __forceinline__ void add_rows(const float* src, unsigned k,
+                                         unsigned n, int64_t stride, int h,
+                                         int j, float (&acc)[P][W]) {
+  Pack<float, W> v[kSumBatch][P];
 #pragma unroll
-    for (int c = 0; c < kChunks; ++c)
+  for (unsigned b = 0; b < kSumBatch; ++b)
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      if (kFull || b < n) {
+        v[b][p] = ldcg_pack<W>(src + (k + b) * stride + p * h + j);
+      } else {
+#pragma unroll
+        for (int u = 0; u < W; ++u) v[b][p].v[u] = 0.f;
+      }
+    }
+#pragma unroll
+  for (unsigned b = 0; b < kSumBatch; ++b)
+    if (kFull || b < n)
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+#pragma unroll
+        for (int u = 0; u < W; ++u) acc[p][u] += v[b][p].v[u];
+}
+
+// For every column j < h of each of the P planes of h floats in a row of
+// src: the sum over k < rows, in order, of row k's, into lo (plane 0) and
+// hi (plane 1), W columns a thread at a time.  The loads of up to
+// kSumBatch rows of both planes go out together, the last few rows' too
+// (at 37 x 777 fp32, a few rows of single floats, loading one row after
+// another made the launch 38% slower).
+template <int W, int P>
+__device__ __forceinline__ void sum_rows(const float* src, unsigned rows,
+                                         int64_t stride, int h, float* lo,
+                                         float* hi) {
+  for (int j = threadIdx.x * W; j < h; j += kBwdWarps * 32 * W) {
+    float acc[P][W];
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int u = 0; u < W; ++u) acc[p][u] = 0.f;
+    unsigned k = 0;
+    for (; k + kSumBatch <= rows; k += kSumBatch)
+      add_rows<W, P, true>(src, k, kSumBatch, stride, h, j, acc);
+    if (k < rows) add_rows<W, P, false>(src, k, rows - k, stride, h, j, acc);
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      Pack<float, W> out;
+#pragma unroll
+      for (int u = 0; u < W; ++u) out.v[u] = acc[p][u];
+      *reinterpret_cast<Pack<float, W>*>((p ? hi : lo) + j) = out;
+    }
+  }
+}
+
+// The lane's gamma, in packs of up to four floats (zero past h).
+template <int VEC, int CHUNKS>
+__device__ __forceinline__ void load_gamma(const float* __restrict__ gamma,
+                                           int h, int lane,
+                                           float (&g)[CHUNKS][VEC]) {
+#pragma unroll
+  for (int c = 0; c < CHUNKS; ++c) {
+    const int col = (c * 32 + lane) * VEC;
+    if (col < h) {
+      load_params<VEC>(gamma, col, g[c]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) g[c][i] = 0.f;
+    }
+  }
+}
+
+// One row's x and dy packs as loaded, and its saved stats.
+template <typename T, int VEC, int CHUNKS>
+struct RowPacks {
+  Pack<T, VEC> x[CHUNKS], d[CHUNKS];
+  float mu, rs;
+};
+
+// Issues every load of row `row` (zero packs past h) and uses none.
+template <typename T, int VEC, int CHUNKS, bool kMean>
+__device__ __forceinline__ void load_row(
+    const T* __restrict__ x, const T* __restrict__ dy,
+    const float* __restrict__ mean_in, const float* __restrict__ rstd_in,
+    int64_t row, int h, int lane, RowPacks<T, VEC, CHUNKS>& r) {
+  const T* xr = x + row * h;
+  const T* dr = dy + row * h;
+#pragma unroll
+  for (int c = 0; c < CHUNKS; ++c) {
+    const int col = (c * 32 + lane) * VEC;
+    if (col < h) {
+      r.x[c] = *reinterpret_cast<const Pack<T, VEC>*>(xr + col);
+      r.d[c] = *reinterpret_cast<const Pack<T, VEC>*>(dr + col);
+    } else {
 #pragma unroll
       for (int i = 0; i < VEC; ++i)
-        part[warp][(c * 32 + lane) * VEC + i] = pass ? pb[c][i] : pg[c][i];
+        r.x[c].v[i] = r.d[c].v[i] = from_float<T>(0.f);
+    }
+  }
+  r.mu = kMean ? mean_in[row] : 0.f;
+  r.rs = rstd_in[row];
+}
+
+// dx of one row from its packs (stored at dxr), and its dy * x_hat and dy
+// added into the lane's column partials; g holds the lane's gamma (zero
+// past h, where dy is zero too, so the pad adds nothing).  The arithmetic
+// of bwd_row.
+template <typename T, int VEC, int CHUNKS, bool kMean>
+__device__ __forceinline__ void bwd_packs(
+    const RowPacks<T, VEC, CHUNKS>& r, const float (&g)[CHUNKS][VEC],
+    T* __restrict__ dxr, int h, int lane, float (&pg)[CHUNKS][VEC],
+    float (&pb)[CHUNKS][VEC]) {
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int c = 0; c < CHUNKS; ++c)
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      const float xh = (to_float(r.x[c].v[i]) - r.mu) * r.rs;
+      const float d = to_float(r.d[c].v[i]);
+      const float wdy = __fmul_rn(d, g[c][i]);
+      pg[c][i] += d * xh;
+      if constexpr (kMean) {
+        pb[c][i] += d;
+        s1 += wdy;
+      }
+      s2 += wdy * xh;
+    }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {  // both sums' shuffles together
+    if constexpr (kMean) s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+  }
+  const float fh = static_cast<float>(h);
+  const float c1 = kMean ? s1 / fh : 0.f;
+  const float c2 = s2 / fh;
+#pragma unroll
+  for (int c = 0; c < CHUNKS; ++c) {
+    const int col = (c * 32 + lane) * VEC;
+    if (col < h) {
+      Pack<T, VEC> p;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float xh = (to_float(r.x[c].v[i]) - r.mu) * r.rs;
+        const float wdy = __fmul_rn(to_float(r.d[c].v[i]), g[c][i]);
+        if constexpr (kMean)
+          p.v[i] = from_float<T>(r.rs * (wdy - c1 - xh * c2));
+        else
+          p.v[i] = from_float<T>(r.rs * (wdy - xh * c2));
+      }
+      *reinterpret_cast<Pack<T, VEC>*>(dxr + col) = p;
+    }
+  }
+}
+
+// Rows of up to CHUNKS * 32 * VEC elements: see the note above.
+// ws: [gridDim.x + tree rows, planes, h] floats; tickets: 1 + tree rows
+// counters, 0 at the launch and 0 again after it.  One block an SM is
+// enough (the row ahead hides the loads): without that bound ptxas fit
+// two instances into 128 registers with a 4-byte spill.
+template <typename T, int VEC, int CHUNKS, bool kMean>
+__global__ void __launch_bounds__(kBwdWarps * 32, 1)
+    ln_bwd_persist_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                          const float* __restrict__ gamma,
+                          const float* __restrict__ mean_in,
+                          const float* __restrict__ rstd_in,
+                          T* __restrict__ dx, float* __restrict__ ws,
+                          float* __restrict__ dgamma,
+                          float* __restrict__ dbeta, unsigned int* tickets,
+                          int64_t n_rows, int h) {
+  constexpr int kPlanes = kMean ? 2 : 1;  // dgamma's partials, dbeta's
+  constexpr int kThreads = kBwdWarps * 32;
+  constexpr int kW = VEC < 4 ? VEC : 4;   // floats a pack of the partials
+  // Up to 24 elements a lane (rows of up to 768), two row sets and gamma
+  // in registers: the next row is loaded before this one is used (209
+  // registers at 768 fp32).  Wider rows, one set, loaded after the row
+  // before is done, and gamma reloaded per row: two sets, gamma and the
+  // partials would spill.
+  constexpr bool kAhead = CHUNKS * VEC <= 24;
+  __shared__ __align__(16) float part[kBwdWarps][CHUNKS * 32 * VEC];
+  __shared__ bool last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t n_w = static_cast<int64_t>(gridDim.x) * kBwdWarps;
+  const int64_t w = static_cast<int64_t>(blockIdx.x) * kBwdWarps + warp;
+  const int64_t r0 = w * n_rows / n_w, r1 = (w + 1) * n_rows / n_w;
+
+  float g[CHUNKS][VEC], pg[CHUNKS][VEC], pb[CHUNKS][VEC];
+#pragma unroll
+  for (int c = 0; c < CHUNKS; ++c)
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) pg[c][i] = pb[c][i] = 0.f;
+
+  if constexpr (kAhead) {
+    load_gamma<VEC, CHUNKS>(gamma, h, lane, g);
+    RowPacks<T, VEC, CHUNKS> a, b;
+    if (r0 < r1)
+      load_row<T, VEC, CHUNKS, kMean>(x, dy, mean_in, rstd_in, r0, h, lane, a);
+    for (int64_t r = r0; r < r1; r += 2) {
+      if (r + 1 < r1)
+        load_row<T, VEC, CHUNKS, kMean>(x, dy, mean_in, rstd_in, r + 1, h,
+                                        lane, b);
+      bwd_packs<T, VEC, CHUNKS, kMean>(a, g, dx + r * h, h, lane, pg, pb);
+      if (r + 1 >= r1) break;
+      if (r + 2 < r1)
+        load_row<T, VEC, CHUNKS, kMean>(x, dy, mean_in, rstd_in, r + 2, h,
+                                        lane, a);
+      bwd_packs<T, VEC, CHUNKS, kMean>(b, g, dx + (r + 1) * h, h, lane, pg,
+                                       pb);
+    }
+  } else {
+    RowPacks<T, VEC, CHUNKS> a;
+    for (int64_t r = r0; r < r1; ++r) {
+      // gamma again from L1 each row, and every load after the row
+      // before's stores: nothing but the partials stays live across rows
+      asm volatile("" ::: "memory");
+      load_gamma<VEC, CHUNKS>(gamma, h, lane, g);
+      load_row<T, VEC, CHUNKS, kMean>(x, dy, mean_in, rstd_in, r, h, lane, a);
+      bwd_packs<T, VEC, CHUNKS, kMean>(a, g, dx + r * h, h, lane, pg, pb);
+    }
+  }
+
+  // The block's warps' partials, added per column in warp order, into
+  // workspace row blockIdx.x.
+  const int64_t stride = static_cast<int64_t>(kPlanes) * h;
+#pragma unroll
+  for (int p = 0; p < kPlanes; ++p) {
+#pragma unroll
+    for (int c = 0; c < CHUNKS; ++c)
+#pragma unroll
+      for (int i = 0; i < VEC; i += kW) {
+        Pack<float, kW> q;
+#pragma unroll
+        for (int u = 0; u < kW; ++u) q.v[u] = p ? pb[c][i + u] : pg[c][i + u];
+        *reinterpret_cast<Pack<float, kW>*>(
+            &part[warp][(c * 32 + lane) * VEC + i]) = q;
+      }
     __syncthreads();
-    float* ws = (pass ? ws_db : ws_dg) + blockIdx.x * static_cast<int64_t>(h);
+    float* row = ws + blockIdx.x * stride + p * h;
     for (int col = threadIdx.x; col < h; col += kThreads) {
       float s = 0.f;
 #pragma unroll
-      for (int w = 0; w < kFewWarps; ++w) s += part[w][col];
-      ws[col] = s;
+      for (int k = 0; k < kBwdWarps; ++k) s += part[k][col];
+      row[col] = s;
     }
-    __syncthreads();  // part is written again by the next pass
+    __syncthreads();  // part is written again by the next plane
   }
-  __threadfence();  // this block's workspace row before its ticket
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  for (int col = threadIdx.x; col < h; col += kThreads) {
-    float s = 0.f, t = 0.f;
-    for (unsigned k = 0; k < gridDim.x; ++k) {
-      s += __ldcg(ws_dg + k * static_cast<int64_t>(h) + col);
-      if (kMean) t += __ldcg(ws_db + k * static_cast<int64_t>(h) + col);
-    }
-    dgamma[col] = s;
-    if (kMean) dbeta[col] = t;
+
+  // The group's last block adds the group's rows into its tree row; the
+  // last of the groups adds the tree rows into dgamma and dbeta.
+  const unsigned groups = (gridDim.x + kBwdTreeGroup - 1) / kBwdTreeGroup;
+  const unsigned grp = blockIdx.x / kBwdTreeGroup;
+  const unsigned first = grp * kBwdTreeGroup;
+  const unsigned members =
+      min(static_cast<unsigned>(kBwdTreeGroup), gridDim.x - first);
+  float* tree = ws + gridDim.x * stride;
+  if (!last_to_arrive(tickets + 1 + grp, members, &last)) return;
+  if (groups == 1) {  // the group's rows are all the rows
+    sum_rows<kW, kPlanes>(ws, members, stride, h, dgamma, dbeta);
+    if (threadIdx.x == 0) tickets[1] = 0u;
+    return;
   }
-  if (threadIdx.x == 0) *ticket = 0u;
+  float* mine = tree + grp * stride;
+  sum_rows<kW, kPlanes>(ws + first * stride, members, stride, h, mine,
+                        mine + h);
+  if (threadIdx.x == 0) tickets[1 + grp] = 0u;
+  if (!last_to_arrive(tickets, groups, &last)) return;
+  sum_rows<kW, kPlanes>(tree, groups, stride, h, dgamma, dbeta);
+  if (threadIdx.x == 0) tickets[0] = 0u;
 }
 
 // dgamma[col] = sum over the workspace's rows, in a fixed order: segment s
@@ -522,103 +777,213 @@ __global__ void __launch_bounds__(kBwdColTile * kBwdColSegs)
   }
 }
 
-// A group a row (n_groups == n) in the warp layout takes the one-launch
-// ln_bwd_rows_kernel, which needs the ticket; anything else ln_bwd_kernel
-// and the column pass.
-template <typename T, int VEC, bool kMean>
-int launch_bwd(const void* x, const void* dy, const float* gamma,
-               const float* mean, const float* rstd, void* dx, float* dgamma,
-               float* dbeta, float* ws, unsigned int* ticket, int64_t n,
-               int h, int64_t n_groups, cudaStream_t stream) {
-  const T* xt = static_cast<const T*>(x);
-  const T* dyt = static_cast<const T*>(dy);
-  T* dxt = static_cast<T*>(dx);
-  float* ws_dg = ws;
-  float* ws_db = kMean ? ws + n_groups * h : nullptr;
-  constexpr int kChunks = kWarpElems / VEC;
-  if (h <= kChunks * 32 * VEC && n_groups == n && ticket != nullptr) {
-    ln_bwd_rows_kernel<T, VEC, kMean>
-        <<<static_cast<unsigned>((n + kFewWarps - 1) / kFewWarps),
-           kFewWarps * 32, 0, stream>>>(xt, dyt, gamma, mean, rstd, dxt,
-                                        ws_dg, ws_db, dgamma, dbeta, ticket,
-                                        n, h);
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (h <= kChunks * 32 * VEC) {
-    ln_bwd_kernel<T, VEC, 32, kChunks, kMean>
-        <<<static_cast<unsigned>((n_groups + 3) / 4), 128, 0, stream>>>(
-            xt, dyt, gamma, mean, rstd, dxt, ws_dg, ws_db, n, h, n_groups);
-  } else {
-    ln_bwd_kernel<T, VEC, kBlockThreads, kMaxH / (kBlockThreads * VEC), kMean>
-        <<<static_cast<unsigned>(n_groups), kBlockThreads, 0, stream>>>(
-            xt, dyt, gamma, mean, rstd, dxt, ws_dg, ws_db, n, h, n_groups);
-  }
-  int rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
-  const unsigned col_blocks =
-      static_cast<unsigned>((h + kBwdColTile - 1) / kBwdColTile);
-  ln_bwd_colsum_kernel<kMean>
-      <<<col_blocks, dim3(kBwdColTile, kBwdColSegs), 0, stream>>>(
-          ws_dg, ws_db, dgamma, dbeta, h, n_groups);
-  return static_cast<int>(cudaGetLastError());
+// ln_bwd_persist_kernel's lanes hold CHUNKS packs of a row: the fewest of
+// a quarter, a half, three quarters or all of kWarpElems / VEC that cover
+// h (so 768 takes 6 fp32 packs of 4, 410 8 pairs).  Calls
+// op.template go<T, VEC, CHUNKS>(); -2 if h is too wide.
+template <typename T, int VEC, typename Op>
+int by_chunks(const Op& op, int h) {
+  constexpr int kMax = kWarpElems / VEC;
+  const int need = (h + 32 * VEC - 1) / (32 * VEC);
+  if (need <= kMax / 4) return op.template go<T, VEC, kMax / 4>();
+  if (need <= kMax / 2) return op.template go<T, VEC, kMax / 2>();
+  if (need <= 3 * kMax / 4) return op.template go<T, VEC, 3 * kMax / 4>();
+  if (need <= kMax) return op.template go<T, VEC, kMax>();
+  return -2;
 }
 
-template <typename T, bool kMean>
-int dispatch_bwd(const void* x, const void* dy, const float* gamma,
-                 const float* mean, const float* rstd, void* dx,
-                 float* dgamma, float* dbeta, float* ws, unsigned int* ticket,
-                 int64_t n, int h, int64_t n_groups, cudaStream_t stream) {
-  constexpr int kVec = 16 / sizeof(T);
-  const bool vec = h % kVec == 0 &&
-                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(dy) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(dx) % 16 == 0;
-  if (vec)
-    return launch_bwd<T, kVec, kMean>(x, dy, gamma, mean, rstd, dx, dgamma,
-                                      dbeta, ws, ticket, n, h, n_groups,
-                                      stream);
-  return launch_bwd<T, 1, kMean>(x, dy, gamma, mean, rstd, dx, dgamma, dbeta,
-                                 ws, ticket, n, h, n_groups, stream);
+// The backward's pointers and shape.  ws: the workspace; tickets and
+// tree: see ln_bwd_persist_kernel.
+struct BwdArgs {
+  const void *x, *dy;
+  const float *gamma, *mean, *rstd;
+  void* dx;
+  float *dgamma, *dbeta, *ws;
+  unsigned int* tickets;
+  int64_t n;
+  int h;
+  int64_t blocks, tree;
+  int layout;
+  cudaStream_t stream;
+};
+
+template <bool kMean>
+struct BwdLaunch {
+  BwdArgs a;
+
+  template <typename T, int VEC, int CHUNKS>
+  int go() const {
+    ln_bwd_persist_kernel<T, VEC, CHUNKS, kMean>
+        <<<static_cast<unsigned>(a.blocks), kBwdWarps * 32, 0, a.stream>>>(
+            static_cast<const T*>(a.x), static_cast<const T*>(a.dy), a.gamma,
+            a.mean, a.rstd, static_cast<T*>(a.dx), a.ws, a.dgamma, a.dbeta,
+            a.tickets, a.n, a.h);
+    return static_cast<int>(cudaGetLastError());
+  }
+
+  template <typename T, int VEC>
+  int run() const {
+    if (a.layout == kPersist) return by_chunks<T, VEC>(*this, a.h);
+    // Wide rows take 16-byte packs or single elements; their workspace is
+    // [planes, blocks, h].
+    if constexpr (VEC == 1 || VEC * sizeof(T) == 16) {
+      const T* xt = static_cast<const T*>(a.x);
+      const T* dyt = static_cast<const T*>(a.dy);
+      T* dxt = static_cast<T*>(a.dx);
+      float* ws_db = kMean ? a.ws + a.blocks * a.h : nullptr;
+      ln_bwd_kernel<T, VEC, kMaxH / (kBlockThreads * VEC), kMean>
+          <<<static_cast<unsigned>(a.blocks), kBlockThreads, 0, a.stream>>>(
+              xt, dyt, a.gamma, a.mean, a.rstd, dxt, a.ws, ws_db, a.n, a.h);
+      const int rc = static_cast<int>(cudaGetLastError());
+      if (rc != 0) return rc;
+      const unsigned col_blocks =
+          static_cast<unsigned>((a.h + kBwdColTile - 1) / kBwdColTile);
+      ln_bwd_colsum_kernel<kMean>
+          <<<col_blocks, dim3(kBwdColTile, kBwdColSegs), 0, a.stream>>>(
+              a.ws, ws_db, a.dgamma, a.dbeta, a.h, a.blocks);
+      return static_cast<int>(cudaGetLastError());
+    }
+    return -5;
+  }
+};
+
+template <bool kMean>
+struct BwdResident {
+  int h;
+  int* blocks;
+
+  template <typename T, int VEC, int CHUNKS>
+  int go() const {
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, ln_bwd_persist_kernel<T, VEC, CHUNKS, kMean>, kBwdWarps * 32,
+        0));
+  }
+
+  template <typename T, int VEC>
+  int run() const {
+    return by_chunks<T, VEC>(*this, h);
+  }
+};
+
+// op.template run<T, VEC>() for this dtype and pack width; -1 for an
+// unknown dtype, -5 for a width the dtype has no pack of.
+template <typename Op>
+int by_dtype_vec(const Op& op, int dtype, int vec) {
+  switch (dtype * 16 + vec) {
+    case 0 * 16 + 1:
+      return op.template run<float, 1>();
+    case 0 * 16 + 2:
+      return op.template run<float, 2>();
+    case 0 * 16 + 4:
+      return op.template run<float, 4>();
+    case 1 * 16 + 1:
+      return op.template run<__nv_bfloat16, 1>();
+    case 1 * 16 + 2:
+      return op.template run<__nv_bfloat16, 2>();
+    case 1 * 16 + 4:
+      return op.template run<__nv_bfloat16, 4>();
+    case 1 * 16 + 8:
+      return op.template run<__nv_bfloat16, 8>();
+    case 2 * 16 + 1:
+      return op.template run<__half, 1>();
+    case 2 * 16 + 2:
+      return op.template run<__half, 2>();
+    case 2 * 16 + 4:
+      return op.template run<__half, 4>();
+    case 2 * 16 + 8:
+      return op.template run<__half, 8>();
+    default:
+      return dtype < 0 || dtype > 2 ? -1 : -5;
+  }
+}
+
+// Checks what the backward's caller chose (ops/layer_norm.py
+// `bwd_geometry`), then launches.  Argument errors are negative.
+template <bool kMean>
+int run_bwd(const BwdArgs& a, int vec, int dtype) {
+  if (a.h < 1 || a.h > kMaxH) return -2;
+  if (a.n < 1 || a.n > 0x7fffffffLL) return -3;
+  if (dtype < 0 || dtype > 2) return -1;
+  const int esize = dtype == 0 ? 4 : 2;
+  const auto aligned = [](const void* p, int bytes) {
+    return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+  };
+  if (vec < 1 || vec > 16 / esize || (vec & (vec - 1)) != 0 ||
+      a.h % vec != 0 || !aligned(a.x, vec * esize) ||
+      !aligned(a.dy, vec * esize) || !aligned(a.dx, vec * esize) ||
+      (a.layout == kPersist && !aligned(a.gamma, 4 * (vec < 4 ? vec : 4))))
+    return -5;
+  switch (a.layout) {
+    case kWide:
+      if (a.blocks < 1 || a.blocks > a.n || a.tree != 0) return -4;
+      break;
+    case kPersist:
+      // the workspace and the tickets were sized for this tree
+      if (a.h > kWarpElems * 32 || a.tickets == nullptr || a.blocks < 1 ||
+          a.blocks > 65535 ||
+          a.tree != (a.blocks + kBwdTreeGroup - 1) / kBwdTreeGroup)
+        return -4;
+      break;
+    default:
+      return -6;
+  }
+  return by_dtype_vec(BwdLaunch<kMean>{a}, dtype, vec);
 }
 
 }  // namespace
 
-// Backward.  dx in x's dtype (dy has it too); dgamma, dbeta fp32 (H,);
-// workspace 2 * n_groups * H floats of scratch; ticket one uint32 that is 0
-// at the launch and is 0 again after it (null: never the one-launch
-// kernel).  Argument errors are negative; a launch error is the
-// cudaError_t value.
+// Backward.  dx in x's dtype (dy has it too); dgamma, dbeta fp32 (H,).
+// The caller picks the layout (0 wide rows, 1 the persistent grid), the
+// blocks, the tree rows (layout 1: ceil(blocks / 16), else 0) and the pack
+// width `vec` (ops/layer_norm.py `bwd_geometry`): workspace
+// 2 * (blocks + tree_rows) * H floats of scratch; tickets tree_rows + 1
+// counters, 0 at the launch and 0 again after it.  Argument errors are
+// negative; a launch error is the cudaError_t value.
 extern "C" int apex_layer_norm_bwd(const void* x, const void* dy,
                                    const void* gamma, const void* mean,
                                    const void* rstd, void* dx, void* dgamma,
-                                   void* dbeta, void* workspace, void* ticket,
-                                   long long n_rows, int h,
-                                   long long n_groups, int dtype,
+                                   void* dbeta, void* workspace,
+                                   void* tickets, long long n_rows, int h,
+                                   long long blocks, long long tree_rows,
+                                   int layout, int vec, int dtype,
                                    void* stream) {
-  if (h < 1 || h > kMaxH) return -2;
-  if (n_rows < 1 || n_rows > 0x7fffffffLL) return -3;
-  if (n_groups < 1 || n_groups > n_rows) return -4;
-  const float* g = static_cast<const float*>(gamma);
-  const float* m = static_cast<const float*>(mean);
-  const float* r = static_cast<const float*>(rstd);
-  float* dg = static_cast<float*>(dgamma);
-  float* db = static_cast<float*>(dbeta);
-  float* ws = static_cast<float*>(workspace);
-  unsigned int* tk = static_cast<unsigned int*>(ticket);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return dispatch_bwd<float, true>(x, dy, g, m, r, dx, dg, db, ws, tk,
-                                       n_rows, h, n_groups, s);
-    case 1:
-      return dispatch_bwd<__nv_bfloat16, true>(x, dy, g, m, r, dx, dg, db, ws,
-                                               tk, n_rows, h, n_groups, s);
-    case 2:
-      return dispatch_bwd<__half, true>(x, dy, g, m, r, dx, dg, db, ws, tk,
-                                        n_rows, h, n_groups, s);
-    default:
-      return -1;
-  }
+  const BwdArgs a{x, dy, static_cast<const float*>(gamma),
+                  static_cast<const float*>(mean),
+                  static_cast<const float*>(rstd), dx,
+                  static_cast<float*>(dgamma), static_cast<float*>(dbeta),
+                  static_cast<float*>(workspace),
+                  static_cast<unsigned int*>(tickets), n_rows, h, blocks,
+                  tree_rows, layout, static_cast<cudaStream_t>(stream)};
+  return run_bwd<true>(a, vec, dtype);
+}
+
+// RMSNorm backward: dx in x's dtype (dy has it too), dgamma fp32 (H,);
+// workspace rows * H floats of scratch (one plane); the rest as
+// LayerNorm's.
+extern "C" int apex_rms_norm_bwd(const void* x, const void* dy,
+                                 const void* gamma, const void* rstd,
+                                 void* dx, void* dgamma, void* workspace,
+                                 void* tickets, long long n_rows, int h,
+                                 long long blocks, long long tree_rows,
+                                 int layout, int vec, int dtype,
+                                 void* stream) {
+  const BwdArgs a{x, dy, static_cast<const float*>(gamma), nullptr,
+                  static_cast<const float*>(rstd), dx,
+                  static_cast<float*>(dgamma), nullptr,
+                  static_cast<float*>(workspace),
+                  static_cast<unsigned int*>(tickets), n_rows, h, blocks,
+                  tree_rows, layout, static_cast<cudaStream_t>(stream)};
+  return run_bwd<false>(a, vec, dtype);
+}
+
+// *blocks: how many blocks of ln_bwd_persist_kernel for rows of h elements
+// of this dtype in packs of vec (kmean 1 LayerNorm, 0 RMSNorm) are
+// resident on one SM of the current device.  Errors as above.
+extern "C" int apex_norm_bwd_resident(int kmean, int dtype, int vec, int h,
+                                      int* blocks) {
+  if (h < 1 || h > kWarpElems * 32) return -2;
+  if (kmean) return by_dtype_vec(BwdResident<true>{h, blocks}, dtype, vec);
+  return by_dtype_vec(BwdResident<false>{h, blocks}, dtype, vec);
 }
 
 // Argument errors are negative; a launch error is the cudaError_t value.
@@ -666,41 +1031,6 @@ extern "C" int apex_rms_norm_fwd(const void* x, const void* gamma, void* y,
     case 2:
       return dispatch<__half, false>(x, g, nullptr, y, nullptr, r, n_rows, h,
                                      eps, s);
-    default:
-      return -1;
-  }
-}
-
-// RMSNorm backward: dx in x's dtype (dy has it too), dgamma fp32 (H,);
-// workspace n_groups * H floats of scratch; the ticket as LayerNorm's.
-// Argument errors are negative; a launch error is the cudaError_t value.
-extern "C" int apex_rms_norm_bwd(const void* x, const void* dy,
-                                 const void* gamma, const void* rstd,
-                                 void* dx, void* dgamma, void* workspace,
-                                 void* ticket, long long n_rows, int h,
-                                 long long n_groups, int dtype,
-                                 void* stream) {
-  if (h < 1 || h > kMaxH) return -2;
-  if (n_rows < 1 || n_rows > 0x7fffffffLL) return -3;
-  if (n_groups < 1 || n_groups > n_rows) return -4;
-  const float* g = static_cast<const float*>(gamma);
-  const float* r = static_cast<const float*>(rstd);
-  float* dg = static_cast<float*>(dgamma);
-  float* ws = static_cast<float*>(workspace);
-  unsigned int* tk = static_cast<unsigned int*>(ticket);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return dispatch_bwd<float, false>(x, dy, g, nullptr, r, dx, dg, nullptr,
-                                        ws, tk, n_rows, h, n_groups, s);
-    case 1:
-      return dispatch_bwd<__nv_bfloat16, false>(x, dy, g, nullptr, r, dx, dg,
-                                                nullptr, ws, tk, n_rows, h,
-                                                n_groups, s);
-    case 2:
-      return dispatch_bwd<__half, false>(x, dy, g, nullptr, r, dx, dg,
-                                         nullptr, ws, tk, n_rows, h, n_groups,
-                                         s);
     default:
       return -1;
   }

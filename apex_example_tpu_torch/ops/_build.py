@@ -129,8 +129,9 @@ def tickets(device: torch.device, stream: int, n: int = 1) -> torch.Tensor:
     ``stream``, zero before and after every launch: a launch's blocks
     count themselves on one, and the last of them, which finishes the sum,
     sets it back to 0.  Launches on one stream run in order, so they share
-    the counters (the norm backward at few rows takes the first, the
-    BatchNorm sums one per channel slab); another stream has its own."""
+    the counters (the norm backward takes the first and one per group of
+    blocks, the BatchNorm sums one per channel slab); another stream has
+    its own."""
     with _lock:
         t = _tickets.get((device, stream))
         if t is None or t.numel() < n:

@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -44,10 +44,15 @@ from apex_example_tpu_torch.ops import _build
 
 MAX_H = 8192            # the widest row the kernel takes (kMaxH)
 _ARG_ERRORS = {-1: "unsupported dtype", -2: "hidden size out of range",
-               -3: "row count out of range", -4: "row groups out of range"}
-BWD_ROWS_PER_GROUP = 4  # rows one warp (or block) of the backward takes
-BWD_MAX_GROUPS = 1024   # rows of the backward's dgamma/dbeta workspace
-BWD_FEW_ROWS = 256      # up to this many rows, a group a row
+               -3: "row count out of range", -4: "blocks out of range",
+               -5: "pack width off", -6: "unknown layout"}
+BWD_WARP_H = 1024       # rows up to this long take a warp each
+BWD_WARPS = 8           # warps a block of the persistent grid (kBwdWarps)
+BWD_TREE_GROUP = 16     # blocks whose rows one block adds first
+BWD_FEW_ROWS = 256      # wide rows: up to this many, a block a row
+BWD_ROWS_PER_GROUP = 4  # wide rows: rows one block takes above that
+BWD_MAX_GROUPS = 1024   # wide rows: most blocks
+BWD_WIDE, BWD_PERSIST = 0, 1    # the kernel's layouts
 
 Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -112,18 +117,20 @@ def _library() -> ctypes.CDLL:
         ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
         ctypes.c_void_p]
     lib.apex_layer_norm_fwd.restype = ctypes.c_int
-    lib.apex_layer_norm_bwd.argtypes = [ctypes.c_void_p] * 10 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_void_p]
+    # n, h, blocks, tree rows, layout, vec, dtype, stream
+    bwd_geo = [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+               ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.apex_layer_norm_bwd.argtypes = [ctypes.c_void_p] * 10 + bwd_geo
     lib.apex_layer_norm_bwd.restype = ctypes.c_int
     lib.apex_rms_norm_fwd.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
         ctypes.c_void_p]
     lib.apex_rms_norm_fwd.restype = ctypes.c_int
-    lib.apex_rms_norm_bwd.argtypes = [ctypes.c_void_p] * 8 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_void_p]
+    lib.apex_rms_norm_bwd.argtypes = [ctypes.c_void_p] * 8 + bwd_geo
     lib.apex_rms_norm_bwd.restype = ctypes.c_int
+    lib.apex_norm_bwd_resident.argtypes = [ctypes.c_int] * 4 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.apex_norm_bwd_resident.restype = ctypes.c_int
     return lib
 
 
@@ -216,18 +223,100 @@ def _check_bwd_args(x: torch.Tensor, gamma: torch.Tensor,
 
 
 def bwd_groups(n: int) -> int:
-    """How many row groups the backward deals the rows to: one per
-    ``BWD_ROWS_PER_GROUP`` rows, at most ``BWD_MAX_GROUPS``."""
+    """Wide rows: how many blocks the rows are dealt to (block g takes rows
+    g, g + blocks, ...): one per ``BWD_ROWS_PER_GROUP`` rows, at most
+    ``BWD_MAX_GROUPS``."""
     return max(1, min(-(-n // BWD_ROWS_PER_GROUP), BWD_MAX_GROUPS))
 
 
-def bwd_row_groups(n: int) -> int:
-    """The groups the backward launches with: a group a row up to
-    ``BWD_FEW_ROWS`` rows, where four rows a group would leave most of the
-    card's 132 SMs idle (128 rows: 8 blocks); then :func:`bwd_groups`.  A
-    group a row of at most 1024 elements takes the kernel's one-launch
-    layout, which sums dgamma and dbeta in its last block."""
-    return n if n <= BWD_FEW_ROWS else bwd_groups(n)
+class BwdGeometry(NamedTuple):
+    """The backward's launch: ``layout`` (BWD_WIDE or BWD_PERSIST),
+    ``blocks`` (each writes one row of per-block partials)
+    and ``tree_rows`` (the persistent grid's second-level partials, after
+    the blocks' rows in the workspace)."""
+    layout: int
+    blocks: int
+    tree_rows: int
+
+
+def bwd_geometry(n: int, h: int, sms: int, resident: int) -> BwdGeometry:
+    """How the backward takes ``n`` rows of ``h`` elements on a card of
+    ``sms`` SMs that holds ``resident`` blocks of the persistent kernel
+    each.  Rows over ``BWD_WARP_H`` elements: blocks of 512 threads, a
+    row each up to ``BWD_FEW_ROWS`` rows, else ``bwd_groups``, and a
+    column pass.  Shorter rows: the persistent grid, every block resident
+    at once (``sms * resident`` at most), no more blocks than give each
+    warp a row (few rows: a warp a row); warp w of W takes rows
+    [w n / W, (w + 1) n / W)."""
+    if h > BWD_WARP_H:
+        return BwdGeometry(BWD_WIDE,
+                           n if n <= BWD_FEW_ROWS else bwd_groups(n), 0)
+    blocks = max(1, min(sms * resident, -(-n // BWD_WARPS)))
+    return BwdGeometry(BWD_PERSIST, blocks, -(-blocks // BWD_TREE_GROUP))
+
+
+def _pack_width(h: int, tensors, params=()) -> int:
+    """The widest power of two up to 16 bytes of elements that divides
+    ``h`` with every tensor aligned to its packs and every fp32 parameter
+    to packs of up to four floats (csrc/layer_norm.cu ``vec_width``, the
+    forward's rule)."""
+    esize = tensors[0].element_size()
+    v = 16 // esize
+    while v > 1:
+        if (h % v == 0
+                and all(t.data_ptr() % (v * esize) == 0 for t in tensors)
+                and all(p.data_ptr() % (4 * min(v, 4)) == 0
+                        for p in params)):
+            return v
+        v //= 2
+    return 1
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(lib: ctypes.CDLL, device: torch.device, kmean: int,
+                   dtype: int, vec: int, h: int) -> Tuple[int, int]:
+    """``(sms, resident)``: the SMs of ``device`` and how many blocks of
+    the persistent backward for these arguments one SM holds."""
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = lib.apex_norm_bwd_resident(kmean, dtype, vec, h,
+                                        ctypes.byref(blocks))
+    _build.raise_on(rc, lib, "norm backward occupancy", _ARG_ERRORS)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms, max(1, blocks.value)
+
+
+def _launch_bwd(what: str, entry: str, kmean: bool, x: torch.Tensor,
+                dy: torch.Tensor, gamma: torch.Tensor, dx: torch.Tensor,
+                ptrs, outs) -> None:
+    """Picks the layout, the grid and the pack width, then launches
+    ``entry`` with ``ptrs`` (inputs, dx, then ``outs``, the fp32 sums) and
+    a fresh workspace, on PyTorch's current stream."""
+    n, h = x.shape
+    lib = _library()
+    dtype = _build.DTYPE_CODES[x.dtype]
+    if h > BWD_WARP_H:
+        geo = bwd_geometry(n, h, 1, 1)
+        # wide rows take 16-byte packs or single elements, and gamma
+        # element by element
+        vec = _pack_width(h, (x, dy, dx))
+        if vec * x.element_size() != 16:
+            vec = 1
+    else:
+        vec = _pack_width(h, (x, dy, dx), (gamma,))
+        geo = bwd_geometry(n, h, *_blocks_per_sm(lib, x.device, int(kmean),
+                                                 dtype, vec, h))
+    planes = 2 if kmean else 1
+    ws = torch.empty(planes * (geo.blocks + geo.tree_rows) * h,
+                     dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        tickets = _build.tickets(x.device, stream, 1 + geo.tree_rows)
+        rc = getattr(lib, entry)(
+            *ptrs, *(o.data_ptr() for o in outs), ws.data_ptr(),
+            tickets.data_ptr(), n, h, geo.blocks, geo.tree_rows, geo.layout,
+            vec, dtype, stream)
+    _build.raise_on(rc, lib, what, _ARG_ERRORS)
 
 
 def layer_norm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor,
@@ -243,17 +332,10 @@ def layer_norm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor,
     db = torch.empty(h, dtype=torch.float32, device=x.device)
     if n == 0:
         return dx, dg.zero_(), db.zero_()
-    groups = bwd_row_groups(n)
-    ws = torch.empty(2 * groups * h, dtype=torch.float32, device=x.device)
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.apex_layer_norm_bwd(
-            x.data_ptr(), dy.data_ptr(), gamma.data_ptr(), mean.data_ptr(),
-            rstd.data_ptr(), dx.data_ptr(), dg.data_ptr(), db.data_ptr(),
-            ws.data_ptr(), _build.tickets(x.device, stream).data_ptr(), n, h,
-            groups, _build.DTYPE_CODES[x.dtype], stream)
-    _build.raise_on(rc, lib, "layer_norm backward", _ARG_ERRORS)
+    _launch_bwd("layer_norm backward", "apex_layer_norm_bwd", True, x, dy,
+                gamma, dx, (x.data_ptr(), dy.data_ptr(), gamma.data_ptr(),
+                            mean.data_ptr(), rstd.data_ptr(), dx.data_ptr()),
+                (dg, db))
     layer_norm_bwd_cuda.launches += 1
     return dx, dg, db
 
@@ -382,17 +464,9 @@ def rms_norm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor,
     dg = torch.empty(h, dtype=torch.float32, device=x.device)
     if n == 0:
         return dx, dg.zero_()
-    groups = bwd_row_groups(n)
-    ws = torch.empty(groups * h, dtype=torch.float32, device=x.device)
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.apex_rms_norm_bwd(
-            x.data_ptr(), dy.data_ptr(), gamma.data_ptr(), rstd.data_ptr(),
-            dx.data_ptr(), dg.data_ptr(), ws.data_ptr(),
-            _build.tickets(x.device, stream).data_ptr(), n, h, groups,
-            _build.DTYPE_CODES[x.dtype], stream)
-    _build.raise_on(rc, lib, "rms_norm backward", _ARG_ERRORS)
+    _launch_bwd("rms_norm backward", "apex_rms_norm_bwd", False, x, dy,
+                gamma, dx, (x.data_ptr(), dy.data_ptr(), gamma.data_ptr(),
+                            rstd.data_ptr(), dx.data_ptr()), (dg,))
     rms_norm_bwd_cuda.launches += 1
     return dx, dg
 

@@ -20,7 +20,7 @@ Phases, one or more lines each:
              ulp of the output plus 1e-5 (the fp32 rounding of a result that
              cancels to near zero).  LayerNorm backward at the three
              training shapes in fp32 and bf16, at 1000 rows, at 128 rows
-             (the one-launch few-rows layout), at H = 64, at an odd H and
+             (the persistent grid, a warp a row), at H = 64, at an odd H and
              at H = 8192: dx as the forward's y; dgamma and dbeta rtol =
              atol = 1e-4 (sums over thousands of O(1) rows in another
              order; atol for sums that cancel near zero).  The
@@ -317,6 +317,7 @@ FLOOR_X = 3               # TXL card-vs-CPU limits, in multiples of the floor
 TRAIN_ROWS = 32 * 128     # LayerNorm rows of the train phase's steps
 TXL_ROWS, TXL_H = 32 * 192, 410     # the txl phase's LayerNorm shape
 GPT_ROWS = 64 * 128       # the gpt phase's LayerNorm rows (H = 768)
+G2_ROWS = 8 * 2048        # the gpt2048 phase's LayerNorm rows (bf16 at O2)
 TRAIN_ARGS = ["--device", "cuda", "--arch", "bert_base",
               "--batch-size", "32", "--seq-len", "128", "--epochs", "1",
               "--steps-per-epoch", "20", "--opt", "lamb", "--lr", "1e-3",
@@ -580,8 +581,8 @@ def phase_kernels(ln):
 
 
 def phase_ln_bwd(ln):
-    """LayerNorm backward against its plain version, bitwise repeat, and
-    its time at the training shape."""
+    """LayerNorm backward against its plain version, bitwise repeats, and
+    its times at the paths' shapes and the few-rows ones."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     cases = [(TRAIN_ROWS, 768, torch.float32),
@@ -589,12 +590,18 @@ def phase_ln_bwd(ln):
              (TXL_ROWS, TXL_H, torch.float32),
              (TXL_ROWS, TXL_H, torch.bfloat16),
              (GPT_ROWS, 768, torch.float32), (GPT_ROWS, 768, torch.bfloat16),
+             (G2_ROWS, 768, torch.bfloat16),
              (1000, 768, torch.float32), (1000, 768, torch.bfloat16),
              (SLOTS * BLOCK, 768, torch.float32),
              (SLOTS * BLOCK, 768, torch.bfloat16),
              (TRAIN_ROWS, 64, torch.float32), (37, 777, torch.float32),
              (64, 8192, torch.float32), (64, 8192, torch.bfloat16)]
     path_shapes = {(TRAIN_ROWS, 768), (TXL_ROWS, TXL_H), (GPT_ROWS, 768)}
+    # the persistent grid at the paths' shapes and at few rows
+    repeat = {(TRAIN_ROWS, 768, torch.float32),
+              (TXL_ROWS, TXL_H, torch.float32),
+              (G2_ROWS, 768, torch.bfloat16),
+              (SLOTS * BLOCK, 768, torch.float32)}
     path_err = 0.0
     for n, h, dtype in cases:
         x = (torch.randn(n, h, device=dev, generator=gen) * 2 + 0.5).to(dtype)
@@ -623,53 +630,84 @@ def phase_ln_bwd(ln):
                              f"plain version at {n}x{h} {dtype}")
         if dtype == torch.float32 and (n, h) in path_shapes:
             path_err = max(path_err, dx_err, dg_err, db_err)
-        # the four-rows-a-group layout and the one-launch few-rows one
-        if dtype == torch.float32 and (n, h) in ((TRAIN_ROWS, 768),
-                                                 (SLOTS * BLOCK, 768)):
+        if (n, h, dtype) in repeat:
             again = ln.layer_norm_bwd_cuda(x, g, mean, rstd, dy)
             same = all(torch.equal(u, w) for u, w in
                        zip(again, (dx, dg, db)))
-            print(f"kernels: layer_norm_bwd {n}x{h} float32 second call "
-                  f"bitwise equal: {same}")
+            print(f"kernels: layer_norm_bwd {n}x{h} {str(dtype)[6:]} second "
+                  f"call bitwise equal: {same}")
             if not same:
                 raise SystemExit("layer_norm backward kernel does not "
                                  "repeat bitwise")
 
     by_shape = {}
-    # few rows (a group a row), then the training paths' shapes; the train
-    # phase's shape last: its times are the row's
-    for n, h in ((SLOTS * BLOCK, 768), (37, 777), (64, 8192),
-                 (TXL_ROWS, TXL_H), (TRAIN_ROWS, 768)):
-        x = torch.randn(n, h, device=dev, generator=gen)
+    # few rows (a warp a row) and wide rows, then the paths' shapes; the
+    # train phase's shape last: its times are the row's
+    for n, h, dtype in ((SLOTS * BLOCK, 768, torch.float32),
+                        (37, 777, torch.float32), (64, 8192, torch.float32),
+                        (TXL_ROWS, TXL_H, torch.float32),
+                        (GPT_ROWS, 768, torch.float32),
+                        (G2_ROWS, 768, torch.bfloat16),
+                        (TRAIN_ROWS, 768, torch.float32)):
+        x = torch.randn(n, h, device=dev, generator=gen).to(dtype)
         g = torch.randn(h, device=dev, generator=gen) * 0.2 + 1
         b = torch.randn(h, device=dev, generator=gen) * 0.2
-        dy = torch.randn(n, h, device=dev, generator=gen)
+        dy = torch.randn(n, h, device=dev, generator=gen).to(dtype)
         _, mean, rstd = ln.layer_norm_plain(x, g, b)
+        # the library's fused half path takes gamma and beta in x's dtype,
+        # and its stats as its own forward leaves them
+        gl, bl = g.to(dtype), b.to(dtype)
+        _, lmean, lrstd = torch.ops.aten.native_layer_norm(x, [h], gl, bl,
+                                                           1e-5)
         kernel = lambda: ln.layer_norm_bwd_cuda(x, g, mean, rstd, dy)  # noqa
         plain = lambda: ln.layer_norm_bwd_plain(x, g, mean, rstd, dy)  # noqa
         library = lambda: torch.ops.aten.native_layer_norm_backward(  # noqa
-            dy, x, [h], mean[:, None], rstd[:, None], g, b,
-            [True, True, True])
+            dy, x, [h], lmean, lrstd, gl, bl, [True, True, True])
         ms = {name: _device_ms(fn) for name, fn in
               (("kernel", kernel), ("plain", plain), ("library", library))}
         call_ms = _call_ms(kernel)
-        nbytes = n * h * 4 * 3 + 3 * h * 4 + 8 * n
+        nbytes = n * h * x.element_size() * 3 + 3 * h * 4 + 8 * n
         bound_ms, bound_by = _bound(nbytes, 15 * n * h)
-        print(f"kernels: layer_norm_bwd {n}x{h} float32 device time: kernel "
+        what = f"{n}x{h} {str(dtype)[6:]}"
+        print(f"kernels: layer_norm_bwd {what} device time: kernel "
               f"{ms['kernel']:.5f} ms  plain {ms['plain']:.5f} ms  "
               f"native_layer_norm_backward {ms['library']:.5f} ms  bound "
-              f"{bound_ms:.6f} ms ({nbytes} bytes over 3.35 TB/s)  per call "
-              f"from Python {call_ms:.5f} ms")
-        by_shape[f"{n}x{h}"] = {"ms": ms["kernel"], "plain_ms": ms["plain"],
-                                "bound_ms": bound_ms,
-                                "library_ms": ms["library"]}
+              f"{bound_ms:.6f} ms ({nbytes} bytes over 3.35 TB/s, "
+              f"{ms['kernel'] / bound_ms:.2f} x)  per call from Python "
+              f"{call_ms:.5f} ms")
+        by_shape[what] = {"ms": ms["kernel"], "plain_ms": ms["plain"],
+                          "bound_ms": bound_ms,
+                          "library_ms": ms["library"]}
+        del x, dy
+    torch.cuda.empty_cache()
+    registers = _persist_registers(True)
+    print(f"kernels: layer_norm_bwd ln_bwd_persist_kernel registers "
+          f"(ptxas) {registers}")
     return {"name": "layer_norm_bwd", "route": "cuda",
             "source": "apex_example_tpu_torch/csrc/layer_norm.cu",
             "replaces": "apex_example_tpu/ops/layer_norm.py:82",
+            "kernel": PERSIST_KERNEL, "registers": registers,
             "max_abs_err": path_err, "ms": ms["kernel"],
             "plain_ms": ms["plain"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": ms["library"],
             "by_shape": by_shape}
+
+
+# the norm backward's kernel on the paths' shapes and every other row of
+# up to 1024 elements; ln_bwd_kernel with
+# ln_bwd_colsum_kernel takes wider ones
+PERSIST_KERNEL = "ln_bwd_persist_kernel"
+# its instances there: (dtype in the mangled name, pack width, packs a lane)
+PERSIST_SHAPES = {"768 float32": ("f", 4, 6), "410 float32": ("f", 2, 8),
+                  "768 bfloat16": ("13__nv_bfloat16", 8, 3)}
+
+
+def _persist_registers(kmean):
+    """ptxas's registers of the persistent backward at the paths' rows
+    (None where this process built nothing)."""
+    return {what: _registers("layer_norm", f"{PERSIST_KERNEL}I{t}Li{v}ELi"
+                             f"{c}ELb{int(kmean)}EE")
+            for what, (t, v, c) in PERSIST_SHAPES.items()}
 
 
 RMS_CASES = ([(SLOTS * BLOCK, 768, dt) for dt in (torch.float32,
@@ -682,6 +720,7 @@ RMS_CASES = ([(SLOTS * BLOCK, 768, dt) for dt in (torch.float32,
                                                torch.bfloat16)]
              + [(37, 777, dt) for dt in (torch.float32, torch.bfloat16)]
              + [(64, 8192, dt) for dt in (torch.float32, torch.bfloat16)]
+             + [(G2_ROWS, 768, torch.bfloat16)]
              # LLaMA-7B's hidden size: 128 MiB of x
              + [(16384, 4096, torch.bfloat16)])
 RMS_PATH_SHAPES = {(SLOTS * BLOCK, 768), (TRAIN_ROWS, 768),
@@ -794,9 +833,13 @@ def phase_rms_norm(ln, normalization, counted):
     rows = []
     for name, line, err, by in (("rms_norm_fwd", 278, fwd_err, fwd_by),
                                 ("rms_norm_bwd", 285, bwd_err, bwd_by)):
+        extra = ({} if name == "rms_norm_fwd" else
+                 {"kernel": PERSIST_KERNEL,
+                  "registers": _persist_registers(False)})
         rows.append({"name": name, "route": "cuda",
                      "source": "apex_example_tpu_torch/csrc/layer_norm.cu",
                      "replaces": f"apex_example_tpu/ops/layer_norm.py:{line}",
+                     **extra,
                      "max_abs_err": err, "ms": by[head]["ms"],
                      "plain_ms": by[head]["plain_ms"],
                      "bound_ms": by[head]["bound_ms"],
@@ -2648,9 +2691,9 @@ def phase_bn_share(train, argv, sync_batchnorm_cls, busy_ms):
 KERNEL_GROUPS = (            # device-time categories, first match wins
     ("ported: sgd", ("sgd_chunks",)),
     ("ported: layer_norm fwd", ("ln_fwd_kernel",)),
-    ("ported: layer_norm bwd", ("ln_bwd_kernel", "ln_bwd_colsum",
-                                "ln_bwd_rows")),
-    ("ported: batch_norm sums", ("colsum_kernel",)),
+    ("ported: layer_norm bwd", ("ln_bwd_persist_kernel", "ln_bwd_kernel",
+                                "ln_bwd_colsum")),
+    ("ported: batch_norm sums", ("bn_sums_kernel",)),
     ("ported: multi_tensor_l2norm", ("sqsum_chunks", "global_norm",
                                      "tensor_sums")),
     ("ported: lamb stages", ("lamb1_chunks", "trust_ratio",
@@ -2737,6 +2780,20 @@ def phase_profile(train, argv, steps=3):
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"profile:   top kernel {us / 1e3 / steps:8.3f} ms a step  "
               f"{name[:90]}")
+    norm_bwd = {}
+    for a, b, name in spans:
+        m = re.search(r"ln_bwd_\w*kernel", name)
+        if m:
+            n_us = norm_bwd.setdefault(m.group(0), [0, 0.0])
+            n_us[0] += 1
+            n_us[1] += b - a
+    if norm_bwd:
+        print(f"profile: {args.arch} norm backward a step: " + "  ".join(
+            f"{k} {n // steps} launches {us / 1e3 / steps:.3f} ms"
+            for k, (n, us) in sorted(norm_bwd.items())))
+    if "ln_bwd_colsum_kernel" in norm_bwd:
+        raise SystemExit(f"profile: {args.arch}'s norm backward took a "
+                         f"second launch (ln_bwd_colsum_kernel)")
     attn = by_group.get("ported: attention", 0.0)
     if attn:
         print(f"profile: {args.arch} {args.opt_level}: the attention "

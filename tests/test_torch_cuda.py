@@ -127,18 +127,27 @@ def test_layer_norm_dispatch_takes_the_kernel_on_the_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("misaligned", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("n,h", [(4096, 768), (1000, 768), (6144, 410),
-                                 (128, 768), (37, 64), (8, 8192), (5, 777),
-                                 (3, 1)])
-def test_layer_norm_bwd_kernel_matches_plain(cuda_device, dtype, n, h):
+                                 (8192, 768), (16384, 768), (512, 1022),
+                                 (4096, 1024), (128, 768), (37, 64),
+                                 (8, 8192), (5, 777), (3, 1)])
+def test_layer_norm_bwd_kernel_matches_plain(cuda_device, dtype, n, h,
+                                             misaligned):
+    """dx, dgamma and dbeta against the plain version and bitwise on a
+    second launch: the persistent grid with two row sets (768, 410) and
+    one (1022 in pairs, 1024), at many rows and few, every pointer
+    misaligned too (single elements); the wide rows' layout (8192)."""
     gen = torch.Generator(device=cuda_device).manual_seed(n + h)
     x = (torch.randn(n, h, device=cuda_device, generator=gen) * 2 + 0.5)
     x = x.to(dtype)
     g = torch.randn(h, device=cuda_device, generator=gen) * 0.2 + 1
     b = torch.randn(h, device=cuda_device, generator=gen) * 0.2
     dy = torch.randn(n, h, device=cuda_device, generator=gen).to(dtype)
+    if misaligned:
+        x, dy = _misaligned(x), _misaligned(dy)
     _, mean, rstd = port_ln.layer_norm_plain(x, g, b)
     launches = port_ln.layer_norm_bwd_cuda.launches
     dx, dg, db = port_ln.layer_norm_bwd_cuda(x, g, mean, rstd, dy)
@@ -179,7 +188,8 @@ def test_layer_norm_autograd_runs_both_kernels(cuda_device):
 @pytest.mark.parametrize("misaligned", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
-@pytest.mark.parametrize("n,h", [(4096, 768), (6144, 410), (128, 768),
+@pytest.mark.parametrize("n,h", [(4096, 768), (6144, 410), (8192, 768),
+                                 (16384, 768), (128, 768),
                                  (37, 777), (64, 8192), (1000, 64), (3, 1),
                                  (96, 514), (512, 1022), (64, 1026)])
 def test_rms_norm_kernels_match_plain(cuda_device, dtype, n, h, misaligned):
@@ -921,10 +931,50 @@ def test_bn_sums_count_every_row_once(cuda_device, C):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,h", [(torch.float32, 768),
+                                     (torch.float32, 410),
+                                     (torch.bfloat16, 768)])
+def test_norm_bwd_counts_every_row_once(cuda_device, dtype, h):
+    """The persistent backward's split of the rows over its warps, at row
+    counts around the grid's (a row a warp: one short, even, one over,
+    two rows a warp and one over) and at few rows (a grid of one group of
+    blocks, and of two), LayerNorm and RMSNorm: with mean 0 and
+    rstd 1, small integer x and dy make x_hat exact and every partial sum
+    of dgamma and dbeta exact in fp32, so each equals the float64 sum
+    bitwise, and a row dropped or taken twice would show."""
+    from apex_example_tpu_torch.ops import _build
+    lib = port_ln._library()
+    g = torch.ones(h, device=cuda_device)
+    for kmean in (1, 0):
+        vec = port_ln._pack_width(
+            h, (torch.empty(1, h, dtype=dtype, device=cuda_device),), (g,))
+        sms, resident = port_ln._blocks_per_sm(
+            lib, cuda_device, kmean, _build.DTYPE_CODES[dtype], vec, h)
+        grid = sms * resident * port_ln.BWD_WARPS
+        for n in (5, 129, grid - 1, grid, grid + 1, 2 * grid + 1):
+            assert port_ln.bwd_geometry(n, h, sms, resident).layout == \
+                port_ln.BWD_PERSIST
+            r = torch.arange(n, device=cuda_device)[:, None]
+            c = torch.arange(h, device=cuda_device)
+            x = ((r % 7) + 1 + c % 3).to(dtype)
+            dy = ((r % 5) - 2 + 0 * c).to(dtype)
+            zero = torch.zeros(n, device=cuda_device)
+            one = torch.ones(n, device=cuda_device)
+            want_g = (dy.double() * x.double()).sum(0)
+            if kmean:
+                _, dg, db = port_ln.layer_norm_bwd_cuda(x, g, zero, one, dy)
+                assert torch.equal(db.double(), dy.double().sum(0)), n
+            else:
+                _, dg = port_ln.rms_norm_bwd_cuda(x, g, one, dy)
+            assert torch.equal(dg.double(), want_g), (kmean, n)
+
+
+@pytest.mark.cuda
 def test_tickets_reset_across_kernels_and_streams(cuda_device):
-    """bn_stats, bn_bwd_sums (8 channel slabs, a ticket each) and the
-    LayerNorm backward at few rows (one launch, ticket 0) interleaved on
-    one stream, then on two streams at once: every sum repeats bitwise and
+    """bn_stats, bn_bwd_sums (8 channel slabs, a ticket each), the
+    LayerNorm backward at few rows (one group of blocks: its ticket) and
+    at many rows (ticket 0 and one a group) interleaved on one
+    stream, then on two streams at once: every sum repeats bitwise and
     every stream's tickets are back at 0."""
     from apex_example_tpu_torch.ops import _build
     gen = torch.Generator(device=cuda_device).manual_seed(12)
@@ -934,10 +984,13 @@ def test_tickets_reset_across_kernels_and_streams(cuda_device):
     c, mean, inv = rnd(1024) + 3, rnd(1024) + 3, rnd(1024).abs() + 0.5
     lx, ldy, lg = rnd(128, 768), rnd(128, 768), rnd(768) * 0.2 + 1
     _, lmean, lrstd = port_ln.layer_norm_plain(lx, lg, lg)
+    mx, mdy = rnd(4096, 768), rnd(4096, 768)
+    _, mmean, mrstd = port_ln.layer_norm_plain(mx, lg, lg)
 
     def run():
         return (bn.bn_stats_cuda(x, c) + bn.bn_bwd_sums_cuda(x, dy, mean, inv)
-                + port_ln.layer_norm_bwd_cuda(lx, lg, lmean, lrstd, ldy))
+                + port_ln.layer_norm_bwd_cuda(lx, lg, lmean, lrstd, ldy)
+                + port_ln.layer_norm_bwd_cuda(mx, lg, mmean, mrstd, mdy))
 
     want = run()
     one = [run() for _ in range(3)]

@@ -293,19 +293,70 @@ def test_bwd_dispatch_raises_instead_of_falling_back(monkeypatch):
                                _meta(4, 64))
 
 
-@pytest.mark.parametrize("n,groups", [(1, 1), (4, 1), (5, 2), (4096, 1024),
-                                      (10 ** 6, 1024)])
-def test_bwd_row_groups_cover_the_rows(n, groups):
+def _share(n, warps, w):
+    """Rows [r0, r1) of warp ``w`` of ``warps``: the split of
+    csrc/layer_norm.cu ``ln_bwd_persist_kernel``."""
+    return w * n // warps, (w + 1) * n // warps
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("n,h", [(257, 768), (1000, 768), (4096, 768),
+                                 (6144, 410), (8192, 768), (16384, 768),
+                                 (50001, 777), (10 ** 6, 64)])
+def test_bwd_row_groups_cover_the_rows(n, h, sms):
+    """The persistent grid (rows of up to BWD_WARP_H elements): at most
+    ``sms * resident`` blocks, never more than give each warp a row;
+    every row in exactly one warp's share, shares differing by one row at
+    most; one workspace row a block, and the tree's rows for every
+    BWD_TREE_GROUP blocks (the kernel's split itself is checked on the
+    card, test_torch_cuda.py::test_norm_bwd_counts_every_row_once)."""
+    for resident in (1, 2, 3, 8):
+        geo = port_ln.bwd_geometry(n, h, sms, resident)
+        assert geo.layout == port_ln.BWD_PERSIST
+        assert 1 <= geo.blocks <= min(sms * resident,
+                                      -(-n // port_ln.BWD_WARPS))
+        assert geo.tree_rows == -(-geo.blocks // port_ln.BWD_TREE_GROUP)
+        warps = geo.blocks * port_ln.BWD_WARPS
+        shares = [_share(n, warps, w) for w in range(warps)]
+        assert shares[0][0] == 0 and shares[-1][1] == n
+        assert all(a[1] == b[0] for a, b in zip(shares, shares[1:]))
+        sizes = [r1 - r0 for r0, r1 in shares]
+        assert max(sizes) - min(sizes) <= 1 and min(sizes) >= 0
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("n,h,layout", [
+    (1, 768, port_ln.BWD_PERSIST), (37, 777, port_ln.BWD_PERSIST),
+    (128, 768, port_ln.BWD_PERSIST), (256, 1024, port_ln.BWD_PERSIST),
+    (257, 768, port_ln.BWD_PERSIST), (4096, 768, port_ln.BWD_PERSIST),
+    (64, 8192, port_ln.BWD_WIDE), (4096, 1025, port_ln.BWD_WIDE)])
+def test_bwd_few_rows_take_a_group_a_row(n, h, layout, sms):
+    """Rows of up to BWD_WARP_H elements take the persistent grid; up to
+    256 of them (a card holds 32 of its blocks at once) a warp a row:
+    eight rows a block, one workspace row a block, so every row has its
+    own warp and no block is empty.  Wider rows take blocks of 512
+    threads, a row each up to BWD_FEW_ROWS rows, bwd_groups' above, one
+    workspace row a block and no tree rows."""
+    for resident in (1, 2, 8):
+        geo = port_ln.bwd_geometry(n, h, sms, resident)
+        assert geo.layout == layout
+        if layout == port_ln.BWD_PERSIST and n <= 256:
+            assert geo.blocks == -(-n // port_ln.BWD_WARPS)
+            warps = geo.blocks * port_ln.BWD_WARPS
+            assert n <= warps < n + port_ln.BWD_WARPS
+            assert all(r1 - r0 <= 1 for r0, r1 in
+                       (_share(n, warps, w) for w in range(warps)))
+        elif layout == port_ln.BWD_WIDE:
+            assert geo.blocks == (
+                n if n <= port_ln.BWD_FEW_ROWS else port_ln.bwd_groups(n))
+            assert 1 <= geo.blocks <= min(n, port_ln.BWD_MAX_GROUPS)
+        assert geo.tree_rows == (0 if layout != port_ln.BWD_PERSIST else
+                                 -(-geo.blocks // port_ln.BWD_TREE_GROUP))
+
+
+@pytest.mark.parametrize("n,groups", [(1, 1), (4, 1), (5, 2),
+                                      (4096, 1024), (10 ** 6, 1024)])
+def test_bwd_groups_of_wide_rows(n, groups):
+    """Wide rows past BWD_FEW_ROWS: a block for every BWD_ROWS_PER_GROUP
+    rows, at most BWD_MAX_GROUPS blocks."""
     assert port_ln.bwd_groups(n) == groups
-    assert 1 <= port_ln.bwd_groups(n) <= n
-
-
-@pytest.mark.parametrize("n,groups", [(1, 1), (37, 37), (128, 128),
-                                      (256, 256), (257, 65), (4096, 1024)])
-def test_bwd_few_rows_take_a_group_a_row(n, groups):
-    """Up to BWD_FEW_ROWS rows the backward launches a group a row (the
-    one-launch layout for rows of up to 1024 elements); above, bwd_groups'
-    four rows a group."""
-    assert port_ln.bwd_row_groups(n) == groups
-    assert 1 <= port_ln.bwd_row_groups(n) <= n
-    assert (port_ln.bwd_row_groups(n) == n) == (n <= port_ln.BWD_FEW_ROWS)

@@ -12,7 +12,8 @@ that checkout's sources into its own ``build/kernels/``.  Per norm shape
 one forward line (layer_norm_cuda and F.layer_norm, rms_norm_cuda and
 F.rms_norm) and one backward line (layer_norm_bwd_cuda and torch's
 native_layer_norm_backward, rms_norm_bwd_cuda and F.rms_norm's autograd
-backward), the LayerNorm forward at 6144 x 410 in bf16 too; then at
+backward), the LayerNorm forward at 6144 x 410 in bf16 too, and the
+LayerNorm backward at 16384 x 768 (gpt2048 at O2) in bf16; then at
 chip_smoke.py's BN_SHAPES bn_stats and torch.batch_norm_stats,
 bn_bwd_sums and torch.batch_norm_backward_reduce, with the TB/s of the
 bytes each kernel must move.  Each time is the median device time of 200
@@ -47,8 +48,8 @@ sys.path.insert(0, str(ROOT))
 from chip_smoke import (BN_SHAPES, _bn_inputs, _bn_library,  # noqa: E402
                         _bn_magnitudes, _bn_sums_close, _device_ms)
 
-SHAPES = [(128, 768), (37, 777), (64, 8192), (4096, 768), (8192, 768),
-          (6144, 410)]
+SHAPES = [(128, 768), (37, 777), (256, 1024), (64, 8192), (4096, 768),
+          (8192, 768), (6144, 410), (16384, 768)]
 BN_LOADS = {  # name: [(text of batch_norm.cu, its replacement), ...]
     "plain": [("load_once<V * static_cast<int>(sizeof(T))>(p)",
                "*reinterpret_cast<const typename Bytes<V * static_cast<int>("
@@ -94,8 +95,9 @@ def bind_variant(default, name, out, proc):
 
 
 def norm_times(ln, label, dev, gen):
-    """The forward and backward lines at every SHAPES shape (fp32) and the
-    LayerNorm forward at 6144 x 410 in bf16."""
+    """The forward and backward lines at every SHAPES shape (fp32), the
+    LayerNorm forward at 6144 x 410 and its backward at 16384 x 768 in
+    bf16."""
     rows = {}
     for n, h in SHAPES:
         x = torch.randn(n, h, device=dev, generator=gen) * 2 + 0.5
@@ -131,6 +133,16 @@ def norm_times(ln, label, dev, gen):
                 lambda: torch.nn.functional.layer_norm(
                     xb, (h,), g.to(torch.bfloat16), b.to(torch.bfloat16),
                     1e-5))
+        if (n, h) == (16384, 768):    # gpt2048 at O2
+            xb, dyb = x.to(torch.bfloat16), dy.to(torch.bfloat16)
+            gb, bb = g.to(torch.bfloat16), b.to(torch.bfloat16)
+            _, bmean, brstd = torch.ops.aten.native_layer_norm(xb, [h], gb,
+                                                               bb, 1e-5)
+            ms["ln_bf16"] = _device_ms(lambda: ln.layer_norm_bwd_cuda(
+                xb, g, mean, rstd, dyb))
+            ms["ln_bf16_library"] = _device_ms(
+                lambda: torch.ops.aten.native_layer_norm_backward(
+                    dyb, xb, [h], bmean, brstd, gb, bb, [True, True, True]))
         rows[f"{n}x{h}"] = ms
         print(f"norm_bwd_times: {label} {n}x{h} float32 forward: "
               f"layer_norm_fwd {ms['ln_fwd']:.5f} ms  F.layer_norm "
@@ -145,6 +157,10 @@ def norm_times(ln, label, dev, gen):
             print(f"norm_bwd_times: {label} {n}x{h} bfloat16 forward: "
                   f"layer_norm_fwd {ms['ln_fwd_bf16']:.5f} ms  F.layer_norm "
                   f"(bf16 gamma, beta) {ms['ln_fwd_bf16_library']:.5f} ms")
+        if "ln_bf16" in ms:
+            print(f"norm_bwd_times: {label} {n}x{h} bfloat16: layer_norm_bwd "
+                  f"{ms['ln_bf16']:.5f} ms  native_layer_norm_backward "
+                  f"(bf16 gamma, beta) {ms['ln_bf16_library']:.5f} ms")
         del x, dy, xr, yr
     return rows
 
