@@ -8,7 +8,8 @@ module imports no jax) and return a state dict for the port model's
 ``load_state_dict``.  A flax Dense ``kernel`` is [in, out]; it is
 TRANSPOSED into ``nn.Linear.weight`` [out, in].  Embedding tables,
 LayerNorm ``scale``/``bias``, ``lm_bias``, ``mlm_bias`` and Transformer-XL's
-``u_bias``/``v_bias`` carry over as they are.
+``u_bias``/``v_bias`` carry over as they are: as fp32, but Transformer-XL's
+each in its stored dtype (half parameters under amp O3).
 
 ``resnet_params_from_flax(params, batch_stats)`` does the same for the
 ResNet (models/resnet.py, whose submodules carry the flax names): a conv
@@ -121,22 +122,26 @@ def bert_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
 def txl_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """TransformerXL: ``word_emb/embedding``; per layer ``attn/{q,k,v,r,o}``
     (bias-free, transposed), ``attn/u_bias``, ``attn/v_bias``, ``attn_ln``,
-    ``ff1``, ``ff2`` (transposed, with biases) and ``ff_ln``."""
-    sd = {"word_emb.weight": _tensor(tree["word_emb"]["embedding"])}
+    ``ff1``, ``ff2`` (transposed, with biases) and ``ff_ln``, each leaf in
+    its stored dtype: the model's ``param_dtype`` (half under amp O3), the
+    LayerNorms' fp32."""
+    sd = {"word_emb.weight": _stored(tree["word_emb"]["embedding"])}
     n_layers = sum(1 for k in tree if k.startswith("layer_"))
     for i in range(n_layers):
         layer, name = tree[f"layer_{i}"], f"layers.{i}"
         attn = layer["attn"]
         for proj in ("q", "k", "v", "r", "o"):
-            sd[f"{name}.attn.{proj}.weight"] = _tensor(
+            sd[f"{name}.attn.{proj}.weight"] = _stored(
                 attn[proj]["kernel"]).T.contiguous()
         for bias in ("u_bias", "v_bias"):
-            sd[f"{name}.attn.{bias}"] = _tensor(attn[bias])
+            sd[f"{name}.attn.{bias}"] = _stored(attn[bias])
         for ff in ("ff1", "ff2"):
-            sd[f"{name}.{ff}.weight"] = _tensor(
+            sd[f"{name}.{ff}.weight"] = _stored(
                 layer[ff]["kernel"]).T.contiguous()
-            sd[f"{name}.{ff}.bias"] = _tensor(layer[ff]["bias"])
-        _norms(layer, ("attn_ln", "ff_ln"), sd, f"{name}.")
+            sd[f"{name}.{ff}.bias"] = _stored(layer[ff]["bias"])
+        for ln in ("attn_ln", "ff_ln"):
+            for leaf, t in _norm_leaves(layer[ln], _stored).items():
+                sd[f"{name}.{ln}.{leaf}"] = t
     return sd
 
 

@@ -14,10 +14,19 @@
 //   ratio = (||p|| > 0 and ||u|| > 0) ? ||p|| / ||u|| : 1.
 // gscale is LAMB's global-norm clip, where(gnorm > max, max/(gnorm+1e-6), 1)
 // (optim/fused.py:120-124), computed by each block from the grad norm that
-// multi_tensor.cu left on the card: no host sync reads it.  The other
-// scalars (b1, b2, eps, wd, c1, c2, the clip bound, lr) are known on the
-// host before the step and arrive as kernel arguments.
+// multi_tensor.cu left on the card: no host sync reads it.  The step's
+// scalars (lr, c1, c2) are a row on the card, (lr, c1, c2) = scal[0..2],
+// that the optimizer's device step count indexes (lamb_step_scalars at
+// :102-117 computes them in JAX from its traced step), so that a skipped
+// step leaves the next one JAX's bias corrections; b1, b2, eps, wd and the
+// clip bound are kernel arguments.
 // Stage 2, per element: p -= (lr * ratio[t]) * u, p in place.
+// noop: apex's noop_flag, an int32 on the card (the loss scaler's
+// non-finite flag).  When it is nonzero every block of the three stage-1
+// kernels and of stage 2 returns before it writes: m, v, u, the per-tensor
+// sums, the trust ratios and p stay as they were (JAX's select_tree of the
+// old params and LambState, workloads.py:149-153), and an inf grad norm of
+// an overflow step reaches no state.
 //
 // Bound: bytes.  Stage 1 reads p, g, m, v and writes m, v, u: 28 bytes per
 // fp32 element, 3.07 GB for bert_base's 109.5 M, ~0.915 ms at 3.35 TB/s.
@@ -28,24 +37,33 @@
 // 201 tensors is one launch of one block per 64 Ki-element chunk, p, g, m, v
 // read once and m, v, u written once; the TPU kernel's across-grid SMEM
 // accumulators for the norms become per-chunk partials reduced per tensor
-// in chunk order (no float atomics, so the norms repeat bitwise).
+// in chunk order (no float atomics, so the norms repeat bitwise).  A model
+// of several parameter dtypes (amp O3) is one table per dtype, each its own
+// launches with its own u; the clip reads the norm over every table.  Each
+// element's arithmetic is one expression in a fixed order, the same whether
+// a scalar comes from the card or from an argument, so fp32 results are
+// bitwise those of the kernels that took host floats.
 //
 // Adam / AdamW.  Replaces apex_example_tpu/ops/fused_optim.py:53
 // `_adam_kernel` (launched once per leaf by `adam_update_leaf`, :75 / :101,
 // from optim/fused.py:86-91).  Per element, fp32 arithmetic with the seven
-// scalars in fp32 as the TPU kernel receives them (:95-97):
+// scalars in fp32 as the TPU kernel receives them (:95-97), lr, c1 and c2 a
+// row on the card, (lr, c1, c2) = scal[0..2], indexed by the optimizer's
+// device step count (FusedAdam.apply :72-78 computes them from its step):
 //   Adam  (adam_w = 0): g += wd*p
 //   m = b1*m + (1-b1)*g;  v = b2*v + (1-b2)*g*g
 //   u = (m*c1) / (sqrt(v*c2) + eps);  AdamW (adam_w = 1): u += wd*p
 //   p -= lr*u
 // p, m and v are updated in place; p and g are fp32, bf16 or fp16, m and v
-// fp32.  Bound: bytes.  p, g, m, v read and p, m, v written: 28 bytes per
+// fp32.  noop (apex's noop_flag) nonzero: every block returns before it
+// writes, so a skipped step leaves p, m and v as they were.  Bound: bytes.  p, g, m, v read and p, m, v written: 28 bytes per
 // fp32 element, 4.22 GB for Transformer-XL's 150.9 M, ~1.26 ms at 3.35 TB/s;
 // about 15 operations per element, far below the fp32 rate.  Design: the
 // whole list in one launch (the JAX package's loop would be 241 launches
 // from Python a step), one block per chunk, 16-byte vector loads and stores
 // of four elements where the chunk's four pointers are 16-byte aligned,
-// scalar ones otherwise and for the ragged tail.
+// scalar ones otherwise and for the ragged tail; one launch per parameter
+// dtype (two under amp O3).
 //
 // Momentum SGD.  Replaces apex_example_tpu/ops/fused_optim.py:259
 // `_sgd_kernel` (launched once per leaf by `sgd_update_leaf`, :331 / :358,
@@ -109,24 +127,38 @@ using mta::Chunk;
 using mta::Table;
 
 struct AdamArgs {
-  float lr, beta1, beta2, eps, weight_decay, bias_c1, bias_c2;
+  float beta1, beta2, eps, weight_decay;
   int adam_w;
 };
 
-__device__ __forceinline__ void adam_element(const AdamArgs& a, float& p,
+// The step's scalars, read from the card: (lr, c1, c2).
+struct StepScalars {
+  float lr, c1, c2;
+};
+
+__device__ __forceinline__ StepScalars read_scalars(
+    const float* __restrict__ scal) {
+  return StepScalars{scal[0], scal[1], scal[2]};
+}
+
+__device__ __forceinline__ void adam_element(const AdamArgs& a,
+                                             const StepScalars& s, float& p,
                                              float g, float& m, float& v) {
   if (!a.adam_w) g = g + a.weight_decay * p;
   m = a.beta1 * m + (1.f - a.beta1) * g;
   v = a.beta2 * v + (1.f - a.beta2) * g * g;
-  float u = (m * a.bias_c1) / (sqrtf(v * a.bias_c2) + a.eps);
+  float u = (m * s.c1) / (sqrtf(v * s.c2) + a.eps);
   if (a.adam_w) u = u + a.weight_decay * p;
-  p = p - a.lr * u;
+  p = p - s.lr * u;
 }
 
 // ptrs lists: 0 = p, 1 = g (dtype T), 2 = m, 3 = v (fp32).
 template <typename T>
 __global__ void __launch_bounds__(mta::kThreads)
-    adam_chunks_kernel(Table tab, AdamArgs a) {
+    adam_chunks_kernel(Table tab, AdamArgs a, const float* __restrict__ scal,
+                       const int* __restrict__ noop) {
+  if (noop != nullptr && *noop != 0) return;
+  const StepScalars sc = read_scalars(scal);
   const Chunk k = mta::chunk_of(tab, blockIdx.x);
   const long long n = tab.n_tensors;
   T* p = reinterpret_cast<T*>(tab.ptrs[k.tensor]) + k.start;
@@ -144,7 +176,8 @@ __global__ void __launch_bounds__(mta::kThreads)
       mta::load4(m + 4 * i, mf);
       mta::load4(v + 4 * i, vf);
 #pragma unroll
-      for (int u = 0; u < 4; ++u) adam_element(a, pf[u], gf[u], mf[u], vf[u]);
+      for (int u = 0; u < 4; ++u)
+        adam_element(a, sc, pf[u], gf[u], mf[u], vf[u]);
       mta::store4(p + 4 * i, pf);
       mta::store4(m + 4 * i, mf);
       mta::store4(v + 4 * i, vf);
@@ -153,7 +186,7 @@ __global__ void __launch_bounds__(mta::kThreads)
   }
   for (; i < k.len; i += mta::kThreads) {
     float pf = mta::to_float(p[i]), mf = m[i], vf = v[i];
-    adam_element(a, pf, mta::to_float(g[i]), mf, vf);
+    adam_element(a, sc, pf, mta::to_float(g[i]), mf, vf);
     p[i] = mta::from_float<T>(pf);
     m[i] = mf;
     v[i] = vf;
@@ -161,10 +194,11 @@ __global__ void __launch_bounds__(mta::kThreads)
 }
 
 template <typename T>
-int run_adam(const Table& tab, const AdamArgs& a, cudaStream_t stream) {
+int run_adam(const Table& tab, const AdamArgs& a, const float* scal,
+             const int* noop, cudaStream_t stream) {
   if (tab.n_chunks == 0) return 0;
   adam_chunks_kernel<T><<<static_cast<unsigned>(tab.n_chunks), mta::kThreads,
-                          0, stream>>>(tab, a);
+                          0, stream>>>(tab, a, scal, noop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -226,16 +260,20 @@ int run_sgd(const Table& tab, const SgdArgs& a, const float* lr_dev,
 }
 
 struct Lamb1Args {
-  float beta1, beta2, eps, weight_decay, bias_c1, bias_c2, max_grad_norm;
+  float beta1, beta2, eps, weight_decay, max_grad_norm;
 };
 
 // ptrs lists: 0 = p, 1 = g (dtype T), 2 = m, 3 = v (fp32).
 template <typename T>
 __global__ void __launch_bounds__(mta::kThreads)
     lamb1_chunks_kernel(Table tab, Lamb1Args a,
-                        const float* __restrict__ gnorm, float* __restrict__ u,
+                        const float* __restrict__ gnorm,
+                        const float* __restrict__ scal,
+                        const int* __restrict__ noop, float* __restrict__ u,
                         float* __restrict__ partial) {
   __shared__ float smem[mta::kThreads / 32];
+  if (noop != nullptr && *noop != 0) return;
+  const float c1 = scal[1], c2 = scal[2];
   const Chunk k = mta::chunk_of(tab, blockIdx.x);
   const long long n = tab.n_tensors;
   const T* p = reinterpret_cast<const T*>(tab.ptrs[k.tensor]) + k.start;
@@ -272,8 +310,8 @@ __global__ void __launch_bounds__(mta::kThreads)
         const float gs = gf[s] * gscale;
         const float mn = b1 * mf[s] + (1.f - b1) * gs;
         const float vn = b2 * vf[s] + (1.f - b2) * gs * gs;
-        const float un = (mn * a.bias_c1) / (sqrtf(vn * a.bias_c2) + a.eps) +
-                         a.weight_decay * pf[s];
+        const float un =
+            (mn * c1) / (sqrtf(vn * c2) + a.eps) + a.weight_decay * pf[s];
         m[i] = mn;
         v[i] = vn;
         ut[i] = un;
@@ -293,7 +331,9 @@ __global__ void __launch_bounds__(mta::kThreads)
 // sums[0 * n + t] = ||p_t||^2, sums[1 * n + t] = ||u_t||^2 -> ratio[t].
 __global__ void __launch_bounds__(256)
     trust_ratio_kernel(const float* __restrict__ sums, int n_tensors,
-                       float* __restrict__ ratio) {
+                       float* __restrict__ ratio,
+                       const int* __restrict__ noop) {
+  if (noop != nullptr && *noop != 0) return;
   const int t = blockIdx.x * 256 + threadIdx.x;
   if (t >= n_tensors) return;
   const float w = sqrtf(sums[t]);
@@ -304,11 +344,14 @@ __global__ void __launch_bounds__(256)
 template <typename T>
 __global__ void __launch_bounds__(mta::kThreads)
     lamb2_chunks_kernel(Table tab, const float* __restrict__ u,
-                        const float* __restrict__ ratio, float lr) {
+                        const float* __restrict__ ratio,
+                        const float* __restrict__ scal,
+                        const int* __restrict__ noop) {
+  if (noop != nullptr && *noop != 0) return;
   const Chunk k = mta::chunk_of(tab, blockIdx.x);
   T* p = reinterpret_cast<T*>(tab.ptrs[k.tensor]) + k.start;
   const float* ut = u + k.flat + k.start;
-  const float scaled_lr = lr * ratio[k.tensor];
+  const float scaled_lr = scal[0] * ratio[k.tensor];
   for (int base = threadIdx.x; base < k.len;
        base += mta::kUnroll * mta::kThreads) {
     float pf[mta::kUnroll], uf[mta::kUnroll];
@@ -330,28 +373,29 @@ __global__ void __launch_bounds__(mta::kThreads)
 
 template <typename T>
 int run_stage1(const Table& tab, const Lamb1Args& a, const float* gnorm,
-               float* u, float* partial, float* sums, float* ratio,
-               cudaStream_t stream) {
+               const float* scal, const int* noop, float* u, float* partial,
+               float* sums, float* ratio, cudaStream_t stream) {
   if (tab.n_chunks > 0) {
     lamb1_chunks_kernel<T><<<static_cast<unsigned>(tab.n_chunks),
-                             mta::kThreads, 0, stream>>>(tab, a, gnorm, u,
-                                                         partial);
+                             mta::kThreads, 0, stream>>>(tab, a, gnorm, scal,
+                                                         noop, u, partial);
     int rc = static_cast<int>(cudaGetLastError());
     if (rc != 0) return rc;
   }
-  int rc = mta::launch_tensor_sums(tab, 2, partial, sums, stream);
+  int rc = mta::launch_tensor_sums(tab, 2, partial, sums, stream, noop);
   if (rc != 0) return rc;
   trust_ratio_kernel<<<static_cast<unsigned>((tab.n_tensors + 255) / 256),
-                       256, 0, stream>>>(sums, tab.n_tensors, ratio);
+                       256, 0, stream>>>(sums, tab.n_tensors, ratio, noop);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int run_stage2(const Table& tab, const float* u, const float* ratio, float lr,
-               cudaStream_t stream) {
+int run_stage2(const Table& tab, const float* u, const float* ratio,
+               const float* scal, const int* noop, cudaStream_t stream) {
   if (tab.n_chunks == 0) return 0;
   lamb2_chunks_kernel<T><<<static_cast<unsigned>(tab.n_chunks),
-                           mta::kThreads, 0, stream>>>(tab, u, ratio, lr);
+                           mta::kThreads, 0, stream>>>(tab, u, ratio, scal,
+                                                       noop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -509,23 +553,26 @@ int run_adagrad(const Table& tab, const AdagradArgs& a, const float* lr_dev,
 }  // namespace
 
 // Stage 1 over a table of four lists (p, g, m, v).  gnorm: the device grad
-// norm, or null for no clip.  u: offsets[n_tensors] floats out.  partial:
-// 2 * n_chunks floats of scratch.  sums: 2 * n_tensors floats out (||p||^2
-// then ||u||^2).  ratio: n_tensors floats out.  dtype is p's and g's.
-// Argument errors are negative; a launch error is the cudaError_t value.
+// norm, or null for no clip.  scal: (lr, c1, c2), three floats on the card
+// (stage 1 reads c1 and c2).  noop: null, or one int32 on the card; nonzero
+// skips the step.  u: offsets[n_tensors] floats out.  partial: 2 * n_chunks
+// floats of scratch.  sums: 2 * n_tensors floats out (||p||^2 then
+// ||u||^2).  ratio: n_tensors floats out.  dtype is p's and g's.  Argument
+// errors are negative; a launch error is the cudaError_t value.
 extern "C" int apex_lamb_stage1(
     const void* ptrs, const void* offsets, const void* chunk_tensor,
     const void* chunk_start, const void* tensor_chunk0, int n_tensors,
     int n_chunks, int dtype, float beta1, float beta2, float eps,
-    float weight_decay, float bias_c1, float bias_c2, float max_grad_norm,
-    const void* gnorm, void* u, void* partial, void* sums, void* ratio,
-    void* stream) {
-  if (n_tensors < 1 || n_chunks < 0) return -2;
+    float weight_decay, float max_grad_norm, const void* gnorm,
+    const void* scal, const void* noop, void* u, void* partial, void* sums,
+    void* ratio, void* stream) {
+  if (n_tensors < 1 || n_chunks < 0 || scal == nullptr) return -2;
   const Table tab = mta::make_table(ptrs, offsets, chunk_tensor, chunk_start,
                                     tensor_chunk0, n_tensors, n_chunks);
-  const Lamb1Args a{beta1, beta2, eps, weight_decay, bias_c1, bias_c2,
-                    max_grad_norm};
+  const Lamb1Args a{beta1, beta2, eps, weight_decay, max_grad_norm};
   const float* gn = static_cast<const float*>(gnorm);
+  const float* sd = static_cast<const float*>(scal);
+  const int* nf = static_cast<const int*>(noop);
   float* uo = static_cast<float*>(u);
   float* pa = static_cast<float*>(partial);
   float* su = static_cast<float*>(sums);
@@ -533,36 +580,41 @@ extern "C" int apex_lamb_stage1(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return run_stage1<float>(tab, a, gn, uo, pa, su, ra, st);
+      return run_stage1<float>(tab, a, gn, sd, nf, uo, pa, su, ra, st);
     case 1:
-      return run_stage1<__nv_bfloat16>(tab, a, gn, uo, pa, su, ra, st);
+      return run_stage1<__nv_bfloat16>(tab, a, gn, sd, nf, uo, pa, su, ra,
+                                       st);
     case 2:
-      return run_stage1<__half>(tab, a, gn, uo, pa, su, ra, st);
+      return run_stage1<__half>(tab, a, gn, sd, nf, uo, pa, su, ra, st);
     default:
       return -1;
   }
 }
 
-// Stage 2 over the same table (list 0 = p is updated in place).
+// Stage 2 over the same table (list 0 = p is updated in place).  scal: the
+// step's (lr, c1, c2) on the card (stage 2 reads lr); noop as stage 1's.
 extern "C" int apex_lamb_stage2(const void* ptrs, const void* offsets,
                                 const void* chunk_tensor,
                                 const void* chunk_start,
                                 const void* tensor_chunk0, int n_tensors,
                                 int n_chunks, int dtype, const void* u,
-                                const void* ratio, float lr, void* stream) {
-  if (n_tensors < 1 || n_chunks < 0) return -2;
+                                const void* ratio, const void* scal,
+                                const void* noop, void* stream) {
+  if (n_tensors < 1 || n_chunks < 0 || scal == nullptr) return -2;
   const Table tab = mta::make_table(ptrs, offsets, chunk_tensor, chunk_start,
                                     tensor_chunk0, n_tensors, n_chunks);
   const float* uo = static_cast<const float*>(u);
   const float* ra = static_cast<const float*>(ratio);
+  const float* sd = static_cast<const float*>(scal);
+  const int* nf = static_cast<const int*>(noop);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return run_stage2<float>(tab, uo, ra, lr, st);
+      return run_stage2<float>(tab, uo, ra, sd, nf, st);
     case 1:
-      return run_stage2<__nv_bfloat16>(tab, uo, ra, lr, st);
+      return run_stage2<__nv_bfloat16>(tab, uo, ra, sd, nf, st);
     case 2:
-      return run_stage2<__half>(tab, uo, ra, lr, st);
+      return run_stage2<__half>(tab, uo, ra, sd, nf, st);
     default:
       return -1;
   }
@@ -570,27 +622,29 @@ extern "C" int apex_lamb_stage2(const void* ptrs, const void* offsets,
 
 // Adam over a table of four lists (p, g, m, v), p, m and v in place.
 // dtype is p's and g's; adam_w_mode 1 is AdamW (decoupled decay), 0 Adam
-// with the decay folded into the gradient.
+// with the decay folded into the gradient.  scal: the step's (lr, c1, c2),
+// three floats on the card.  noop: null, or one int32 on the card; nonzero
+// skips the step.
 extern "C" int apex_adam(const void* ptrs, const void* offsets,
                          const void* chunk_tensor, const void* chunk_start,
                          const void* tensor_chunk0, int n_tensors,
-                         int n_chunks, int dtype, float lr, float beta1,
-                         float beta2, float eps, float weight_decay,
-                         float bias_c1, float bias_c2, int adam_w_mode,
-                         void* stream) {
-  if (n_tensors < 1 || n_chunks < 0) return -2;
+                         int n_chunks, int dtype, float beta1, float beta2,
+                         float eps, float weight_decay, int adam_w_mode,
+                         const void* scal, const void* noop, void* stream) {
+  if (n_tensors < 1 || n_chunks < 0 || scal == nullptr) return -2;
   const Table tab = mta::make_table(ptrs, offsets, chunk_tensor, chunk_start,
                                     tensor_chunk0, n_tensors, n_chunks);
-  const AdamArgs a{lr, beta1, beta2, eps, weight_decay, bias_c1, bias_c2,
-                   adam_w_mode != 0};
+  const AdamArgs a{beta1, beta2, eps, weight_decay, adam_w_mode != 0};
+  const float* sd = static_cast<const float*>(scal);
+  const int* nf = static_cast<const int*>(noop);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return run_adam<float>(tab, a, st);
+      return run_adam<float>(tab, a, sd, nf, st);
     case 1:
-      return run_adam<__nv_bfloat16>(tab, a, st);
+      return run_adam<__nv_bfloat16>(tab, a, sd, nf, st);
     case 2:
-      return run_adam<__half>(tab, a, st);
+      return run_adam<__half>(tab, a, sd, nf, st);
     default:
       return -1;
   }

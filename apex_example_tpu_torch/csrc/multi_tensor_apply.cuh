@@ -156,10 +156,13 @@ __device__ __forceinline__ Chunk chunk_of(const Table& tab, int c) {
 // Second pass: per-tensor sums of K per-chunk partials (partial[k * C + c]),
 // one warp per tensor; lanes take the tensor's chunks in strides of 32 and
 // the warp adds them in a fixed tree.  out[k * n_tensors + t] = the sum.
+// noop: null, or one int32 on the card; nonzero returns before any write
+// (a skipped optimizer step, whose first pass wrote no partial).
 template <int K>
 __global__ void __launch_bounds__(256)
     tensor_sums_kernel(Table tab, const float* __restrict__ partial,
-                       float* __restrict__ out) {
+                       float* __restrict__ out, const int* __restrict__ noop) {
+  if (noop != nullptr && *noop != 0) return;
   const int t = blockIdx.x * 8 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (t >= tab.n_tensors) return;
@@ -176,12 +179,15 @@ __global__ void __launch_bounds__(256)
 }
 
 inline int launch_tensor_sums(const Table& tab, int k, const float* partial,
-                              float* out, cudaStream_t stream) {
+                              float* out, cudaStream_t stream,
+                              const int* noop = nullptr) {
   const unsigned blocks = static_cast<unsigned>((tab.n_tensors + 7) / 8);
   if (k == 1)
-    tensor_sums_kernel<1><<<blocks, 256, 0, stream>>>(tab, partial, out);
+    tensor_sums_kernel<1><<<blocks, 256, 0, stream>>>(tab, partial, out,
+                                                      noop);
   else
-    tensor_sums_kernel<2><<<blocks, 256, 0, stream>>>(tab, partial, out);
+    tensor_sums_kernel<2><<<blocks, 256, 0, stream>>>(tab, partial, out,
+                                                      noop);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,9 +11,9 @@ With the identity scaler (a static scale of 1.0: O0, and O1-O3 in bf16)
 the scale and unscale do nothing and launch nothing.  Under dynamic
 scaling a non-finite grad skips the step the way the JAX step selects the
 old params and the whole old optimizer state (:250-257): the optimizer
-takes the flag as apex's ``noop_flag`` (FusedSGD, FusedNovoGrad and
-FusedAdagrad, optim/fused.py) and leaves the parameters, its buffers and
-its step count untouched; the scale halves.  Nothing in the step reads
+takes the flag as apex's ``noop_flag`` (every fused optimizer of
+optim/fused.py) and leaves the parameters, its buffers and its step count
+untouched; the scale halves.  Nothing in the step reads
 a device value on the host.  BN running statistics are not rolled back,
 as in JAX and apex.
 
@@ -95,12 +95,6 @@ def make_train_step(loss_fn: Callable = cross_entropy_loss,
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         x, y = batch
         opt, scaler = state.optimizer, state.scaler
-        if scaler.dynamic and not getattr(opt, "skips_on_flag", False):
-            raise ValueError(
-                f"dynamic loss scaling skips a step through the optimizer's "
-                f"noop flag, which {type(opt).__name__} does not take yet; "
-                f"use FusedSGD, FusedNovoGrad, FusedAdagrad or a static "
-                f"--loss-scale")
         state.model.train()
         opt.zero_grad()
         logits = state.model(x)

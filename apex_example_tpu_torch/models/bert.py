@@ -102,17 +102,20 @@ def _softmax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 class Dense(nn.Linear):
-    """Flax ``nn.Dense`` with ``dtype``: the input, weight and bias cast to
-    ``dtype`` at call time, so the stored parameters stay the masters."""
+    """Flax ``nn.Dense`` with ``dtype``: the input, weight and bias (where
+    ``bias``) cast to ``dtype`` at call time, so the stored parameters stay
+    the masters."""
 
     def __init__(self, in_features: int, out_features: int,
-                 dtype: torch.dtype = torch.float32, device=None):
-        super().__init__(in_features, out_features, device=device)
+                 dtype: torch.dtype = torch.float32, device=None,
+                 bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias, device=device)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        return F.linear(x.to(dt), self.weight.to(dt),
+                        None if self.bias is None else self.bias.to(dt))
 
 
 @dataclass

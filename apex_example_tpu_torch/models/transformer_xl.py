@@ -18,12 +18,24 @@ branches.
   per-layer ``u_bias`` and ``v_bias`` (h, head_dim).  Content score AC =
   (q + u) . k plus position score BD = :func:`rel_shift` ((q + v) . r),
   DIVIDED by sqrt(head_dim); the causal-with-memory mask lets query i see
-  keys 0 .. mlen + i and fills the rest with -1e30 (fp32, not -inf);
-  softmax in fp32.
+  keys 0 .. mlen + i and fills the rest with -1e30 (-1e4 under a half
+  softmax; not -inf); softmax in ``softmax_dtype``.
 - Post-LN layers (:136-164): FusedLayerNorm after attention + residual and
   after the ReLU FFN + residual (the LayerNorm kernels on the card).
 - Embedding scaled by sqrt(d_model) (:216); the head is tied, x @ E^T with
   no bias, fp32 logits (:240).
+
+Precision (amp, the JAX model's ``dtype``, ``param_dtype``, ``ln_dtype``
+and ``softmax_dtype``, :47-50, :129-132, :182-185): the projections, the
+FFN and the tied head compute in ``dtype`` over parameters stored in
+``param_dtype`` (fp32 masters under O2, cast at call time; half under O3,
+``u_bias`` and ``v_bias`` with them; the LayerNorms' stay fp32); the
+embedding is looked up, cast to ``dtype`` and scaled by sqrt(d_model)
+rounded to ``dtype`` (:216); the LayerNorms' I/O is ``ln_dtype`` (None:
+``dtype``); the attention logits are divided by sqrt(head_dim) rounded to
+``softmax_dtype`` (:97) and the softmax runs in it (fp32 up to O2, half
+under O3); the logits are ``dtype``, then fp32 (:239).  The memory is in
+``dtype`` (:193), and so is every layer input that the carry keeps.
 
 Weights: random from ``seed`` (a CPU ``torch.Generator``, in flax's
 initializers' distributions, so the same seed gives the same weights on any
@@ -40,6 +52,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from apex_example_tpu_torch import resolve_device
+from apex_example_tpu_torch.models.bert import Dense
 from apex_example_tpu_torch.normalization import FusedLayerNorm
 
 
@@ -54,15 +67,27 @@ def rel_shift(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(*lead, q, k)
 
 
+def rounded(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to fp32, then to ``dtype``: the JAX model's
+    ``jnp.sqrt(n).astype(dtype)`` for a scalar it multiplies or divides
+    by."""
+    return float(torch.tensor(value, dtype=torch.float32).to(dtype))
+
+
 class RelMultiHeadAttn(nn.Module):
     """Relative multi-head attention with the flax module's parameter names
-    (q, k, v, r, o, u_bias, v_bias)."""
+    (q, k, v, r, o, u_bias, v_bias), computing in ``dtype`` with its
+    softmax in ``softmax_dtype``."""
 
-    def __init__(self, d_model: int, num_heads: int):
+    def __init__(self, d_model: int, num_heads: int,
+                 dtype: torch.dtype = torch.float32,
+                 softmax_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
+        self.dtype, self.softmax_dtype = dtype, softmax_dtype
         for name in ("q", "k", "v", "r", "o"):
-            setattr(self, name, nn.Linear(d_model, d_model, bias=False))
+            setattr(self, name, Dense(d_model, d_model, dtype=dtype,
+                                      bias=False))
         hd = d_model // num_heads
         self.u_bias = nn.Parameter(torch.zeros(num_heads, hd))
         self.v_bias = nn.Parameter(torch.zeros(num_heads, hd))
@@ -76,47 +101,65 @@ class RelMultiHeadAttn(nn.Module):
         klen = qlen + mlen
         h = self.num_heads
         hd = d // h
+        dt, sd = self.dtype, self.softmax_dtype
         cat = torch.cat([mem.to(x.dtype), x], dim=1)
         q = self.q(x).view(b, qlen, h, hd)
         k = self.k(cat).view(b, klen, h, hd)
         v = self.v(cat).view(b, klen, h, hd)
-        r = self.r(pos_emb.to(x.dtype)).view(klen, h, hd)
-        ac = torch.einsum("bqhd,bkhd->bhqk", q + self.u_bias, k)
-        bd = rel_shift(torch.einsum("bqhd,khd->bhqk", q + self.v_bias, r))
-        logits = (ac + bd).float() / math.sqrt(hd)
+        r = self.r(pos_emb).view(klen, h, hd)
+        ac = torch.einsum("bqhd,bkhd->bhqk", q + self.u_bias.to(dt), k)
+        bd = rel_shift(torch.einsum("bqhd,khd->bhqk",
+                                    q + self.v_bias.to(dt), r))
+        logits = (ac + bd).to(sd) / rounded(math.sqrt(hd), sd)
         qi = torch.arange(qlen, device=x.device)[:, None]
         kj = torch.arange(klen, device=x.device)[None, :]
-        logits = logits.masked_fill(~(kj <= qi + mlen), -1e30)
-        probs = torch.softmax(logits, dim=-1).to(x.dtype)
+        neg = -1e30 if sd == torch.float32 else -1e4
+        logits = logits.masked_fill(~(kj <= qi + mlen), neg)
+        probs = torch.softmax(logits, dim=-1).to(dt)
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, qlen, d)
         return self.o(ctx)
 
 
 class TXLLayer(nn.Module):
-    """x = LN(x + attn(x, mem)); x = LN(x + ff2(relu(ff1(x))))."""
+    """x = LN(x + attn(x, mem)); x = LN(x + ff2(relu(ff1(x)))); the
+    LayerNorms' I/O in ``ln_dtype`` (None: ``dtype``), the rest in
+    ``dtype``."""
 
-    def __init__(self, d_model: int, num_heads: int, d_inner: int):
+    def __init__(self, d_model: int, num_heads: int, d_inner: int,
+                 dtype: torch.dtype = torch.float32,
+                 ln_dtype: Optional[torch.dtype] = None,
+                 softmax_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.attn = RelMultiHeadAttn(d_model, num_heads)
+        self.dtype, self.ln_dtype = dtype, ln_dtype or dtype
+        self.attn = RelMultiHeadAttn(d_model, num_heads, dtype,
+                                     softmax_dtype)
         self.attn_ln = FusedLayerNorm(d_model)
-        self.ff1 = nn.Linear(d_model, d_inner)
-        self.ff2 = nn.Linear(d_inner, d_model)
+        self.ff1 = Dense(d_model, d_inner, dtype=dtype)
+        self.ff2 = Dense(d_inner, d_model, dtype=dtype)
         self.ff_ln = FusedLayerNorm(d_model)
 
     def forward(self, x: torch.Tensor, mem: torch.Tensor,
                 pos_emb: torch.Tensor) -> torch.Tensor:
-        x = self.attn_ln(x + self.attn(x, mem, pos_emb))
-        return self.ff_ln(x + self.ff2(F.relu(self.ff1(x))))
+        ln, dt = self.ln_dtype, self.dtype
+        x = self.attn_ln((x + self.attn(x, mem, pos_emb)).to(ln)).to(dt)
+        y = self.ff2(F.relu(self.ff1(x)))
+        return self.ff_ln((x + y).to(ln)).to(dt)
 
 
 class TransformerXL(nn.Module):
     """``forward(ids, mems) -> (logits, new_mems)``; mems (num_layers, B,
-    mem_len, d_model), None for the zeros of a new document."""
+    mem_len, d_model) in ``dtype``, None for the zeros of a new document.
+    ``dtype``, ``param_dtype``, ``ln_dtype`` and ``softmax_dtype`` as the
+    JAX module's (see the module notes)."""
 
     def __init__(self, vocab_size: int = 267735, d_model: int = 410,
                  num_layers: int = 16, num_heads: int = 10,
                  d_inner: int = 2100, mem_len: int = 150,
-                 clamp_len: int = 1000, seed: int = 0, device="cuda"):
+                 clamp_len: int = 1000, seed: int = 0, device="cuda",
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32,
+                 ln_dtype: Optional[torch.dtype] = None,
+                 softmax_dtype: torch.dtype = torch.float32):
         super().__init__()
         if d_model % num_heads:
             raise ValueError(f"d_model {d_model} is not a multiple of "
@@ -126,22 +169,31 @@ class TransformerXL(nn.Module):
         self.num_layers = num_layers
         self.mem_len = mem_len
         self.clamp_len = clamp_len
+        self.dtype = dtype
         self._pos_emb = {}          # (klen, device) -> encodings
         # Built without storage, filled from the seeded generator on the
         # host, then moved: the weights depend on the seed alone.
         with torch.device("meta"):
             self.word_emb = nn.Embedding(vocab_size, d_model)
             self.layers = nn.ModuleList(
-                TXLLayer(d_model, num_heads, d_inner)
+                TXLLayer(d_model, num_heads, d_inner, dtype, ln_dtype,
+                         softmax_dtype)
                 for _ in range(num_layers))
         self.to_empty(device="cpu")
         init_txl_weights(self, seed)
+        if param_dtype != torch.float32:    # all but the LayerNorms'
+            for mod in self.modules():
+                if isinstance(mod, (nn.Linear, nn.Embedding,
+                                    RelMultiHeadAttn)):
+                    mod.to(param_dtype)
         self.to(resolve_device(device))
 
     def init_mems(self, batch_size: int) -> torch.Tensor:
-        """The zero memory a document starts from, on the model's device."""
+        """The zero memory a document starts from, in ``dtype`` on the
+        model's device."""
         return torch.zeros(self.num_layers, batch_size, self.mem_len,
-                           self.d_model, device=self.word_emb.weight.device)
+                           self.d_model, dtype=self.dtype,
+                           device=self.word_emb.weight.device)
 
     def pos_emb(self, klen: int, device) -> torch.Tensor:
         """Sinusoidal encodings (klen, d_model) of the distances klen-1 ..
@@ -166,14 +218,16 @@ class TransformerXL(nn.Module):
         if mems is None:
             mems = self.init_mems(b)
         klen = qlen + mems.shape[2]
-        x = self.word_emb(input_ids) * math.sqrt(self.d_model)
+        dt = self.dtype
+        x = self.word_emb(input_ids).to(dt) * rounded(math.sqrt(self.d_model),
+                                                      dt)
         pos_emb = self.pos_emb(klen, input_ids.device)
         new_mems = []
         for i, layer in enumerate(self.layers):
             new_mems.append(
                 torch.cat([mems[i], x], dim=1)[:, -self.mem_len:].detach())
             x = layer(x, mems[i], pos_emb)
-        logits = F.linear(x, self.word_emb.weight).float()
+        logits = F.linear(x, self.word_emb.weight.to(dt)).float()
         return logits, torch.stack(new_mems)
 
 

@@ -15,13 +15,19 @@ also leaves the per-tensor trust ratios on the card for stage 2
 (optim/fused.py:135-136), and takes the global-norm clip's scale from the
 grad norm on the card, so nothing between the two stages waits for the
 host.  u is fp32 whatever p's dtype (:203), in one flat buffer that the
-caller allocates once.
+caller allocates once.  The step's (lr, c1, c2) are a row on the card,
+``scalars_t`` (stage 1 reads c1 and c2, stage 2 lr), and both stages skip
+on apex's ``noop_flag``: every kernel returns before it writes.
 
 ``adam_update_plain`` is the arithmetic of the Pallas ``_adam_kernel``
 (:53; ``adam_update_leaf_reference`` :117 with its scalars in fp32, as the
 kernel receives them, :95-97).  ``adam_cuda`` launches csrc/fused_optim.cu
-over a table of (p, g, m, v) in one call and updates p, m and v in place;
-the JAX package launches one kernel per leaf (optim/fused.py:86-91).
+over a table of (p, g, m, v) in one call and updates p, m and v in place,
+reading (lr, c1, c2) from the row ``scalars_t`` on the card and skipping on
+the noop flag; the JAX package launches one kernel per leaf
+(optim/fused.py:86-91).  The plain versions take their scalars as floats or
+as 0-d fp32 tensors; a caller that skips a step masks their results
+(optim/fused.py).
 
 ``sgd_update_plain`` is the arithmetic of the Pallas ``_sgd_kernel`` (:259;
 ``sgd_update_leaf`` :331 with its scalars in fp32, as the kernel receives
@@ -188,14 +194,13 @@ def trust_ratio_plain(p_sq: torch.Tensor, u_sq: torch.Tensor
 def _library() -> ctypes.CDLL:
     lib = _build.load("fused_optim")
     lib.apex_lamb_stage1.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_int] * 3 + [ctypes.c_float] * 7 + [ctypes.c_void_p] * 6
+        ctypes.c_int] * 3 + [ctypes.c_float] * 5 + [ctypes.c_void_p] * 8
     lib.apex_lamb_stage1.restype = ctypes.c_int
     lib.apex_lamb_stage2.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_int] * 3 + [ctypes.c_void_p] * 2 + [ctypes.c_float,
-                                                     ctypes.c_void_p]
+        ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
     lib.apex_lamb_stage2.restype = ctypes.c_int
     lib.apex_adam.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
-        ctypes.c_float] * 7 + [ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_float] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 3
     lib.apex_adam.restype = ctypes.c_int
     lib.apex_sgd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
         ctypes.c_float] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
@@ -236,19 +241,40 @@ def _check_lamb_table(table: TensorTable, u: torch.Tensor, who: str,
     check_table(table, 0, who)
 
 
+def _check_scalars(scalars_t: torch.Tensor, table: TensorTable) -> None:
+    if (scalars_t.dtype != torch.float32 or scalars_t.numel() != 3
+            or not scalars_t.is_contiguous()
+            or scalars_t.device != table.device):
+        raise ValueError("scalars_t must be three contiguous float32 (lr, "
+                         "c1, c2) on the tensors' device")
+
+
+def step_scalars(lr: float, bias_c1: float = 1.0, bias_c2: float = 1.0,
+                 device="cpu") -> torch.Tensor:
+    """The row ``scalars_t`` of one step: fp32 [3] (lr, c1, c2) on
+    ``device``."""
+    return torch.tensor([lr, bias_c1, bias_c2], dtype=torch.float32,
+                        device=device)
+
+
 def lamb_stage1_cuda(table: TensorTable, u: torch.Tensor,
                      gnorm: Optional[torch.Tensor], *, beta1: float,
                      beta2: float, eps: float, weight_decay: float,
-                     bias_c1: float, bias_c2: float,
-                     max_grad_norm: float = 0.0
+                     scalars_t: torch.Tensor, max_grad_norm: float = 0.0,
+                     noop_flag: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stage 1 over a table of lists (p, g, m, v): m and v updated in place,
     u filled, and ``(sums, ratio)`` returned: ``sums`` fp32 [2, T] holds
     ||p||^2 and ||u||^2 per tensor, ``ratio`` fp32 [T] the trust ratios.
     The gradient is scaled by where(gnorm > max_grad_norm,
     max_grad_norm / (gnorm + 1e-6), 1), read from the 0-d device tensor
-    ``gnorm`` by the kernel; ``gnorm`` None means no clip.
+    ``gnorm`` by the kernel; ``gnorm`` None means no clip.  ``scalars_t``:
+    the step's (lr, c1, c2), fp32 [3] on the card (c1 and c2 read here);
+    ``noop_flag``: a 0-d int32 on the card, nonzero to leave m, v and u
+    untouched and ``sums`` and ``ratio`` unwritten.
     ``lamb_stage1_cuda.launches`` counts the calls."""
+    _check_scalars(scalars_t, table)
+    _check_device_scalar(noop_flag, "noop_flag", torch.int32, table)
     _check_lamb_table(table, u, "lamb_stage1_cuda", 4)
     if gnorm is not None and (gnorm.dtype != torch.float32
                               or gnorm.numel() != 1
@@ -264,11 +290,12 @@ def lamb_stage1_cuda(table: TensorTable, u: torch.Tensor,
     with torch.cuda.device(dev):
         rc = lib.apex_lamb_stage1(
             *table.args(), _build.DTYPE_CODES[table.dtype(0)], beta1, beta2,
-            eps,
-            weight_decay, bias_c1, bias_c2, max_grad_norm,
-            None if gnorm is None else gnorm.data_ptr(), u.data_ptr(),
-            partial.data_ptr(), sums.data_ptr(), ratio.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            eps, weight_decay, max_grad_norm,
+            None if gnorm is None else gnorm.data_ptr(),
+            scalars_t.data_ptr(),
+            None if noop_flag is None else noop_flag.data_ptr(),
+            u.data_ptr(), partial.data_ptr(), sums.data_ptr(),
+            ratio.data_ptr(), torch.cuda.current_stream().cuda_stream)
     _build.raise_on(rc, lib, "lamb_stage1", ARG_ERRORS)
     lamb_stage1_cuda.launches += 1
     return sums, ratio
@@ -278,9 +305,14 @@ lamb_stage1_cuda.launches = 0
 
 
 def lamb_stage2_cuda(table: TensorTable, u: torch.Tensor,
-                     ratio: torch.Tensor, lr: float) -> None:
+                     ratio: torch.Tensor, scalars_t: torch.Tensor,
+                     noop_flag: Optional[torch.Tensor] = None) -> None:
     """Stage 2 over list 0 (p) of ``table``: p -= (lr * ratio[t]) * u, in
-    place.  ``lamb_stage2_cuda.launches`` counts the calls."""
+    place, lr read on the card from ``scalars_t`` (the step's (lr, c1, c2),
+    fp32 [3]); ``noop_flag`` (0-d int32 on the card) nonzero leaves p
+    untouched.  ``lamb_stage2_cuda.launches`` counts the calls."""
+    _check_scalars(scalars_t, table)
+    _check_device_scalar(noop_flag, "noop_flag", torch.int32, table)
     _check_lamb_table(table, u, "lamb_stage2_cuda", len(table.lists))
     if (ratio.dtype != torch.float32 or ratio.numel() != table.n_tensors
             or ratio.device != table.device):
@@ -291,7 +323,8 @@ def lamb_stage2_cuda(table: TensorTable, u: torch.Tensor,
     with torch.cuda.device(table.device):
         rc = lib.apex_lamb_stage2(
             *table.args(), _build.DTYPE_CODES[table.dtype(0)], u.data_ptr(),
-            ratio.data_ptr(), float(lr),
+            ratio.data_ptr(), scalars_t.data_ptr(),
+            None if noop_flag is None else noop_flag.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _build.raise_on(rc, lib, "lamb_stage2", ARG_ERRORS)
     lamb_stage2_cuda.launches += 1
@@ -300,21 +333,27 @@ def lamb_stage2_cuda(table: TensorTable, u: torch.Tensor,
 lamb_stage2_cuda.launches = 0
 
 
-def adam_cuda(table: TensorTable, *, lr: float, beta1: float, beta2: float,
-              eps: float, weight_decay: float, bias_c1: float,
-              bias_c2: float, adam_w_mode: bool = True) -> None:
+def adam_cuda(table: TensorTable, *, beta1: float, beta2: float, eps: float,
+              weight_decay: float, scalars_t: torch.Tensor,
+              adam_w_mode: bool = True,
+              noop_flag: Optional[torch.Tensor] = None) -> None:
     """Adam over a table of four lists (p, g, m, v), p, m and v updated in
-    place, in one call of the CUDA kernel.  ``adam_cuda.launches`` counts
+    place, in one call of the CUDA kernel.  ``scalars_t``: the step's (lr,
+    c1, c2), fp32 [3] on the card; ``noop_flag``: a 0-d int32 on the card,
+    nonzero to leave p, m and v untouched.  ``adam_cuda.launches`` counts
     the calls."""
     _check_optim_table(table, "adam_cuda", 4)
+    _check_scalars(scalars_t, table)
+    _check_device_scalar(noop_flag, "noop_flag", torch.int32, table)
     check_table(table, 0, "adam_cuda")
     table.refresh()
     lib = _library()
     with torch.cuda.device(table.device):
         rc = lib.apex_adam(
-            *table.args(), _build.DTYPE_CODES[table.dtype(0)], float(lr),
-            beta1, beta2, eps, weight_decay, bias_c1, bias_c2,
-            int(bool(adam_w_mode)), torch.cuda.current_stream().cuda_stream)
+            *table.args(), _build.DTYPE_CODES[table.dtype(0)], beta1, beta2,
+            eps, weight_decay, int(bool(adam_w_mode)), scalars_t.data_ptr(),
+            None if noop_flag is None else noop_flag.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     _build.raise_on(rc, lib, "adam", ARG_ERRORS)
     adam_cuda.launches += 1
 

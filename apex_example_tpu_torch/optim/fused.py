@@ -3,11 +3,13 @@ apex_example_tpu/optim/fused.py (:50, :140, :271, :198, :324).
 
 FusedAdam is Adam (``adam_w_mode=False``: the decay folded into the
 gradient) or AdamW (the default: the decay added to the update), one
-kernel over the whole parameter list (ops/fused_optim.py ``adam_cuda``).
+kernel launch over the parameters of each dtype (ops/fused_optim.py
+``adam_cuda``): one for a model of one dtype, two under amp O3.
 
 FusedLAMB has the two-stage fused structure of apex's multi_tensor_lamb:
 
-1. the global grad norm (ops/multi_tensor.py) and LAMB's clip scale
+1. the global grad norm (ops/multi_tensor.py; over several dtypes,
+   sqrt of the sum of each table's squared norm) and LAMB's clip scale
    ``where(gnorm > max_grad_norm, max_grad_norm / (gnorm + 1e-6), 1)``
    (``lamb_clip_scale`` :120);
 2. stage 1 (ops/fused_optim.py): Adam-style moments and the update u, with
@@ -15,6 +17,7 @@ FusedLAMB has the two-stage fused structure of apex's multi_tensor_lamb:
 3. per tensor the trust ratio ||p|| / ||u|| where both are positive, else 1
    (``lamb_update_leaf`` :127-137);
 4. stage 2: p -= lr * ratio * u.
+Stages 1 and 2 launch once per parameter dtype, each with its own u.
 
 The JAX optimizers are pure (``apply(grads, state, params)``); these are
 torch optimizers that update the parameters and their state in place.
@@ -26,17 +29,23 @@ optimizer's own grads, for a step that clips before the update (the
 Transformer-XL step, workloads.py).
 
 On the card every call is one kernel launch (two for the clip) over the
-whole parameter list, all reading one device table (``table``) of the
-parameters, their grads and the moments, built here once: they keep their
-storage for the optimizer's life.  So the grads are allocated here, and
-:meth:`zero_grad` zeroes them in place.  No step reads a device value on
-the host.  On the CPU every call runs the plain versions, tensor by
+parameters of each dtype, each reading one device table (``tables``) of
+those parameters, their grads and the moments, built here once: they keep
+their storage for the optimizer's life.  So the grads are allocated here,
+and :meth:`zero_grad` zeroes them in place.  No step reads a device value
+on the host.  On the CPU every call runs the plain versions, tensor by
 tensor, as the JAX package does.
 
 State: ``step`` (the count of steps taken), ``mu`` and ``nu`` (fp32).  The
 learning rate is a float or a schedule ``f(step)`` of the 1-based step
 (optim/schedules.py); the bias corrections ``c = 1 / (1 - beta^t)`` are
-fp32, computed on the host before each step.
+fp32, as the JAX optimizers compute them from their traced step.  The step
+count lives on the card and each step's (lr, c1, c2) is a row of a device
+table that the count indexes (``_DeviceStepCount``), so both optimizers'
+``step`` take apex's ``noop_flag``: the kernels exit on the flag and the
+count advances by ``1 - flag``, so a skipped step leaves the parameters,
+the moments, the count and so the next step's bias corrections as JAX's
+``select_tree`` leaves them (workloads.py:149-153), with no host sync.
 
 FusedSGD is momentum SGD (Nesterov, dampening, L2 weight decay folded into
 the gradient), one kernel launch over the parameters of each dtype
@@ -53,8 +62,8 @@ and a schedule's values stand in a device table that the count indexes.
 
 FusedNovoGrad (layer-wise normalised momentum: one fp32 second moment per
 tensor, the EMA of its squared grad norm) and FusedAdagrad (``h += g^2``)
-share that device count and noop flag (``_DeviceStepCount``), one launch
-each per dtype, as FusedSGD; NovoGrad's step also launches the L2 norm,
+share that device count and noop flag, one launch each per dtype, as
+FusedSGD; NovoGrad's step also launches the L2 norm,
 whose per-tensor sums are its second moments' input and whose global norm
 its ``step`` returns.  The JAX step keeps the whole old optimizer state on
 a skipped step, step count included, so NovoGrad's bias corrections and
@@ -75,9 +84,9 @@ from apex_example_tpu_torch.ops.fused_optim import (
     novograd_cuda, novograd_moment_plain, novograd_update_plain, sgd_cuda,
     sgd_update_plain, trust_ratio_plain)
 from apex_example_tpu_torch.ops.multi_tensor import (
-    TensorTable, clip_grad_norm_cuda, clip_grad_norm_plain,
-    multi_tensor_l2norm_cuda, multi_tensor_l2norm_plain,
-    multi_tensor_scale_cuda, multi_tensor_scale_plain)
+    TensorTable, clip_grad_norm_plain, multi_tensor_l2norm_cuda,
+    multi_tensor_l2norm_plain, multi_tensor_scale_cuda,
+    multi_tensor_scale_plain)
 
 Schedule = Union[float, Callable[[int], float]]
 
@@ -101,9 +110,10 @@ def _bias_corrections(betas, step: int, enabled: bool = True
 
 def lamb_step_scalars(lamb: "FusedLAMB", step: int
                       ) -> Tuple[float, float, float]:
-    """(bias_c1, bias_c2, lr) at the 1-based ``step`` (:105-117)."""
-    c1, c2 = _bias_corrections(lamb.betas, step, lamb.bias_correction)
-    return c1, c2, _lr_at(lamb.lr, step)
+    """(bias_c1, bias_c2, lr) at the 1-based ``step`` (:105-117): the row
+    of the step's scalars on the card, in this order."""
+    lr, c1, c2 = lamb._scalars_at(step)
+    return c1, c2, lr
 
 
 def lamb_clip_scale(lamb: "FusedLAMB", gnorm: torch.Tensor) -> torch.Tensor:
@@ -165,17 +175,6 @@ class _ListOptimizer:
                            for idx in self.groups]
 
     @property
-    def table(self) -> Optional[TensorTable]:
-        """The one device table of an optimizer of one dtype (None on the
-        CPU)."""
-        if not self.tables:
-            return None
-        if len(self.tables) != 1:
-            raise ValueError(f"{type(self).__name__} takes parameters of one "
-                             f"dtype, got {len(self.tables)}")
-        return self.tables[0]
-
-    @property
     def grads(self):
         return [p.grad for p in self.params]
 
@@ -198,12 +197,17 @@ class _ListOptimizer:
     @torch.no_grad()
     def clip_grad_norm(self, max_norm: float,
                        eps: float = 1e-6) -> torch.Tensor:
-        """Scale the grads in place by min(1, max_norm / (norm + eps));
-        returns the norm before the clip (0-d fp32)."""
-        if self.tables:
-            return clip_grad_norm_cuda(self.table, max_norm, index=1,
-                                       eps=eps)
-        return clip_grad_norm_plain(self.grads, max_norm, eps)
+        """Scale the grads in place by min(1, max_norm / (norm + eps)), the
+        norm over every grad: one L2-norm and one scale launch per device
+        table, the scale reading the global norm on the card.  Returns the
+        norm before the clip (0-d fp32)."""
+        if not self.tables:
+            return clip_grad_norm_plain(self.grads, max_norm, eps)
+        total = self.grad_norm()
+        for table in self.tables:
+            multi_tensor_scale_cuda(table, 1, 1, norm=total,
+                                    max_norm=max_norm, eps=eps)
+        return total
 
     @torch.no_grad()
     def unscale_grads(self, inv_scale: torch.Tensor) -> torch.Tensor:
@@ -245,104 +249,14 @@ class _ListOptimizer:
         self.step_count = int(state["step"])
 
 
-class FusedAdam(_ListOptimizer):
-    """Adam/AdamW over a list of parameters, updated in place.  The
-    constructor mirrors the JAX one (and apex's): ``adam_w_mode=True`` is
-    AdamW, False classic Adam; amsgrad is refused, as there."""
-
-    def __init__(self, params: Iterable[torch.Tensor], lr: Schedule = 1e-3,
-                 betas=(0.9, 0.999), eps: float = 1e-8,
-                 weight_decay: float = 0.0, adam_w_mode: bool = True,
-                 amsgrad: bool = False):
-        if amsgrad:
-            raise ValueError("FusedAdam does not support amsgrad (parity "
-                             "with the reference)")
-        super().__init__(params, lr, weight_decay)
-        self.betas, self.eps = tuple(betas), eps
-        self.adam_w_mode = adam_w_mode
-
-    @torch.no_grad()
-    def step(self) -> None:
-        """One Adam step over the grads in ``p.grad``; takes no norm."""
-        self.step_count += 1
-        c1, c2 = _bias_corrections(self.betas, self.step_count)
-        hyper = dict(lr=_lr_at(self.lr, self.step_count),
-                     beta1=self.betas[0], beta2=self.betas[1], eps=self.eps,
-                     weight_decay=self.weight_decay, bias_c1=c1, bias_c2=c2,
-                     adam_w_mode=self.adam_w_mode)
-        if self.tables:
-            adam_cuda(self.table, **hyper)
-            return
-        for p, m, v in zip(self.params, self.mu, self.nu):
-            po, mo, vo = adam_update_plain(p, p.grad, m, v, **hyper)
-            p.copy_(po)
-            m.copy_(mo)
-            v.copy_(vo)
-
-
-class FusedLAMB(_ListOptimizer):
-    """LAMB over a list of parameters, updated in place (see the module
-    docstring).  Defaults follow the JAX package's (and apex's)."""
-
-    def __init__(self, params: Iterable[torch.Tensor], lr: Schedule = 1e-3,
-                 betas=(0.9, 0.999), eps: float = 1e-6,
-                 weight_decay: float = 0.01, max_grad_norm: float = 1.0,
-                 bias_correction: bool = True):
-        super().__init__(params, lr, weight_decay)
-        self.betas, self.eps = tuple(betas), eps
-        self.max_grad_norm = max_grad_norm
-        self.bias_correction = bias_correction
-        self._u = None
-        if self.tables:
-            self._u = torch.empty(self.table.total, dtype=torch.float32,
-                                  device=self.device)
-
-    @property
-    def clips(self) -> bool:
-        return bool(self.max_grad_norm and self.max_grad_norm > 0)
-
-    @torch.no_grad()
-    def step(self) -> torch.Tensor:
-        """One LAMB step over the grads in ``p.grad``; returns the global
-        grad norm before LAMB's clip (0-d fp32)."""
-        self.step_count += 1
-        c1, c2, lr = lamb_step_scalars(self, self.step_count)
-        if self.tables:
-            return self._step_cuda(c1, c2, lr)
-        return self._step_plain(c1, c2, lr)
-
-    def _step_cuda(self, c1, c2, lr) -> torch.Tensor:
-        gnorm, _ = multi_tensor_l2norm_cuda(self.table, index=1)
-        _, ratio = lamb_stage1_cuda(
-            self.table, self._u, gnorm if self.clips else None,
-            beta1=self.betas[0], beta2=self.betas[1], eps=self.eps,
-            weight_decay=self.weight_decay, bias_c1=c1, bias_c2=c2,
-            max_grad_norm=float(self.max_grad_norm or 0.0))
-        lamb_stage2_cuda(self.table, self._u, ratio, lr)
-        return gnorm
-
-    def _step_plain(self, c1, c2, lr) -> torch.Tensor:
-        gnorm, _ = multi_tensor_l2norm_plain(self.grads)
-        gscale = lamb_clip_scale(self, gnorm) if self.clips else 1.0
-        for p, m, v in zip(self.params, self.mu, self.nu):
-            po, mo, vo = lamb_update_leaf(self, p, p.grad, m, v, c1, c2, lr,
-                                          gscale)
-            p.copy_(po)
-            m.copy_(mo)
-            v.copy_(vo)
-        return gnorm
-
-
 class _DeviceStepCount:
-    """The step count on the device, for the optimizers whose ``step``
-    takes apex's ``noop_flag`` (FusedSGD, FusedNovoGrad, FusedAdagrad): the
-    count advances by ``1 - flag`` on the card, and the scalars a step
-    takes from it (the schedule's learning rate; NovoGrad's bias
-    corrections) stand in a device table of one row per step, built on the
-    host ahead of the count and indexed by it there, so a flagged step
-    changes nothing and no step reads the device.  FusedAdam and FusedLAMB
-    count on the host: through :attr:`step_count`, which reads the device,
-    their steps would each wait for it."""
+    """The step count on the device, for the optimizers, whose ``step``
+    all take apex's ``noop_flag``: the count advances by ``1 - flag`` on the
+    card, and the scalars a step takes from it (the schedule's learning
+    rate; Adam's, LAMB's and NovoGrad's bias corrections) stand in a device
+    table of one row per step, built on the host ahead of the count and
+    indexed by it there, so a flagged step changes nothing and no step
+    reads the device."""
 
     skips_on_flag = True        # step() takes the scaler's noop flag
 
@@ -429,6 +343,130 @@ class _ScheduledLR(_DeviceStepCount):
                 p.copy_(po)
                 s.copy_(so)
         self._count_step(noop_flag)
+
+
+class _AdamScalars(_DeviceStepCount):
+    """Adam's and LAMB's per-step row on the card: (lr, c1, c2)."""
+
+    bias_correction = True
+
+    def _scalars_at(self, step: int) -> Sequence[float]:
+        c1, c2 = _bias_corrections(self.betas, step, self.bias_correction)
+        return (_lr_at(self.lr, step), c1, c2)
+
+    def _begin_step(self) -> torch.Tensor:
+        """The row of the step about to run."""
+        self._attempts += 1
+        return self._step_row()
+
+    def _copy_plain(self, outs, noop_flag) -> None:
+        """Write the plain versions' ``(p', m', v')`` per parameter (an
+        iterable, consumed one parameter at a time) in place; a set
+        ``noop_flag`` keeps the old values."""
+        keep = None if noop_flag is None else noop_flag != 0
+        for dsts, srcs in zip(zip(self.params, self.mu, self.nu), outs):
+            for dst, src in zip(dsts, srcs):
+                dst.copy_(src if keep is None else torch.where(keep, dst,
+                                                               src))
+
+
+class FusedAdam(_AdamScalars, _ListOptimizer):
+    """Adam/AdamW over a list of parameters, updated in place.  The
+    constructor mirrors the JAX one (and apex's): ``adam_w_mode=True`` is
+    AdamW, False classic Adam; amsgrad is refused, as there.  The step
+    count lives on the device and ``step`` takes the noop flag (see the
+    module docstring)."""
+
+    def __init__(self, params: Iterable[torch.Tensor], lr: Schedule = 1e-3,
+                 betas=(0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 0.0, adam_w_mode: bool = True,
+                 amsgrad: bool = False):
+        if amsgrad:
+            raise ValueError("FusedAdam does not support amsgrad (parity "
+                             "with the reference)")
+        super().__init__(params, lr, weight_decay)
+        self.betas, self.eps = tuple(betas), eps
+        self.adam_w_mode = adam_w_mode
+        self._init_step_count(True)
+
+    @torch.no_grad()
+    def step(self, noop_flag: Optional[torch.Tensor] = None) -> None:
+        """One Adam step over the grads in ``p.grad``; ``noop_flag`` (0-d
+        int32 on the device, nonzero: skip) is apex's.  Takes no norm."""
+        scal = self._begin_step()
+        hyper = dict(beta1=self.betas[0], beta2=self.betas[1], eps=self.eps,
+                     weight_decay=self.weight_decay,
+                     adam_w_mode=self.adam_w_mode)
+        if self.tables:
+            for table in self.tables:
+                adam_cuda(table, scalars_t=scal, noop_flag=noop_flag,
+                          **hyper)
+        else:
+            lr, c1, c2 = scal
+            self._copy_plain(
+                (adam_update_plain(p, p.grad, m, v, lr=lr, bias_c1=c1,
+                                   bias_c2=c2, **hyper)
+                 for p, m, v in zip(self.params, self.mu, self.nu)),
+                noop_flag)
+        self._count_step(noop_flag)
+
+
+class FusedLAMB(_AdamScalars, _ListOptimizer):
+    """LAMB over a list of parameters, updated in place (see the module
+    docstring).  Defaults follow the JAX package's (and apex's).  The step
+    count lives on the device and ``step`` takes the noop flag."""
+
+    def __init__(self, params: Iterable[torch.Tensor], lr: Schedule = 1e-3,
+                 betas=(0.9, 0.999), eps: float = 1e-6,
+                 weight_decay: float = 0.01, max_grad_norm: float = 1.0,
+                 bias_correction: bool = True):
+        super().__init__(params, lr, weight_decay)
+        self.betas, self.eps = tuple(betas), eps
+        self.max_grad_norm = max_grad_norm
+        self.bias_correction = bias_correction
+        self._u = [torch.empty(t.total, dtype=torch.float32,
+                               device=self.device) for t in self.tables]
+        self._init_step_count(True)
+
+    @property
+    def clips(self) -> bool:
+        return bool(self.max_grad_norm and self.max_grad_norm > 0)
+
+    @torch.no_grad()
+    def step(self, noop_flag: Optional[torch.Tensor] = None
+             ) -> torch.Tensor:
+        """One LAMB step over the grads in ``p.grad``; ``noop_flag`` as
+        FusedAdam's.  Returns the global grad norm before LAMB's clip (0-d
+        fp32; not finite on a step that overflowed, which the flag
+        skips)."""
+        scal = self._begin_step()
+        if self.tables:
+            gnorm = self._step_cuda(scal, noop_flag)
+        else:
+            gnorm = self._step_plain(scal, noop_flag)
+        self._count_step(noop_flag)
+        return gnorm
+
+    def _step_cuda(self, scal, noop_flag) -> torch.Tensor:
+        gnorm = self.grad_norm()
+        for table, u in zip(self.tables, self._u):
+            _, ratio = lamb_stage1_cuda(
+                table, u, gnorm if self.clips else None,
+                beta1=self.betas[0], beta2=self.betas[1], eps=self.eps,
+                weight_decay=self.weight_decay, scalars_t=scal,
+                max_grad_norm=float(self.max_grad_norm or 0.0),
+                noop_flag=noop_flag)
+            lamb_stage2_cuda(table, u, ratio, scal, noop_flag=noop_flag)
+        return gnorm
+
+    def _step_plain(self, scal, noop_flag) -> torch.Tensor:
+        lr, c1, c2 = scal
+        gnorm, _ = multi_tensor_l2norm_plain(self.grads)
+        gscale = lamb_clip_scale(self, gnorm) if self.clips else 1.0
+        self._copy_plain(
+            (lamb_update_leaf(self, p, p.grad, m, v, c1, c2, lr, gscale)
+             for p, m, v in zip(self.params, self.mu, self.nu)), noop_flag)
+        return gnorm
 
 
 class FusedSGD(_ScheduledLR, _ListOptimizer):

@@ -15,17 +15,24 @@ and ``--keep-batchnorm-fp32``, and ``--eval``.  C1 and C2 of the reference:
         --dataset imagenet --opt adagrad --lr 1e-3 --opt-level O2 \
         --loss-scale dynamic
 
-The language-model path (``_lm_main_impl`` :1014): BERT MLM (C4) and GPT
-causal LM at amp O0 or O2, Transformer-XL (C5) at O0 with its memory
-carried from step to step, trained with FusedLAMB, FusedAdam, FusedSGD,
-FusedNovoGrad or FusedAdagrad.  BERT and GPT attention takes the
-flash-attention kernels at sequence 2048 and up, or at any length with
-``--fused-attention`` (models/bert.py):
+The language-model path (``_lm_main_impl`` :1014): BERT MLM (C4), GPT
+causal LM and Transformer-XL (C5, its memory carried from step to step)
+under amp O0-O3, with ``--loss-scale`` and ``--keep-batchnorm-fp32``,
+trained with FusedLAMB, FusedAdam, FusedSGD, FusedNovoGrad or
+FusedAdagrad.  BERT and GPT attention takes the flash-attention kernels at
+sequence 2048 and up, or at any length with ``--fused-attention``
+(models/bert.py):
 
     python -m apex_example_tpu_torch.train --arch bert_base --opt lamb
     python -m apex_example_tpu_torch.train --arch bert_base --opt novograd \
         --lr 0.5
     python -m apex_example_tpu_torch.train --arch transformer_xl --opt adam
+    # C4's and C5's contracts: amp O2 (add --loss-scale dynamic to skip
+    # overflow steps on the card)
+    python -m apex_example_tpu_torch.train --arch bert_base --opt lamb \
+        --opt-level O2 --batch-size 64 --seq-len 128
+    python -m apex_example_tpu_torch.train --arch transformer_xl --opt adam \
+        --opt-level O2 --max-grad-norm 0.25 --batch-size 32 --seq-len 192
     python -m apex_example_tpu_torch.train --arch gpt_base --opt adam
     # long context: 8 x 2048 tokens a step through the kernels, bf16
     python -m apex_example_tpu_torch.train --arch gpt_base --opt adam \
@@ -47,11 +54,14 @@ GPT and Transformer-XL (:1262-1267).  ``--vocab-size`` applies to
 bert_base, gpt_base and transformer_xl (:1215-1216).  Transformer-XL's
 memory starts at ``init_mems(batch)`` and is carried from step to step
 (:1536-1537, :1729-1732); its step clips the grads to ``--max-grad-norm``
-before the optimizer (workloads.make_txl_train_step).  BERT and GPT run at
-O0 or O2 (bf16 dense layers, embeddings and LayerNorm I/O over fp32
-masters, fp32 softmax and logits, the identity loss scaler), without
-``--loss-scale`` (the LM paths' amp levels with a scaler come with a later
-slice); Transformer-XL at O0; the LM archs without ``--eval``.  Entry
+before the optimizer (workloads.make_txl_train_step).  Under O2 the LM
+archs compute their dense layers, embeddings and LayerNorm I/O in bf16
+over fp32 masters, with fp32 softmax and logits; O3 stores the parameters
+half (the LayerNorms' fp32) and runs the softmax half; ``--loss-scale
+dynamic`` skips an overflow step on the card through every optimizer's
+noop flag.  ``--fused-attention`` stays refused at O3 and for the other
+archs (train.py :699-709), and the LM archs run without ``--eval`` (their
+eval steps come with a later slice).  Entry
 points run on the card unless ``--device cpu`` is given, and raise when
 CUDA is asked for and absent.  The flags of paths not ported yet (DDP,
 model parallelism, checkpoints, grad accumulation, diagnostics) are
@@ -190,11 +200,11 @@ def build_model(args, device, policy=None):
             bn_io_dtype=md.bn_io, **kw)
     if args.arch in VOCAB_ARCHS:
         kw["vocab_size"] = args.vocab_size
+    kw.update(dtype=md.compute, param_dtype=md.param, ln_dtype=md.ln_io,
+              softmax_dtype=md.softmax)
     if not is_txl(args):
         # flag set: the kernels at any length; absent: "auto" (:1224)
-        kw.update(dtype=md.compute, param_dtype=md.param,
-                  ln_dtype=md.ln_io, softmax_dtype=md.softmax,
-                  fused_attention=args.fused_attention or "auto")
+        kw["fused_attention"] = args.fused_attention or "auto"
     if args.seq_len > ARCH_MAX_POSITION.get(args.arch, args.seq_len):
         kw["max_position"] = args.seq_len
     return ARCHS[args.arch](**kw)
@@ -255,31 +265,10 @@ def check_args(args) -> None:
     if args.fused_attention and args.opt_level == "O3":
         raise SystemExit("--fused-attention requires fp32 softmax "
                          "(opt levels O0-O2); O3 runs softmax half")
-    if is_image(args):
-        one_dtype = args.opt in ("adam", "lamb")
-        if one_dtype and args.opt_level == "O3":
-            raise SystemExit("--opt-level O3 keeps BatchNorm's parameters "
-                             "fp32 beside half convolutions: the port's "
-                             "FusedAdam and FusedLAMB take parameters of one "
-                             "dtype; use --opt sgd, novograd or adagrad")
-        if one_dtype and args.loss_scale == "dynamic":
-            raise SystemExit("--loss-scale dynamic skips steps through the "
-                             "optimizer's noop flag, which FusedAdam and "
-                             "FusedLAMB do not take yet; use --opt sgd, "
-                             "novograd or adagrad")
-        return
-    levels = ("O0",) if is_txl(args) else ("O0", "O2")
-    if (args.opt_level not in levels or args.loss_scale is not None
-            or args.keep_batchnorm_fp32 is not None):
-        raise SystemExit(
-            f"{args.arch} trains at --opt-level {' or '.join(levels)} "
-            f"without --loss-scale or --keep-batchnorm-fp32 in this port: "
-            f"FusedAdam's and FusedLAMB's kernels take no noop flag for a "
-            f"dynamic skip yet; the other levels come with a later slice "
-            f"(ROADMAP.md A.3)")
-    if args.eval:
+    if args.eval and not is_image(args):
         raise SystemExit("--eval is ported for the image archs; the LM "
-                         "eval steps come with a later slice")
+                         "eval steps come with a later slice (ROADMAP.md "
+                         "A.5)")
 
 
 def build_state(args, device):
@@ -297,7 +286,8 @@ def build_state(args, device):
 def build_step(args):
     """The train step of ``args``'s arch: cross-entropy with top-1 for
     the image archs, MLM or LM loss, or Transformer-XL's step (the memory
-    carried in and out, the clip before the optimizer)."""
+    carried in and out, the clip before the optimizer); each reads the
+    state's policy and loss scaler."""
     if is_image(args):
         return make_train_step()
     if is_txl(args):

@@ -2,16 +2,24 @@
 apex_example_tpu/workloads.py (``mlm_loss`` :32, ``lm_loss`` :45,
 ``make_txl_train_step`` :61).
 
-The TXL step at amp O0 with one microbatch: the loss scaler is the
-identity (no scaling, no unscale, ``grads_finite`` the constant 1), so one
-step is zero the grads -> forward with the memory -> ``lm_loss`` ->
-backward -> the global-norm clip over the optimizer's own grads
-(``clip_grad_norm`` :145; on the card one L2-norm and one scale launch over
-the optimizer's device table) -> the optimizer step.  Its metrics are the
-JAX step's (:156-158): ``loss``, ``grad_norm`` (the norm before the clip),
-``ppl = exp(loss)``, ``scale`` 1.0 and ``grads_finite`` 1.0.  The new
-memory comes back detached, so the next step's backward stops at it, as
-the JAX step never differentiates through its mems carry.
+The TXL step with one microbatch follows the JAX step's amp protocol
+(:61-160), in its order: zero the grads -> forward with the memory ->
+``lm_loss`` -> ``amp.scale_loss`` -> backward -> ``amp.unscale_grads``
+(one scale launch per device table and its int32 non-finite flag on the
+card) -> the global-norm clip over the optimizer's own grads
+(``clip_grad_norm`` :145; on the card one L2-norm and one scale launch per
+table, the scale reading the norm there) -> the optimizer step, which takes
+the flag as apex's ``noop_flag`` -> ``amp.update_scaler``.  With the
+identity scaler (O0, and O1-O3 in bf16) the scale and unscale launch
+nothing.  A dynamic scaler's overflow step is skipped on the card with no
+host sync: the optimizer leaves the parameters, its moments and its step
+count as JAX's ``select_tree`` does (:149-153), and the scale halves.  Its
+metrics are the JAX step's (:156-158): ``loss``, ``grad_norm`` (the norm
+before the clip), ``ppl = exp(loss)``, ``scale`` (the scaler's, after the
+update) and ``grads_finite``.  The new memory comes from the forward
+whatever the skip, as JAX's does, and comes back detached, so the next
+step's backward stops at it, as the JAX step never differentiates through
+its mems carry.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from apex_example_tpu_torch import amp
 from apex_example_tpu_torch.ops.xentropy import softmax_cross_entropy
 
 
@@ -39,25 +48,33 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def make_txl_train_step(max_grad_norm: float = 0.25):
     """``train_step(state, mems, (inp, tgt)) -> (state, new_mems,
-    metrics)`` for a TransformerXL ``state.model`` (engine.TrainState) and
-    an optimizer with ``clip_grad_norm`` (optim/fused.py)."""
+    metrics)`` for a TransformerXL ``state.model`` (engine.TrainState: its
+    policy and loss scaler too) and an optimizer with ``clip_grad_norm``
+    and a ``step`` that takes the noop flag (optim/fused.py)."""
 
     def train_step(state, mems: torch.Tensor, batch
                    ) -> Tuple[object, torch.Tensor, Dict]:
         inp, tgt = batch
+        opt, scaler = state.optimizer, state.scaler
         state.model.train()
-        state.optimizer.zero_grad()
+        opt.zero_grad()
         logits, new_mems = state.model(inp, mems)
         loss = lm_loss(logits, tgt)
         del logits          # the loss's graph holds what the backward needs
-        loss.backward()
-        grad_norm = state.optimizer.clip_grad_norm(max_grad_norm)
-        state.optimizer.step()
+        amp.scale_loss(loss, scaler).backward()
+        found_inf = amp.unscale_grads(opt, scaler)
+        grad_norm = opt.clip_grad_norm(max_grad_norm)
+        if found_inf is None:
+            opt.step()
+        else:
+            opt.step(noop_flag=found_inf)
+        state.scaler = amp.update_scaler(scaler, found_inf)
         state.step += 1
         loss = loss.detach()
         metrics = {"loss": loss, "grad_norm": grad_norm,
-                   "ppl": torch.exp(loss), "scale": 1.0,
-                   "grads_finite": 1.0}
+                   "ppl": torch.exp(loss), "scale": state.scaler.scale,
+                   "grads_finite": (1.0 if found_inf is None
+                                    else (found_inf == 0).float())}
         return state, new_mems, metrics
 
     return train_step

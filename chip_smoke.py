@@ -25,8 +25,11 @@ Phases, one or more lines each:
              atol = 1e-4 (sums over thousands of O(1) rows in another
              order; atol for sums that cancel near zero).  The
              multi-tensor L2 norm and LAMB stages 1 and 2 over 201 tensors
-             shaped like bert_base's parameters: norms rtol 1e-5; m, v, u
-             and p atol 1e-6, rtol 1e-5.  dgamma and the norms must repeat
+             shaped like bert_base's parameters (the stages read the
+             step's lr, c1 and c2 from a row on the card and take a clear
+             noop flag, as the trainer's steps do; so do Adam's checks and
+             times in 7): norms rtol 1e-5; m, v, u and p atol 1e-6, rtol
+             1e-5.  dgamma and the norms must repeat
              bitwise on a second call.  Then each kernel's, its plain
              version's and (where one exists) a PyTorch call's median
              device time, beside the kernel's bound; the LayerNorm kernels'
@@ -283,6 +286,32 @@ Phases, one or more lines each:
              forward and one backward launch each, none under no_grad;
              and at the end no RMSNorm launch on any other path.
 
+28. c4, c5  — C4's and C5's contracts (run after 26): bert_base at amp
+             O2 (bf16 over fp32 masters), batch 64 x 128, FusedLAMB as in
+             5, 20 steps; transformer_xl at O2 as in 8 (32 x 192, FusedAdam
+             after the clip, the memory carried), 20 steps: losses finite
+             and falling, the launches a step of 5 and of 8, step time,
+             tokens/s and peak memory; torch.profiler over three steps of
+             each, as in 6.  Then each one's first O2 grads against its
+             fp32 (O0) grads from the same weights (bert_base 2 x 128,
+             transformer_xl 1 x 64), on the card and on the CPU: by kind of
+             parameter the card's distance no more than twice the CPU's
+             plus 1e-3 (bf16 rounds at other places on the two devices;
+             BERT's key biases, whose exact gradient is zero, aside).
+29. amp drills — the overflow drill of 15 with FusedLAMB on bert_base at
+             O2 under dynamic scaling (batch 8, the inf in mlm_bias's grad)
+             and FusedAdam on transformer_xl at O2 (batch 4, the memory
+             carried, the inf in the first layer's u_bias), each after a
+             clean step and on the optimizer's first step: parameters,
+             moments and the step count bitwise unchanged with no host
+             sync, the scale halved, 28's launches plus the unscale; the
+             next clean step moves them and the count by one.
+30. O3      — resnet18 as in 14 at O3 (bf16 convolutions beside fp32
+             BatchNorm parameters) with FusedAdam (lr 1e-3) and FusedLAMB
+             (lr 1e-2), 10 steps each: losses falling, each of the
+             optimizer's kernels and the L2 norm twice a step (one launch
+             per dtype table).
+
 Then one JSON line per the port's kernel table ({"kernels": [...]}) and,
 last, {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
 before the last line; so does a machine where torch sees no CUDA device.
@@ -328,6 +357,16 @@ TXL_ARGS = ["--device", "cuda", "--arch", "transformer_xl",
             "192", "--epochs", "1", "--steps-per-epoch", "20", "--opt",
             "adam", "--lr", "2.5e-4", "--weight-decay", "0",
             "--max-grad-norm", "0.25", "--seed", "0", "--print-freq", "5"]
+# C4's and C5's contracts (bench.py bench_c4 :192, bench_c5 :277; both at
+# amp O2): bert_base MLM with FusedLAMB at 64 x 128, transformer_xl with
+# FusedAdam and the clip at 32 x 192, its memory carried
+C4_ARGS = TRAIN_ARGS + ["--batch-size", "64", "--opt-level", "O2"]
+C5_ARGS = TXL_ARGS + ["--opt-level", "O2"]
+# their overflow drills under dynamic loss scaling, at a few rows a step
+C4_DYN_ARGS = C4_ARGS + ["--batch-size", "8", "--loss-scale", "dynamic"]
+C5_DYN_ARGS = C5_ARGS + ["--batch-size", "4", "--loss-scale", "dynamic"]
+# FusedAdam and FusedLAMB over amp O3's two dtypes (bf16 convolutions, fp32
+# BatchNorm parameters): C1 at O3; LAMB's step is lr x ||p|| a tensor
 GPT_ARGS = ["--device", "cuda", "--arch", "gpt_base", "--batch-size", "64",
             "--seq-len", "128", "--epochs", "1", "--steps-per-epoch", "10",
             "--opt", "adam", "--lr", "1e-4", "--weight-decay", "0.01",
@@ -383,6 +422,10 @@ ADAGRAD_LR = 1e-3
 ADAGRAD_ARGS = C2_ARGS + ["--opt", "adagrad", "--lr", str(ADAGRAD_LR)]
 ADAGRAD_O3_ARGS = C1_ARGS + ["--opt", "adagrad", "--lr", str(ADAGRAD_LR),
                              "--opt-level", "O3"]
+O3_ADAM_ARGS = C1_ARGS + ["--opt", "adam", "--lr", "1e-3", "--opt-level",
+                          "O3"]
+O3_LAMB_ARGS = C1_ARGS + ["--opt", "lamb", "--lr", "1e-2", "--opt-level",
+                          "O3"]
 ADAGRAD_CROSS_ARGS = C2_CROSS_ARGS + ["--opt", "adagrad", "--lr",
                                       str(ADAGRAD_LR)]
 BN_SHAPES = [(256 * 112 * 112, 64), (256 * 14 * 14, 1024),
@@ -977,13 +1020,20 @@ def phase_optim_kernels(mt, fo):
                          "plain version or does not repeat")
     l2_err = max(n_err, s_err)
 
-    # K3 on copies of m, v; the plain version with the kernel's clip scale
+    # K3 on copies of m, v; the plain version with the kernel's clip scale.
+    # The kernels read the step's (lr, c1, c2) from a row on the card and
+    # take the noop flag (clear): the path the trainer's steps take.
     hyper = dict(beta1=0.9, beta2=0.999, eps=1e-6, weight_decay=0.01,
                  bias_c1=1.0 / (1 - 0.9 ** 3), bias_c2=1.0 / (1 - 0.999 ** 3))
+    lr = 1e-3
+    flagged = dict(scalars_t=fo.step_scalars(lr, hyper["bias_c1"],
+                                             hyper["bias_c2"], dev),
+                   noop_flag=torch.zeros((), dtype=torch.int32, device=dev))
+    k_hyper = dict(beta1=0.9, beta2=0.999, eps=1e-6, weight_decay=0.01,
+                   max_grad_norm=1.0, **flagged)
     m0 = [t.clone() for t in m]
     v0 = [t.clone() for t in v]
-    sums, ratio = fo.lamb_stage1_cuda(table, u, norm, max_grad_norm=1.0,
-                                      **hyper)
+    sums, ratio = fo.lamb_stage1_cuda(table, u, norm, **k_hyper)
     gscale = torch.where(norm > 1.0, 1.0 / (norm + 1e-6),
                          torch.ones_like(norm))
     errs, rel, ok = [], [], True
@@ -1016,9 +1066,8 @@ def phase_optim_kernels(mt, fo):
                          "version")
 
     # K4 on a copy of p
-    lr = 1e-3
     p0 = [t.clone() for t in p]
-    fo.lamb_stage2_cuda(table, u, ratio, lr)
+    fo.lamb_stage2_cuda(table, u, ratio, **flagged)
     errs, ok = [], True
     for i in range(len(p)):
         want = fo.lamb_stage2_plain(p0[i], u_views[i].view_as(p0[i]),
@@ -1072,12 +1121,11 @@ def phase_optim_kernels(mt, fo):
          4 * numel, 2 * numel),
         ("lamb_stage1", "fused_optim.cu",
          "apex_example_tpu/ops/fused_optim.py:137", lamb1_err,
-         lambda: fo.lamb_stage1_cuda(table, u, norm, max_grad_norm=1.0,
-                                     **hyper),
+         lambda: fo.lamb_stage1_cuda(table, u, norm, **k_hyper),
          plain_stage1, None, None, 0, 28 * numel, 20 * numel),
         ("lamb_stage2", "fused_optim.cu",
          "apex_example_tpu/ops/fused_optim.py:219", lamb2_err,
-         lambda: fo.lamb_stage2_cuda(table, u, ratio, lr),
+         lambda: fo.lamb_stage2_cuda(table, u, ratio, **flagged),
          plain_stage2,
          lambda: torch._foreach_addcmul_(p_lib, u_list, ratios, value=-lr),
          "torch._foreach_addcmul_", 40, 12 * numel, 2 * numel),
@@ -1167,12 +1215,24 @@ def _adam_lists(shapes, dtype, gen):
     return p, g, m, v
 
 
+def _adam_kernel_args(fo, hyper):
+    """The kernel's arguments for the plain version's ``hyper``: (lr, c1,
+    c2) as the step's row on the card, and a clear noop flag (the path the
+    trainer's steps take)."""
+    kw = dict(hyper)
+    kw["scalars_t"] = fo.step_scalars(kw.pop("lr"), kw.pop("bias_c1"),
+                                      kw.pop("bias_c2"), "cuda")
+    kw["noop_flag"] = torch.zeros((), dtype=torch.int32, device="cuda")
+    return kw
+
+
 def _check_adam(fo, mt, lists, hyper, what):
     """Adam's kernel over ``lists`` against its plain version; returns the
     largest |dp|, |dm|, |dv|."""
     p, g, m, v = lists
     p0, m0, v0 = ([t.clone() for t in lst] for lst in (p, m, v))
-    fo.adam_cuda(mt.TensorTable([p, g, m, v]), **hyper)
+    fo.adam_cuda(mt.TensorTable([p, g, m, v]),
+                 **_adam_kernel_args(fo, hyper))
     errs, ok = [0.0, 0.0, 0.0], True
     for i in range(len(p)):
         want = fo.adam_update_plain(p0[i], g[i], m0[i], v0[i], **hyper)
@@ -1237,6 +1297,7 @@ def phase_adam(mt, fo):
     lib = [[t.clone() for t in lst] for lst in (p, g, m, v)]
     table = mt.TensorTable([p, g, m, v])
     hw = dict(hyper, adam_w_mode=True)
+    kw = _adam_kernel_args(fo, hw)
     steps = [torch.full((), float(step), device=dev) for _ in p]
 
     def library():
@@ -1246,7 +1307,7 @@ def phase_adam(mt, fo):
                             eps=hyper["eps"], amsgrad=False,
                             maximize=False)
 
-    fo.adam_cuda(table, **hw)
+    fo.adam_cuda(table, **kw)
     library()
     torch.cuda.synchronize()
     errs = [max(_close_scaled(a, b, 1e-4)[0] for a, b in zip(x, y))
@@ -1266,10 +1327,10 @@ def phase_adam(mt, fo):
         for i in range(len(p)):
             fo.adam_update_plain(p[i], g[i], m[i], v[i], **hw)
 
-    k_ms = _device_ms(lambda: fo.adam_cuda(table, **hw), reps=100, warmup=5)
+    k_ms = _device_ms(lambda: fo.adam_cuda(table, **kw), reps=100, warmup=5)
     p_ms = _device_ms(plain, reps=10, warmup=2)
     l_ms = _device_ms(library, reps=100, warmup=5)
-    call_ms = _call_ms(lambda: fo.adam_cuda(table, **hw), reps=100,
+    call_ms = _call_ms(lambda: fo.adam_cuda(table, **kw), reps=100,
                        warmup=5)
     nbytes = 28 * numel
     bound_ms, bound_by = _bound(nbytes, 15 * numel)
@@ -2544,7 +2605,9 @@ def phase_train(train, counted, label, argv, per_step, scale=None):
         print(f"{label}: loss scale over the run {scales} (want {scale})")
     want = dict.fromkeys(counted, 0)
     want.update({k: v * n for k, v in per_step.items()})
-    print(f"{label}: launches {counts} (want {want})")
+    print(f"{label}: launches a step "
+          f"{ {k: v / n for k, v in counts.items() if v} } (want "
+          f"{per_step}); over the run {counts} (want {want})")
     if rc != 0 or n != args.steps_per_epoch:
         raise SystemExit(f"{label} run: rc {rc}, {n} step records (want "
                          f"{args.steps_per_epoch})")
@@ -2573,29 +2636,55 @@ def phase_c2(train, counted, per_step):
     return phase_train(train, counted, "c2", argv, per_step), argv
 
 
+def _loss(train, args, model, batch, mems):
+    """The loss of one forward of ``args``'s model in train mode on
+    ``batch`` (the memory ``mems`` for Transformer-XL), outside the
+    trainer's step: for a backward that only warms the card up (cuDNN's
+    algorithms, Transformer-XL's encodings), or for grads alone."""
+    from apex_example_tpu_torch.workloads import lm_loss, mlm_loss
+    x, y = batch
+    model.train()
+    if train.is_image(args):
+        return torch.nn.functional.cross_entropy(model(x).float(), y)
+    if train.is_txl(args):
+        return lm_loss(model(x, mems)[0], y)
+    return (mlm_loss if args.arch.startswith("bert") else lm_loss)(
+        model(x), y)
+
+
 def phase_overflow_drill(train, counted, per_step, label="dynamic",
-                         argv=DYN_ARGS, first=False):
+                         argv=DYN_ARGS, first=False,
+                         plant=lambda model: model.fc.bias,
+                         plant_name="fc.bias"):
     """Dynamic loss scaling through the library: an inf planted in one grad
-    (a hook on the classifier's bias) must skip the step with no host
-    sync: the parameters, the optimizer's state (its state dict: momentum,
-    moments, sums of squares) and its step count bitwise unchanged, the
-    scale halved, ``per_step`` launches; the next clean step moves them.
+    (a hook on the parameter ``plant`` picks: the classifier's bias, or an
+    LM's) must skip the step with no host sync: the parameters, the
+    optimizer's state (its state dict: momentum, moments, sums of squares)
+    and its step count bitwise unchanged, the scale halved, ``per_step``
+    launches; the next clean step moves them.  Transformer-XL's memory is
+    carried through the three steps.
     The inf lands after one clean step, or (``first``) on the optimizer's
-    very first step, after a forward and backward that only let cuDNN
-    pick its algorithms: then the next clean step is the optimizer's
-    first (count 1), and NovoGrad's second moments are that step's
-    squared grad norms exactly (its first-step branch, taken from the
-    count on the card)."""
+    very first step, after a forward and backward that only warm the card
+    up: then the next clean step is the optimizer's first (count 1), and
+    NovoGrad's second moments are that step's squared grad norms exactly
+    (its first-step branch, taken from the count on the card)."""
     from apex_example_tpu_torch.ops import multi_tensor as mt
     args = train.build_parser().parse_args(argv)
     state = train.build_state(args, "cuda")
     model, opt = state.model, state.optimizer
-    step = train.build_step(args)
-    batches = [train.batch_fn(args, 0, i, "cuda") for i in range(3)]
+    step_fn, mems = _step_fn(train, args, model)
+    batches = [train.batch_fn(args, getattr(model, "vocab_size", 0), i,
+                              "cuda") for i in range(3)]
+
+    def step(state, batch):
+        nonlocal mems
+        if mems is None:
+            return step_fn(state, batch)
+        state, mems, metrics = step_fn(state, mems, batch)
+        return state, metrics
+
     if first:
-        model.train()
-        x, y = batches[0]
-        torch.nn.functional.cross_entropy(model(x).float(), y).backward()
+        _loss(train, args, model, batches[0], mems).backward()
         opt.zero_grad()
     else:
         state, _ = step(state, batches[0])
@@ -2603,9 +2692,10 @@ def phase_overflow_drill(train, counted, per_step, label="dynamic",
     before = [p.detach().clone() for p in opt.params]
     saved = opt.state_dict()
     count0, scale0 = saved["step"], float(state.scaler.scale)
-    planted = torch.zeros_like(model.fc.bias)
-    planted[7] = float("inf")
-    hook = model.fc.bias.register_hook(lambda g: g + planted)
+    param = plant(model)
+    planted = torch.zeros_like(param)
+    planted.view(-1)[7 % planted.numel()] = float("inf")
+    hook = param.register_hook(lambda g: g + planted)
     _zero_counts(counted)
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -2626,14 +2716,15 @@ def phase_overflow_drill(train, counted, per_step, label="dynamic",
     moved = not all(torch.equal(a, b) for a, b in zip(opt.params, before))
     count2, scale2 = opt.step_count, float(state.scaler.scale)
     first_txt, first_ok = "", True
-    if first and hasattr(opt, "nu"):
-        _, sq = mt.multi_tensor_l2norm_cuda(opt.table, 1)
+    if first and hasattr(opt, "_v"):        # NovoGrad's second moments
+        _, sq = mt.multi_tensor_l2norm_cuda(opt.tables[0], 1)
         first_ok = torch.equal(torch.stack(opt.nu), sq)
         first_txt = (f", second moments equal to its squared grad norms "
                      f"(the first-step branch): {first_ok}")
     want = dict.fromkeys(counted, 0)
     want.update(per_step)
-    print(f"{label}: overflow drill (inf planted in fc.bias's grad"
+    print(f"{label}: overflow drill ({args.arch} {args.opt_level}, "
+          f"{type(opt).__name__}, inf planted in {plant_name}'s grad"
           f"{' on the first step' if first else ''}, no host sync allowed): "
           f"grads_finite {finite}  parameters and optimizer state bitwise "
           f"unchanged: {kept}  step count {count0} -> {count1}  scale "
@@ -2647,6 +2738,61 @@ def phase_overflow_drill(train, counted, per_step, label="dynamic",
                          f"JAX step skips it")
     del state, model, opt
     torch.cuda.empty_cache()
+
+
+def _first_grads(train, argv, dev, batch):
+    """The grads of the first loss of ``argv``'s model (fresh weights from
+    its seed) on ``batch`` (numpy) on ``dev``, fp32 on the CPU."""
+    args = train.build_parser().parse_args(argv)
+    model = train.build_state(args, dev).model
+    x, *rest = (torch.from_numpy(a).to(dev) for a in batch)
+    mems = model.init_mems(x.shape[0]) if train.is_txl(args) else None
+    _loss(train, args, model, (x, tuple(rest) if len(rest) > 1 else rest[0]),
+          mems).backward()
+    grads = {k: p.grad.float().cpu() for k, p in model.named_parameters()}
+    del model
+    torch.cuda.empty_cache()
+    return grads
+
+
+def _kind(name):
+    """A parameter's kind: its name without layer indices."""
+    return ".".join(w for w in name.split(".") if not w.isdigit())
+
+
+def phase_o2_first_step(train, label, argv, batch):
+    """The first O2 grads of ``argv``'s model against its fp32 (O0) grads
+    from the same weights, on the card and on the CPU: by kind of
+    parameter, the card's |O2 - fp32| / |fp32| no more than twice the
+    CPU's plus 1e-3 (bf16 rounds at other places on the two devices; the
+    key projections' biases, whose exact gradient is zero, aside)."""
+    o2 = argv + ["--opt-level", "O2"]
+    dist = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        g16 = _first_grads(train, o2, dev, batch)
+        g32 = _first_grads(train, argv, dev, batch)
+        sums = {}
+        for k, g in g32.items():
+            acc = sums.setdefault(_kind(k), [0.0, 0.0])
+            acc[0] += float(((g16[k] - g) ** 2).sum())
+            acc[1] += float((g ** 2).sum())
+        dist[dev] = {n: math.sqrt(a / max(b, 1e-30))
+                     for n, (a, b) in sums.items()}
+        print(f"{label}: first O2 step on {dev}: grads O2 vs fp32 "
+              f"({time.perf_counter() - t0:.1f} s)")
+    kinds = [n for n in dist["cpu"] if not n.endswith("key.bias")]
+    worst = sorted(kinds, key=lambda n: dist["cuda"][n] / max(
+        dist["cpu"][n], 1e-30), reverse=True)[:4]
+    ok = all(dist["cuda"][n] <= 2 * dist["cpu"][n] + 1e-3 for n in kinds)
+    print(f"{label}: |O2 grad - fp32 grad| / |fp32 grad| by kind, card vs "
+          f"CPU (limit 2 x the CPU's + 1e-3), the largest ratios: "
+          + "; ".join(f"{n} {dist['cuda'][n]:.3e} {dist['cpu'][n]:.3e}"
+                      for n in worst)
+          + f"  {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise SystemExit(f"the card's first {label} O2 step is further "
+                         f"from fp32 than twice the CPU's")
 
 
 def phase_bn_share(train, argv, sync_batchnorm_cls, busy_ms):
@@ -3245,6 +3391,38 @@ def main() -> int:
                                                 str(ADAGRAD_LR)], first=True)
     print(f"novograd, adagrad: their training phases took "
           f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_path["c4"] = phase_train(train, counted, "c4", C4_ARGS, bert_step)
+    torch.cuda.empty_cache()
+    by_path["c5"] = phase_train(train, counted, "c5", C5_ARGS, txl_step)
+    torch.cuda.empty_cache()
+    phase_profile(train, C4_ARGS)
+    phase_profile(train, C5_ARGS)
+    phase_o2_first_step(train, "c4", TRAIN_ARGS, mlm_batch(
+        0, batch_size=2, seq_len=128, vocab_size=30522, mask_token_id=30521,
+        seed=0))
+    toks = lm_batch(0, batch_size=1, seq_len=64, vocab_size=267735, seed=0)
+    phase_o2_first_step(train, "c5", TXL_ARGS,
+                        (np.ascontiguousarray(toks[:, :-1]),
+                         np.ascontiguousarray(toks[:, 1:])))
+    for first in (False, True):
+        phase_overflow_drill(train, counted,
+                             dict(bert_step, multi_tensor_scale=1),
+                             "c4_dynamic", C4_DYN_ARGS, first=first,
+                             plant=lambda model: model.mlm_bias,
+                             plant_name="mlm_bias")
+        phase_overflow_drill(train, counted,
+                             dict(txl_step, multi_tensor_scale=2),
+                             "c5_dynamic", C5_DYN_ARGS, first=first,
+                             plant=lambda model: model.layers[0].attn.u_bias,
+                             plant_name="layers.0.attn.u_bias")
+    by_path["adam_o3"] = phase_train(
+        train, counted, "adam_o3", O3_ADAM_ARGS,
+        {"adam": 2, "multi_tensor_l2norm": 2})
+    by_path["lamb_o3"] = phase_train(
+        train, counted, "lamb_o3", O3_LAMB_ARGS,
+        {"lamb_stage1": 2, "lamb_stage2": 2, "multi_tensor_l2norm": 2})
+    print(f"c4, c5: the amp phases took {time.perf_counter() - t0:.1f} s")
     for row in rows:
         row["launches_by_path"] = {k: v[row["name"]]
                                    for k, v in by_path.items()}

@@ -325,7 +325,8 @@ def test_lamb_stage_kernels_match_plain(cuda_device, gnorm_scale):
     if gnorm_scale is not None:
         gnorm = mt.multi_tensor_l2norm_cuda(table, 1)[0] * gnorm_scale
     sums, ratio = fo.lamb_stage1_cuda(table, u, gnorm, max_grad_norm=1.0,
-                                      **hyper)
+                                      **_on_the_card(hyper, cuda_device,
+                                                     lr=2e-3))
     gscale = 1.0 if gnorm is None else torch.where(
         gnorm > 1.0, 1.0 / (gnorm + 1e-6), torch.ones_like(gnorm))
     views = torch.split(u, [t.numel() for t in p])
@@ -344,7 +345,8 @@ def test_lamb_stage_kernels_match_plain(cuda_device, gnorm_scale):
                       (ratio, fo.trust_ratio_plain(psq, usq))):
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                    rtol=1e-5)
-    fo.lamb_stage2_cuda(table, u, ratio, 2e-3)
+    fo.lamb_stage2_cuda(table, u, ratio, fo.step_scalars(
+        2e-3, device=cuda_device))
     for i in range(len(p)):
         want = fo.lamb_stage2_plain(p0[i], views[i].view_as(p0[i]),
                                     2e-3 * ratio[i])
@@ -380,6 +382,16 @@ def test_fused_lamb_on_the_card_matches_the_cpu(cuda_device):
                                    atol=1e-6)
 
 
+def _on_the_card(hyper, device, lr=None):
+    """The kernels' arguments for the plain versions' ``hyper``: lr, c1 and
+    c2 as the step's row on the card."""
+    kw = dict(hyper)
+    lr = kw.pop("lr", lr)
+    kw["scalars_t"] = fo.step_scalars(lr, kw.pop("bias_c1"),
+                                      kw.pop("bias_c2"), device)
+    return kw
+
+
 def _misaligned(t):
     """A contiguous view of ``t`` whose address is 4 bytes past 16-byte
     alignment: the kernels' scalar path."""
@@ -403,7 +415,8 @@ def test_adam_kernel_matches_plain(cuda_device, dtype, adam_w_mode,
                  weight_decay=0.01, bias_c1=1.0 / (1 - 0.9 ** 5),
                  bias_c2=1.0 / (1 - 0.999 ** 5), adam_w_mode=adam_w_mode)
     launches = fo.adam_cuda.launches
-    fo.adam_cuda(mt.TensorTable([p, g, m, v]), **hyper)
+    fo.adam_cuda(mt.TensorTable([p, g, m, v]),
+                 **_on_the_card(hyper, cuda_device))
     torch.cuda.synchronize()
     assert fo.adam_cuda.launches == launches + 1
     for i in range(len(p)):
@@ -505,6 +518,86 @@ def _sgd_lists(device, shapes, dtype=torch.float32, seed=8):
          for s in shapes]
     b = [torch.randn(s, device=device, generator=gen) * 1e-2 for s in shapes]
     return p, g, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adam_and_lamb_kernels_skip_on_the_flag(cuda_device, dtype):
+    """Flag set: Adam's p, m, v, stage 1's m, v, u and stage 2's p bitwise
+    unchanged.  Flag clear: bitwise the results without a flag."""
+    hyper = dict(beta1=0.9, beta2=0.999, eps=1e-6, weight_decay=0.01)
+    scal = fo.step_scalars(1e-3, 1.0 / (1 - 0.9 ** 3),
+                           1.0 / (1 - 0.999 ** 3), cuda_device)
+    flags = {v: torch.full((), v, dtype=torch.int32, device=cuda_device)
+             for v in (0, 1)}
+    results = {}
+    for flag in (None, 0, 1):
+        nf = None if flag is None else flags[flag]
+        p, g, m, v = _lists(cuda_device, SHAPES, dtype, seed=8)
+        before = [t.clone() for t in p + m + v]
+        fo.adam_cuda(mt.TensorTable([p, g, m, v]), scalars_t=scal,
+                     noop_flag=nf, **hyper)
+        adam = [t.clone() for t in p + m + v]
+        p, g, m, v = _lists(cuda_device, SHAPES, dtype, seed=8)
+        table = mt.TensorTable([p, g, m, v])
+        u = torch.full((table.total,), float("nan"), device=cuda_device)
+        gnorm = mt.multi_tensor_l2norm_cuda(table, 1)[0]
+        _, ratio = fo.lamb_stage1_cuda(table, u, gnorm, scalars_t=scal,
+                                       max_grad_norm=1.0, noop_flag=nf,
+                                       **hyper)
+        lamb1 = [t.clone() for t in m + v + [u]]
+        fo.lamb_stage2_cuda(table, u, ratio, scal, noop_flag=nf)
+        torch.cuda.synchronize()
+        results[flag] = adam + lamb1 + [t.clone() for t in p]
+        if flag == 1:
+            assert all(torch.equal(a, b) for a, b in zip(adam, before))
+            assert all(torch.equal(a, b) for a, b in zip(
+                lamb1[:-1], before[len(p):]))
+            assert bool(u.isnan().all())
+            assert all(torch.equal(a, b) for a, b in zip(p, before))
+    assert all(torch.equal(a, b) for a, b in zip(results[0], results[None]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cls", [FusedAdam, FusedLAMB])
+def test_fused_adam_and_lamb_take_mixed_dtypes_on_the_card(cuda_device, cls):
+    """bf16 and fp32 parameters (amp O3's mix): one table per dtype, each
+    kernel launched once per table a step (LAMB's L2 norm too); three steps
+    with a flagged one between them against the CPU: fp32 parameters and
+    the moments rtol 1e-5 plus atol 1e-6, bf16 parameters one bf16 ulp
+    plus 1e-6; the step counts equal."""
+    shapes = [(300, 64), (64,), (5,), (7, 9)]
+    dtypes = [torch.bfloat16, torch.float32, torch.float32, torch.bfloat16]
+    gen = torch.Generator().manual_seed(9)
+    init = [torch.randn(s, generator=gen).to(d)
+            for s, d in zip(shapes, dtypes)]
+    grads = [[torch.randn(s, generator=gen).to(d)
+              for s, d in zip(shapes, dtypes)] for _ in range(3)]
+    kernels = ((fo.adam_cuda,) if cls is FusedAdam else
+               (mt.multi_tensor_l2norm_cuda, fo.lamb_stage1_cuda,
+                fo.lamb_stage2_cuda))
+    result = []
+    for device in ("cuda", "cpu"):
+        ps = [torch.nn.Parameter(t.clone().to(device)) for t in init]
+        opt = cls(ps, lr=1e-2, weight_decay=0.01)
+        assert opt.groups == [[0, 3], [1, 2]]
+        before = [k.launches for k in kernels]
+        for step, flag in zip(grads, (0, 1, 0)):
+            opt.zero_grad()
+            for p, gr in zip(ps, step):
+                p.grad.add_(gr.to(device))
+            opt.step(noop_flag=torch.tensor(flag, dtype=torch.int32,
+                                            device=device))
+        ran = [k.launches - b for k, b in zip(kernels, before)]
+        assert ran == [6 if device == "cuda" else 0] * len(kernels)
+        assert opt.step_count == 2
+        result.append([t.detach().cpu() for t in ps + opt.mu + opt.nu])
+    for got, want in zip(*result):
+        a, r = got.float().numpy(), want.float().numpy()
+        if got.dtype == torch.bfloat16:
+            assert np.all(np.abs(a - r) <= _bf16_tol(a, r, 1e-6))
+        else:
+            np.testing.assert_allclose(a, r, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.cuda
@@ -819,7 +912,8 @@ def test_novograd_and_adagrad_on_the_card_match_the_cpu_across_a_skip(
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cls", [FusedNovoGrad, FusedAdagrad])
+@pytest.mark.parametrize("cls", [FusedNovoGrad, FusedAdagrad, FusedAdam,
+                                 FusedLAMB])
 def test_first_step_overflow_is_skipped_with_no_host_sync(cuda_device, cls):
     policy, scaler = amp.initialize("O2", loss_scale="dynamic",
                                     device=cuda_device)
@@ -856,7 +950,7 @@ def test_first_step_overflow_is_skipped_with_no_host_sync(cuda_device, cls):
     torch.cuda.synchronize()
     assert float(metrics["grads_finite"]) == 1.0 and opt.step_count == 1
     if cls is FusedNovoGrad:       # the first-step branch: v = ||g||^2
-        _, sq = mt.multi_tensor_l2norm_cuda(opt.table, index=1)
+        _, sq = mt.multi_tensor_l2norm_cuda(opt.tables[0], index=1)
         assert torch.equal(opt._v[0], sq)
 
 

@@ -77,7 +77,8 @@ def test_every_module_imports_with_jax_and_the_jax_package_poisoned(
     for name in ("serve.engine", "train", "optim.fused", "engine",
                  "ops.fused_optim", "ops.multi_tensor", "ops.batch_norm",
                  "amp", "amp.lists", "amp.policy", "amp.autocast",
-                 "amp.scaler", "models.resnet", "parallel.sync_batchnorm"):
+                 "amp.scaler", "models.resnet", "parallel.sync_batchnorm",
+                 "fp16_utils", "models.transformer_xl", "workloads"):
         assert f"apex_example_tpu_torch.{name}" in modules
     script = (
         "import importlib, sys\n"

@@ -178,6 +178,91 @@ def test_step_scalars_match_jax():
                                    rtol=1e-7)
 
 
+ADAM_LAMB = {"adam": (JaxAdam, lambda params, lr: _port_adam(params, lr)),
+             "lamb": (JaxLAMB, lambda params, lr: _port_lamb(params, lr))}
+
+
+@pytest.mark.parametrize("name", ["adam", "lamb"])
+def test_fused_adam_and_lamb_skip_a_flagged_step_as_jax_selects(name):
+    """A step under a set noop flag (its grads hold an inf) leaves the
+    parameters, m, v and the step count bitwise as they were, as JAX's
+    ``select_tree`` of the old params and state does; the clean steps
+    around it equal JAX's three clean steps (the bias corrections and the
+    schedule's lr from the count the skip kept): rtol and atol 1e-6."""
+    jcls, make = ADAM_LAMB[name]
+    params = _arrays(6)
+    jopt = jcls(lr=jax_build_schedule("poly", 2e-2, 6, warmup_steps=2),
+                weight_decay=0.01)
+    jparams = {k: jnp.asarray(a) for k, a in params.items()}
+    jstate = jopt.init(jparams)
+    ps, popt = make(params, build_schedule("poly", 2e-2, 6, warmup_steps=2))
+    state = lambda: [t.detach().clone() for t in                # noqa: E731
+                     ps + popt.mu + popt.nu]
+    for step in range(3):
+        grads = _arrays(50 + step, scale=0.1)
+        jparams, jstate = jopt.apply({k: jnp.asarray(a) for k, a in
+                                      grads.items()}, jstate, jparams)
+        popt.zero_grad()
+        for p, a in zip(ps, grads.values()):
+            p.grad.add_(torch.from_numpy(a))
+        popt.step(noop_flag=torch.tensor(0, dtype=torch.int32))
+        if step == 0:
+            before = state()
+            popt.zero_grad()
+            ps[1].grad[3] = float("inf")
+            popt.step(noop_flag=torch.tensor(1, dtype=torch.int32))
+            assert popt.step_count == 1
+            assert all(torch.equal(a, b) for a, b in zip(state(), before))
+    assert popt.step_count == int(jstate.step) == 3
+    for i, k in enumerate(params):
+        for got, want in ((ps[i], jparams[k]), (popt.mu[i], jstate.mu[k]),
+                          (popt.nu[i], jstate.nu[k])):
+            np.testing.assert_allclose(got.detach().numpy(),
+                                       np.asarray(want), rtol=STATE_TOL,
+                                       atol=STATE_TOL)
+
+
+@pytest.mark.parametrize("name", ["adam", "lamb"])
+def test_fused_adam_and_lamb_take_mixed_dtypes_as_jax_leaf_by_leaf(name):
+    """Two bf16 and two fp32 parameters (amp O3's mix), three steps against
+    the JAX optimizer's leaf-by-leaf update: m and v rtol 1e-5 (LAMB's
+    global grad norm sums the tensors in another order), fp32 p 1e-6, bf16
+    p one bf16 ulp (the same fp32 arithmetic, then one rounding)."""
+    jcls, _ = ADAM_LAMB[name]
+    half = ("a_w", "d_e")
+    cast = lambda k, a: (jnp.asarray(a).astype(jnp.bfloat16)    # noqa
+                         if k in half else jnp.asarray(a))
+    params = _arrays(7)
+    jopt = jcls(lr=1e-2, weight_decay=0.01)
+    jparams = {k: cast(k, a) for k, a in params.items()}
+    jstate = jopt.init(jparams)
+    ps = [torch.nn.Parameter(torch.from_numpy(a.copy()).to(
+        torch.bfloat16 if k in half else torch.float32))
+        for k, a in params.items()]
+    popt = (fused.FusedAdam if name == "adam" else fused.FusedLAMB)(
+        ps, lr=1e-2, weight_decay=0.01)
+    assert popt.groups == [[0, 3], [1, 2]]
+    for step in range(3):
+        grads = _arrays(60 + step, scale=0.5)
+        jparams, jstate = jopt.apply({k: cast(k, a) for k, a in
+                                      grads.items()}, jstate, jparams)
+        popt.zero_grad()
+        for p, (k, a) in zip(ps, grads.items()):
+            p.grad.copy_(torch.from_numpy(a))
+        popt.step()
+    for i, k in enumerate(params):
+        assert ps[i].dtype == (torch.bfloat16 if k in half
+                               else torch.float32)
+        np.testing.assert_allclose(
+            ps[i].detach().float().numpy(),
+            np.asarray(jparams[k], np.float32),
+            rtol=2.0 ** -8 if k in half else STATE_TOL, atol=STATE_TOL)
+        for got, want in ((popt.mu[i], jstate.mu[k]),
+                          (popt.nu[i], jstate.nu[k])):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=NORM_TOL, atol=STATE_TOL)
+
+
 def _port_adam(params, lr):
     ps = [torch.nn.Parameter(torch.from_numpy(a.copy()))
           for a in params.values()]
@@ -465,9 +550,9 @@ def test_lamb_wrappers_raise_on_what_they_cannot_take(no_build, make, err,
     before = (fo.lamb_stage1_cuda.launches, fo.lamb_stage2_cuda.launches)
     with pytest.raises(err, match=match):
         fo.lamb_stage1_cuda(table, u, None, beta1=0.9, beta2=0.999, eps=1e-6,
-                            weight_decay=0.0, bias_c1=1.0, bias_c2=1.0)
+                            weight_decay=0.0, scalars_t=_meta(3))
     with pytest.raises(err, match=match):
-        fo.lamb_stage2_cuda(table, u, _meta(2), 1e-3)
+        fo.lamb_stage2_cuda(table, u, _meta(2), _meta(3))
     assert (fo.lamb_stage1_cuda.launches,
             fo.lamb_stage2_cuda.launches) == before
 
@@ -526,9 +611,34 @@ def test_adam_wrapper_raises_on_what_it_cannot_take(no_build, make, err,
                                                     match):
     before = fo.adam_cuda.launches
     with pytest.raises(err, match=match):
-        fo.adam_cuda(make(), lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8,
-                     weight_decay=0.0, bias_c1=1.0, bias_c2=1.0)
+        fo.adam_cuda(make(), beta1=0.9, beta2=0.999, eps=1e-8,
+                     weight_decay=0.0, scalars_t=_meta(3))
     assert fo.adam_cuda.launches == before
+
+
+@pytest.mark.parametrize("kw,match", [
+    (lambda: dict(scalars_t=_meta(2)), "scalars_t"),
+    (lambda: dict(scalars_t=_meta(3, dtype=torch.float16)), "scalars_t"),
+    (lambda: dict(scalars_t=_meta(3), noop_flag=_meta(())), "noop_flag"),
+    (lambda: dict(scalars_t=_meta(3),
+                  noop_flag=_meta(2, dtype=torch.int32)), "noop_flag"),
+])
+def test_adam_and_lamb_wrappers_check_the_step_row_and_the_flag(no_build, kw,
+                                                                match):
+    table, u, extra = _meta_table(), _meta(29), kw()
+    calls = (
+        lambda: fo.adam_cuda(table, beta1=0.9, beta2=0.999, eps=1e-8,
+                             weight_decay=0.0, **extra),
+        lambda: fo.lamb_stage1_cuda(table, u, None, beta1=0.9, beta2=0.999,
+                                    eps=1e-6, weight_decay=0.0, **extra),
+        lambda: fo.lamb_stage2_cuda(table, u, _meta(2), **extra))
+    before = (fo.adam_cuda.launches, fo.lamb_stage1_cuda.launches,
+              fo.lamb_stage2_cuda.launches)
+    for call in calls:
+        with pytest.raises(ValueError, match=match):
+            call()
+    assert (fo.adam_cuda.launches, fo.lamb_stage1_cuda.launches,
+            fo.lamb_stage2_cuda.launches) == before
 
 
 def test_fused_adam_off_the_cpu_takes_the_kernels_or_raises(no_build,
@@ -540,7 +650,7 @@ def test_fused_adam_off_the_cpu_takes_the_kernels_or_raises(no_build,
         monkeypatch.setattr(fused, name, no_plain)
     ps = [torch.nn.Parameter(_meta(4, 4)), torch.nn.Parameter(_meta(4))]
     opt = fused.FusedAdam(ps)
-    assert opt.table is not None and all(p.grad is not None for p in ps)
+    assert len(opt.tables) == 1 and all(p.grad is not None for p in ps)
     for call in (opt.step, opt.grad_norm, lambda: opt.clip_grad_norm(1.0)):
         with pytest.raises(ValueError, match="CUDA"):
             call()
@@ -657,8 +767,12 @@ def test_optimizers_group_parameters_by_dtype():
     novograd = fused.FusedNovoGrad(ps)
     assert [v.numel() for v in novograd._v] == [2, 1]
     assert novograd.nu[1].data_ptr() == novograd._v[1].data_ptr()
-    with pytest.raises(ValueError, match="one dtype"):
-        fused.FusedAdam(ps).table
+    for opt in (fused.FusedAdam(ps), fused.FusedLAMB(ps)):
+        assert opt.groups == [[0, 2], [1]]
+        assert [t.dtype(0) for t in opt.tables] == [torch.bfloat16,
+                                                    torch.float32]
+        assert [len(t.lists) for t in opt.tables] == [4, 4]
+    assert [u.numel() for u in fused.FusedLAMB(ps)._u] == [19, 4]
 
 
 def _meta_sgd_table(dtype=torch.float32, b_dtype=torch.float32, lists=3):

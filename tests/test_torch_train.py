@@ -18,8 +18,9 @@ under dynamic loss scaling, and its eval step.
   --require-summary`` (the Transformer-XL stream carries ``ppl``); without
   ``--device`` it raises where torch sees no CUDA; the flags of paths not
   ported (``--larc``, ``--grad-accum``, ``--sync_bn``,
-  ``--tensor-parallel``) are rejected by argparse; the LM archs refuse O1,
-  ``--loss-scale`` and ``--eval`` with a message naming a later slice.
+  ``--tensor-parallel``) are rejected by argparse; the LM archs refuse
+  ``--eval`` (alone, and beside O1 or ``--loss-scale``, which they take)
+  with a message naming a later slice.
 - ResNet-18 (num_filters 4, the CIFAR stem, 16 px, batch 4) with
   FusedSGD: the same weights (numpy, in flax's tree, converted) and the
   JAX ``image_batch``'s images through the JAX ``make_train_step`` and the
@@ -42,15 +43,15 @@ under dynamic loss scaling, and its eval step.
   gradient is zero, aside; three steps' losses rtol 2e-2).  The CLI runs
   ``--fused-attention`` at O0 and O2 and its stream lints; it refuses
   ``--fused-attention`` at O3 and for transformer_xl and the image archs,
-  ``--loss-scale dynamic`` for the LM archs, and O2 for transformer_xl.
+  and ``--eval`` for the LM archs beside O2 and ``--loss-scale dynamic``.
 - ``train.main`` with ``--opt novograd`` (bert_tiny) and ``--opt
   adagrad`` (ResNet-18, num_filters 4): three steps on the CPU from the
   flax init, converted, against the JAX ``make_train_step`` with the JAX
   package's FusedNovoGrad / FusedAdagrad on the same batches (the port's
   generators, as numpy): losses and grad norms rtol 1e-4.  ``check_args``
-  lets both through under O3 and ``--loss-scale dynamic`` on the image
-  archs (their steps take the noop flag and one launch per dtype) and
-  still refuses FusedAdam and FusedLAMB there.
+  lets NovoGrad, Adagrad, FusedAdam and FusedLAMB through under O3 and
+  ``--loss-scale dynamic`` on the image archs (their steps take the noop
+  flag and one launch per dtype).
 - The data generators keep the JAX generators' distributions; the image
   patterns are ``jax.image.resize``'s bilinear upsampling.
 """
@@ -453,8 +454,9 @@ def test_gpt_cli_with_fused_attention_lints(tmp_path, level):
      "BERT/GPT archs only"),
     (["--arch", "resnet18", "--fused-attention"], "BERT/GPT archs only"),
     (["--arch", "gpt_tiny", "--fused-attention", "--opt-level", "O2",
-      "--loss-scale", "dynamic"], "noop flag"),
-    (["--arch", "transformer_xl_tiny", "--opt-level", "O2"], "O0 without")])
+      "--loss-scale", "dynamic", "--eval"], "slice"),
+    (["--arch", "transformer_xl_tiny", "--opt-level", "O2", "--eval"],
+     "slice")])
 def test_fused_attention_and_amp_refusals(argv, match):
     with pytest.raises(SystemExit, match=match):
         train.main(["--device", "cpu"] + argv)
@@ -783,8 +785,8 @@ def test_image_cli_runs_o2_dynamic_with_eval_and_its_stream_lints(tmp_path):
     assert records[-1]["record"] == "run_summary"
 
 
-@pytest.mark.parametrize("argv", [["--opt-level", "O1"],
-                                  ["--loss-scale", "dynamic"],
+@pytest.mark.parametrize("argv", [["--opt-level", "O1", "--eval"],
+                                  ["--loss-scale", "dynamic", "--eval"],
                                   ["--eval"]])
 def test_lm_archs_refuse_amp_and_eval_until_their_slice(argv):
     with pytest.raises(SystemExit, match="slice"):
@@ -903,9 +905,4 @@ def test_main_adagrad_resnet18_follows_jax(monkeypatch, tmp_path):
 def test_check_args_takes_the_noop_flag_optimizers_on_images(opt, flag):
     args = train.build_parser().parse_args(
         ["--device", "cpu", "--arch", "resnet18", "--opt", opt] + flag)
-    if opt in ("novograd", "adagrad"):
-        train.check_args(args)
-    else:
-        with pytest.raises(SystemExit, match="one dtype" if "O3" in flag
-                           else "noop flag"):
-            train.check_args(args)
+    train.check_args(args)
