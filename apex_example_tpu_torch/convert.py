@@ -25,6 +25,12 @@ its stored dtype.
 ``optimizer_state_from_jax(name, state, leaves)`` turns the state of the
 JAX package's FusedSGD, FusedNovoGrad or FusedAdagrad into the
 ``load_state_dict`` form of the port's optimizer of the same name.
+
+``zero_state_from_jax(state, params, to_port, names, world)`` maps the
+flat ``mu`` and ``nu`` of the JAX package's ``ZeroAdamState`` (the leaves
+of the params tree flattened in ``tree_leaves`` order, sorted keys) onto
+the port's DistributedFusedAdam order (``parameters()`` order, each in
+the port's layout), padded as the port pads them.
 """
 
 from __future__ import annotations
@@ -210,4 +216,41 @@ def optimizer_state_from_jax(name: str, state: Mapping,
         if field == "nu":
             tensors = [t.reshape(-1)[0].clone() for t in tensors]
         out[port_name] = [t.contiguous() for t in tensors]
+    return out
+
+
+def _unflatten_like(flat: np.ndarray, tree: Mapping, offset: List[int]
+                    ) -> Dict:
+    out = {}
+    for key in sorted(tree):
+        value = tree[key]
+        if isinstance(value, Mapping):
+            out[key] = _unflatten_like(flat, value, offset)
+        else:
+            size = int(np.size(value))
+            out[key] = flat[offset[0]:offset[0] + size].reshape(
+                np.shape(value))
+            offset[0] += size
+    return out
+
+
+def zero_state_from_jax(state: Mapping, params: Mapping,
+                        to_port: Callable[[Mapping], Mapping[str,
+                                                             torch.Tensor]],
+                        names: List[str], world: int) -> Dict:
+    """``{"step", "mu", "nu"}`` of a JAX ``ZeroAdamState`` (numpy leaves;
+    ``mu`` and ``nu`` whole, of every shard) in the port's flat order:
+    ``params`` is the flax params tree whose leaves the state flattens,
+    ``to_port`` a ``*_params_from_flax`` converter, ``names`` the port
+    model's parameter names in ``parameters()`` order.  ``mu`` and ``nu``
+    come out fp32, padded to a multiple of ``world * 128`` as the port's
+    DistributedFusedAdam pads them; process r's shard is the r-th of
+    ``world`` equal pieces."""
+    out = {"step": int(np.asarray(state["step"]))}
+    for field in ("mu", "nu"):
+        flat = np.asarray(state[field], np.float32)
+        sd = to_port(_unflatten_like(flat, params, [0]))
+        port = torch.cat([sd[name].reshape(-1).float() for name in names])
+        n = port.numel()
+        out[field] = torch.cat([port, torch.zeros((-n) % (world * 128))])
     return out

@@ -1,7 +1,8 @@
-"""The single-device train and eval steps: port of
-apex_example_tpu/engine.py (``TrainState`` :48, ``create_train_state`` :57,
-``cross_entropy_loss`` :84, ``make_train_step`` :106, ``make_eval_step``
-:299), one microbatch, no DDP.
+"""The train and eval steps: port of apex_example_tpu/engine.py
+(``TrainState`` :48, ``create_train_state`` :57, ``cross_entropy_loss``
+:84, ``make_train_step`` :106, ``make_eval_step`` :299,
+``make_sharded_train_step`` :320, ``_replicate_mean`` :532), one
+microbatch.
 
 One step follows the JAX step's amp protocol (:160-291): zero the grads ->
 forward -> loss -> ``scale_loss`` -> backward -> ``unscale_grads`` (the
@@ -24,6 +25,17 @@ moments; for the others it is one L2-norm launch after the step, which
 leaves the grads as they are) and, where the
 labels are one tensor of classes, ``top1`` (percent of the batch).
 
+The data-parallel step (``make_sharded_train_step``) is the same step in
+each process of a group (parallel/mesh.py) on that process's rows of the
+global batch, with the JAX sharded step's collectives in its order: the
+local forward and backward, ``allreduce_grads`` (parallel/distributed.py,
+apex's averaging options), the unscale with its flag, the optimizer's
+noop-flag step, then the loss and top-1 averaged over the processes and
+every BatchNorm running statistic averaged over them (``_replicate_mean``:
+a SyncBatchNorm's are equal already, a local BatchNorm's would drift).
+After the all-reduce the grads, and so the flag and the update, are the
+same in every process.  No host sync is added.
+
 The JAX state is an immutable pytree that each step replaces; here the
 model, optimizer and scaler update in place and the step returns the same
 ``TrainState`` with its counter advanced.  The grads are zeroed in place
@@ -43,6 +55,9 @@ from apex_example_tpu_torch import amp
 from apex_example_tpu_torch.amp.policy import Policy
 from apex_example_tpu_torch.amp.scaler import ScalerState
 from apex_example_tpu_torch.ops.xentropy import softmax_cross_entropy
+from apex_example_tpu_torch.parallel.distributed import (
+    DDPConfig, allreduce_grads, reduce_mean, replicate_mean)
+from apex_example_tpu_torch.parallel.mesh import DATA_AXIS
 from apex_example_tpu_torch.utils.meters import accuracy
 
 
@@ -88,9 +103,14 @@ def batch_top1(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def make_train_step(loss_fn: Callable = cross_entropy_loss,
-                    compute_accuracy: bool = True):
+                    compute_accuracy: bool = True,
+                    ddp: Optional[DDPConfig] = None, axis_name=None):
     """``train_step(state, (x, y)) -> (state, metrics)``; ``y`` is what
-    ``loss_fn(logits, y)`` takes (for MLM, (labels, weights))."""
+    ``loss_fn(logits, y)`` takes (for MLM, (labels, weights)).  With
+    ``axis_name`` (a group) the grads are reduced over it with ``ddp``'s
+    options before the unscale, and the loss and top-1 averaged over it
+    (see :func:`make_sharded_train_step`)."""
+    ddp = ddp or DDPConfig()
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         x, y = batch
@@ -100,6 +120,10 @@ def make_train_step(loss_fn: Callable = cross_entropy_loss,
         logits = state.model(x)
         loss = loss_fn(logits, y)
         amp.scale_loss(loss, scaler).backward()
+        if axis_name is not None:
+            # the scaled grads, as the reference's backward hooks reduce
+            allreduce_grads(opt.grads, ddp, axis_name)
+            loss = reduce_mean(loss, axis_name)
         found_inf = amp.unscale_grads(opt, scaler)
         if found_inf is None:
             grad_norm = opt.step()
@@ -114,7 +138,31 @@ def make_train_step(loss_fn: Callable = cross_entropy_loss,
                                     else (found_inf == 0).float()),
                    "grad_norm": grad_norm}
         if compute_accuracy and torch.is_tensor(y):
-            metrics["top1"] = batch_top1(logits.detach(), y)
+            top1 = batch_top1(logits.detach(), y)
+            if axis_name is not None:
+                top1 = reduce_mean(top1, axis_name)
+            metrics["top1"] = top1
+        return state, metrics
+
+    return train_step
+
+
+def make_sharded_train_step(axis_name=DATA_AXIS,
+                            ddp: Optional[DDPConfig] = None,
+                            loss_fn: Callable = cross_entropy_loss,
+                            compute_accuracy: bool = True):
+    """The data-parallel step: ``train_step(state, (x, y)) -> (state,
+    metrics)`` run by every process of ``axis_name``'s group on its own
+    rows of the global batch, the state equal in every process before and
+    after.  Each step is :func:`make_train_step` with the grads reduced
+    over the group (``ddp``'s options), the loss and top-1 averaged over
+    it, then every running statistic of the model averaged over it."""
+    per_rank = make_train_step(loss_fn, compute_accuracy, ddp=ddp,
+                               axis_name=axis_name)
+
+    def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        state, metrics = per_rank(state, batch)
+        replicate_mean(list(state.model.buffers()), axis_name)
         return state, metrics
 
     return train_step

@@ -28,7 +28,9 @@ so fp32 parameters stay the masters under O2, as flax's ``dtype`` /
 ``param_dtype`` do; under O3 ``param_dtype`` is half and the conv and fc
 weights are stored half, while BatchNorm's parameters stay fp32 (:183).
 BatchNorm's I/O is ``bn_io_dtype`` (None: ``dtype``) and its normalization
-``bn_dtype`` (None: ``dtype``).  Convolutions and the classifier are plain
+``bn_dtype`` (None: ``dtype``).  ``bn_axis_name`` (:146; None, ``"data"``
+or a group: parallel/mesh.py) makes every BatchNorm a SyncBatchNorm
+across the processes of that group.  Convolutions and the classifier are plain
 PyTorch calls: the JAX package leaves them to XLA.
 
 Weights are random from ``seed`` in flax's distributions, not its numbers:
@@ -184,21 +186,24 @@ class ResNet(nn.Module):
                  param_dtype: torch.dtype = torch.float32,
                  bn_dtype: Optional[torch.dtype] = None,
                  bn_io_dtype: Optional[torch.dtype] = None,
+                 bn_axis_name=None,
                  bn_momentum: float = 0.1, small_stem: bool = False,
                  stem_space_to_depth: bool = False, remat: str = "none",
                  in_channels: int = 3, seed: int = 0, device="cuda"):
         super().__init__()
         if stem_space_to_depth:
             raise NotImplementedError("stem_space_to_depth is not ported "
-                                      "yet (ROADMAP.md A.4)")
+                                      "yet (ROADMAP.md A.5)")
         if remat != "none":
             raise NotImplementedError(f"remat={remat!r} is not ported yet "
-                                      f"(ROADMAP.md A.4)")
+                                      f"(ROADMAP.md A.5)")
         self.num_classes, self.num_filters = num_classes, num_filters
         self.dtype, self.small_stem = dtype, small_stem
+        self.bn_axis_name = bn_axis_name
         conv = functools.partial(Conv, dtype=dtype, param_dtype=param_dtype)
         norm = functools.partial(
-            SyncBatchNorm, momentum=bn_momentum, epsilon=1e-5,
+            SyncBatchNorm, axis_name=bn_axis_name, momentum=bn_momentum,
+            epsilon=1e-5,
             dtype=bn_io_dtype or dtype, stats_dtype=bn_dtype or dtype,
             param_dtype=torch.float32)
         # Built without storage, filled from the seeded generator on the

@@ -21,6 +21,16 @@ apply in plain torch (the JAX package leaves it to XLA); it saves only
 ``(x, scale, mean, inv)`` and the row count, and its backward is the sums
 kernel, then the dx formula.  It returns ``(y, mean, var)``; mean and var
 feed the running statistics only, and their cotangents are ignored.
+
+Across processes (``axis_name``, parallel/mesh.py) the forward sums the
+kernel's ``(s, ss)`` over the group and counts ``n`` times the world size
+before the mean and variance (:171-175), and the backward sums ``(sdy,
+sdyx)`` over the group before dx (:229-231): each process's dx is then the
+full batch's.  dscale and dbias are this process's own ``sdyx`` and
+``sdy``: the data-parallel step averages every grad over the processes
+afterwards, which makes them the full batch's.  (The JAX function returns
+the summed ones, and its shard_map step divides those by the world size
+without summing them again: the same result.)
 """
 
 from __future__ import annotations
@@ -222,14 +232,21 @@ class BatchNormFunction(torch.autograd.Function):
     ``(y, mean, var)`` (:166-246).  ``c`` is the centring constant of the
     one-pass moments (the running mean); ``apply_dtype`` that of the
     elementwise apply and dx (``keep_batchnorm_fp32``); y in
-    ``out_dtype``.  mean and var (fp32, biased) are not differentiable."""
+    ``out_dtype``; ``axis_name`` None, or the group whose processes'
+    rows the statistics cover (see the module docstring).  mean and var
+    (fp32, biased) are not differentiable."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, c, eps, apply_dtype, out_dtype):
+    def forward(ctx, x, scale, bias, c, eps, apply_dtype, out_dtype,
+                axis_name=None):
         C = x.shape[-1]
         rows = x.numel() // C
         s, ss = bn_stats(x.reshape(rows, C), c)
         n = float(rows)
+        if axis_name is not None:
+            from apex_example_tpu_torch.parallel.mesh import axis_size
+            s, ss = _sum_over(axis_name, s, ss)
+            n *= axis_size(axis_name)
         mean_c = s / n
         # Var[x] = E[(x-c)^2] - (E[x-c])^2, exact for any constant shift c.
         var = torch.clamp(ss / n - mean_c * mean_c, min=0.0)
@@ -239,7 +256,7 @@ class BatchNormFunction(torch.autograd.Function):
         y = ((x.to(md) - mean.to(md)) * (inv * scale).to(md)
              + bias.to(md)).to(out_dtype)
         ctx.save_for_backward(x, scale, mean, inv)
-        ctx.n, ctx.md = n, md
+        ctx.n, ctx.md, ctx.axis_name = n, md, axis_name
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -248,8 +265,11 @@ class BatchNormFunction(torch.autograd.Function):
         x, scale, mean, inv = ctx.saved_tensors
         C = x.shape[-1]
         rows = x.numel() // C
-        sdy, sdyx = bn_bwd_sums(x.reshape(rows, C), dy.reshape(rows, C),
-                                mean, inv)
+        local = bn_bwd_sums(x.reshape(rows, C), dy.reshape(rows, C),
+                            mean, inv)
+        sdy, sdyx = local
+        if ctx.axis_name is not None:
+            sdy, sdyx = _sum_over(ctx.axis_name, sdy, sdyx)
         # dx = scale * inv * (dy - sum(dy)/n - x_hat * sum(dy x_hat)/n)
         md, n = ctx.md, ctx.n
         g = (scale * inv).to(md)
@@ -257,13 +277,26 @@ class BatchNormFunction(torch.autograd.Function):
         mdyx = (sdyx / n).to(md)
         xhat = (x.to(md) - mean.to(md)) * inv.to(md)
         dx = (g * (dy.to(md) - mdy - xhat * mdyx)).to(x.dtype)
-        return dx, sdyx, sdy, None, None, None, None
+        # this process's sums: the step's average over the processes
+        return dx, local[1], local[0], None, None, None, None, None
+
+
+def _sum_over(axis_name, a: torch.Tensor, b: torch.Tensor) -> Sums:
+    """``(psum(a), psum(b))`` over ``axis_name``'s group, in one
+    all-reduce."""
+    # (parallel/ imports this module: the group is looked up here)
+    from apex_example_tpu_torch.parallel.mesh import group_of
+    both = torch.stack([a, b])
+    torch.distributed.all_reduce(both, group=group_of(axis_name))
+    return both[0], both[1]
 
 
 def batch_norm_train(x: torch.Tensor, scale: torch.Tensor,
                      bias: torch.Tensor, c: torch.Tensor, eps: float,
-                     apply_dtype: torch.dtype, out_dtype: torch.dtype):
+                     apply_dtype: torch.dtype, out_dtype: torch.dtype,
+                     axis_name=None):
     """``(y, mean, var)`` of training-mode BatchNorm through
-    :class:`BatchNormFunction`: differentiable in x, scale and bias."""
+    :class:`BatchNormFunction`: differentiable in x, scale and bias;
+    ``axis_name`` the group the statistics cross, or None."""
     return BatchNormFunction.apply(x, scale, bias, c, eps, apply_dtype,
-                                   out_dtype)
+                                   out_dtype, axis_name)

@@ -1,5 +1,5 @@
-"""SyncBatchNorm for one device: port of
-apex_example_tpu/parallel/sync_batchnorm.py (``SyncBatchNorm`` :35-161).
+"""SyncBatchNorm: port of apex_example_tpu/parallel/sync_batchnorm.py
+(``SyncBatchNorm`` :35-161, ``convert_syncbn_model`` :164).
 
 Normalizes over the last axis of a channels-last tensor (..., C), as the
 JAX module does, with torch.nn.BatchNorm2d's semantics: biased variance in
@@ -22,8 +22,21 @@ through ops/batch_norm.py ``batch_norm_train``, the statistics and
 backward-sum kernels.  The ResNet builds its norms without it, as the JAX
 ResNet does (models/resnet.py).
 
-``axis_name`` (the cross-replica reduction) is refused until the data
-parallel slice; only None is taken.
+``axis_name`` (parallel/mesh.py: ``"data"`` for the default process
+group, a DataMesh or a ProcessGroup) makes the training statistics the
+whole group's batch, as N-process SyncBN equals full-batch BN.  The
+composite branch sums each process's moments about ``c`` (the same on
+every process) with one ``all_reduce_sum``, the differentiable
+all-reduce, so each process's backward gets the other processes' terms.
+That gives the statistics of the JAX branch's Welford merge (:128-143) in
+one all-reduce a direction where its two psums run one after the other,
+and in one process it is the plain branch's arithmetic exactly.  The fused
+branch sums the kernels' moments and backward sums across the group
+(ops/batch_norm.py).  Either way each process's dx is the full batch's,
+and its dscale and dbias are its own share, which the data-parallel
+step's average over the processes makes the full batch's.
+:func:`convert_syncbn_model` binds a group to every SyncBatchNorm of a
+model.
 """
 
 from __future__ import annotations
@@ -34,6 +47,8 @@ import torch
 from torch import nn
 
 from apex_example_tpu_torch.ops.batch_norm import batch_norm_train
+from apex_example_tpu_torch.parallel.distributed import all_reduce_sum
+from apex_example_tpu_torch.parallel.mesh import DATA_AXIS, axis_size
 
 
 class SyncBatchNorm(nn.Module):
@@ -46,12 +61,9 @@ class SyncBatchNorm(nn.Module):
                  param_dtype: torch.dtype = torch.float32,
                  use_bias: bool = True, use_scale: bool = True,
                  fused_kernel: bool = False,
-                 axis_name: Optional[str] = None, device=None):
+                 axis_name=None, device=None):
         super().__init__()
-        if axis_name is not None:
-            raise NotImplementedError(
-                "SyncBatchNorm across devices (axis_name) comes with the "
-                "data-parallel slice; this port normalizes on one device")
+        self.axis_name = axis_name
         self.num_features = num_features
         self.momentum, self.epsilon = momentum, epsilon
         self.dtype, self.stats_dtype = dtype, stats_dtype
@@ -87,17 +99,21 @@ class SyncBatchNorm(nn.Module):
             return (y + bias.to(md)).to(out_dtype)
 
         c = self.mean.float()
-        n = x.numel() // x.shape[-1]
+        axis = self.axis_name
+        n_local = x.numel() // x.shape[-1]
+        n = n_local * (axis_size(axis) if axis is not None else 1)
         if self.fused_kernel:
             y, mean, var = batch_norm_train(x, scale, bias, c, self.epsilon,
-                                            md, out_dtype)
+                                            md, out_dtype, axis)
         else:
             dims = tuple(range(x.dim() - 1))
             xc = x.float() - c
-            local_sum = xc.sum(dims)
-            local_sumsq = (xc * xc).sum(dims)
-            mean_c = local_sum / n                    # E[x] - c
-            m2 = local_sumsq - mean_c * mean_c * n
+            sums = torch.stack([xc.sum(dims), (xc * xc).sum(dims)])
+            if axis is not None:               # one differentiable sum
+                sums = all_reduce_sum(sums, axis)
+            s, ss = sums.unbind(0)
+            mean_c = s / n                             # E[x] - c
+            m2 = ss - mean_c * mean_c * n
             mean = c + mean_c
             # E[x^2] - E[x]^2 can go fractionally negative under rounding.
             var = torch.clamp(m2 / n, min=0.0)
@@ -111,3 +127,21 @@ class SyncBatchNorm(nn.Module):
             self.mean.copy_((1 - m) * self.mean + m * mean.detach())
             self.var.copy_((1 - m) * self.var + m * unbiased)
         return y.to(out_dtype)
+
+
+def convert_syncbn_model(module: nn.Module, axis_name=DATA_AXIS
+                         ) -> nn.Module:
+    """apex.parallel.convert_syncbn_model: bind ``axis_name`` (a group,
+    parallel/mesh.py) to every SyncBatchNorm of ``module``, recursively,
+    in place, and to its ``bn_axis_name``; returns ``module``.  A model
+    without ``bn_axis_name`` (not built from the port's norm layers) is
+    refused, as the JAX function refuses it."""
+    if not hasattr(module, "bn_axis_name"):
+        raise TypeError(
+            f"{type(module).__name__} does not expose bn_axis_name; "
+            "only models built with framework norm layers can be converted")
+    module.bn_axis_name = axis_name
+    for m in module.modules():
+        if isinstance(m, SyncBatchNorm):
+            m.axis_name = axis_name
+    return module

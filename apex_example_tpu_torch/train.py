@@ -63,9 +63,33 @@ noop flag.  ``--fused-attention`` stays refused at O3 and for the other
 archs (train.py :699-709), and the LM archs run without ``--eval`` (their
 eval steps come with a later slice).  Entry
 points run on the card unless ``--device cpu`` is given, and raise when
-CUDA is asked for and absent.  The flags of paths not ported yet (DDP,
-model parallelism, checkpoints, grad accumulation, diagnostics) are
-absent, so argparse rejects them.
+CUDA is asked for and absent.  The flags of paths not ported yet (model
+parallelism, checkpoints, grad accumulation, diagnostics) are absent, so
+argparse rejects them.
+
+Data parallelism (C3; train.py :740-783, :1541-1575): under torchrun,
+one process per GPU, every process trains on its rows ``[r B / W, (r + 1)
+B / W)`` of the same seeded global batch ``--batch-size`` B, which must
+divide by the world W, and the grads are all-reduced after the backward
+(parallel/distributed.py; ``--delay-allreduce``,
+``--gradient-predivide-factor`` and ``--quantized-allreduce int8`` with
+``--quant-chunk`` on the image path, as JAX wires them).  ``--sync_bn``
+makes the ResNet's BatchNorms SyncBatchNorms across the processes;
+``--zero`` shards Adam's state over them (optim/distributed.py
+DistributedFusedAdam; image, BERT and GPT archs, ``--opt adam``);
+``--larc`` wraps the optimizer in LARC (``--larc-trust``, the weight
+decay folded into the trust ratio).  ``--device cuda`` takes
+``cuda:LOCAL_RANK`` and NCCL, ``--device cpu`` gloo.  At world 1, as
+JAX's single-device path, the step is the plain one and ``--sync_bn`` is
+ignored, and ``--zero`` is refused; with no launcher the trainer runs as
+one process.  Only rank 0 prints and writes ``--metrics-jsonl``:
+
+    torchrun --nproc_per_node 8 -m apex_example_tpu_torch.train \
+        --arch resnet50 --dataset imagenet --opt sgd --opt-level O2 \
+        --sync_bn
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m apex_example_tpu_torch.train --device cpu --arch resnet18 \
+        --sync_bn --batch-size 8 --steps-per-epoch 2
 
 Each printed step is train.py's line: ``epoch E step i/N loss L (avg)
 top1 T (avg) R img/s scale S`` for images (:895-899), ``epoch E step i/N
@@ -84,26 +108,38 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from apex_example_tpu_torch import amp, resolve_device
 from apex_example_tpu_torch.data.synthetic import (CIFAR10, IMAGENET,
                                                    image_batch, lm_batch,
                                                    mlm_batch)
 from apex_example_tpu_torch.engine import (create_train_state,
-                                           make_eval_step, make_train_step)
+                                           make_eval_step,
+                                           make_sharded_train_step,
+                                           make_train_step)
 from apex_example_tpu_torch.models.bert import bert_base, bert_tiny
 from apex_example_tpu_torch.models.gpt import gpt_base, gpt_tiny
 from apex_example_tpu_torch.models.resnet import ARCHS as IMAGE_ARCHS
 from apex_example_tpu_torch.models.transformer_xl import (
     transformer_xl_base, transformer_xl_tiny)
+from apex_example_tpu_torch.obs.logging import rank_print
 from apex_example_tpu_torch.obs.metrics import JsonlSink
 from apex_example_tpu_torch.obs.telemetry import TelemetryEmitter
+from apex_example_tpu_torch.optim.distributed import (DistributedFusedAdam,
+                                                      make_zero_train_step)
 from apex_example_tpu_torch.optim.fused import (FusedAdagrad, FusedAdam,
                                                 FusedLAMB, FusedNovoGrad,
                                                 FusedSGD)
 from apex_example_tpu_torch.optim.schedules import build_schedule
+from apex_example_tpu_torch.parallel.distributed import DDPConfig
+from apex_example_tpu_torch.parallel.larc import LARC
+from apex_example_tpu_torch.parallel.launch import (
+    is_main_process, local_device, maybe_initialize_distributed)
+from apex_example_tpu_torch.parallel.mesh import DATA_AXIS
 from apex_example_tpu_torch.utils.meters import AverageMeter, Throughput
 from apex_example_tpu_torch.workloads import (lm_loss, make_txl_train_step,
+                                              make_sharded_txl_train_step,
                                               mlm_loss)
 
 LM_ARCHS = {"bert_base": bert_base, "bert_tiny": bert_tiny,
@@ -155,12 +191,35 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--weight-decay", "--wd", type=float, default=1e-4)
     p.add_argument("--opt", default="sgd",
                    choices=["sgd", "adam", "lamb", "novograd", "adagrad"])
+    p.add_argument("--larc", action="store_true",
+                   help="wrap the optimizer in LARC layer-wise adaptive "
+                        "rate control (parallel/larc.py)")
+    p.add_argument("--larc-trust", type=float, default=0.02,
+                   help="LARC trust coefficient")
     p.add_argument("--opt-level", default="O0",
                    choices=["O0", "O1", "O2", "O3"])
     p.add_argument("--loss-scale", default=None,
                    help='None, a number, or "dynamic"')
     p.add_argument("--keep-batchnorm-fp32", default=None, type=lambda s:
                    None if s in (None, "None") else s.lower() == "true")
+    # data parallelism under torchrun (apex parity)
+    p.add_argument("--sync_bn", action="store_true",
+                   help="SyncBatchNorm across the processes (image archs)")
+    p.add_argument("--zero", action="store_true",
+                   help="ZeRO-1 optimizer-state sharding over the "
+                        "processes (DistributedFusedAdam; --opt adam, image "
+                        "and BERT/GPT archs, more than one process)")
+    p.add_argument("--delay-allreduce", action="store_true", default=True)
+    p.add_argument("--gradient-predivide-factor", type=float, default=1.0)
+    p.add_argument("--quantized-allreduce", default="off",
+                   choices=["off", "int8"],
+                   help="gradient exchange precision: int8 reduces each "
+                        "--quant-chunk-element chunk under one max-abs "
+                        "scale shared by the processes (error at most "
+                        "world * scale / 2 an element)")
+    p.add_argument("--quant-chunk", type=int, default=1024,
+                   help="chunk size (elements) of --quantized-allreduce's "
+                        "scales")
     p.add_argument("--print-freq", type=int, default=10)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--eval", action="store_true",
@@ -190,6 +249,12 @@ def is_image(args) -> bool:
     return args.arch in IMAGE_ARCHS
 
 
+def data_world() -> int:
+    """The processes that train together: the default process group's
+    size, 1 without one."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
 def build_model(args, device, policy=None):
     kw = {"seed": args.seed, "device": device}
     md = amp.module_dtypes(policy or amp.get_policy("O0"))
@@ -197,7 +262,10 @@ def build_model(args, device, policy=None):
         return IMAGE_ARCHS[args.arch](
             num_classes=DATASETS[args.dataset]["num_classes"],
             dtype=md.compute, param_dtype=md.param, bn_dtype=md.bn_stats,
-            bn_io_dtype=md.bn_io, **kw)
+            bn_io_dtype=md.bn_io,
+            bn_axis_name=(DATA_AXIS if args.sync_bn and data_world() > 1
+                          else None),
+            **kw)
     if args.arch in VOCAB_ARCHS:
         kw["vocab_size"] = args.vocab_size
     kw.update(dtype=md.compute, param_dtype=md.param, ln_dtype=md.ln_io,
@@ -218,27 +286,43 @@ def build_optimizer(args, params):
     """train.py's ``build_optimizer`` (:559): FusedSGD (``--momentum``),
     FusedAdam (AdamW), FusedLAMB (clip at max_grad_norm 1.0),
     FusedNovoGrad or FusedAdagrad (their other arguments at their
-    defaults), with the schedule and weight decay."""
+    defaults), with the schedule and weight decay.  ``--larc`` wraps it in
+    LARC, which takes the weight decay (the inner optimizer gets none) and,
+    in clip mode, the base ``--lr``; ``--zero``: DistributedFusedAdam over
+    the default process group (:592)."""
     lr = build_lr(args)
+    if args.zero:
+        return DistributedFusedAdam(params, lr=lr,
+                                    weight_decay=args.weight_decay)
+    wd = 0.0 if args.larc else args.weight_decay
     if args.opt == "sgd":
-        return FusedSGD(params, lr=lr, momentum=args.momentum,
-                        weight_decay=args.weight_decay)
-    return OPTIMIZERS[args.opt](params, lr=lr,
-                                weight_decay=args.weight_decay)
+        opt = FusedSGD(params, lr=lr, momentum=args.momentum,
+                       weight_decay=wd)
+    else:
+        opt = OPTIMIZERS[args.opt](params, lr=lr, weight_decay=wd)
+    if args.larc:
+        opt = LARC(opt, trust_coefficient=args.larc_trust, lr=args.lr,
+                   weight_decay=args.weight_decay)
+    return opt
 
 
-def batch_fn(args, vocab_size: int, step: int, device):
+def batch_fn(args, vocab_size: int, step: int, device, rank: int = 0,
+             world: int = 1):
     """The batch of global step ``step``: (images, labels) for the image
     archs, (ids, (labels, weights)) for BERT, (inputs, targets) for GPT and
-    Transformer-XL."""
+    Transformer-XL; of ``world`` processes, rank ``rank``'s rows of it."""
+    rows = slice(rank * args.batch_size // world,
+                 (rank + 1) * args.batch_size // world)
     if is_image(args):
         spec = DATASETS[args.dataset]
-        return image_batch(step, batch_size=args.batch_size,
+        x, y = image_batch(step, batch_size=args.batch_size,
                            image_size=spec["image_size"],
                            channels=spec["channels"],
                            num_classes=spec["num_classes"], seed=args.seed,
                            device=device)
-    to = lambda a: torch.from_numpy(a).to(device)       # noqa: E731
+        return x[rows], y[rows]
+    to = lambda a: torch.from_numpy(                    # noqa: E731
+        np.ascontiguousarray(a[rows])).to(device)
     if args.arch.startswith("bert"):
         ids, labels, w = mlm_batch(step, batch_size=args.batch_size,
                                    seq_len=args.seq_len,
@@ -248,8 +332,7 @@ def batch_fn(args, vocab_size: int, step: int, device):
         return to(ids), (to(labels), to(w))
     toks = lm_batch(step, batch_size=args.batch_size, seq_len=args.seq_len,
                     vocab_size=vocab_size, seed=args.seed)
-    return to(np.ascontiguousarray(toks[:, :-1])), \
-        to(np.ascontiguousarray(toks[:, 1:]))
+    return to(toks[:, :-1]), to(toks[:, 1:])
 
 
 def check_args(args) -> None:
@@ -271,6 +354,33 @@ def check_args(args) -> None:
                          "A.5)")
 
 
+def check_parallel_args(args, world: int) -> None:
+    """The data-parallel refusals, with the JAX trainer's messages
+    (train.py :324-330, :592-626, :1165-1169), in its order."""
+    if args.batch_size % world:
+        raise SystemExit(f"--batch-size {args.batch_size} not divisible by "
+                         f"{world} devices")
+    if not args.zero:
+        return
+    if is_txl(args):
+        raise SystemExit("--zero is wired for the image and BERT/GPT "
+                         "workloads (transformer_xl's step owns its "
+                         "own grad-clip path)")
+    if args.larc:
+        raise SystemExit("--larc does not compose with --zero (the sharded "
+                         "optimizer owns its update)")
+    if world < 2:
+        raise SystemExit("--zero needs >1 device on the data axis (state "
+                         "shards over it)")
+    if args.opt != "adam":
+        raise SystemExit("--zero is wired for --opt adam "
+                         "(DistributedFusedAdam)")
+    if args.gradient_predivide_factor != 1.0:
+        raise SystemExit("--zero does not support "
+                         "--gradient-predivide-factor (the reduction "
+                         "lives inside the sharded optimizer)")
+
+
 def build_state(args, device):
     """The train state of ``args`` on ``device``: model, optimizer, and the
     amp policy and loss scaler of ``--opt-level``, ``--loss-scale`` and
@@ -287,22 +397,60 @@ def build_step(args):
     """The train step of ``args``'s arch: cross-entropy with top-1 for
     the image archs, MLM or LM loss, or Transformer-XL's step (the memory
     carried in and out, the clip before the optimizer); each reads the
-    state's policy and loss scaler."""
+    state's policy and loss scaler.  Over more than one process the
+    data-parallel step: ``--zero``'s, or the grads all-reduced (with
+    ``--delay-allreduce``, ``--gradient-predivide-factor`` and
+    ``--quantized-allreduce`` on the image path, as JAX wires them)."""
+    world = data_world()
+    lm_loss_fn = mlm_loss if args.arch.startswith("bert") else lm_loss
+    if world > 1 and args.zero:
+        if is_image(args):
+            return make_zero_train_step()
+        return make_zero_train_step(lm_loss_fn, compute_accuracy=False)
     if is_image(args):
-        return make_train_step()
+        if world == 1:
+            return make_train_step()
+        return make_sharded_train_step(DATA_AXIS, ddp=DDPConfig(
+            delay_allreduce=args.delay_allreduce,
+            gradient_predivide_factor=args.gradient_predivide_factor,
+            quantized_allreduce=args.quantized_allreduce == "int8",
+            quant_chunk=args.quant_chunk))
     if is_txl(args):
-        return make_txl_train_step(args.max_grad_norm)
-    return make_train_step(
-        mlm_loss if args.arch.startswith("bert") else lm_loss,
-        compute_accuracy=False)
+        if world == 1:
+            return make_txl_train_step(args.max_grad_norm)
+        return make_sharded_txl_train_step(DATA_AXIS,
+                                           max_grad_norm=args.max_grad_norm)
+    if world == 1:
+        return make_train_step(lm_loss_fn, compute_accuracy=False)
+    return make_sharded_train_step(DATA_AXIS, loss_fn=lm_loss_fn,
+                                   compute_accuracy=False)
 
 
 def run_train(args) -> int:
+    """Check the arguments, join the launcher's process group if there is
+    one (leaving it at the end), and train."""
     device = resolve_device(args.device)
     check_args(args)
-    if is_image(args):
-        return run_image(args, device)
-    return run_lm(args, device)
+    started = not dist.is_initialized()
+    rank, world = maybe_initialize_distributed(device)
+    started = started and dist.is_initialized()
+    try:
+        check_parallel_args(args, world)
+        device = local_device(device)
+        if dist.is_initialized():
+            rank_print(f"data parallel: world {world}, backend "
+                       f"{dist.get_backend()}, device {device}"
+                       + (", ZeRO-1 optimizer state" if args.zero else "")
+                       + (", SyncBatchNorm" if args.sync_bn and world > 1
+                          and is_image(args) else "")
+                       + (" (the single-process step)" if world == 1
+                          else ""))
+        if is_image(args):
+            return run_image(args, device, rank, world)
+        return run_lm(args, device, rank, world)
+    finally:
+        if started:
+            dist.destroy_process_group()
 
 
 def _policy_text(policy, lm: bool = False) -> str:
@@ -325,20 +473,21 @@ def attention_route(args, model) -> str:
 
 
 def _emitter(args, device):
-    if not args.metrics_jsonl:
+    if not args.metrics_jsonl or not is_main_process():
         return None
     emitter = TelemetryEmitter(JsonlSink(args.metrics_jsonl), device)
     emitter.run_header(config=vars(args), argv=sys.argv[1:], arch=args.arch)
     return emitter
 
 
-def run_image(args, device) -> int:
-    """The image path of train.py's ``main`` (:628-994), one device."""
+def run_image(args, device, rank: int = 0, world: int = 1) -> int:
+    """The image path of train.py's ``main`` (:628-994), in each of
+    ``world`` processes."""
     state = build_state(args, device)
     step_fn = build_step(args)
     eval_fn = make_eval_step()
     n_params = sum(p.numel() for p in state.model.parameters())
-    print(f"model {args.arch}: {n_params} parameters in "
+    rank_print(f"model {args.arch}: {n_params} parameters in "
           f"{len(state.optimizer.params)} tensors, dataset {args.dataset}, "
           f"device {device}, opt {args.opt}, {_policy_text(state.policy)}, "
           f"params from random init (seed {args.seed})")
@@ -350,7 +499,7 @@ def run_image(args, device) -> int:
             losses, top1s = AverageMeter("loss"), AverageMeter("top1")
             thr = Throughput(warmup_steps=2)
             for i in range(args.steps_per_epoch):
-                batch = batch_fn(args, 0, global_step, device)
+                batch = batch_fn(args, 0, global_step, device, rank, world)
                 t0 = time.perf_counter()
                 state, metrics = step_fn(state, batch)
                 global_step += 1
@@ -363,10 +512,10 @@ def run_image(args, device) -> int:
                         or i + 1 == args.steps_per_epoch:
                     losses.update(float(metrics["loss"]))
                     top1s.update(float(metrics["top1"]))
-                    print(f"epoch {epoch} step {i + 1}/"
-                          f"{args.steps_per_epoch} {losses} {top1s} "
-                          f"{thr.rate:.1f} img/s "
-                          f"scale {float(metrics['scale']):.0f}")
+                    rank_print(f"epoch {epoch} step {i + 1}/"
+                               f"{args.steps_per_epoch} {losses} {top1s} "
+                               f"{thr.rate:.1f} img/s "
+                               f"scale {float(metrics['scale']):.0f}")
             if args.eval:
                 el, e1, e5 = (AverageMeter("loss"), AverageMeter("top1"),
                               AverageMeter("top5"))
@@ -377,23 +526,25 @@ def run_image(args, device) -> int:
                     el.update(float(em["loss"]))
                     e1.update(float(em["top1"]))
                     e5.update(float(em["top5"]))
-                print(f"epoch {epoch} EVAL loss {el.avg:.4f} "
-                      f"top1 {e1.avg:.2f} top5 {e5.avg:.2f} "
-                      f"({args.eval_batches} batches)")
+                rank_print(f"epoch {epoch} EVAL loss {el.avg:.4f} "
+                           f"top1 {e1.avg:.2f} top5 {e5.avg:.2f} "
+                           f"({args.eval_batches} batches)")
     finally:
         if emitter is not None:
             emitter.close()
     return 0
 
 
-def run_lm(args, device) -> int:
-    """The LM path (``_lm_main_impl`` :1014), one device."""
+def run_lm(args, device, rank: int = 0, world: int = 1) -> int:
+    """The LM path (``_lm_main_impl`` :1014), in each of ``world``
+    processes (Transformer-XL's memory: this process's rows)."""
     state = build_state(args, device)
     model, optimizer = state.model, state.optimizer
     step_fn = build_step(args)
-    mems = model.init_mems(args.batch_size) if is_txl(args) else None
+    mems = (model.init_mems(args.batch_size // world) if is_txl(args)
+            else None)
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"model {args.arch}: {n_params} parameters in "
+    rank_print(f"model {args.arch}: {n_params} parameters in "
           f"{len(optimizer.params)} tensors, device {device}, opt "
           f"{args.opt}, {_policy_text(state.policy, lm=True)}, attention "
           f"{attention_route(args, model)}, params from random init (seed "
@@ -407,7 +558,8 @@ def run_lm(args, device) -> int:
             losses = AverageMeter("loss")
             thr = Throughput(warmup_steps=2)
             for i in range(args.steps_per_epoch):
-                batch = batch_fn(args, model.vocab_size, global_step, device)
+                batch = batch_fn(args, model.vocab_size, global_step,
+                                 device, rank, world)
                 t0 = time.perf_counter()
                 if mems is None:
                     state, metrics = step_fn(state, batch)
@@ -424,10 +576,10 @@ def run_lm(args, device) -> int:
                     losses.update(float(metrics["loss"]))
                     extra = (f"ppl {float(metrics['ppl']):.1f} "
                              if "ppl" in metrics else "")
-                    print(f"epoch {epoch} step {i + 1}/"
-                          f"{args.steps_per_epoch} {losses} {extra}"
-                          f"{thr.rate:.0f} tok/s "
-                          f"scale {float(metrics['scale']):.0f}")
+                    rank_print(f"epoch {epoch} step {i + 1}/"
+                               f"{args.steps_per_epoch} {losses} {extra}"
+                               f"{thr.rate:.0f} tok/s "
+                               f"scale {float(metrics['scale']):.0f}")
     finally:
         if emitter is not None:
             emitter.close()

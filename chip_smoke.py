@@ -312,6 +312,51 @@ Phases, one or more lines each:
              optimizer's kernels and the L2 norm twice a step (one launch
              per dtype table).
 
+31. ddp     — C3 (run last): resnet50 on ImageNet shapes at amp O2 with
+             FusedSGD and SyncBatchNorm (composite), global batch 256,
+             through the library's data-parallel step
+             (engine.make_sharded_train_step, the model's BatchNorms bound
+             by convert_syncbn_model) in an NCCL group of this one
+             process: first one step (at O0, batch 8) against the plain
+             c2 step from the same weights with deterministic convolutions
+             (loss rtol 1e-5, grad norm rtol 1e-4, parameters atol 1e-5;
+             at O2 bf16 rounds the two steps' differently ordered fp32
+             sums apart); then 20 steps:
+             losses finite and falling, SGD and the L2 norm once a step;
+             img/s, the median step time, the first step's, peak memory,
+             and from torch.profiler the NCCL kernels' device time a step,
+             its share of the device busy time, and the all-reduce calls'
+             host time a step (at world 1 an in-place all-reduce may
+             launch no kernel).
+32. launch  — torchrun --standalone --nproc_per_node 1 -m
+             apex_example_tpu_torch.train, the C3 command line
+             (--sync_bn), 5 steps, in a process group of its own with a
+             timeout: exit 0, the header naming NCCL at world 1, five step
+             lines.  Its kernels launch in that process and are not
+             counted in the JSON's paths.
+33. ddp2    — two spawned processes on cuda:0 in a gloo group (NCCL
+             refuses two ranks on one card), a join timeout: SyncBatchNorm
+             in both branches at resnet50's stage-3 shape (each rank half
+             of batch 256) against one process with the whole batch (y and
+             dx rtol = atol 1e-4, the running statistics rtol 1e-4 atol
+             1e-5, dscale and dbias summed over the ranks rtol 1e-4 plus
+             1e-4 of their largest magnitude), the fused branch launching
+             each BatchNorm-sum kernel once between the all-reduces and
+             each rank's kernel sums held against their plain versions;
+             resnet18 (CIFAR shapes, SyncBatchNorm, global batch 64) 3
+             data-parallel steps with the default reduction,
+             --gradient-predivide-factor 2 and --larc, the first step of
+             each against one process with the whole batch (loss rtol
+             1e-5, grad norm rtol 1e-4, parameters atol 1e-5 or 3 x the
+             floor, that step against itself with the first parameter x
+             (1 + 1e-6)), both ranks' parameters bitwise equal after each; the int8 exchange of
+             resnet18's grads within world * scale / 2; DistributedFusedAdam
+             over bert_base's 201 parameter shapes, 3 steps against
+             FusedAdam with the mean grads in one process (rtol 1e-5 plus
+             1e-6 of each tensor's largest magnitude), the first step's
+             shard held against adam_update_plain, and a planted inf in
+             rank 1's grad (in rank 0's shard) skipped by both ranks.
+
 Then one JSON line per the port's kernel table ({"kernels": [...]}) and,
 last, {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
 before the last line; so does a machine where torch sees no CUDA device.
@@ -431,6 +476,23 @@ ADAGRAD_CROSS_ARGS = C2_CROSS_ARGS + ["--opt", "adagrad", "--lr",
 BN_SHAPES = [(256 * 112 * 112, 64), (256 * 14 * 14, 1024),
              (256 * 7 * 7, 2048)]   # resnet50's stem, stage 3, stage 4
 BN_MODULE_SHAPE = (256, 14, 14, 1024)  # stage 3's activations, NHWC
+# C3 (BASELINE.json: ResNet-50 / ImageNet DDP with SyncBatchNorm): C2's
+# command line with --sync_bn, global batch 256, 20 steps
+DDP_ARGS = C2_ARGS + ["--sync_bn"]
+# the same under torchrun, one process, 5 steps at the CLI's default batch
+LAUNCH_ARGS = ["--arch", "resnet50", "--dataset", "imagenet", "--opt", "sgd",
+               "--opt-level", "O2", "--sync_bn", "--steps-per-epoch", "5",
+               "--print-freq", "1", "--lr", "0.01"]
+LAUNCH_TIMEOUT = 300
+# ddp2's trails: resnet18 on CIFAR shapes with SyncBatchNorm, global batch
+# 64, 3 steps; DistributedFusedAdam's ZERO_STEPS clean steps; a rank that
+# has not reported within DDP2_TIMEOUT seconds fails the phase
+DDP2_IMAGE_ARGS = ["--arch", "resnet18", "--dataset", "cifar10",
+                   "--opt-level", "O0", "--batch-size", "64",
+                   "--steps-per-epoch", "3", "--lr", "0.01",
+                   "--sync_bn"] + IMAGE_TAIL
+ZERO_STEPS = 3
+DDP2_TIMEOUT = 600
 SERVE_ARGS = ["--device", "cuda", "--arch", "gpt_base",
               "--slots", str(SLOTS), "--max-len", "512",
               "--block-size", str(BLOCK), "--requests", "32",
@@ -2835,6 +2897,7 @@ def phase_bn_share(train, argv, sync_batchnorm_cls, busy_ms):
 
 
 KERNEL_GROUPS = (            # device-time categories, first match wins
+    ("collectives (NCCL)", ("nccl",)),
     ("ported: sgd", ("sgd_chunks",)),
     ("ported: layer_norm fwd", ("ln_fwd_kernel",)),
     ("ported: layer_norm bwd", ("ln_bwd_persist_kernel", "ln_bwd_kernel",
@@ -3244,6 +3307,673 @@ def phase_route_times(train, counted, steps=6):
           + "; ".join(text))
 
 
+
+# ---------------------------------------------------------------------------
+# data parallelism (C3): ddp, launch, ddp2
+# ---------------------------------------------------------------------------
+
+def _counted_kernels():
+    """Every kernel wrapper chip_smoke counts, by name: each adds one to
+    its ``launches`` where it launches its kernel, and nowhere else."""
+    from apex_example_tpu_torch.ops import attention as att
+    from apex_example_tpu_torch.ops import batch_norm as bn
+    from apex_example_tpu_torch.ops import fused_optim as fo
+    from apex_example_tpu_torch.ops import layer_norm as ln
+    from apex_example_tpu_torch.ops import multi_tensor as mt
+    return {"layer_norm_fwd": ln.layer_norm_cuda,
+            "layer_norm_bwd": ln.layer_norm_bwd_cuda,
+            "multi_tensor_l2norm": mt.multi_tensor_l2norm_cuda,
+            "lamb_stage1": fo.lamb_stage1_cuda,
+            "lamb_stage2": fo.lamb_stage2_cuda,
+            "adam": fo.adam_cuda,
+            "multi_tensor_scale": mt.multi_tensor_scale_cuda,
+            "sgd": fo.sgd_cuda,
+            "bn_stats": bn.bn_stats_cuda,
+            "bn_bwd_sums": bn.bn_bwd_sums_cuda,
+            "attn_fwd": att.flash_attention_cuda,
+            "attn_dkdv": att.flash_attention_dkdv_cuda,
+            "attn_dq": att.flash_attention_dq_cuda,
+            "novograd": fo.novograd_cuda,
+            "adagrad": fo.adagrad_cuda,
+            "axpby": mt.multi_tensor_axpby_cuda,
+            "rms_norm_fwd": ln.rms_norm_cuda,
+            "rms_norm_bwd": ln.rms_norm_bwd_cuda}
+
+
+def _deterministic_convolutions():
+    """cuDNN's deterministic convolutions, chosen without timing (after
+    ``create_train_state``, which turns the timing on)."""
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+
+
+def _timed_convolutions():
+    torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.deterministic = False
+
+
+def _fresh(path):
+    """``path`` for a FileStore: its directory there, the file gone
+    before the group starts."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    return path
+
+
+def _ddp_first_step(train, args, mesh):
+    """One step of C3 (``args``: DDP_ARGS, O2, batch 256), the same
+    weights and batch, through the plain c2 step and through the
+    data-parallel step (NCCL group of 1, SyncBatchNorm's all-reduces, the
+    grads' all-reduce), all with deterministic convolutions: loss rtol
+    1e-5, grad norm rtol 1e-4, every parameter within atol 1e-5 or
+    FLOOR_X times the floor, whichever is larger.  The floor is the
+    largest parameter difference of the plain step against itself with
+    the stem's convolution scaled by 1 + 1e-6, measured here: at O2 a
+    bf16 rounding that moves by one ulp moves a parameter by up to lr
+    times a grad's rounding, as in ``_ddp2_image``.  At world 1 the two
+    steps do the same arithmetic, so the line also says whether they
+    agreed bit for bit."""
+    from apex_example_tpu_torch.engine import make_sharded_train_step
+    from apex_example_tpu_torch.parallel import convert_syncbn_model
+    out = {}
+    for label, perturb in (("plain", 0.0), ("floor", 1e-6), ("ddp", 0.0)):
+        state = train.build_state(args, "cuda")
+        if perturb:
+            with torch.no_grad():
+                next(state.model.parameters()).mul_(1.0 + perturb)
+        if label == "ddp":
+            convert_syncbn_model(state.model, mesh)
+            step = make_sharded_train_step(mesh)
+        else:
+            step = train.build_step(args)
+        _deterministic_convolutions()
+        try:
+            state, met = step(state, train.batch_fn(args, 0, 0, "cuda"))
+            out[label] = (float(met["loss"]), float(met["grad_norm"]),
+                          {k: p.detach().float().cpu() for k, p in
+                           state.model.named_parameters()})
+        finally:
+            _timed_convolutions()
+        del state, step
+        torch.cuda.empty_cache()
+    (l_p, n_p, p_p), (l_d, n_d, p_d) = out["plain"], out["ddp"]
+    p_err = max(float((p_d[k] - p_p[k]).abs().max()) for k in p_p)
+    f_err = max(float((out["floor"][2][k] - p_p[k]).abs().max())
+                for k in p_p)
+    limit = max(1e-5, FLOOR_X * f_err)
+    same = l_d == l_p and n_d == n_p and p_err == 0.0
+    ok = (abs(l_d - l_p) <= 1e-5 * abs(l_p) and abs(n_d - n_p) <= 1e-4 *
+          abs(n_p) and p_err <= limit)
+    print(f"ddp: first step at {args.opt_level}, batch {args.batch_size}, "
+          f"against the plain c2 step (deterministic convolutions): loss "
+          f"{l_d!r} / {l_p!r}  grad norm {n_d!r} / {n_p!r}  max|dparam| "
+          f"{p_err:.3g} (loss rtol 1e-5, grad norm rtol 1e-4, limit "
+          f"{limit:.3g}: the floor {f_err:.3g})  "
+          f"{'bit for bit' if same else 'not bit for bit'}  "
+          f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise SystemExit("ddp: the data-parallel step at world 1 disagrees "
+                         "with the plain step")
+
+
+def _nccl_ms(train, args, state, step, mesh, steps=3):
+    """torch.profiler over ``steps`` data-parallel steps: the NCCL
+    kernels' device time a step and the device busy time a step (ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    batches = [train.batch_fn(args, 0, 100 + i, "cuda", mesh.rank,
+                              mesh.world) for i in range(steps)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for b in batches:
+            state, _ = step(state, b)
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in events if e.device_type == DeviceType.CUDA)
+    host = [e for e in events if e.device_type == DeviceType.CPU
+            and e.name == "c10d::allreduce_"]
+    host_ms = sum(e.time_range.end - e.time_range.start
+                  for e in host) / 1e3 / steps
+    if not spans:
+        return None, None, 0, host_ms, len(host) // steps
+    busy, end, nccl, n_nccl = 0.0, spans[0][0], 0.0, 0
+    for a, b, name in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+        if "nccl" in name.lower():
+            nccl += b - a
+            n_nccl += 1
+    return (nccl / 1e3 / steps, busy / 1e3 / steps, n_nccl // steps,
+            host_ms, len(host) // steps)
+
+
+def phase_ddp(train, counted, per_step):
+    """C3 through the library: resnet50 on ImageNet shapes at amp O2 with
+    FusedSGD and SyncBatchNorm (composite), global batch 256, in an NCCL
+    group of one process (this one, a FileStore under build/), through
+    ``make_sharded_train_step``: 20 steps (finite and falling losses,
+    ``per_step`` launches a step), img/s, the median step time, the first
+    step's, peak memory and the NCCL kernels' device time a step
+    (profiler); first the step against the plain c2 step."""
+    import torch.distributed as dist
+    from apex_example_tpu_torch.engine import make_sharded_train_step
+    from apex_example_tpu_torch.parallel import (convert_syncbn_model,
+                                                 make_data_mesh)
+    store = _fresh(os.path.join(ROOT, "build", "chip_smoke_nccl_store"))
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_data_mesh()
+        args = train.build_parser().parse_args(DDP_ARGS)
+        _ddp_first_step(train, args, mesh)
+        state = train.build_state(args, "cuda")
+        convert_syncbn_model(state.model, mesh)
+        step = make_sharded_train_step(mesh)
+        n = args.steps_per_epoch
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(counted)
+        times, losses = [], []
+        for i in range(n):
+            batch = train.batch_fn(args, 0, i, "cuda", mesh.rank, mesh.world)
+            t0 = time.perf_counter()
+            state, met = step(state, batch)
+            losses.append(float(met["loss"]))
+            times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        counts = _counts(counted)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        nccl_ms, busy_ms, n_nccl, host_ms, n_host = _nccl_ms(
+            train, args, state, step, mesh)
+    finally:
+        dist.destroy_process_group()
+    steady = statistics.median(times[1:])
+    want = dict.fromkeys(counted, 0)
+    want.update({k: v * n for k, v in per_step.items()})
+    w = min(5, n // 2)        # the first and last w steps' mean losses
+    print(f"ddp: {args.arch} {n} steps over {mesh.backend} world "
+          f"{mesh.world} "
+          f"(SyncBatchNorm, batch {args.batch_size}, {args.opt_level})  "
+          f"loss first/last {losses[0]:.4f}/{losses[-1]:.4f}  mean steps "
+          f"1-{w} {statistics.fmean(losses[:w]):.4f}  mean steps "
+          f"{n - w + 1}-{n} {statistics.fmean(losses[-w:]):.4f}")
+    nccl_txt = ("the profiler recorded no device events" if nccl_ms is None
+                else f"{nccl_ms:.3f} ms a step in {n_nccl} NCCL kernels "
+                     f"({nccl_ms / busy_ms:.2%} of the device busy "
+                     f"{busy_ms:.2f} ms)")
+    nccl_txt += (f"; {n_host} all-reduce calls a step, {host_ms:.3f} ms of "
+                 f"host time in them")
+    print(f"ddp: step time median {steady:.2f} ms (steps 2-{n})  first "
+          f"step {times[0]:.2f} ms  img/s {args.batch_size / steady * 1e3:.1f}"
+          f"  max memory {peak:.2f} GiB  all-reduce device time: {nccl_txt}")
+    print(f"ddp: launches a step { {k: v / n for k, v in counts.items() if v} }"
+          f" (want {per_step})")
+    if not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"ddp loss is not finite: {losses}")
+    if not statistics.fmean(losses[-w:]) < statistics.fmean(losses[:w]):
+        raise SystemExit(f"ddp loss did not fall over {n} steps")
+    if counts != want:
+        raise SystemExit(f"ddp kernel launches per step off: {counts}")
+    del state, step
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_launch():
+    """torchrun, one process on this card, the C3 command line
+    (``--sync_bn``) for 5 steps: exit 0, the header naming NCCL at world 1
+    and 5 step lines.  Its kernels launch in another process and are not
+    counted here."""
+    import signal
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", "-m",
+           "apex_example_tpu_torch.train"] + LAUNCH_ARGS
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=LAUNCH_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise SystemExit(f"launch: torchrun did not finish in "
+                         f"{LAUNCH_TIMEOUT} s")
+    wall = time.perf_counter() - t0
+    for line in out.splitlines():
+        if line.startswith(("data parallel", "model ", "epoch ")):
+            print(f"launch: {line}")
+    steps = [ln for ln in out.splitlines() if ln.startswith("epoch 0 step ")]
+    header = "data parallel: world 1, backend nccl" in out
+    print(f"launch: torchrun --nproc_per_node 1 exit {proc.returncode}, "
+          f"NCCL world 1 header {header}, {len(steps)} step lines, "
+          f"{wall:.1f} s")
+    if proc.returncode != 0 or not header or len(steps) != 5:
+        print(err[-4000:], file=sys.stderr)
+        raise SystemExit("launch: the torchrun run failed")
+
+
+def _digest(tensors):
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _rel_close(got, want, rtol):
+    """||got - want|| <= rtol ||want|| over a tensor; the ratio."""
+    d = float((got.double() - want.double()).norm())
+    n = float(want.double().norm())
+    return d / max(n, 1e-30), d <= rtol * max(n, 1e-30)
+
+
+def _ddp2_syncbn(rank, world, fused, counted, lines):
+    """SyncBatchNorm across the two processes at resnet50's stage-3 shape
+    (each rank's half of batch 256) against one process with the whole
+    batch (rank 0): y and dx rtol = atol 1e-4, the running statistics
+    rtol 1e-4 atol 1e-5, dscale and dbias (summed over the ranks) rtol
+    1e-4 plus 1e-4 of their largest magnitude.  The fused branch launches
+    each BatchNorm-sum kernel once, between the all-reduces, and each
+    rank's kernel sums are held against their plain versions."""
+    import torch.distributed as dist
+    from apex_example_tpu_torch.ops import batch_norm as bn
+    from apex_example_tpu_torch.parallel import DATA_AXIS, SyncBatchNorm
+    n, hw, _, C = BN_MODULE_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn(n, hw, hw, C, device="cuda", generator=gen) * 2 + 0.5
+    dy = torch.randn(n, hw, hw, C, device="cuda", generator=gen)
+    scale = torch.rand(C, device="cuda", generator=gen) + 0.5
+    bias = torch.randn(C, device="cuda", generator=gen) * 0.1
+    rows = slice(rank * n // world, (rank + 1) * n // world)
+
+    def run(axis, xs, dys):
+        m = SyncBatchNorm(C, fused_kernel=fused, axis_name=axis,
+                          device="cuda")
+        with torch.no_grad():
+            m.scale.copy_(scale)
+            m.bias.copy_(bias)
+        xr = xs.clone().requires_grad_()
+        y = m(xr)
+        y.backward(dys)
+        return {"y": y.detach(), "dx": xr.grad, "dscale": m.scale.grad,
+                "dbias": m.bias.grad, "mean": m.mean, "var": m.var}
+
+    _zero_counts(counted)
+    got = run(DATA_AXIS, x[rows], dy[rows])
+    torch.cuda.synchronize()
+    counts = _counts(counted)
+    for key in ("dscale", "dbias"):
+        dist.all_reduce(got[key])
+    want_launch = 1 if fused else 0
+    ok = counts["bn_stats"] == counts["bn_bwd_sums"] == want_launch
+    branch = "fused" if fused else "composite"
+    txt = f"ddp2: SyncBatchNorm {branch} {n // world}x{hw}x{hw}x{C} a rank:"
+    if fused:
+        x2 = x[rows].reshape(-1, C)
+        dy2 = dy[rows].reshape(-1, C)
+        c = torch.zeros(C, device="cuda")
+        mean = x2.mean(0)
+        inv = torch.rsqrt(x2.var(0, unbiased=False) + 1e-5)
+        kern = bn.bn_stats_cuda(x2, c) + bn.bn_bwd_sums_cuda(x2, dy2, mean,
+                                                               inv)
+        plain = bn.bn_stats_plain(x2, c) + bn.bn_bwd_sums_plain(x2, dy2,
+                                                                 mean, inv)
+        mags = _bn_magnitudes(x2, dy2, c, mean, inv)
+        closes = [_bn_sums_close(a, b, m) for a, b, m in zip(kern, plain,
+                                                              mags)]
+        ok = ok and all(o for _, o in closes)
+        txt += (f" the kernels' sums against their plain versions max|d| "
+                f"{max(e for e, _ in closes):.3g};")
+    if rank == 0:
+        want = run(None, x, dy)
+        errs = {}
+        for key, (rtol, atol) in {"y": (1e-4, 1e-4), "dx": (1e-4, 1e-4),
+                                  "mean": (1e-4, 1e-5), "var": (1e-4, 1e-5),
+                                  "dscale": (1e-4, None),
+                                  "dbias": (1e-4, None)}.items():
+            w = want[key][rows] if key in ("y", "dx") else want[key]
+            a = 1e-4 * float(w.abs().max()) if atol is None else atol
+            errs[key], good = _close(got[key], w, rtol, a)
+            ok = ok and good
+        txt += (" against one process with the whole batch: " + "  ".join(
+            f"max|d{k}| {e:.3g}" for k, e in errs.items()) + ";")
+    lines.append(f"{txt} launches bn_stats {counts['bn_stats']} "
+                 f"bn_bwd_sums {counts['bn_bwd_sums']} (want {want_launch} "
+                 f"each)  {'ok' if ok else 'MISMATCH'}")
+    return ok, counts
+
+
+def _ddp2_trail(train, argv, rank, world, counted, ddp=None):
+    """DDP2_STEPS data-parallel steps of ``argv``'s model (resnet18 on CIFAR
+    shapes, SyncBatchNorm) in the gloo group, deterministic convolutions:
+    per step (loss, grad norm), the parameters after the first step and
+    after the last, the launches."""
+    from apex_example_tpu_torch.engine import make_sharded_train_step
+    from apex_example_tpu_torch.parallel import DATA_AXIS
+    args = train.build_parser().parse_args(argv)
+    state = train.build_state(args, "cuda")
+    _deterministic_convolutions()
+    step = make_sharded_train_step(DATA_AXIS, ddp=ddp)
+    metrics, first = [], None
+    _zero_counts(counted)
+    for i in range(args.steps_per_epoch):
+        state, met = step(state, train.batch_fn(args, 0, i, "cuda", rank,
+                                                world))
+        metrics.append((float(met["loss"]), float(met["grad_norm"])))
+        if i == 0:
+            first = {k: p.detach().clone() for k, p in
+                     state.model.named_parameters()}
+    counts = _counts(counted)
+    last = [p.detach().clone() for p in state.model.parameters()]
+    return metrics, first, last, counts
+
+
+def _ddp2_full(train, argv, perturb=0.0):
+    """The first step in one process with the whole batch (no --sync_bn:
+    this process's group is not the trail's), the first parameter scaled
+    by 1 + ``perturb``: (loss, grad norm), the parameters after it."""
+    from apex_example_tpu_torch.engine import make_train_step
+    args = train.build_parser().parse_args(
+        [a for a in argv if a != "--sync_bn"])
+    state = train.build_state(args, "cuda")
+    _deterministic_convolutions()
+    if perturb:
+        with torch.no_grad():
+            next(state.model.parameters()).mul_(1.0 + perturb)
+    state, met = make_train_step()(state, train.batch_fn(args, 0, 0, "cuda"))
+    return (float(met["loss"]), float(met["grad_norm"])), {
+        k: p.detach() for k, p in state.model.named_parameters()}
+
+
+def _ddp2_image(train, rank, world, counted, lines):
+    """resnet18 (CIFAR shapes, SyncBatchNorm, FusedSGD) over the two
+    processes: the default reduction, --gradient-predivide-factor 2 and
+    --larc, DDP2_STEPS steps each.  The first step against the same step
+    in one process with the whole batch from the same weights (rank 0):
+    loss rtol 1e-5, grad norm rtol 1e-4, every parameter within atol 1e-5
+    or FLOOR_X times the floor, whichever is larger: the floor is the
+    largest parameter difference of that one-process step against itself
+    with the first parameter scaled by 1 + 1e-6 (a ReLU input within
+    rounding of zero passes on one side only; the convolutions of batch
+    32 and 64 round differently; on an H100 a parameter moved by 1.24e-5,
+    and so did the floor).  (Later steps are not compared with a separate
+    one-process trail: at this model's second step a perturbation of 1e-7
+    of the parameters moves some BatchNorm bias grads by 7% in one
+    process alone.)  Every step's loss finite, each rank's parameters
+    equal bit for bit after the trail (the digests).  Then the int8
+    exchange of one backward's grads within its bound."""
+    from apex_example_tpu_torch.parallel import DDPConfig
+    ok, counts, digests = True, dict.fromkeys(counted, 0), {}
+    for label, extra, ddp in (
+            ("default", [], DDPConfig()),
+            ("predivide 2", [], DDPConfig(gradient_predivide_factor=2.0)),
+            ("larc", ["--larc"], DDPConfig())):
+        argv = DDP2_IMAGE_ARGS + extra
+        metrics, first, last, c = _ddp2_trail(train, argv, rank, world,
+                                              counted, ddp)
+        for k in counts:
+            counts[k] += c[k]
+        digests[label] = _digest(last)
+        n = len(metrics)
+        want_c = {"sgd": n, "multi_tensor_l2norm": 0 if "--larc" in extra
+                  else n}
+        good = (all(c[k] == v for k, v in want_c.items())
+                and sum(c.values()) == sum(want_c.values())
+                and all(math.isfinite(m[0]) for m in metrics))
+        txt = (f"ddp2: resnet18 {label}, {n} steps over gloo world {world}:"
+               f" losses {[round(m[0], 5) for m in metrics]}")
+        if rank == 0:
+            (l_f, n_f), f_params = _ddp2_full(train, argv)
+            _, floor = _ddp2_full(train, argv, perturb=1e-6)
+            l_d, n_d = metrics[0]
+            p_err = max(float((first[k] - f_params[k]).abs().max())
+                        for k in first)
+            f_err = max(float((floor[k] - f_params[k]).abs().max())
+                        for k in first)
+            limit = max(1e-5, FLOOR_X * f_err)
+            good = (good and abs(l_d - l_f) <= 1e-5 * abs(l_f)
+                    and abs(n_d - n_f) <= 1e-4 * abs(n_f) and p_err <= limit)
+            txt += (f"; the first step against one process with the whole "
+                    f"batch: loss {l_d!r} / {l_f!r}, grad norm {n_d!r} / "
+                    f"{n_f!r}, max|dparam| {p_err:.3g} (rtol 1e-5, 1e-4; "
+                    f"limit {limit:.3g}: the floor {f_err:.3g})")
+        lines.append(f"{txt}; launches {c['sgd']} sgd, "
+                     f"{c['multi_tensor_l2norm']} L2 norm (want {want_c})  "
+                     f"{'ok' if good else 'MISMATCH'}")
+        ok = ok and good
+        torch.cuda.empty_cache()
+    ok = _ddp2_int8(train, rank, world, lines) and ok
+    return ok, counts, digests
+
+
+def _ddp2_int8(train, rank, world, lines):
+    """The int8 exchange of one backward's grads of resnet18 against the
+    fp32 all-reduce of the same grads: every element within world * scale
+    / 2 of the sum (over world, for the average), scale the chunk's shared
+    max-abs over 127."""
+    import torch.distributed as dist
+    from apex_example_tpu_torch.parallel import DDPConfig, allreduce_grads
+    args = train.build_parser().parse_args(
+        [a for a in DDP2_IMAGE_ARGS if a != "--sync_bn"])
+    state = train.build_state(args, "cuda")
+    x, y = train.batch_fn(args, 0, 0, "cuda", rank, world)
+    torch.nn.functional.cross_entropy(state.model(x), y).backward()
+    grads = [p.grad for p in state.model.parameters()]
+    q = allreduce_grads([g.clone() for g in grads],
+                        DDPConfig(quantized_allreduce=True))
+    exact = allreduce_grads([g.double() for g in grads])
+    worst, ok = 0.0, True
+    for g, gq, ge in zip(grads, q, exact):
+        flat = g.float().reshape(-1)
+        chunks = torch.nn.functional.pad(
+            flat, (0, (-flat.numel()) % 1024)).view(-1, 1024)
+        scale = chunks.abs().amax(1) * (1.0 / 127.0)
+        dist.all_reduce(scale, op=dist.ReduceOp.MAX)
+        bound = (world * scale / 2).repeat_interleave(1024)[:flat.numel()]
+        err = (gq.double().reshape(-1) - ge.reshape(-1)) * world
+        worst = max(worst, float((err.abs() / bound.double()).max()))
+        ok = ok and bool((err.abs() <= bound.double() * (1 + 1e-6)).all())
+    lines.append(f"ddp2: int8 exchange of resnet18's grads (chunks of 1024, "
+                 f"{sum(g.numel() for g in grads)} elements): largest error "
+                 f"{worst:.3f} of its bound world * scale / 2  "
+                 f"{'ok' if ok else 'MISMATCH'}")
+    return ok
+
+
+def _ddp2_zero(rank, world, counted, lines):
+    """DistributedFusedAdam over bert_base's 201 parameter shapes (the
+    same seeded values on both ranks, each rank its own seeded grads)
+    against FusedAdam over the same parameters with the ranks' mean grads
+    in one process (rank 0), ZERO_STEPS clean steps: every parameter
+    within rtol 1e-5 plus 1e-6 of the tensor's largest magnitude.  The
+    first step's shard: the Adam kernel's p, m and v against
+    adam_update_plain on the same shard, the same limits.  A planted inf
+    in rank 1's grad of element 0 (rank 0's shard) is skipped by both
+    ranks: parameters, moments and count bitwise unchanged.  Returns
+    (ok, launches, the parameters' digest)."""
+    import torch.distributed as dist
+    from apex_example_tpu_torch.ops.fused_optim import adam_update_plain
+    from apex_example_tpu_torch.optim.distributed import DistributedFusedAdam
+    from apex_example_tpu_torch.optim.fused import FusedAdam
+    shapes = _bert_base_shapes()
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    params = [torch.randn(s, device="cuda", generator=gen) * 0.02
+              for s in shapes]
+    hyper = dict(lr=1e-3, weight_decay=0.01)
+    opt = DistributedFusedAdam(params, **hyper)
+    ref = None
+    if rank == 0:
+        ref = FusedAdam([p.detach().clone() for p in params], **hyper)
+
+    def grads_of(r, k):
+        g = torch.Generator(device="cuda").manual_seed(1000 + 10 * k + r)
+        return [torch.randn(s, device="cuda", generator=g) * 1e-3
+                for s in shapes]
+
+    ok, counts, worst = True, dict.fromkeys(counted, 0), 0.0
+    plain_err, skipped_ok = None, None
+    for k in range(ZERO_STEPS + 1):
+        planted = k == 1
+        with torch.no_grad():
+            for p, g in zip(params, grads_of(rank, k)):
+                p.grad.copy_(g)
+            if planted and rank == 1:
+                params[0].grad.view(-1)[0] = float("inf")
+        if planted:
+            before = ([p.clone() for p in params], opt.mu.clone(),
+                      opt.nu.clone(), opt.step_count)
+        _zero_counts(counted)
+        opt.reduce_grads()
+        if k == 0:                 # the shard the kernel will step
+            flat = torch.cat([p.detach().reshape(-1) for p in params])
+            flat = torch.nn.functional.pad(flat, (0, opt.padded -
+                                                  flat.numel()))
+            pre = (flat[opt.lo:opt.lo + opt.shard].clone(),
+                   opt.g_shard / world, opt.mu.clone(), opt.nu.clone())
+        opt.step()
+        c = _counts(counted)
+        for key in counts:
+            counts[key] += c[key]
+        ok = ok and c["adam"] == 1 and sum(c.values()) == 1
+        if k == 0:
+            lr, c1, c2 = opt._scalars_at(1)
+            want = adam_update_plain(*pre, lr=lr, beta1=0.9, beta2=0.999,
+                                     eps=1e-8, weight_decay=0.01,
+                                     bias_c1=c1, bias_c2=c2)
+            errs = [_close(g, w, STATE_RTOL, STATE_ATOL * float(
+                w.abs().max())) for g, w in zip(
+                (opt.p_shard, opt.mu, opt.nu), want)]
+            plain_err = max(e for e, _ in errs)
+            ok = ok and all(o for _, o in errs)
+        if planted:
+            skipped_ok = (all(torch.equal(a, b) for a, b in zip(params,
+                                                                before[0]))
+                          and torch.equal(opt.mu, before[1])
+                          and torch.equal(opt.nu, before[2])
+                          and opt.step_count == before[3])
+            ok = ok and skipped_ok
+        elif ref is not None:
+            mean = [(a + b) / world for a, b in zip(grads_of(0, k),
+                                                    grads_of(1, k))]
+            with torch.no_grad():
+                for p, g in zip(ref.params, mean):
+                    p.grad.copy_(g)
+            ref.step()
+            errs = [_close(a, b, STATE_RTOL, STATE_ATOL * float(
+                b.abs().max())) for a, b in zip(params, ref.params)]
+            worst = max(worst, max(e for e, _ in errs))
+            ok = ok and all(o for _, o in errs)
+    torch.cuda.synchronize()
+    dist.barrier()
+    txt = (f"ddp2: DistributedFusedAdam over bert_base's {len(shapes)} "
+           f"tensors ({opt.padded} elements padded, {opt.shard} a rank), "
+           f"{ZERO_STEPS} steps and a planted inf: the first shard's kernel "
+           f"step against adam_update_plain max|d| {plain_err:.3g}; the "
+           f"overflow skipped on this rank: {skipped_ok}; step count "
+           f"{opt.step_count}")
+    if rank == 0:
+        txt += (f"; against FusedAdam with the mean grads in one process: "
+                f"max|dparam| {worst:.3g} (rtol {STATE_RTOL:g} + "
+                f"{STATE_ATOL:g} of the largest magnitude)")
+    lines.append(f"{txt}; launches {counts['adam']} adam (want "
+                 f"{ZERO_STEPS + 1})  {'ok' if ok else 'MISMATCH'}")
+    return ok and opt.step_count == ZERO_STEPS, counts, _digest(params)
+
+
+def _ddp2_rank(rank, world, store, queue):
+    """One of ddp2's processes: every part on cuda:0 in the gloo group;
+    puts (rank, result) on ``queue``, or (rank, the traceback)."""
+    try:
+        sys.path.insert(0, ROOT)
+        torch.cuda.set_device(0)
+        import torch.distributed as dist
+        from apex_example_tpu_torch import train
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                rank=rank, world_size=world)
+        try:
+            counted = _counted_kernels()
+            lines, counts, t0 = [], dict.fromkeys(counted, 0), time.time()
+            ok = True
+            for fused in (False, True):
+                good, c = _ddp2_syncbn(rank, world, fused, counted, lines)
+                ok = ok and good
+                counts = {k: counts[k] + c[k] for k in counts}
+            torch.cuda.empty_cache()
+            good, c, digests = _ddp2_image(train, rank, world, counted, lines)
+            ok = ok and good
+            counts = {k: counts[k] + c[k] for k in counts}
+            torch.cuda.empty_cache()
+            good, c, digests["zero"] = _ddp2_zero(rank, world, counted, lines)
+            ok = ok and good
+            counts = {k: counts[k] + c[k] for k in counts}
+            lines.append(f"ddp2: rank {rank} took {time.time() - t0:.1f} s")
+        finally:
+            dist.destroy_process_group()
+        queue.put((rank, {"ok": ok, "lines": lines, "counts": counts,
+                          "digests": digests}))
+    except Exception:                # reported to the parent, which fails
+        import traceback
+        queue.put((rank, traceback.format_exc()))
+
+
+def phase_ddp2():
+    """Two processes on cuda:0 in a gloo group (NCCL refuses two ranks on
+    one card), spawned, each part held against one process with the whole
+    batch; a rank that hangs or dies fails the phase after DDP2_TIMEOUT
+    seconds.  Returns rank 0's launches."""
+    import queue as queue_mod
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    store = _fresh(os.path.join(ROOT, "build", "chip_smoke_gloo_store"))
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_ddp2_rank, args=(r, 2, store, results))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        deadline = time.monotonic() + DDP2_TIMEOUT
+        while len(got) < len(procs):
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise SystemExit(f"ddp2: the ranks did not finish in "
+                                 f"{DDP2_TIMEOUT} s")
+            try:
+                rank, res = results.get(timeout=min(left, 10.0))
+            except queue_mod.Empty:
+                dead = [p.exitcode for p in procs
+                        if p.exitcode not in (None, 0)]
+                if dead:
+                    raise SystemExit(f"ddp2: a rank died (exit {dead})")
+                continue
+            got[rank] = res
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=30)
+    for rank, res in sorted(got.items()):
+        if isinstance(res, str):
+            raise SystemExit(f"ddp2: rank {rank} failed:\n{res}")
+    for line in got[0]["lines"]:
+        print(line)
+    print(got[1]["lines"][-1])
+    same = got[0]["digests"] == got[1]["digests"]
+    print(f"ddp2: both ranks' parameters bitwise equal after every trail: "
+          f"{same}  ({time.perf_counter() - t0:.1f} s with the spawn)")
+    if not (got[0]["ok"] and got[1]["ok"] and same):
+        for line in got[1]["lines"]:
+            print(f"ddp2: rank 1: {line}")
+        raise SystemExit("ddp2: a data-parallel check failed")
+    return got[0]["counts"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this check runs on "
@@ -3264,24 +3994,7 @@ def main() -> int:
     from apex_example_tpu_torch.parallel.sync_batchnorm import SyncBatchNorm
     from apex_example_tpu_torch.serve import cli
 
-    counted = {"layer_norm_fwd": ln.layer_norm_cuda,
-               "layer_norm_bwd": ln.layer_norm_bwd_cuda,
-               "multi_tensor_l2norm": mt.multi_tensor_l2norm_cuda,
-               "lamb_stage1": fo.lamb_stage1_cuda,
-               "lamb_stage2": fo.lamb_stage2_cuda,
-               "adam": fo.adam_cuda,
-               "multi_tensor_scale": mt.multi_tensor_scale_cuda,
-               "sgd": fo.sgd_cuda,
-               "bn_stats": bn.bn_stats_cuda,
-               "bn_bwd_sums": bn.bn_bwd_sums_cuda,
-               "attn_fwd": att.flash_attention_cuda,
-               "attn_dkdv": att.flash_attention_dkdv_cuda,
-               "attn_dq": att.flash_attention_dq_cuda,
-               "novograd": fo.novograd_cuda,
-               "adagrad": fo.adagrad_cuda,
-               "axpby": mt.multi_tensor_axpby_cuda,
-               "rms_norm_fwd": ln.rms_norm_cuda,
-               "rms_norm_bwd": ln.rms_norm_bwd_cuda}
+    counted = _counted_kernels()
     bert_step = {"layer_norm_fwd": 26, "layer_norm_bwd": 26,
                  "multi_tensor_l2norm": 1, "lamb_stage1": 1,
                  "lamb_stage2": 1}
@@ -3423,6 +4136,14 @@ def main() -> int:
         train, counted, "lamb_o3", O3_LAMB_ARGS,
         {"lamb_stage1": 2, "lamb_stage2": 2, "multi_tensor_l2norm": 2})
     print(f"c4, c5: the amp phases took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    by_path["ddp"] = phase_ddp(train, counted, image_step)
+    torch.cuda.empty_cache()
+    phase_launch()
+    by_path["ddp2"] = phase_ddp2()
+    print(f"ddp, launch, ddp2: the data-parallel phases took "
+          f"{time.perf_counter() - t0:.1f} s")
     for row in rows:
         row["launches_by_path"] = {k: v[row["name"]]
                                    for k, v in by_path.items()}

@@ -186,8 +186,16 @@ def test_sync_batch_norm_matches_the_jax_module(dtype, fused):
 
 
 def test_cross_device_statistics_are_refused():
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        SyncBatchNorm(8, axis_name="data", device="cpu")
+    """Without a process group the cross-process statistics are refused
+    where they would be taken, in both branches (tests/test_torch_parallel.py
+    runs them across two processes)."""
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+    for fused in (False, True):
+        m = SyncBatchNorm(8, axis_name="data", fused_kernel=fused,
+                          device="cpu")
+        with pytest.raises(RuntimeError, match="process group"):
+            m(torch.randn(4, 8))
 
 
 @pytest.mark.parametrize("sms", [132, 114])

@@ -40,7 +40,11 @@ all (the tensor cores add the fp32 products in another order; a rounding
 point of P or dS skipped or moved flips 39-55%), and in a batch element
 whose key bias masks every key each gradient row within 3 x the plain
 version's own distance from correctly rounded sums; every result bitwise
-repeatable.
+repeatable.  Across two processes on cuda:0 in a gloo group
+(tests/torch_dist_cases.py): SyncBatchNorm in both branches against one
+process with the whole batch on the card, 1e-5 (fp32 sums in another
+order), and DistributedFusedAdam against FusedAdam with the mean grads,
+rtol 1e-5 plus 1e-6 of each tensor's largest magnitude.
 """
 
 import numpy as np
@@ -1400,3 +1404,97 @@ def test_gpt_flash_route_matches_the_dense_route_on_the_card(cuda_device):
     for a, b in zip(*out):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
                                    atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def card_ranks(tmp_path_factory):
+    """Two processes on cuda:0 in a gloo group (tests/torch_dist_cases.py;
+    NCCL refuses two ranks on one card): SyncBatchNorm in both branches
+    on 2 x 4 rows of 3 x 3 x 6, and DistributedFusedAdam over a few
+    tensors for three steps (the second with an inf planted in rank 1's
+    grad); every wait bounded."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import torch_dist_cases as cases
+    rs = np.random.RandomState(0)
+    shapes = [(300, 7), (7,), (1000,), (5, 3, 4)]
+    spec = {"cases": ["card_syncbn_composite", "card_syncbn_fused",
+                      "card_zero_adam"],
+            "bn_x": (rs.randn(8, 3, 3, 6) * 2 + 0.5).astype(np.float32),
+            "bn_w": rs.randn(8, 3, 3, 6).astype(np.float32),
+            "bn_sd": {"scale": (1 + 0.1 * rs.randn(6)).astype(np.float32),
+                      "bias": (0.1 * rs.randn(6)).astype(np.float32),
+                      "mean": (0.2 * rs.randn(6)).astype(np.float32),
+                      "var": (1 + 0.1 * rs.rand(6)).astype(np.float32)},
+            "params": [(0.02 * rs.randn(*s)).astype(np.float32)
+                       for s in shapes],
+            "zero_grads": [[[(1e-3 * rs.randn(*s)).astype(np.float32)
+                             for s in shapes] for _ in range(2)]
+                           for _ in range(3)]}
+    ranks = cases.Ranks(spec, tmp_path_factory.mktemp("card_ranks"), 2,
+                        timeout=300)
+    return spec, ranks.results()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_syncbn_across_two_processes_on_the_card(card_ranks, fused):
+    """Two ranks' SyncBatchNorm on the card against one process with the
+    whole batch on the card: y, dx and the running statistics 1e-5,
+    dscale and dbias (summed over the ranks) 1e-5 (fp32 sums over 72
+    rows in another order); the fused branch launches each BatchNorm-sum
+    kernel once a rank, the composite none."""
+    spec, results = card_ranks
+    got = [r["card_syncbn_fused" if fused else "card_syncbn_composite"]
+           for r in results]
+    m = SyncBatchNorm(6, fused_kernel=fused, device="cuda")
+    m.load_state_dict({k: torch.from_numpy(v)
+                       for k, v in spec["bn_sd"].items()})
+    x = torch.from_numpy(spec["bn_x"]).cuda().requires_grad_()
+    y = m(x)
+    (y * torch.from_numpy(spec["bn_w"]).cuda()).sum().backward()
+    want = {"y": y, "dx": x.grad, "mean": m.mean, "var": m.var,
+            "dscale": m.scale.grad, "dbias": m.bias.grad}
+    merged = {"y": np.concatenate([g["y"] for g in got]),
+              "dx": np.concatenate([g["dx"] for g in got]),
+              "dscale": sum(g["dscale"] for g in got),
+              "dbias": sum(g["dbias"] for g in got),
+              "mean": got[0]["mean"], "var": got[0]["var"]}
+    for key, value in merged.items():
+        np.testing.assert_allclose(value, want[key].detach().cpu().numpy(),
+                                   rtol=FP32_TOL, atol=FP32_TOL,
+                                   err_msg=key)
+    for g in got:
+        assert tuple(g["launches"]) == ((1, 1) if fused else (0, 0))
+
+
+@pytest.mark.cuda
+def test_distributed_fused_adam_across_two_processes_on_the_card(card_ranks):
+    """Two ranks' DistributedFusedAdam on the card (the Adam kernel over
+    each rank's shard) against FusedAdam in one process with the ranks'
+    mean grads: every parameter rtol 1e-5 plus 1e-6 of the tensor's
+    largest magnitude after each clean step; the step with the planted
+    inf skipped by both ranks (parameters bitwise, the count kept); one
+    Adam launch a step; both ranks' parameters bitwise equal."""
+    import torch_dist_cases as cases
+    spec, results = card_ranks
+    got = [r["card_zero_adam"] for r in results]
+    params = [torch.from_numpy(p).cuda() for p in spec["params"]]
+    ref = FusedAdam(params, **cases.ADAM)
+    for k, grads in enumerate(spec["zero_grads"]):
+        if k != 1:
+            with torch.no_grad():
+                for p, a, b in zip(params, *grads):
+                    p.grad.copy_(torch.from_numpy((a + b) / 2))
+            ref.step()
+        for g in got:
+            assert g["count"][k] == (1 if k < 2 else 2)
+            for mine, want in zip(g["params"][k], params):
+                w = want.cpu().numpy()
+                np.testing.assert_allclose(mine, w, rtol=1e-5,
+                                           atol=1e-6 * np.abs(w).max())
+        for a, b in zip(got[0]["params"][k], got[1]["params"][k]):
+            np.testing.assert_array_equal(a, b)
+    for a, b in zip(got[0]["params"][1], got[0]["params"][0]):
+        np.testing.assert_array_equal(a, b)              # skipped
+    assert [g["launches"] for g in got] == [3, 3]

@@ -17,7 +17,7 @@ under dynamic loss scaling, and its eval step.
   ``--metrics-jsonl`` stream passes ``tools/metrics_lint.py
   --require-summary`` (the Transformer-XL stream carries ``ppl``); without
   ``--device`` it raises where torch sees no CUDA; the flags of paths not
-  ported (``--larc``, ``--grad-accum``, ``--sync_bn``,
+  ported (``--resume``, ``--grad-accum``, ``--context-parallel``,
   ``--tensor-parallel``) are rejected by argparse; the LM archs refuse
   ``--eval`` (alone, and beside O1 or ``--loss-scale``, which they take)
   with a message naming a later slice.
@@ -497,8 +497,9 @@ def test_cli_defaults_to_cuda_and_raises_without_it(monkeypatch):
         train.main(["--arch", "bert_tiny", "--steps-per-epoch", "1"])
 
 
-@pytest.mark.parametrize("argv", [["--larc"], ["--grad-accum", "2"],
-                                  ["--sync_bn"], ["--tensor-parallel", "2"]])
+@pytest.mark.parametrize("argv", [["--resume", "ckpt"], ["--grad-accum", "2"],
+                                  ["--context-parallel", "2"],
+                                  ["--tensor-parallel", "2"]])
 def test_flags_of_other_paths_are_rejected(argv):
     with pytest.raises(SystemExit) as exc:
         train.build_parser().parse_args(["--device", "cpu"] + argv)
