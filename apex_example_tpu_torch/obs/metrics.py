@@ -2,10 +2,13 @@
 ``nearest_rank``, ``Histogram`` and ``JsonlSink`` from
 apex_example_tpu/obs/metrics.py.
 
-The port runs as one process, so the sink writes its one file and has no
-rank logic.  Records follow the JSONL schema apex_example_tpu/obs/schema.py
-declares (version ``SCHEMA_VERSION``), so tools/metrics_lint.py and
-tools/serve_report.py read the port's streams as they are.
+The sink follows the reference harness's logging rule: only rank 0 of the
+process group writes, unless ``all_ranks``, when rank K > 0 writes its own
+``PATH.rank<K>`` (the JAX sink's naming, :239-266); the rank is read from
+torch.distributed at the first use.  Records follow the JSONL schema
+apex_example_tpu/obs/schema.py declares (version ``SCHEMA_VERSION``), so
+tools/metrics_lint.py and tools/serve_report.py read the port's streams as
+they are.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ import json
 import math
 import os
 import threading
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 SCHEMA_VERSION = 18
 
@@ -71,25 +74,49 @@ class Histogram:
 
 
 class JsonlSink:
-    """JSONL writer, one file per run: one JSON object per line, flushed
-    per record so a killed run keeps every record it emitted."""
+    """Rank-aware JSONL writer, one file per run: one JSON object per line,
+    flushed per record so a killed run keeps every record it emitted."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, all_ranks: bool = False):
         self.path = path
+        self.all_ranks = all_ranks
+        self._rank: Optional[int] = None
         self._fh = None                         # guarded-by: _lock
         self._opened = False                    # guarded-by: _lock
         self._lock = threading.RLock()
         self.records_written = 0                # guarded-by: _lock
 
+    @property
+    def rank(self) -> int:
+        """This process's rank in the default process group, 0 without
+        one."""
+        if self._rank is None:
+            import torch.distributed as dist
+            self._rank = dist.get_rank() if dist.is_initialized() else 0
+        return self._rank
+
+    @property
+    def active(self) -> bool:
+        """Whether this process writes: rank 0, or every rank under
+        ``all_ranks``."""
+        return self.all_ranks or self.rank == 0
+
+    def resolved_path(self) -> str:
+        return self.path if self.rank == 0 else f"{self.path}.rank{self.rank}"
+
     def write(self, record: Dict[str, Any]) -> bool:
-        """Write one record.  The file is truncated at first open; a
-        write after close() re-opens it in append mode."""
+        """Write one record; False where this rank does not write.  The
+        file is truncated at first open; a write after close() re-opens it
+        in append mode."""
+        if not self.active:
+            return False
         with self._lock:
             if self._fh is None:
-                parent = os.path.dirname(self.path)
+                path = self.resolved_path()
+                parent = os.path.dirname(path)
                 if parent:
                     os.makedirs(parent, exist_ok=True)
-                self._fh = open(self.path, "a" if self._opened else "w")
+                self._fh = open(path, "a" if self._opened else "w")
                 self._opened = True
             self._fh.write(json.dumps(record, separators=(",", ":")) + "\n")
             self._fh.flush()

@@ -21,6 +21,7 @@ import uuid
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from apex_example_tpu_torch.obs.metrics import SCHEMA_VERSION, JsonlSink
 
@@ -72,14 +73,15 @@ class TelemetryEmitter:
     def run_header(self, config: Dict[str, Any],
                    argv: Optional[list] = None, **extra) -> Dict[str, Any]:
         cuda = self.device.type == "cuda"
+        world = dist.get_world_size() if dist.is_initialized() else 1
         rec: Dict[str, Any] = {
             "record": "run_header",
             "schema": SCHEMA_VERSION,
             "time": time.time(),
             "run_id": self.run_id,
             "num_devices": torch.cuda.device_count() if cuda else 1,
-            "num_processes": 1,
-            "process_index": 0,
+            "num_processes": world,
+            "process_index": self.sink.rank,
             "platform": "gpu" if cuda else "cpu",
             "config": {k: v for k, v in config.items()
                        if isinstance(v, (str, int, float, bool, type(None)))},

@@ -33,6 +33,12 @@ slices them, which is what this port does.
 On the CPU the shard steps through ``adam_update_plain``.  The gather is
 a sum of disjoint slices, JAX's form of the all-gather (:200-207); the
 port uses ``all_reduce`` and ``broadcast`` only.
+
+The state dict is FusedAdam's, per parameter (``step``, ``mu``, ``nu``), so
+a checkpoint does not depend on the world it was written in:
+``state_dict`` gathers the shards (every process of the group calls it,
+a collective) and strips the padding; ``load_state_dict`` takes this
+process's slice ``[lo, lo + shard)`` of the flattened moments.
 """
 
 from __future__ import annotations
@@ -67,6 +73,8 @@ class DistributedFusedAdam(_AdamScalars):
     every process of ``axis_name``'s group.  The constructor mirrors
     FusedAdam's and the JAX one's (the world is the group's size); the
     summed grads are divided by the world, the mean-reduction contract."""
+
+    sharded_state = True     # state_dict() is a collective of the group
 
     def __init__(self, params: Iterable[torch.Tensor], lr: Schedule = 1e-3,
                  betas=(0.9, 0.999), eps: float = 1e-8,
@@ -194,6 +202,46 @@ class DistributedFusedAdam(_AdamScalars):
         self.flat_p[hi:].zero_()
         dist.all_reduce(self.flat_p, group=group_of(self.axis_name))
         torch._foreach_copy_(self.params, self._p_views)
+
+    @torch.no_grad()
+    def state_dict(self) -> Dict:
+        """FusedAdam's per-parameter state dict: the shards of ``mu`` and
+        ``nu`` gathered over the group (one all-reduce of both), the
+        padding stripped.  Every process of the group must call it."""
+        full = torch.zeros(2, self.padded, dtype=torch.float32,
+                           device=self.device)
+        full[0, self.lo:self.lo + self.shard] = self.mu
+        full[1, self.lo:self.lo + self.shard] = self.nu
+        dist.all_reduce(full, group=group_of(self.axis_name))
+        sizes = [p.numel() for p in self.params]
+        numel = sum(sizes)
+        out = {"step": self.step_count}
+        for row, name in enumerate(("mu", "nu")):
+            out[name] = [v.view(p.shape) for v, p in zip(
+                full[row, :numel].split(sizes), self.params)]
+        return out
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict) -> None:
+        """Copy this process's slice of a per-parameter state dict (from
+        this optimizer at any world, or from FusedAdam) into the shards,
+        in place, and set the step count."""
+        sizes = [p.numel() for p in self.params]
+        for name in ("mu", "nu"):
+            got = [t.numel() for t in state[name]]
+            if got != sizes:
+                raise ValueError(f"state's {name} holds {len(got)} tensors "
+                                 f"of {sum(got)} elements, the optimizer "
+                                 f"{len(sizes)} of {sum(sizes)}")
+        numel = sum(sizes)
+        hi = min(self.lo + self.shard, numel)
+        for name in ("mu", "nu"):
+            shard = getattr(self, name)
+            shard.zero_()
+            if hi > self.lo:
+                flat = torch.cat([t.reshape(-1).float() for t in state[name]])
+                shard[:hi - self.lo].copy_(flat[self.lo:hi])
+        self.step_count = int(state["step"])
 
 
 def make_zero_train_step(loss_fn: Optional[Callable] = None,

@@ -18,7 +18,8 @@ be another update.  The norms are fp32 over each tensor, in plain torch
 ``step`` returns the global norm of the grads as they came in (0-d fp32),
 the JAX step's ``grad_norm`` metric (taken before the optimizer, LARC
 included).  Everything else (``params``, ``zero_grad``, ``unscale_grads``,
-``clip_grad_norm``, ``device``, the state) is the inner optimizer's.
+``clip_grad_norm``, ``device``, the state and its ``state_dict`` and
+``load_state_dict``) is the inner optimizer's.
 """
 
 from __future__ import annotations
@@ -46,6 +47,13 @@ class LARC:
         if name == "optimizer":           # not set yet: no recursion
             raise AttributeError(name)
         return getattr(self.optimizer, name)
+
+    def state_dict(self):
+        """The wrapped optimizer's state dict (LARC keeps no state)."""
+        return self.optimizer.state_dict()
+
+    def load_state_dict(self, state) -> None:
+        self.optimizer.load_state_dict(state)
 
     @torch.no_grad()
     def _scale_grads(self) -> torch.Tensor:

@@ -1,14 +1,24 @@
 """Continuous-batching inference CLI: port of serve.py (the synthetic,
 role ``both`` path).  Run it as ``python -m apex_example_tpu_torch.serve``.
 
-Random-init GPT weights from ``--seed`` (no checkpoint), a deterministic
-synthetic request stream with staggered arrivals, and the engine of
-serve/engine.py over the block-paged KV cache.  It runs on the card unless
-``--device cpu`` is given, and raises when CUDA is asked for and absent.
+GPT weights random from ``--seed``, or a trained model's parameters
+restored from ``--checkpoint-dir`` (the trainer's checkpoints,
+utils/checkpoint.py ``restore_params``; ``--checkpoint-step``, default the
+latest), copied into the serving model in place and cast to its dtypes
+(serve.py :144-148, :743-745); a deterministic synthetic request stream
+with staggered arrivals, and the engine of serve/engine.py over the
+block-paged KV cache.  It runs on the card unless ``--device cpu`` is
+given, and raises when CUDA is asked for and absent.
 
     # gpt_tiny smoke on the CPU, records to a JSONL stream
     python -m apex_example_tpu_torch.serve --device cpu --arch gpt_tiny \\
         --requests 8 --slots 4 --max-len 32 --metrics-jsonl serve.jsonl
+
+    # serve what the trainer saved
+    python -m apex_example_tpu_torch.train --arch gpt_base --opt adam \\
+        --checkpoint-dir ck
+    python -m apex_example_tpu_torch.serve --arch gpt_base \\
+        --checkpoint-dir ck
 
     # then summarize it (the JAX package's tools read the stream as is)
     python tools/serve_report.py serve.jsonl
@@ -35,6 +45,8 @@ from apex_example_tpu_torch.serve.engine import ServeEngine
 from apex_example_tpu_torch.serve.loadgen import (parse_range,
                                                   synthetic_requests)
 from apex_example_tpu_torch.serve.queue import RequestQueue
+from apex_example_tpu_torch.utils.checkpoint import (latest_step,
+                                                     restore_params)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -45,6 +57,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device to serve on: cuda (default) or cpu")
     p.add_argument("--arch", default="gpt_tiny",
                    choices=["gpt_tiny", "gpt_base"])
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="the trainer's checkpoint directory to restore the "
+                        "parameters from (omit: random init from --seed)")
+    p.add_argument("--checkpoint-step", type=int, default=None,
+                   help="checkpoint step (default: the latest)")
     p.add_argument("--slots", type=int, default=4,
                    help="KV-cache slot count (the max decode batch)")
     p.add_argument("--max-len", type=int, default=None,
@@ -123,6 +140,13 @@ def run_serve(args):
     device = resolve_device(args.device)
     model = {"gpt_tiny": gpt_tiny, "gpt_base": gpt_base}[args.arch](
         seed=args.seed, device=device)
+    source = f"random init (seed {args.seed})"
+    if args.checkpoint_dir:
+        step = args.checkpoint_step
+        if step is None:
+            step = latest_step(args.checkpoint_dir)
+        model.load_state_dict(restore_params(args.checkpoint_dir, step))
+        source = f"checkpoint {args.checkpoint_dir} (step {step})"
     max_len = args.max_len
     if max_len is None:
         max_len = min(model.max_position, 128)
@@ -168,8 +192,7 @@ def run_serve(args):
         print(f"serve: {args.requests} request(s)  arch={args.arch}  "
               f"role=both  slots={args.slots}  max_len={max_len}  "
               f"blocks={pool.num_blocks}x{pool.block_size}  "
-              f"device={device}  params from random init (seed "
-              f"{args.seed})")
+              f"device={device}  params from {source}")
         completions = engine.run(max_steps=args.steps or None)
         summary = engine.summary_record()
         if sink is not None:

@@ -60,12 +60,44 @@ over fp32 masters, with fp32 softmax and logits; O3 stores the parameters
 half (the LayerNorms' fp32) and runs the softmax half; ``--loss-scale
 dynamic`` skips an overflow step on the card through every optimizer's
 noop flag.  ``--fused-attention`` stays refused at O3 and for the other
-archs (train.py :699-709), and the LM archs run without ``--eval`` (their
-eval steps come with a later slice).  Entry
-points run on the card unless ``--device cpu`` is given, and raise when
-CUDA is asked for and absent.  The flags of paths not ported yet (model
-parallelism, checkpoints, grad accumulation, diagnostics) are absent, so
-argparse rejects them.
+archs (train.py :699-709).  Entry points run on the card unless
+``--device cpu`` is given, and raise when CUDA is asked for and absent.
+The flags of paths not ported yet (model parallelism, grad accumulation,
+diagnostics, resilience) are absent, so argparse rejects them.
+
+``--eval`` evaluates after each epoch, ``--eval-batches`` batches in
+``torch.no_grad()`` (engine.make_eval_step for images; for the LM archs
+workloads.make_bert_eval_step, make_gpt_eval_step and make_txl_eval_step,
+Transformer-XL's memory starting at ``init_mems`` each epoch and carried
+across the eval batches).  The LM eval batches of epoch E are
+``batch_fn(10_000_000 + E * eval_batches + j)`` (:1785).  Under data
+parallelism every process evaluates the whole eval batch and rank 0
+prints.
+
+Checkpoints (utils/checkpoint.py; train.py :190-199, :471-511,
+:800-809, :906-966): ``--checkpoint-dir DIR`` saves the train state (the
+parameters and buffers, the optimizer's moments and step count, the loss
+scaler and the step) at each epoch's end and, with ``--save-every-steps
+N``, every N steps, with the host-state sidecar (the loop position);
+``--async-checkpoint`` writes the files behind the training.  ``--resume
+DIR`` restores the latest checkpoint in place and continues at its step,
+in the middle of an epoch too, with the batch of that global step;
+Transformer-XL's memory starts cold, as in JAX (:1652-1656).  Every
+process restores the same files; rank 0 writes (the ZeRO optimizer
+gathers its shards for it first):
+
+    python -m apex_example_tpu_torch.train --arch bert_base --opt lamb \
+        --epochs 2 --checkpoint-dir ck --save-every-steps 50 --eval
+    python -m apex_example_tpu_torch.train --arch bert_base --opt lamb \
+        --epochs 3 --resume ck --checkpoint-dir ck --eval
+
+Flags of the reference's command line (:129, :217, :318-320):
+``--local_rank`` / ``--local-rank`` (what ``torch.distributed.launch``
+passes; the device still comes from ``LOCAL_RANK``), ``--workers`` and
+``--deterministic`` are accepted, recorded in the run_header and do
+nothing; ``--num-devices N`` must equal the launcher's world (one process
+per card); ``--metrics-all-ranks`` makes rank K > 0 write its own
+``PATH.rank<K>`` beside rank 0's ``--metrics-jsonl PATH``.
 
 Data parallelism (C3; train.py :740-783, :1541-1575): under torchrun,
 one process per GPU, every process trains on its rows ``[r B / W, (r + 1)
@@ -95,7 +127,9 @@ Each printed step is train.py's line: ``epoch E step i/N loss L (avg)
 top1 T (avg) R img/s scale S`` for images (:895-899), ``epoch E step i/N
 loss L (avg) [ppl P ]R tok/s scale S`` for LMs (:1747-1752); after each
 epoch with ``--eval``, ``epoch E EVAL loss L top1 T top5 T5 (N batches)``
-(:951-953).  With ``--metrics-jsonl`` the run writes a run_header, one
+(:951-953) or ``epoch E EVAL loss L masked_acc|ppl X (N batches)``
+(BERT; GPT and Transformer-XL with ``ppl = exp(mean loss)``,
+:1794-1798).  With ``--metrics-jsonl`` the run writes a run_header, one
 step record per step (``items`` are images or tokens) and a run_summary
 (obs/telemetry.py), which the JAX package's tools read unchanged.
 """
@@ -103,6 +137,8 @@ step record per step (``items`` are images or tokens) and a run_summary
 from __future__ import annotations
 
 import argparse
+import math
+import random
 import sys
 import time
 
@@ -135,12 +171,15 @@ from apex_example_tpu_torch.optim.schedules import build_schedule
 from apex_example_tpu_torch.parallel.distributed import DDPConfig
 from apex_example_tpu_torch.parallel.larc import LARC
 from apex_example_tpu_torch.parallel.launch import (
-    is_main_process, local_device, maybe_initialize_distributed)
+    local_device, maybe_initialize_distributed)
 from apex_example_tpu_torch.parallel.mesh import DATA_AXIS
+from apex_example_tpu_torch.utils.checkpoint import CheckpointManager
 from apex_example_tpu_torch.utils.meters import AverageMeter, Throughput
-from apex_example_tpu_torch.workloads import (lm_loss, make_txl_train_step,
+from apex_example_tpu_torch.workloads import (lm_loss, make_bert_eval_step,
+                                              make_gpt_eval_step,
                                               make_sharded_txl_train_step,
-                                              mlm_loss)
+                                              make_txl_eval_step,
+                                              make_txl_train_step, mlm_loss)
 
 LM_ARCHS = {"bert_base": bert_base, "bert_tiny": bert_tiny,
             "gpt_base": gpt_base, "gpt_tiny": gpt_tiny,
@@ -223,10 +262,38 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--print-freq", type=int, default=10)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--eval", action="store_true",
-                   help="evaluate after each epoch (image archs)")
-    p.add_argument("--eval-batches", type=int, default=10)
+                   help="evaluate after each epoch")
+    p.add_argument("--eval-batches", type=int, default=10,
+                   help="validation batches per eval pass")
+    p.add_argument("--num-devices", type=int, default=None,
+                   help="cards to train on: one process each, so this must "
+                        "equal the launcher's world (default: the world)")
+    # checkpoints (utils/checkpoint.py)
+    p.add_argument("--resume", default="", metavar="DIR",
+                   help="checkpoint dir to resume from (its latest step)")
+    p.add_argument("--checkpoint-dir", default="", metavar="DIR",
+                   help="save a checkpoint here at each epoch's end")
+    p.add_argument("--async-checkpoint", action="store_true",
+                   help="write checkpoints on a background thread, after a "
+                        "copy of the state to host memory (joined before "
+                        "the next save)")
+    p.add_argument("--save-every-steps", type=int, default=0, metavar="N",
+                   help="also checkpoint every N optimizer steps (requires "
+                        "--checkpoint-dir; epoch boundaries still save)")
     p.add_argument("--metrics-jsonl", default="", metavar="PATH",
                    help="emit schema-valid step records to this JSONL")
+    p.add_argument("--metrics-all-ranks", action="store_true",
+                   help="with --metrics-jsonl: every process writes its "
+                        "own file (PATH.rank<K> for K > 0)")
+    # the reference's command line (torch.distributed.launch passes
+    # --local_rank, or --local-rank from torch 2.0); recorded, no effect
+    p.add_argument("--local_rank", "--local-rank", type=int, default=0,
+                   help="accepted; the device comes from LOCAL_RANK")
+    p.add_argument("--workers", type=int, default=4,
+                   help="accepted; no effect (batches are made on the "
+                        "device)")
+    p.add_argument("--deterministic", action="store_true",
+                   help="accepted; no effect")
     return p
 
 
@@ -348,15 +415,23 @@ def check_args(args) -> None:
     if args.fused_attention and args.opt_level == "O3":
         raise SystemExit("--fused-attention requires fp32 softmax "
                          "(opt levels O0-O2); O3 runs softmax half")
-    if args.eval and not is_image(args):
-        raise SystemExit("--eval is ported for the image archs; the LM "
-                         "eval steps come with a later slice (ROADMAP.md "
-                         "A.5)")
+    if args.save_every_steps < 0:
+        raise SystemExit(f"--save-every-steps {args.save_every_steps} "
+                         "must be >= 0")
+    if args.save_every_steps and not args.checkpoint_dir:
+        raise SystemExit("--save-every-steps writes through "
+                         "--checkpoint-dir; add it")
 
 
 def check_parallel_args(args, world: int) -> None:
     """The data-parallel refusals, with the JAX trainer's messages
-    (train.py :324-330, :592-626, :1165-1169), in its order."""
+    (train.py :324-330, :592-626, :1165-1169), in its order, after
+    ``--num-devices``, which must be the world: one process a card."""
+    if args.num_devices is not None and args.num_devices != world:
+        raise SystemExit(f"--num-devices {args.num_devices}: the port runs "
+                         f"one process per card and this run has {world}; "
+                         f"start {args.num_devices} processes (torchrun "
+                         f"--nproc_per_node {args.num_devices})")
     if args.batch_size % world:
         raise SystemExit(f"--batch-size {args.batch_size} not divisible by "
                          f"{world} devices")
@@ -426,6 +501,78 @@ def build_step(args):
                                    compute_accuracy=False)
 
 
+def build_eval_step(args):
+    """The eval step of ``args``'s arch: loss, top-1 and top-5 for the
+    image archs, loss and masked accuracy for BERT, loss for GPT, and
+    Transformer-XL's with its memory threaded through."""
+    if is_image(args):
+        return make_eval_step()
+    if is_txl(args):
+        return make_txl_eval_step()
+    if args.arch.startswith("bert"):
+        return make_bert_eval_step()
+    return make_gpt_eval_step()
+
+
+def host_loop_state(args, global_step: int) -> dict:
+    """The host-state sidecar (train.py ``host_loop_state`` :471): the
+    loop position and the host PRNG.  The batches are made from their
+    global step (``batch_fn``), so ``data_index`` is the stream's
+    position."""
+    rng_version, rng_state, rng_gauss = random.getstate()
+    return {
+        "step": int(global_step),
+        "data_index": int(global_step),
+        "steps_per_epoch": int(args.steps_per_epoch),
+        "epoch": int(global_step) // args.steps_per_epoch,
+        "step_in_epoch": int(global_step) % args.steps_per_epoch,
+        "seed": int(args.seed),
+        "python_random": [rng_version, list(rng_state), rng_gauss],
+    }
+
+
+def restore_loop_position(args, rmgr, global_step: int):
+    """``(start_epoch, start_step_in_epoch)`` of a resumed run
+    (:492): the sidecar's position where it describes this step at these
+    ``--steps-per-epoch`` (restoring the host PRNG), else the one the
+    step implies."""
+    hs = rmgr.load_host_state(global_step)
+    start_epoch = global_step // args.steps_per_epoch
+    start_i = global_step % args.steps_per_epoch
+    if hs:
+        if hs.get("step") == global_step \
+                and hs.get("steps_per_epoch") == args.steps_per_epoch:
+            start_epoch = int(hs.get("epoch", start_epoch))
+            start_i = int(hs.get("step_in_epoch", start_i))
+        rng = hs.get("python_random")
+        if rng:
+            random.setstate((rng[0], tuple(rng[1]), rng[2]))
+    return start_epoch, start_i
+
+
+def resume(args, state):
+    """With ``--resume``, restore its latest checkpoint into ``state`` in
+    place; returns where the loop starts, ``(epoch, step in epoch)``."""
+    if not args.resume:
+        return 0, 0
+    if dist.is_initialized():
+        dist.barrier()        # the writer's last save has landed
+    rmgr = CheckpointManager(args.resume)
+    rmgr.restore(state)
+    start_epoch, start_i = restore_loop_position(args, rmgr, state.step)
+    rank_print(f"resumed from step {state.step} (epoch {start_epoch})")
+    return start_epoch, start_i
+
+
+def save_checkpoint(args, mgr, state, global_step: int) -> int:
+    """Checkpoint ``state`` with its sidecar (in every process; rank 0
+    writes); returns the step saved."""
+    mgr.save(state, wait=not args.async_checkpoint,
+             host_state=host_loop_state(args, global_step))
+    rank_print(f"saved checkpoint at step {global_step}")
+    return global_step
+
+
 def run_train(args) -> int:
     """Check the arguments, join the launcher's process group if there is
     one (leaving it at the end), and train."""
@@ -473,9 +620,12 @@ def attention_route(args, model) -> str:
 
 
 def _emitter(args, device):
-    if not args.metrics_jsonl or not is_main_process():
+    if not args.metrics_jsonl:
         return None
-    emitter = TelemetryEmitter(JsonlSink(args.metrics_jsonl), device)
+    sink = JsonlSink(args.metrics_jsonl, all_ranks=args.metrics_all_ranks)
+    if not sink.active:
+        return None
+    emitter = TelemetryEmitter(sink, device)
     emitter.run_header(config=vars(args), argv=sys.argv[1:], arch=args.arch)
     return emitter
 
@@ -485,20 +635,25 @@ def run_image(args, device, rank: int = 0, world: int = 1) -> int:
     ``world`` processes."""
     state = build_state(args, device)
     step_fn = build_step(args)
-    eval_fn = make_eval_step()
+    eval_fn = build_eval_step(args) if args.eval else None
     n_params = sum(p.numel() for p in state.model.parameters())
     rank_print(f"model {args.arch}: {n_params} parameters in "
           f"{len(state.optimizer.params)} tensors, dataset {args.dataset}, "
           f"device {device}, opt {args.opt}, {_policy_text(state.policy)}, "
           f"params from random init (seed {args.seed})")
+    start_epoch, start_i = resume(args, state)
+    mgr = CheckpointManager(args.checkpoint_dir) if args.checkpoint_dir \
+        else None
 
     emitter = _emitter(args, device)
-    global_step = 0
+    global_step = state.step
+    last_saved = None
     try:
-        for epoch in range(args.epochs):
+        for epoch in range(start_epoch, args.epochs):
             losses, top1s = AverageMeter("loss"), AverageMeter("top1")
             thr = Throughput(warmup_steps=2)
-            for i in range(args.steps_per_epoch):
+            for i in range(start_i if epoch == start_epoch else 0,
+                           args.steps_per_epoch):
                 batch = batch_fn(args, 0, global_step, device, rank, world)
                 t0 = time.perf_counter()
                 state, metrics = step_fn(state, batch)
@@ -516,7 +671,11 @@ def run_image(args, device, rank: int = 0, world: int = 1) -> int:
                                f"{args.steps_per_epoch} {losses} {top1s} "
                                f"{thr.rate:.1f} img/s "
                                f"scale {float(metrics['scale']):.0f}")
-            if args.eval:
+                if args.save_every_steps and mgr is not None \
+                        and global_step % args.save_every_steps == 0:
+                    last_saved = save_checkpoint(args, mgr, state,
+                                                 global_step)
+            if eval_fn is not None:
                 el, e1, e5 = (AverageMeter("loss"), AverageMeter("top1"),
                               AverageMeter("top5"))
                 for j in range(args.eval_batches):
@@ -529,18 +688,48 @@ def run_image(args, device, rank: int = 0, world: int = 1) -> int:
                 rank_print(f"epoch {epoch} EVAL loss {el.avg:.4f} "
                            f"top1 {e1.avg:.2f} top5 {e5.avg:.2f} "
                            f"({args.eval_batches} batches)")
+            if mgr is not None and last_saved != state.step:
+                last_saved = save_checkpoint(args, mgr, state, global_step)
     finally:
         if emitter is not None:
             emitter.close()
+        if mgr is not None:
+            mgr.wait_until_finished()
     return 0
+
+
+def lm_eval(args, eval_fn, state, epoch: int, device) -> None:
+    """The LM eval pass after ``epoch`` (:1772-1798): ``--eval-batches``
+    held-out batches, Transformer-XL's memory fresh and carried across
+    them; prints the loss and BERT's masked accuracy or the perplexity
+    exp(mean loss)."""
+    model = state.model
+    el, acc = AverageMeter("loss"), AverageMeter("masked_acc")
+    mems = model.init_mems(args.batch_size) if is_txl(args) else None
+    for j in range(args.eval_batches):
+        batch = batch_fn(args, model.vocab_size,
+                         10_000_000 + epoch * args.eval_batches + j, device)
+        if mems is None:
+            em = eval_fn(state, batch)
+        else:
+            mems, em = eval_fn(state, mems, batch)
+        el.update(float(em["loss"]))
+        if "masked_acc" in em:
+            acc.update(float(em["masked_acc"]))
+    metric = (("masked_acc", acc.avg) if args.arch.startswith("bert")
+              else ("ppl", math.exp(el.avg)))
+    rank_print(f"epoch {epoch} EVAL loss {el.avg:.4f} {metric[0]} "
+               f"{metric[1]:.2f} ({args.eval_batches} batches)")
 
 
 def run_lm(args, device, rank: int = 0, world: int = 1) -> int:
     """The LM path (``_lm_main_impl`` :1014), in each of ``world``
-    processes (Transformer-XL's memory: this process's rows)."""
+    processes (Transformer-XL's memory: this process's rows; it starts
+    cold on a resume, as in JAX)."""
     state = build_state(args, device)
     model, optimizer = state.model, state.optimizer
     step_fn = build_step(args)
+    eval_fn = build_eval_step(args) if args.eval else None
     mems = (model.init_mems(args.batch_size // world) if is_txl(args)
             else None)
     n_params = sum(p.numel() for p in model.parameters())
@@ -549,15 +738,20 @@ def run_lm(args, device, rank: int = 0, world: int = 1) -> int:
           f"{args.opt}, {_policy_text(state.policy, lm=True)}, attention "
           f"{attention_route(args, model)}, params from random init (seed "
           f"{args.seed})")
+    start_epoch, start_i = resume(args, state)
+    mgr = CheckpointManager(args.checkpoint_dir) if args.checkpoint_dir \
+        else None
 
     emitter = _emitter(args, device)
     tokens = args.batch_size * args.seq_len
-    global_step = 0
+    global_step = state.step
+    last_saved = None
     try:
-        for epoch in range(args.epochs):
+        for epoch in range(start_epoch, args.epochs):
             losses = AverageMeter("loss")
             thr = Throughput(warmup_steps=2)
-            for i in range(args.steps_per_epoch):
+            for i in range(start_i if epoch == start_epoch else 0,
+                           args.steps_per_epoch):
                 batch = batch_fn(args, model.vocab_size, global_step,
                                  device, rank, world)
                 t0 = time.perf_counter()
@@ -580,9 +774,19 @@ def run_lm(args, device, rank: int = 0, world: int = 1) -> int:
                                f"{args.steps_per_epoch} {losses} {extra}"
                                f"{thr.rate:.0f} tok/s "
                                f"scale {float(metrics['scale']):.0f}")
+                if args.save_every_steps and mgr is not None \
+                        and global_step % args.save_every_steps == 0:
+                    last_saved = save_checkpoint(args, mgr, state,
+                                                 global_step)
+            if eval_fn is not None:
+                lm_eval(args, eval_fn, state, epoch, device)
+            if mgr is not None and last_saved != state.step:
+                last_saved = save_checkpoint(args, mgr, state, global_step)
     finally:
         if emitter is not None:
             emitter.close()
+        if mgr is not None:
+            mgr.wait_until_finished()
     return 0
 
 

@@ -1,6 +1,8 @@
-"""Language-model losses and the Transformer-XL train steps: port of
-apex_example_tpu/workloads.py (``mlm_loss`` :32, ``lm_loss`` :45,
-``make_txl_train_step`` :61, ``make_sharded_txl_train_step`` :207).
+"""Language-model losses, the Transformer-XL train steps and the LM eval
+steps: port of apex_example_tpu/workloads.py (``mlm_loss`` :32,
+``lm_loss`` :45, ``make_txl_train_step`` :61, ``make_bert_eval_step``
+:167, ``make_gpt_eval_step`` :181, ``make_txl_eval_step`` :192,
+``make_sharded_txl_train_step`` :207).
 
 The TXL step with one microbatch follows the JAX step's amp protocol
 (:61-160), in its order: zero the grads -> forward with the memory ->
@@ -28,15 +30,21 @@ d), as JAX's ``P(None, "data")``), with the grads reduced over the group
 (parallel/distributed.py ``allreduce_grads``) before the unscale and the
 clip, so the clip reads the reduced grads' norm; the loss is averaged
 over the group.
+
+The eval steps run the model in eval mode under ``torch.no_grad()``, at
+the dtypes its amp policy built it with, and touch no optimizer, scaler
+or grad: BERT's gives ``loss`` and ``masked_acc`` (percent of the weighted
+positions whose argmax is the label, the weight sum clamped to at least
+1), GPT's ``loss``, and Transformer-XL's threads its memory through,
+``(state, mems, batch) -> (new_mems, {loss})``; perplexity is the
+caller's, ``exp`` of the mean loss over the eval batches.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
-
-from typing import Optional
 
 from apex_example_tpu_torch import amp
 from apex_example_tpu_torch.ops.xentropy import softmax_cross_entropy
@@ -99,6 +107,52 @@ def make_txl_train_step(max_grad_norm: float = 0.25,
         return state, new_mems, metrics
 
     return train_step
+
+
+def make_bert_eval_step():
+    """``eval_step(state, (ids, (labels, weights))) -> {loss, masked_acc}``:
+    the MLM loss and the accuracy over the masked positions only."""
+
+    @torch.no_grad()
+    def eval_step(state, batch) -> Dict:
+        ids, (labels, weights) = batch
+        state.model.eval()
+        logits = state.model(ids)
+        hit = (logits.argmax(-1) == labels).float()
+        denom = torch.clamp(weights.sum(), min=1.0)
+        return {"loss": mlm_loss(logits, (labels, weights)),
+                "masked_acc": (hit * weights).sum() / denom * 100.0}
+
+    return eval_step
+
+
+def make_gpt_eval_step():
+    """``eval_step(state, (x, y)) -> {loss}``: next-token CE on a held-out
+    batch."""
+
+    @torch.no_grad()
+    def eval_step(state, batch) -> Dict:
+        x, y = batch
+        state.model.eval()
+        return {"loss": lm_loss(state.model(x), y)}
+
+    return eval_step
+
+
+def make_txl_eval_step():
+    """``eval_step(state, mems, (inp, tgt)) -> (new_mems, {loss})``: the
+    held-out next-token loss with the memory threaded through, as in
+    training."""
+
+    @torch.no_grad()
+    def eval_step(state, mems: torch.Tensor, batch
+                  ) -> Tuple[torch.Tensor, Dict]:
+        inp, tgt = batch
+        state.model.eval()
+        logits, new_mems = state.model(inp, mems)
+        return new_mems, {"loss": lm_loss(logits, tgt)}
+
+    return eval_step
 
 
 def make_sharded_txl_train_step(axis_name=DATA_AXIS,

@@ -357,6 +357,40 @@ Phases, one or more lines each:
              shard held against adam_update_plain, and a planted inf in
              rank 1's grad (in rank 0's shard) skipped by both ranks.
 
+34. eval    — --eval through train.run_train on the LM archs at full width
+             (run after 33): bert_base at O2 (64 x 128, FusedLAMB, 2 steps,
+             2 eval batches), gpt_base at O2 at 8 x 2048 through the flash
+             kernels (1 step, 1 eval batch) and transformer_xl at O2 (32 x
+             192, 2 steps, 2 eval batches, the memory carried): the EVAL
+             line, each training step's launches as in 28 and 19, and each
+             eval batch's launches and time (CUDA-synchronised host clock):
+             26, 26 + 12 flash forwards and 32 LayerNorm forwards, and no
+             optimizer, scale or L2-norm launch (the "E:" paths of the
+             JSON).  The timed bert_base run's first eval loss (O2, 64 x
+             128, the weights after its 2 steps) against the same weights
+             and batch on the CPU at O2 (plain versions): rtol 2e-2, the O2
+             trails' limit.  Then bert_base's first eval batch (8 x 128) at
+             O0 on the card against the CPU, the same weights from seed 0:
+             loss rtol 1e-4.
+35. resume  — c4 as the CLI runs it (bert_base, FusedLAMB, O2, --loss-scale
+             dynamic, 64 x 128, 2 epochs of 3 steps): 4 steps without a
+             break, then 2 steps with --save-every-steps 2 --checkpoint-dir
+             (stopped at the next step boundary, as a killed process
+             stops) and 2 with --resume, synchronous and with
+             --async-checkpoint: every parameter, LAMB moment, the
+             optimizer's step count, the train state's step, the scale and
+             the growth counter bitwise equal to the unbroken run's (the
+             kernels' reductions repeat bitwise); the checkpoint's bytes on
+             disk, the time save blocks the loop, the restore's time; each
+             resumed step launching c4's kernels and the unscale.  The
+             checkpoints are written under build/ and removed.
+36. serve_ckpt — gpt_base trained one step at O0 (8 x 128, lr 1e-2) with
+             --checkpoint-dir, then served through run_serve from that
+             directory, from the trained model held in memory and from the
+             untrained model (seed 0): 4 greedy requests each, the first
+             two token streams equal and the untrained model's other, the
+             LayerNorm forward 26 times a compute tick and nothing else.
+
 Then one JSON line per the port's kernel table ({"kernels": [...]}) and,
 last, {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
 before the last line; so does a machine where torch sees no CUDA device.
@@ -3974,6 +4008,382 @@ def phase_ddp2():
     return got[0]["counts"]
 
 
+# --------------------------------------------------- eval, resume, serving
+
+EVAL_TOL = 1e-4           # bert_base's eval loss, card against CPU: rtol
+EVAL_O2_TOL = 2e-2        # the same at O2 (the O2 trails' loss limit)
+EVAL_RUNS = (             # label, argv, per training step, per eval batch
+    ("bert_base", C4_ARGS + ["--steps-per-epoch", "2", "--eval",
+                             "--eval-batches", "2"],
+     {"layer_norm_fwd": 26, "layer_norm_bwd": 26, "multi_tensor_l2norm": 1,
+      "lamb_stage1": 1, "lamb_stage2": 1}, {"layer_norm_fwd": 26}),
+    ("gpt2048", GPT2048_O2_ARGS + ["--steps-per-epoch", "1", "--eval",
+                                   "--eval-batches", "1"],
+     {"layer_norm_fwd": 26, "layer_norm_bwd": 26, "multi_tensor_l2norm": 1,
+      "adam": 1, "attn_fwd": 12, "attn_dkdv": 12, "attn_dq": 12},
+     {"layer_norm_fwd": 26, "attn_fwd": 12}),
+    ("transformer_xl", C5_ARGS + ["--steps-per-epoch", "2", "--eval",
+                                  "--eval-batches", "2"],
+     {"layer_norm_fwd": 32, "layer_norm_bwd": 32, "multi_tensor_l2norm": 1,
+      "multi_tensor_scale": 1, "adam": 1}, {"layer_norm_fwd": 32}))
+# c4 as the CLI runs it, under dynamic scaling: 4 steps of 2 epochs of 3,
+# the resume at step 2, in the middle of epoch 0
+RESUME_ARGS = C4_ARGS + ["--loss-scale", "dynamic", "--epochs", "2",
+                         "--steps-per-epoch", "3"]
+# one step at lr 1e-2, large enough that the served tokens move off the
+# untrained model's, which the phase requires
+SERVE_CKPT_TRAIN = GPT_ARGS + ["--batch-size", "8", "--steps-per-epoch", "1",
+                               "--lr", "1e-2"]
+SERVE_CKPT_ARGS = ["--device", "cuda", "--arch", "gpt_base", "--slots", "4",
+                   "--max-len", "256", "--requests", "4", "--prompt-len",
+                   "16:64", "--max-new", "32", "--stagger", "0", "--seed",
+                   "0"]
+
+
+def _on_cpu(x):
+    """``x`` (a tensor, or tuples of them) copied to the CPU."""
+    if torch.is_tensor(x):
+        return x.detach().cpu()
+    return type(x)(_on_cpu(v) for v in x)
+
+
+def phase_eval(train, counted):
+    """``--eval`` through the trainer on the LM archs at full width
+    (bert_base and transformer_xl at O2, gpt_base at O2 and 8 x 2048
+    through the flash kernels): the EVAL line, each training step's
+    launches as its path's, and each eval batch's launches (the LayerNorm
+    forward, and the flash forward at 2048) and time, and no optimizer,
+    scale or L2-norm launch in an eval batch.  The timed bert_base run's
+    first eval loss at O2 against the same trained weights and batch on
+    the CPU (plain versions, O2), and bert_base's first eval batch at O0
+    on the card against the CPU, the same weights from seed 0.  Returns
+    the paths' counts: each run's training steps, and its eval batches
+    under "E:<label>"."""
+    import types
+    from apex_example_tpu_torch import amp
+    from apex_example_tpu_torch.workloads import make_bert_eval_step
+    real = train.build_eval_step
+    out, first = {}, None
+    for label, argv, per_step, per_batch in EVAL_RUNS:
+        tally = {"ms": [], "counts": dict.fromkeys(counted, 0)}
+
+        def build(args, tally=tally, label=label):
+            eval_fn = real(args)
+
+            def timed(*batch):
+                torch.cuda.synchronize()
+                before = _counts(counted)
+                t0 = time.perf_counter()
+                result = eval_fn(*batch)
+                torch.cuda.synchronize()
+                tally["ms"].append((time.perf_counter() - t0) * 1e3)
+                for k, v in _counts(counted).items():
+                    tally["counts"][k] += v - before[k]
+                if label == "bert_base" and "first" not in tally:
+                    state, data = batch
+                    tally["first"] = (
+                        {k: v.detach().cpu()
+                         for k, v in state.model.state_dict().items()},
+                        _on_cpu(data), float(result["loss"]),
+                        float(result["masked_acc"]))
+                return result
+            return timed
+
+        args = train.build_parser().parse_args(argv)
+        train.build_eval_step = build
+        _zero_counts(counted)
+        try:
+            rc = train.run_train(args)
+        finally:
+            train.build_eval_step = real
+        torch.cuda.synchronize()
+        total = _counts(counted)
+        n, batches = args.steps_per_epoch, len(tally["ms"])
+        steps = {k: total[k] - tally["counts"][k] for k in total}
+        want_steps = dict.fromkeys(counted, 0)
+        want_steps.update({k: v * n for k, v in per_step.items()})
+        want_eval = dict.fromkeys(counted, 0)
+        want_eval.update({k: v * batches for k, v in per_batch.items()})
+        print(f"eval: {label} {batches} eval batches, "
+              f"{statistics.median(tally['ms']):.2f} ms per eval batch "
+              f"(median; each {[round(x, 2) for x in tally['ms']]}), "
+              f"launches per eval batch "
+              f"{ {k: v / batches for k, v in tally['counts'].items() if v} }"
+              f" (want {per_batch}); {n} training steps' launches "
+              f"{ {k: v for k, v in steps.items() if v} }")
+        if rc != 0 or batches != args.eval_batches:
+            raise SystemExit(f"eval: {label} rc {rc}, {batches} eval "
+                             f"batches (want {args.eval_batches})")
+        if tally["counts"] != want_eval:
+            raise SystemExit(f"eval: {label} eval batches launched "
+                             f"{tally['counts']} (want {want_eval})")
+        if steps != want_steps:
+            raise SystemExit(f"eval: {label} training steps launched "
+                             f"{steps} (want {want_steps})")
+        out[f"eval_{label}"] = steps
+        out[f"E:{label}"] = tally["counts"]
+        first = tally.get("first", first)
+        torch.cuda.empty_cache()
+
+    params, data, loss, acc = first
+    args = train.build_parser().parse_args(EVAL_RUNS[0][1]
+                                           + ["--device", "cpu"])
+    model = train.build_model(args, torch.device("cpu"),
+                              amp.get_policy(args.opt_level))
+    model.load_state_dict(params)
+    t0 = time.perf_counter()
+    metrics = make_bert_eval_step()(types.SimpleNamespace(model=model), data)
+    cpu_s = time.perf_counter() - t0
+    err = abs(loss - float(metrics["loss"])) / abs(float(metrics["loss"]))
+    print(f"eval: bert_base {args.opt_level} first eval batch of the timed "
+          f"run ({args.batch_size} x {args.seq_len}, after "
+          f"{args.steps_per_epoch} LAMB steps), card against CPU ("
+          f"{cpu_s:.1f} s): loss {loss:.6f} / {float(metrics['loss']):.6f} "
+          f"(rel {err:.3g}, limit {EVAL_O2_TOL:g}), masked_acc {acc:.4f} / "
+          f"{float(metrics['masked_acc']):.4f}")
+    if not err <= EVAL_O2_TOL:
+        raise SystemExit("eval: the card's bert_base O2 eval loss is off "
+                         "the CPU's")
+    del model, params, data
+    got = {}
+    for dev in ("cuda", "cpu"):
+        args = train.build_parser().parse_args(
+            TRAIN_ARGS + ["--batch-size", "8", "--device", dev])
+        model = train.build_model(args, torch.device(dev))
+        batch = train.batch_fn(args, model.vocab_size, 10_000_000, dev)
+        metrics = make_bert_eval_step()(types.SimpleNamespace(model=model),
+                                        batch)
+        got[dev] = float(metrics["loss"]), float(metrics["masked_acc"])
+        del model
+    err = abs(got["cuda"][0] - got["cpu"][0]) / abs(got["cpu"][0])
+    print(f"eval: bert_base O0 first eval batch (8 x 128), card against "
+          f"CPU: loss {got['cuda'][0]:.6f} / {got['cpu'][0]:.6f} (rel "
+          f"{err:.3g}, limit {EVAL_TOL:g}), masked_acc {got['cuda'][1]:.4f} "
+          f"/ {got['cpu'][1]:.4f}")
+    if not err <= EVAL_TOL:
+        raise SystemExit("eval: the card's bert_base eval loss is off the "
+                         "CPU's")
+    return out
+
+
+class _Stop(Exception):
+    """Ends a trainer run at a step boundary, where a killed process
+    would stop."""
+
+
+def _stopped_run(train, argv, stop_at):
+    """``train.run_train`` on ``argv``, stopped when it asks for the batch
+    of step ``stop_at``; the train state it had then."""
+    states = []
+    build_state, batch_fn = train.build_state, train.batch_fn
+
+    def keep(args, device):
+        states.append(build_state(args, device))
+        return states[-1]
+
+    def stopping(args, vocab, step, *rest):
+        if step == stop_at:
+            raise _Stop
+        return batch_fn(args, vocab, step, *rest)
+
+    train.build_state, train.batch_fn = keep, stopping
+    try:
+        train.run_train(train.build_parser().parse_args(argv))
+        raise SystemExit(f"resume: the run ended before step {stop_at}")
+    except _Stop:
+        pass
+    finally:
+        train.build_state, train.batch_fn = build_state, batch_fn
+    return states[-1]
+
+
+def _state_leaves(state):
+    """Every leaf a checkpoint holds, by name: parameters and buffers,
+    the optimizer's moments and step count, the train state's step, the
+    scaler's scale and growth counter."""
+    leaves = {f"model.{k}": v for k, v in state.model.state_dict().items()}
+    for name, value in state.optimizer.state_dict().items():
+        if isinstance(value, list):
+            leaves.update({f"optimizer.{name}[{i}]": t
+                           for i, t in enumerate(value)})
+        else:
+            leaves[f"optimizer.{name}"] = value
+    leaves.update({"state.step": state.step,
+                   "scaler.scale": state.scaler.scale,
+                   "scaler.growth_counter": state.scaler.growth_counter})
+    return leaves
+
+
+def _unequal(got, want):
+    """The names of the leaves that are not bitwise equal."""
+    bad = [k for k in want if k not in got]
+    for k, w in want.items():
+        g = got.get(k)
+        if g is None:
+            continue
+        if torch.is_tensor(w):
+            if not (g.dtype == w.dtype and torch.equal(g, w)):
+                bad.append(k)
+        elif g != w:
+            bad.append(k)
+    return bad
+
+
+def phase_resume(train, counted):
+    """c4 as the CLI runs it (bert_base, FusedLAMB, O2, dynamic scaling,
+    64 x 128): 4 steps without a break, then 2 steps with
+    ``--save-every-steps 2 --checkpoint-dir`` and 2 with ``--resume``,
+    synchronous and with ``--async-checkpoint``.  Every leaf (parameters,
+    LAMB moments, the optimizer's step count, the train state's step, the
+    scale and growth counter) bitwise equal to the unbroken run's; the
+    checkpoint's bytes on disk, the time ``save`` blocks the loop and the
+    restore's time; each resumed step launching c4's kernels and the
+    unscale.  Returns the counts of the resumed runs."""
+    import shutil
+    import tempfile
+    from apex_example_tpu_torch.utils import checkpoint as ckpt
+    times = {"save": [], "restore": [], "join": []}
+    save, restore, join = (ckpt.CheckpointManager.save,
+                           ckpt.CheckpointManager.restore,
+                           ckpt.CheckpointManager.wait_until_finished)
+
+    def timed(name, fn):
+        def wrapper(self, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = fn(self, *a, **kw)
+            times[name].append(time.perf_counter() - t0)
+            return result
+        return wrapper
+
+    want = _state_leaves(_stopped_run(train, RESUME_ARGS, 4))
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_",
+                            dir=os.path.join(ROOT, "build"))
+    counts = dict.fromkeys(counted, 0)
+    ckpt.CheckpointManager.save = timed("save", save)
+    ckpt.CheckpointManager.restore = timed("restore", restore)
+    ckpt.CheckpointManager.wait_until_finished = timed("join", join)
+    try:
+        for mode in ("sync", "async"):
+            for name in times:
+                times[name].clear()
+            d = os.path.join(root, mode)
+            extra = ["--async-checkpoint"] if mode == "async" else []
+            _stopped_run(train, RESUME_ARGS + extra + [
+                "--checkpoint-dir", d, "--save-every-steps", "2"], 2)
+            step_dir = os.path.join(d, "2")
+            nbytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                         for f in os.listdir(step_dir))
+            save_s, joins = times["save"][0], list(times["join"])
+            _zero_counts(counted)
+            got = _stopped_run(train, RESUME_ARGS + ["--resume", d], 4)
+            torch.cuda.synchronize()
+            for k, v in _counts(counted).items():
+                counts[k] += v
+            bad = _unequal(_state_leaves(got), want)
+            print(f"resume: {mode}: checkpoint of step 2 {nbytes} bytes on "
+                  f"disk in {len(os.listdir(step_dir))} files, save blocked "
+                  f"the loop {save_s:.3f} s"
+                  + (f" (the write joined {max(joins):.3f} s later at the "
+                     f"run's end)" if mode == "async" and joins else "")
+                  + f", restore {times['restore'][0]:.3f} s; after the "
+                  f"resume to step {got.step} (optimizer count "
+                  f"{got.optimizer.step_count}, scale "
+                  f"{float(got.scaler.scale):.0f}, growth counter "
+                  f"{int(got.scaler.growth_counter)}): {len(want)} leaves, "
+                  f"{len(bad)} not bitwise equal to the unbroken run's")
+            if bad:
+                raise SystemExit(f"resume: {mode}: leaves differ from the "
+                                 f"unbroken run: {bad[:10]}")
+            shutil.rmtree(d)
+            del got
+            torch.cuda.empty_cache()
+    finally:
+        (ckpt.CheckpointManager.save, ckpt.CheckpointManager.restore,
+         ckpt.CheckpointManager.wait_until_finished) = save, restore, join
+        shutil.rmtree(root, ignore_errors=True)
+    per_step = {"layer_norm_fwd": 26, "layer_norm_bwd": 26,
+                "multi_tensor_l2norm": 1, "lamb_stage1": 1,
+                "lamb_stage2": 1, "multi_tensor_scale": 1}
+    wanted = dict.fromkeys(counted, 0)
+    wanted.update({k: v * 4 for k, v in per_step.items()})
+    print(f"resume: the resumed runs' launches over 2 x 2 steps {counts} "
+          f"(want {wanted})")
+    if counts != wanted:
+        raise SystemExit("resume: the resumed steps' launches are off")
+    return counts
+
+
+def phase_serve_ckpt(train, cli, counted):
+    """gpt_base trained one step at O0 (8 x 128) with ``--checkpoint-dir``,
+    then served from that directory, from the trained model held in
+    memory and from the untrained model (the same seed): 4 greedy requests
+    each, the first two token streams equal and the untrained model's
+    other, so that a checkpoint that held the initial weights, or a restore
+    that copied nothing, would fail.  Returns the counts of the serving run
+    from the checkpoint."""
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_",
+                            dir=os.path.join(ROOT, "build"))
+    states, build_state = [], train.build_state
+
+    def keep(args, device):
+        states.append(build_state(args, device))
+        return states[-1]
+
+    train.build_state = keep
+    try:
+        rc = train.run_train(train.build_parser().parse_args(
+            SERVE_CKPT_TRAIN + ["--checkpoint-dir", root]))
+    finally:
+        train.build_state = build_state
+    trained = states[-1].model.eval()
+    _zero_counts(counted)
+    try:
+        done, summary, rc_ckpt = cli.run_serve(cli.build_parser().parse_args(
+            SERVE_CKPT_ARGS + ["--checkpoint-dir", root]))
+        torch.cuda.synchronize()
+        counts = _counts(counted)
+        gpt_base = cli.gpt_base
+        cli.gpt_base = lambda **kw: trained
+        try:
+            held, _, rc_mem = cli.run_serve(cli.build_parser().parse_args(
+                SERVE_CKPT_ARGS))
+        finally:
+            cli.gpt_base = gpt_base
+        del trained, states[:]
+        torch.cuda.empty_cache()
+        init, _, rc_init = cli.run_serve(cli.build_parser().parse_args(
+            SERVE_CKPT_ARGS))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    streams = [[c.tokens for c in sorted(x, key=lambda c: c.request.uid)]
+               for x in (done, held, init)]
+    ticks = summary["compute_steps"]
+    print(f"serve_ckpt: gpt_base trained 1 step (rc {rc}), served 4 "
+          f"requests from its checkpoint (rc {rc_ckpt}, "
+          f"{sum(len(t) for t in streams[0])} tokens, {ticks} compute "
+          f"ticks, layer_norm launches {counts['layer_norm_fwd']}), from "
+          f"memory (rc {rc_mem}) and untrained (rc {rc_init}): token "
+          f"streams equal to memory's {streams[0] == streams[1]}, to the "
+          f"untrained model's {streams[0] == streams[2]} (want True, False;"
+          f" requests the untrained model answers otherwise: "
+          f"{sum(a != b for a, b in zip(streams[0], streams[2]))} of 4)")
+    if rc or rc_ckpt or rc_mem or rc_init or streams[0] != streams[1] \
+            or len(streams[0]) != 4:
+        raise SystemExit("serve_ckpt: serving from the checkpoint differs "
+                         "from serving the trained model")
+    if streams[0] == streams[2]:
+        raise SystemExit("serve_ckpt: serving from the checkpoint gives "
+                         "the untrained model's tokens")
+    if counts["layer_norm_fwd"] != 26 * ticks or any(
+            v for k, v in counts.items() if k != "layer_norm_fwd"):
+        raise SystemExit(f"serve_ckpt: launches {counts} (want 26 layer "
+                         f"norm forwards a tick, nothing else)")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this check runs on "
@@ -4144,6 +4554,14 @@ def main() -> int:
     by_path["ddp2"] = phase_ddp2()
     print(f"ddp, launch, ddp2: the data-parallel phases took "
           f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    by_path.update(phase_eval(train, counted))
+    torch.cuda.empty_cache()
+    by_path["resume"] = phase_resume(train, counted)
+    torch.cuda.empty_cache()
+    by_path["serve_ckpt"] = phase_serve_ckpt(train, cli, counted)
+    print(f"eval, resume, serve_ckpt: took {time.perf_counter() - t0:.1f} s")
     for row in rows:
         row["launches_by_path"] = {k: v[row["name"]]
                                    for k, v in by_path.items()}

@@ -37,6 +37,10 @@ against the port's in tests/test_torch_optim.py and the like):
   step, at O0 and O2: equal bit for bit;
 - the CLI under torchrun at world 2 on the CPU (``--sync_bn``): exit 0,
   one header, from rank 0;
+- the trainer with ``--zero --opt adam`` in the two processes: one epoch,
+  a checkpoint and ``--resume`` for the second against two epochs
+  without a break, the final checkpoints equal bit for bit; with
+  ``--metrics-all-ranks`` both ranks' streams lint;
 - the data-parallel refusals carry the JAX trainer's messages.
 """
 
@@ -101,7 +105,7 @@ TRAIL_TOL = 1e-4
 IMG, IMG_B, IMG_STEPS = 16, 8, 2
 LM_B, LM_S, LM_STEPS, V = 4, 16, 2, 256
 CASES = ["syncbn_composite", "syncbn_fused", "allreduce", "ddp_resnet",
-         "ddp_resnet_larc", "ddp_gpt", "ddp_txl"]
+         "ddp_resnet_larc", "ddp_gpt", "ddp_txl", "zero_resume"]
 
 
 def flax_numpy(tree_fn, seed, he=False):
@@ -354,6 +358,7 @@ def run(tmp_path_factory):
     before = torch.get_num_threads()
     torch.set_num_threads(1)
     spec = _spec()
+    spec["zero_resume_dir"] = str(tmp_path_factory.mktemp("zero_resume"))
     ranks = cases.Ranks(spec, tmp_path_factory.mktemp("ranks"), WORLD)
     cli_dir = tmp_path_factory.mktemp("cli")
     stream = cli_dir / "run.jsonl"
@@ -492,6 +497,42 @@ def test_torchrun_cli_at_world_2(run):
     records = [json.loads(ln) for ln in stream.read_text().splitlines()]
     kinds = [r["record"] for r in records]                  # rank 0's only
     assert kinds.count("run_header") == 1 and kinds.count("step") == 2
+
+
+def test_zero_resume_is_bitwise_and_every_rank_writes_its_stream(run):
+    """--zero --opt adam: 1 epoch, a checkpoint, --resume for the second,
+    against 2 epochs without a break; both final checkpoints (FusedAdam's
+    per-parameter moments, gathered from the shards) equal bit for bit.
+    With --metrics-all-ranks, PATH and PATH.rank1 both lint."""
+    spec, _, results, _ = run
+    for r in results:
+        assert r["zero_resume"]["rcs"] == [0, 0, 0]
+    out = results[0]["zero_resume"]["out"]
+    assert "resumed from step 2 (epoch 1)" in out
+    assert "saved checkpoint at step 4" in out
+    got, want = (results[0]["zero_resume"][k] for k in ("broken", "whole"))
+    assert got["state"] == want["state"] and want["state"]["step"] == 4
+    assert got["optimizer"]["step"] == want["optimizer"]["step"] == 4
+    for name in ("mu", "nu"):
+        for i, (g, w) in enumerate(zip(got["optimizer"][name],
+                                       want["optimizer"][name])):
+            assert torch.equal(g, w), f"{name}[{i}]"
+    for name, w in want["model"].items():
+        assert torch.equal(got["model"][name], w), name
+    sizes = [t.numel() for t in want["model"].values()]
+    assert [t.numel() for t in want["optimizer"]["mu"]] == sizes
+    stream = os.path.join(spec["zero_resume_dir"], "run.jsonl")
+    headers = []
+    for path in (stream, stream + ".rank1"):
+        lint = subprocess.run(
+            [sys.executable, "tools/metrics_lint.py", path,
+             "--require-summary"], cwd=REPO, capture_output=True, text=True,
+            timeout=120)
+        assert lint.returncode == 0, lint.stdout + lint.stderr
+        with open(path) as fh:
+            headers.append(json.loads(fh.readline()))
+    assert [h["process_index"] for h in headers] == [0, 1]
+    assert all(h["num_processes"] == WORLD for h in headers)
 
 
 @pytest.mark.parametrize("level", ["O0", "O2"])

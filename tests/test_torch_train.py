@@ -17,10 +17,14 @@ under dynamic loss scaling, and its eval step.
   ``--metrics-jsonl`` stream passes ``tools/metrics_lint.py
   --require-summary`` (the Transformer-XL stream carries ``ppl``); without
   ``--device`` it raises where torch sees no CUDA; the flags of paths not
-  ported (``--resume``, ``--grad-accum``, ``--context-parallel``,
-  ``--tensor-parallel``) are rejected by argparse; the LM archs refuse
-  ``--eval`` (alone, and beside O1 or ``--loss-scale``, which they take)
-  with a message naming a later slice.
+  ported (``--remat``, ``--grad-accum``, ``--context-parallel``,
+  ``--tensor-parallel``, and beside O1 or ``--loss-scale``, which the LM
+  archs take, ``--host-pipeline`` and ``--tensorboard``) are rejected by
+  argparse.  The reference's launcher flags (``--local_rank`` and
+  ``--local-rank``, ``--workers``, ``--deterministic``, ``--num-devices
+  1``, ``--metrics-all-ranks``) are accepted, recorded in the run_header,
+  and leave the three-step loss trail as it is; ``--num-devices 2`` in one
+  process is refused.
 - ResNet-18 (num_filters 4, the CIFAR stem, 16 px, batch 4) with
   FusedSGD: the same weights (numpy, in flax's tree, converted) and the
   JAX ``image_batch``'s images through the JAX ``make_train_step`` and the
@@ -42,8 +46,9 @@ under dynamic loss scaling, and its eval step.
   more than twice as far from fp32 as JAX's, the key biases, whose exact
   gradient is zero, aside; three steps' losses rtol 2e-2).  The CLI runs
   ``--fused-attention`` at O0 and O2 and its stream lints; it refuses
-  ``--fused-attention`` at O3 and for transformer_xl and the image archs,
-  and ``--eval`` for the LM archs beside O2 and ``--loss-scale dynamic``.
+  ``--fused-attention`` at O3 and for transformer_xl and the image archs;
+  argparse rejects ``--grad-accum`` and ``--host-pipeline`` beside
+  ``--fused-attention`` and O2.
 - ``train.main`` with ``--opt novograd`` (bert_tiny) and ``--opt
   adagrad`` (ResNet-18, num_filters 4): three steps on the CPU from the
   flax init, converted, against the JAX ``make_train_step`` with the JAX
@@ -56,6 +61,8 @@ under dynamic loss scaling, and its eval step.
   patterns are ``jax.image.resize``'s bilinear upsampling.
 """
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -454,9 +461,9 @@ def test_gpt_cli_with_fused_attention_lints(tmp_path, level):
      "BERT/GPT archs only"),
     (["--arch", "resnet18", "--fused-attention"], "BERT/GPT archs only"),
     (["--arch", "gpt_tiny", "--fused-attention", "--opt-level", "O2",
-      "--loss-scale", "dynamic", "--eval"], "slice"),
-    (["--arch", "transformer_xl_tiny", "--opt-level", "O2", "--eval"],
-     "slice")])
+      "--loss-scale", "dynamic", "--grad-accum", "2"], "^2$"),
+    (["--arch", "transformer_xl_tiny", "--opt-level", "O2",
+      "--host-pipeline"], "^2$")])
 def test_fused_attention_and_amp_refusals(argv, match):
     with pytest.raises(SystemExit, match=match):
         train.main(["--device", "cpu"] + argv)
@@ -497,7 +504,7 @@ def test_cli_defaults_to_cuda_and_raises_without_it(monkeypatch):
         train.main(["--arch", "bert_tiny", "--steps-per-epoch", "1"])
 
 
-@pytest.mark.parametrize("argv", [["--resume", "ckpt"], ["--grad-accum", "2"],
+@pytest.mark.parametrize("argv", [["--remat", "conv"], ["--grad-accum", "2"],
                                   ["--context-parallel", "2"],
                                   ["--tensor-parallel", "2"]])
 def test_flags_of_other_paths_are_rejected(argv):
@@ -786,12 +793,41 @@ def test_image_cli_runs_o2_dynamic_with_eval_and_its_stream_lints(tmp_path):
     assert records[-1]["record"] == "run_summary"
 
 
-@pytest.mark.parametrize("argv", [["--opt-level", "O1", "--eval"],
-                                  ["--loss-scale", "dynamic", "--eval"],
-                                  ["--eval"]])
+@pytest.mark.parametrize("argv", [["--opt-level", "O1", "--grad-accum", "2"],
+                                  ["--loss-scale", "dynamic",
+                                   "--host-pipeline"],
+                                  ["--tensorboard", "tb"]])
 def test_lm_archs_refuse_amp_and_eval_until_their_slice(argv):
-    with pytest.raises(SystemExit, match="slice"):
+    with pytest.raises(SystemExit) as exc:
         train.main(["--device", "cpu", "--arch", "bert_tiny"] + argv)
+    assert exc.value.code == 2
+
+
+def test_reference_launcher_flags_are_accepted_and_change_nothing(tmp_path):
+    def trail(extra):
+        stream = tmp_path / f"{len(extra)}.jsonl"
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert train.main(["--device", "cpu", "--arch", "bert_tiny",
+                               "--opt", "lamb", "--lr", "1e-2",
+                               "--batch-size", "4", "--seq-len", "16",
+                               "--steps-per-epoch", "3", "--metrics-jsonl",
+                               str(stream)] + extra) == 0
+        records = [json.loads(ln) for ln in stream.read_text().splitlines()]
+        return records[0], [r["loss"] for r in records
+                            if r["record"] == "step"]
+    plain_header, plain = trail([])
+    for flags in (["--local_rank", "3", "--workers", "8", "--deterministic",
+                   "--num-devices", "1", "--metrics-all-ranks"],
+                  ["--local-rank", "3"]):
+        header, losses = trail(flags)
+        assert losses == plain and len(plain) == 3
+        assert header["config"]["local_rank"] == 3
+    assert header["process_index"] == 0 and header["num_processes"] == 1
+    assert plain_header["config"]["local_rank"] == 0
+    assert not list(tmp_path.glob("*.rank*"))    # one process, one file
+    with pytest.raises(SystemExit, match="start 2 processes"):
+        train.main(["--device", "cpu", "--arch", "bert_tiny",
+                    "--num-devices", "2"])
 
 
 def test_image_patterns_are_jax_image_resize():

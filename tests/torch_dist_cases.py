@@ -123,6 +123,40 @@ def case_zero_cli(spec, rank, world):
     return {"rc": rc, "out": out.getvalue()}
 
 
+def case_zero_resume(spec, rank, world):
+    """bert_tiny with --zero --opt adam through the trainer: 2 epochs of 2
+    steps without a break (with --metrics-all-ranks), and 1 epoch with
+    --checkpoint-dir then --resume for the second, every process restoring
+    the same files.  Each run saves its last step; rank 0 returns both
+    final checkpoints' tensors."""
+    import contextlib
+    import io
+    from apex_example_tpu_torch import train
+    base = ["--device", "cpu", "--arch", "bert_tiny", "--opt", "adam",
+            "--lr", "1e-3", "--zero", "--batch-size", "4", "--seq-len",
+            "16", "--steps-per-epoch", "2", "--print-freq", "1"]
+    root = spec["zero_resume_dir"]
+    whole, broken = os.path.join(root, "whole"), os.path.join(root, "broken")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rcs = [train.main(base + ["--epochs", "2", "--checkpoint-dir", whole,
+                                  "--metrics-jsonl",
+                                  os.path.join(root, "run.jsonl"),
+                                  "--metrics-all-ranks"]),
+               train.main(base + ["--epochs", "1", "--checkpoint-dir",
+                                  broken]),
+               train.main(base + ["--epochs", "2", "--resume", broken,
+                                  "--checkpoint-dir", broken])]
+    result = {"rcs": rcs, "out": out.getvalue()}
+    dist.barrier()                      # rank 0's last write has landed
+    if rank == 0:
+        for name, path in (("whole", whole), ("broken", broken)):
+            result[name] = {part: torch.load(
+                os.path.join(path, "4", f"{part}.pt"), weights_only=True)
+                for part in ("model", "optimizer", "state")}
+    return result
+
+
 def case_card_syncbn_composite(spec, rank, world):
     return _syncbn(spec, rank, world, fused=False, device="cuda")
 
