@@ -1,6 +1,6 @@
 """ResNet-18/34/50/101/152: port of apex_example_tpu/models/resnet.py
-(``BasicBlock`` :41, ``Bottleneck`` :66, ``ResNet`` :134, the builders
-:236-260).
+(``BasicBlock`` :41, ``Bottleneck`` :66, ``SpaceToDepthStem`` :95,
+``ResNet`` :134, ``resnet18`` to ``resnet152`` :236-260).
 
 The torchvision architecture the reference imports: a 7x7/2 stem and a
 3x3/2 max pool (or a CIFAR-style 3x3 stem, ``small_stem``), stages of
@@ -37,12 +37,33 @@ Weights are random from ``seed`` in flax's distributions, not its numbers:
 ``he_normal`` (a normal truncated at two standard deviations, variance
 2 / fan_in) for convolutions, ``lecun_normal`` and zeros for the
 classifier, ones and zeros for BatchNorm; the tests load flax's weights
-through convert.resnet_params_from_flax.  ``remat`` and
-``stem_space_to_depth`` take only their defaults until a later slice.
+through convert.resnet_params_from_flax.
+
+Rematerialisation (``remat``, :161-171, :206-213) trades the backward's
+saved activations for a second forward of each block, in training only:
+``"block"`` keeps only each block's input (``torch.utils.checkpoint``,
+non-reentrant) and recomputes the whole block in the backward; ``"conv"``
+keeps the convolutions' outputs (a selective-checkpoint policy that saves
+``aten.convolution`` and recomputes the rest) and recomputes BatchNorm
+and ReLU.  A recompute touches no state: JAX's ``nn.remat`` recomputes
+from the ``batch_stats`` its forward read and never writes them twice, so
+each recomputed BatchNorm centres its moments on the running mean its
+forward read (``SyncBatchNorm.replay_centre``) and leaves the running
+statistics alone.  The running statistics after a step are bitwise those
+without remat, and the parameter and state_dict names do not change.
+
+``stem_space_to_depth`` (:95-132, :192-199) computes the 7x7/2 stem as a
+4x4/1 convolution over 2x2 blocks of the input (4C channels).  The
+parameter is still the 7x7 OIHW ``conv_init.weight``, padded to 8x8 and
+rearranged at call time; the input is padded (2, 4) on each spatial
+axis, Flax SAME's (2, 3) on an even size plus the row and column the 8x8
+footprint needs, so the output equals the 7x7 stem's.  An odd height or
+width takes the 7x7 convolution.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Optional, Sequence, Tuple
@@ -50,12 +71,15 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from apex_example_tpu_torch import resolve_device
 from apex_example_tpu_torch.parallel.sync_batchnorm import SyncBatchNorm
 
 # std of a unit normal truncated to [-2, 2] (jax.nn.initializers)
 _TRUNC_STD = 0.87962566103423978
+REMAT = ("none", "conv", "block")
 
 
 def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
@@ -95,6 +119,31 @@ class Conv(nn.Module):
         y = F.conv2d(xc, self.weight.to(self.dtype), stride=self.strides,
                      padding=pad)
         return y.permute(0, 2, 3, 1)
+
+
+class SpaceToDepthStem(Conv):
+    """The 7x7/2 stem as a 4x4/1 convolution over the input's 2x2 blocks
+    (JAX ``SpaceToDepthStem`` :95): same parameter, same output (the
+    module docstring); an odd input size takes the 7x7 convolution."""
+
+    def __init__(self, in_ch: int, out_ch: int, **kw):
+        super().__init__(in_ch, out_ch, 7, 2, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, h, w, c = x.shape
+        if h % 2 or w % 2:
+            return super().forward(x)
+        xp = F.pad(x.to(self.dtype), (0, 0, 2, 4, 2, 4))
+        hs, ws = (h + 6) // 2, (w + 6) // 2
+        # channel (dy * 2 + dx) * C + ci of block (i, j) is pixel
+        # (2i + dy, 2j + dx), channel ci: JAX's transpose (0, 1, 3, 2, 4, 5)
+        s = xp.reshape(b, hs, 2, ws, 2, c).permute(0, 1, 3, 2, 4, 5)
+        s = s.reshape(b, hs, ws, 4 * c).permute(0, 3, 1, 2)
+        f = self.weight.shape[0]
+        k8 = F.pad(self.weight.float(), (0, 1, 0, 1))     # (F, C, 8, 8)
+        k4 = k8.reshape(f, c, 4, 2, 4, 2).permute(0, 3, 5, 1, 2, 4)
+        k4 = k4.reshape(f, 4 * c, 4, 4).to(self.dtype)
+        return F.conv2d(s, k4).permute(0, 2, 3, 1)
 
 
 class Dense(nn.Module):
@@ -191,12 +240,10 @@ class ResNet(nn.Module):
                  stem_space_to_depth: bool = False, remat: str = "none",
                  in_channels: int = 3, seed: int = 0, device="cuda"):
         super().__init__()
-        if stem_space_to_depth:
-            raise NotImplementedError("stem_space_to_depth is not ported "
-                                      "yet (ROADMAP.md A.5)")
-        if remat != "none":
-            raise NotImplementedError(f"remat={remat!r} is not ported yet "
-                                      f"(ROADMAP.md A.5)")
+        if remat not in REMAT:
+            raise ValueError(f"remat must be none|conv|block, got "
+                             f"{remat!r}")
+        self.remat = remat
         self.num_classes, self.num_filters = num_classes, num_filters
         self.dtype, self.small_stem = dtype, small_stem
         self.bn_axis_name = bn_axis_name
@@ -209,9 +256,14 @@ class ResNet(nn.Module):
         # Built without storage, filled from the seeded generator on the
         # host, then moved: the weights depend on the seed alone.
         with torch.device("meta"):
-            self.conv_init = conv(in_channels, num_filters,
-                                  3 if small_stem else 7,
-                                  1 if small_stem else 2)
+            if small_stem:
+                self.conv_init = conv(in_channels, num_filters, 3, 1)
+            elif stem_space_to_depth:
+                self.conv_init = SpaceToDepthStem(
+                    in_channels, num_filters, dtype=dtype,
+                    param_dtype=param_dtype)
+            else:
+                self.conv_init = conv(in_channels, num_filters, 7, 2)
             self.bn_init = norm(num_filters)
             self.blocks = []
             ch, n = num_filters, 0
@@ -235,10 +287,45 @@ class ResNet(nn.Module):
         x = F.relu(self.bn_init(self.conv_init(x)))
         if not self.small_stem:
             x = max_pool_same(x)
+        remat = (self.remat if self.training and torch.is_grad_enabled()
+                 else "none")
         for block in self.blocks:
-            x = block(x)
+            if remat == "none":
+                x = block(x)
+            else:
+                x = checkpoint(block, x, use_reentrant=False,
+                               context_fn=functools.partial(
+                                   _remat_contexts, block, remat))
         x = x.mean(dim=(1, 2))
         return self.fc(x).float()
+
+
+def _remat_contexts(block: nn.Module, remat: str):
+    """The (forward, recompute) contexts of one remat'd block's
+    checkpoint: ``"conv"``'s selective policy, and in the recompute every
+    BatchNorm of the block replaying the running mean it reads now, at
+    its forward, and leaving its running statistics alone."""
+    norms = [m for m in block.modules() if isinstance(m, SyncBatchNorm)]
+    centres = [m.mean.float().clone() for m in norms]
+    if remat == "conv":
+        forward, recompute = create_selective_checkpoint_contexts(
+            [torch.ops.aten.convolution.default])
+    else:
+        forward, recompute = contextlib.nullcontext(), \
+            contextlib.nullcontext()
+    return forward, _replaying(norms, centres, recompute)
+
+
+@contextlib.contextmanager
+def _replaying(norms, centres, inner):
+    for m, c in zip(norms, centres):
+        m.replay_centre = c
+    try:
+        with inner:
+            yield
+    finally:
+        for m in norms:
+            m.replay_centre = None
 
 
 def init_resnet_weights(model: nn.Module, seed: int) -> None:

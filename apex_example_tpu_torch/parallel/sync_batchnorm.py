@@ -15,6 +15,11 @@ and the parameters ``scale`` and ``bias`` are ``param_dtype`` (fp32); the
 running ``mean`` and ``var`` are fp32 buffers, not parameters.  In eval
 mode the running averages normalize.
 
+``replay_centre`` is None but while a rematerialised block recomputes its
+forward in the backward (models/resnet.py): then it holds the running
+mean that the forward read, the recompute centres its moments on it, and
+the running statistics are not updated a second time.
+
 The training branch is the JAX composite form, in plain torch ops (the JAX
 package computes it in XLA, so no library BatchNorm kernel stands in for
 it), unless the module is built with ``fused_kernel=True``: then it goes
@@ -77,6 +82,7 @@ class SyncBatchNorm(nn.Module):
             num_features, dtype=torch.float32, device=device))
         self.register_buffer("var", torch.ones(
             num_features, dtype=torch.float32, device=device))
+        self.replay_centre: Optional[torch.Tensor] = None
 
     def _affine(self, x: torch.Tensor):
         feat = self.num_features
@@ -98,7 +104,8 @@ class SyncBatchNorm(nn.Module):
             y = (x.to(md) - self.mean.to(md)) * (inv * scale.to(md))
             return (y + bias.to(md)).to(out_dtype)
 
-        c = self.mean.float()
+        replay = self.replay_centre is not None
+        c = self.replay_centre if replay else self.mean.float()
         axis = self.axis_name
         n_local = x.numel() // x.shape[-1]
         n = n_local * (axis_size(axis) if axis is not None else 1)
@@ -121,6 +128,8 @@ class SyncBatchNorm(nn.Module):
             y = (x.to(md) - mean.to(md)) * (inv * scale.to(md))
             y = y + bias.to(md)
 
+        if replay:
+            return y.to(out_dtype)
         with torch.no_grad():
             m = self.momentum
             unbiased = var.detach() * (float(n) / max(n - 1, 1))

@@ -46,7 +46,8 @@ sequence 2048 and up, or at any length with ``--fused-attention``
     python tools/metrics_lint.py train.jsonl --require-summary
 
 Weights are random from ``--seed``.  Image batches are ``image_batch`` of
-the global step, made on the device (data/synthetic.py); the eval batches
+the global step, made on the device (data/synthetic.py) unless
+``--host-pipeline``; the eval batches
 of epoch E come from the disjoint index range ``10_000 + E * eval_batches
 + j``, as in train.py (:944).  LM batches are ``mlm_batch`` for BERT,
 ``lm_batch`` sliced into inputs ``[:, :-1]`` and targets ``[:, 1:]`` for
@@ -62,8 +63,28 @@ dynamic`` skips an overflow step on the card through every optimizer's
 noop flag.  ``--fused-attention`` stays refused at O3 and for the other
 archs (train.py :699-709).  Entry points run on the card unless
 ``--device cpu`` is given, and raise when CUDA is asked for and absent.
-The flags of paths not ported yet (model parallelism, grad accumulation,
-diagnostics, resilience) are absent, so argparse rejects them.
+The flags of paths not ported yet (model parallelism, diagnostics,
+resilience) are absent, so argparse rejects them.
+
+Step options (train.py :200-208, :308-309), on every path:
+``--grad-accum K`` runs K microbatches of ``batch // K`` rows (of each
+process's rows under data parallelism) before one optimizer step, the
+grads their fp32 mean (engine.GradAccumulator; Transformer-XL's groups of
+streams carry their own rows of the memory); the batch, and each
+process's share of it, must divide by K, and ``--zero`` refuses it.
+``--remat none|conv|block`` rematerialises the ResNet blocks in the
+backward (models/resnet.py).  ``--host-pipeline`` feeds the batches from
+the port's C++ prefetchers (host_runtime.py, built with g++ at first use;
+the trainer exits if it cannot be built) through pinned memory, from the
+global step the loop starts at (after ``--resume``), the eval batches
+from one-shot streams at their held-out indices:
+
+    python -m apex_example_tpu_torch.train --arch resnet50 \
+        --dataset imagenet --opt sgd --opt-level O2 --remat conv
+    python -m apex_example_tpu_torch.train --arch bert_base --opt lamb \
+        --grad-accum 4
+    python -m apex_example_tpu_torch.train --arch resnet50 \
+        --dataset imagenet --opt sgd --opt-level O2 --host-pipeline
 
 ``--eval`` evaluates after each epoch, ``--eval-batches`` batches in
 ``torch.no_grad()`` (engine.make_eval_step for images; for the LM archs
@@ -141,12 +162,13 @@ import math
 import random
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from apex_example_tpu_torch import amp, resolve_device
+from apex_example_tpu_torch import amp, host_runtime, resolve_device
 from apex_example_tpu_torch.data.synthetic import (CIFAR10, IMAGENET,
                                                    image_batch, lm_batch,
                                                    mlm_batch)
@@ -214,6 +236,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "transformer_xl (the tiny archs keep 256)")
     p.add_argument("--max-grad-norm", type=float, default=0.25,
                    help="global-norm grad clip (transformer_xl)")
+    p.add_argument("--grad-accum", type=int, default=1,
+                   help="microbatches accumulated per optimizer step")
+    p.add_argument("--remat", default="none",
+                   choices=["none", "conv", "block"],
+                   help="rematerialization for image archs: 'conv' saves "
+                        "only conv outputs (BN/ReLU recomputed in backward)"
+                        ", 'block' saves only block inputs")
+    p.add_argument("--host-pipeline", action="store_true",
+                   help="feed batches from the native C++ prefetcher "
+                        "(host_runtime.py; the reference's fast_collate "
+                        "analog) instead of on-device synthesis")
     p.add_argument("--epochs", type=int, default=1)
     p.add_argument("--steps-per-epoch", type=int, default=100)
     p.add_argument("--batch-size", "-b", type=int, default=256)
@@ -332,7 +365,7 @@ def build_model(args, device, policy=None):
             bn_io_dtype=md.bn_io,
             bn_axis_name=(DATA_AXIS if args.sync_bn and data_world() > 1
                           else None),
-            **kw)
+            remat=args.remat, **kw)
     if args.arch in VOCAB_ARCHS:
         kw["vocab_size"] = args.vocab_size
     kw.update(dtype=md.compute, param_dtype=md.param, ln_dtype=md.ln_io,
@@ -402,6 +435,79 @@ def batch_fn(args, vocab_size: int, step: int, device, rank: int = 0,
     return to(toks[:, :-1]), to(toks[:, 1:])
 
 
+class BatchSource:
+    """The loop's batches: ``batch_fn`` of the global step, made on the
+    device (the default), or with ``--host-pipeline`` the native
+    prefetcher's (host_runtime.py; train.py :816-842, :1675-1708).  The
+    prefetcher starts at ``start``, the global step the loop starts at, so
+    a resumed run reads the batches an unbroken one reads; an eval batch
+    is a one-shot stream at its index (the image archs' at 10_000_000 +
+    index), the same in fresh and resumed runs.  Each process's prefetcher
+    makes only its own rows of the global batch, so the host's work a
+    step does not grow with the world.  Batches cross from pinned host
+    memory with ``non_blocking`` copies, each from a fresh buffer, in the
+    model's layout (NHWC fp32 images and int64 labels, int32 tokens)."""
+
+    def __init__(self, args, vocab_size: int, device, rank: int, world: int,
+                 start: int):
+        self.args, self.vocab_size, self.device = args, vocab_size, device
+        self.rank, self.world = rank, world
+        self.pin = torch.device(device).type == "cuda"
+        b = args.batch_size
+        self.prefetcher = (
+            self.producer(start, slice(rank * b // world,
+                                       (rank + 1) * b // world))
+            if args.host_pipeline else None)
+
+    def producer(self, start: int, rows: Optional[slice] = None):
+        """The native prefetcher of ``rows`` (default all) of ``args``'s
+        batches from batch index ``start``."""
+        args = self.args
+        if is_image(args):
+            spec = DATASETS[args.dataset]
+            return host_runtime.NativePrefetcher(
+                batch=args.batch_size, image_size=spec["image_size"],
+                num_classes=spec["num_classes"], channels=spec["channels"],
+                seed=args.seed, start_index=start, rows=rows,
+                pin_memory=self.pin)
+        bert = args.arch.startswith("bert")
+        return host_runtime.NativeLMPrefetcher(
+            batch=args.batch_size, seq_len=args.seq_len,
+            vocab_size=self.vocab_size, mlm=bert,
+            mask_token_id=self.vocab_size - 1 if bert else -1,
+            seed=args.seed, start_index=start, rows=rows,
+            pin_memory=self.pin)
+
+    def _to_device(self, produced):
+        to = lambda t: t.to(self.device, non_blocking=True)  # noqa: E731
+        if is_image(self.args):
+            images, labels = produced
+            return to(images), to(labels).long()
+        ids, labels, w = produced
+        if self.args.arch.startswith("bert"):
+            return to(ids), (to(labels), to(w))
+        return to(ids), to(labels)
+
+    def train(self, step: int):
+        """The batch of global step ``step`` (the prefetcher's next)."""
+        if self.prefetcher is None:
+            return batch_fn(self.args, self.vocab_size, step, self.device,
+                            self.rank, self.world)
+        return self._to_device(next(self.prefetcher))
+
+    def eval(self, index: int):
+        """The whole held-out batch ``index``."""
+        if self.prefetcher is None:
+            return batch_fn(self.args, self.vocab_size, index, self.device)
+        start = 10_000_000 + index if is_image(self.args) else index
+        with self.producer(start) as one_shot:
+            return self._to_device(next(one_shot))
+
+    def close(self) -> None:
+        if self.prefetcher is not None:
+            self.prefetcher.close()
+
+
 def check_args(args) -> None:
     """What the parser cannot say: sizes, and the flags a path does not
     take yet."""
@@ -421,6 +527,9 @@ def check_args(args) -> None:
     if args.save_every_steps and not args.checkpoint_dir:
         raise SystemExit("--save-every-steps writes through "
                          "--checkpoint-dir; add it")
+    if args.grad_accum > 1 and args.batch_size % args.grad_accum:
+        raise SystemExit(f"--batch-size {args.batch_size} not divisible by "
+                         f"--grad-accum {args.grad_accum}")
 
 
 def check_parallel_args(args, world: int) -> None:
@@ -435,6 +544,9 @@ def check_parallel_args(args, world: int) -> None:
     if args.batch_size % world:
         raise SystemExit(f"--batch-size {args.batch_size} not divisible by "
                          f"{world} devices")
+    if (args.batch_size // world) % args.grad_accum:
+        raise SystemExit(f"per-shard batch {args.batch_size // world} "
+                         f"not divisible by --grad-accum {args.grad_accum}")
     if not args.zero:
         return
     if is_txl(args):
@@ -450,6 +562,8 @@ def check_parallel_args(args, world: int) -> None:
     if args.opt != "adam":
         raise SystemExit("--zero is wired for --opt adam "
                          "(DistributedFusedAdam)")
+    if args.grad_accum != 1:
+        raise SystemExit("--zero does not support --grad-accum")
     if args.gradient_predivide_factor != 1.0:
         raise SystemExit("--zero does not support "
                          "--gradient-predivide-factor (the reduction "
@@ -476,7 +590,7 @@ def build_step(args):
     data-parallel step: ``--zero``'s, or the grads all-reduced (with
     ``--delay-allreduce``, ``--gradient-predivide-factor`` and
     ``--quantized-allreduce`` on the image path, as JAX wires them)."""
-    world = data_world()
+    world, k = data_world(), args.grad_accum
     lm_loss_fn = mlm_loss if args.arch.startswith("bert") else lm_loss
     if world > 1 and args.zero:
         if is_image(args):
@@ -484,21 +598,22 @@ def build_step(args):
         return make_zero_train_step(lm_loss_fn, compute_accuracy=False)
     if is_image(args):
         if world == 1:
-            return make_train_step()
+            return make_train_step(grad_accum=k)
         return make_sharded_train_step(DATA_AXIS, ddp=DDPConfig(
             delay_allreduce=args.delay_allreduce,
             gradient_predivide_factor=args.gradient_predivide_factor,
             quantized_allreduce=args.quantized_allreduce == "int8",
-            quant_chunk=args.quant_chunk))
+            quant_chunk=args.quant_chunk), grad_accum=k)
     if is_txl(args):
         if world == 1:
-            return make_txl_train_step(args.max_grad_norm)
-        return make_sharded_txl_train_step(DATA_AXIS,
-                                           max_grad_norm=args.max_grad_norm)
+            return make_txl_train_step(args.max_grad_norm, grad_accum=k)
+        return make_sharded_txl_train_step(
+            DATA_AXIS, max_grad_norm=args.max_grad_norm, grad_accum=k)
     if world == 1:
-        return make_train_step(lm_loss_fn, compute_accuracy=False)
+        return make_train_step(lm_loss_fn, compute_accuracy=False,
+                               grad_accum=k)
     return make_sharded_train_step(DATA_AXIS, loss_fn=lm_loss_fn,
-                                   compute_accuracy=False)
+                                   compute_accuracy=False, grad_accum=k)
 
 
 def build_eval_step(args):
@@ -578,6 +693,8 @@ def run_train(args) -> int:
     one (leaving it at the end), and train."""
     device = resolve_device(args.device)
     check_args(args)
+    if args.host_pipeline and not host_runtime.available():
+        raise SystemExit("--host-pipeline: native runtime not buildable")
     started = not dist.is_initialized()
     rank, world = maybe_initialize_distributed(device)
     started = started and dist.is_initialized()
@@ -647,6 +764,7 @@ def run_image(args, device, rank: int = 0, world: int = 1) -> int:
 
     emitter = _emitter(args, device)
     global_step = state.step
+    batches = BatchSource(args, 0, device, rank, world, global_step)
     last_saved = None
     try:
         for epoch in range(start_epoch, args.epochs):
@@ -654,7 +772,7 @@ def run_image(args, device, rank: int = 0, world: int = 1) -> int:
             thr = Throughput(warmup_steps=2)
             for i in range(start_i if epoch == start_epoch else 0,
                            args.steps_per_epoch):
-                batch = batch_fn(args, 0, global_step, device, rank, world)
+                batch = batches.train(global_step)
                 t0 = time.perf_counter()
                 state, metrics = step_fn(state, batch)
                 global_step += 1
@@ -679,9 +797,8 @@ def run_image(args, device, rank: int = 0, world: int = 1) -> int:
                 el, e1, e5 = (AverageMeter("loss"), AverageMeter("top1"),
                               AverageMeter("top5"))
                 for j in range(args.eval_batches):
-                    em = eval_fn(state, batch_fn(
-                        args, 0, 10_000 + epoch * args.eval_batches + j,
-                        device))
+                    em = eval_fn(state, batches.eval(
+                        10_000 + epoch * args.eval_batches + j))
                     el.update(float(em["loss"]))
                     e1.update(float(em["top1"]))
                     e5.update(float(em["top5"]))
@@ -691,6 +808,7 @@ def run_image(args, device, rank: int = 0, world: int = 1) -> int:
             if mgr is not None and last_saved != state.step:
                 last_saved = save_checkpoint(args, mgr, state, global_step)
     finally:
+        batches.close()
         if emitter is not None:
             emitter.close()
         if mgr is not None:
@@ -698,7 +816,7 @@ def run_image(args, device, rank: int = 0, world: int = 1) -> int:
     return 0
 
 
-def lm_eval(args, eval_fn, state, epoch: int, device) -> None:
+def lm_eval(args, eval_fn, state, epoch: int, batches) -> None:
     """The LM eval pass after ``epoch`` (:1772-1798): ``--eval-batches``
     held-out batches, Transformer-XL's memory fresh and carried across
     them; prints the loss and BERT's masked accuracy or the perplexity
@@ -707,8 +825,7 @@ def lm_eval(args, eval_fn, state, epoch: int, device) -> None:
     el, acc = AverageMeter("loss"), AverageMeter("masked_acc")
     mems = model.init_mems(args.batch_size) if is_txl(args) else None
     for j in range(args.eval_batches):
-        batch = batch_fn(args, model.vocab_size,
-                         10_000_000 + epoch * args.eval_batches + j, device)
+        batch = batches.eval(10_000_000 + epoch * args.eval_batches + j)
         if mems is None:
             em = eval_fn(state, batch)
         else:
@@ -745,6 +862,8 @@ def run_lm(args, device, rank: int = 0, world: int = 1) -> int:
     emitter = _emitter(args, device)
     tokens = args.batch_size * args.seq_len
     global_step = state.step
+    batches = BatchSource(args, model.vocab_size, device, rank, world,
+                          global_step)
     last_saved = None
     try:
         for epoch in range(start_epoch, args.epochs):
@@ -752,8 +871,7 @@ def run_lm(args, device, rank: int = 0, world: int = 1) -> int:
             thr = Throughput(warmup_steps=2)
             for i in range(start_i if epoch == start_epoch else 0,
                            args.steps_per_epoch):
-                batch = batch_fn(args, model.vocab_size, global_step,
-                                 device, rank, world)
+                batch = batches.train(global_step)
                 t0 = time.perf_counter()
                 if mems is None:
                     state, metrics = step_fn(state, batch)
@@ -779,10 +897,11 @@ def run_lm(args, device, rank: int = 0, world: int = 1) -> int:
                     last_saved = save_checkpoint(args, mgr, state,
                                                  global_step)
             if eval_fn is not None:
-                lm_eval(args, eval_fn, state, epoch, device)
+                lm_eval(args, eval_fn, state, epoch, batches)
             if mgr is not None and last_saved != state.step:
                 last_saved = save_checkpoint(args, mgr, state, global_step)
     finally:
+        batches.close()
         if emitter is not None:
             emitter.close()
         if mgr is not None:

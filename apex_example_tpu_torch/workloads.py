@@ -23,6 +23,16 @@ whatever the skip, as JAX's does, and comes back detached, so the next
 step's backward stops at it, as the JAX step never differentiates through
 its mems carry.
 
+With ``grad_accum=K`` (:86-131) the batch splits into K groups of
+independent streams, ``batch // K`` consecutive rows each, and the memory
+with them along its batch axis (dim 1 of (layers, B, mem, d)): each
+group's forward and backward runs on its own rows of the memory, so each
+stream's carry stays exact, and the new memory is put back together in
+stream order.  The grads become the mean of the groups' fp32 grads in
+the parameters' dtype (engine.GradAccumulator), and the loss the mean of
+their losses; then the unscale, the clip and the step run once, on the
+mean.
+
 The data-parallel step (``make_sharded_txl_train_step``) runs that step
 in every process of a group on its rows of the batch and its rows of the
 memory (the memory splits on its batch axis, dim 1 of (layers, B, mem,
@@ -47,6 +57,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from apex_example_tpu_torch import amp
+from apex_example_tpu_torch.engine import (accumulator_cache, ordered_mean,
+                                           split_batch)
 from apex_example_tpu_torch.ops.xentropy import softmax_cross_entropy
 from apex_example_tpu_torch.parallel.distributed import (DDPConfig,
                                                          allreduce_grads,
@@ -69,14 +81,26 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def make_txl_train_step(max_grad_norm: float = 0.25,
-                        ddp: Optional[DDPConfig] = None, axis_name=None):
+                        ddp: Optional[DDPConfig] = None, axis_name=None,
+                        grad_accum: int = 1):
     """``train_step(state, mems, (inp, tgt)) -> (state, new_mems,
     metrics)`` for a TransformerXL ``state.model`` (engine.TrainState: its
     policy and loss scaler too) and an optimizer with ``clip_grad_norm``
     and a ``step`` that takes the noop flag (optim/fused.py).  With
     ``axis_name`` the grads are reduced over its group with ``ddp``'s
-    options and the loss averaged over it."""
+    options and the loss averaged over it.  ``grad_accum=K`` runs K groups
+    of streams before the one step (module docstring)."""
     ddp = ddp or DDPConfig()
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    accumulator = accumulator_cache(grad_accum)
+
+    def forward_backward(state, mems, inp, tgt):
+        logits, new_mems = state.model(inp, mems)
+        loss = lm_loss(logits, tgt)
+        del logits          # the loss's graph holds what the backward needs
+        amp.scale_loss(loss, state.scaler).backward()
+        return loss.detach(), new_mems
 
     def train_step(state, mems: torch.Tensor, batch
                    ) -> Tuple[object, torch.Tensor, Dict]:
@@ -84,10 +108,24 @@ def make_txl_train_step(max_grad_norm: float = 0.25,
         opt, scaler = state.optimizer, state.scaler
         state.model.train()
         opt.zero_grad()
-        logits, new_mems = state.model(inp, mems)
-        loss = lm_loss(logits, tgt)
-        del logits          # the loss's graph holds what the backward needs
-        amp.scale_loss(loss, scaler).backward()
+        if grad_accum == 1:
+            loss, new_mems = forward_backward(state, mems, inp, tgt)
+        else:
+            acc = accumulator(opt)
+            acc.begin()
+            rows = inp.shape[0] // grad_accum
+            losses, parts = [], []
+            for i, (inp_mb, tgt_mb) in enumerate(
+                    split_batch((inp, tgt), grad_accum)):
+                loss_mb, mems_mb = forward_backward(
+                    state, mems[:, i * rows:(i + 1) * rows], inp_mb, tgt_mb)
+                losses.append(loss_mb)
+                parts.append(mems_mb)
+                if i + 1 < grad_accum:
+                    acc.fold()
+            acc.finish()
+            loss = ordered_mean(losses)
+            new_mems = torch.cat(parts, dim=1)
         if axis_name is not None:
             allreduce_grads(opt.grads, ddp, axis_name)
             loss = reduce_mean(loss, axis_name)
@@ -99,7 +137,6 @@ def make_txl_train_step(max_grad_norm: float = 0.25,
             opt.step(noop_flag=found_inf)
         state.scaler = amp.update_scaler(scaler, found_inf)
         state.step += 1
-        loss = loss.detach()
         metrics = {"loss": loss, "grad_norm": grad_norm,
                    "ppl": torch.exp(loss), "scale": state.scaler.scale,
                    "grads_finite": (1.0 if found_inf is None
@@ -157,9 +194,12 @@ def make_txl_eval_step():
 
 def make_sharded_txl_train_step(axis_name=DATA_AXIS,
                                 ddp: Optional[DDPConfig] = None,
-                                max_grad_norm: float = 0.25):
+                                max_grad_norm: float = 0.25,
+                                grad_accum: int = 1):
     """The data-parallel Transformer-XL step: ``train_step(state, mems,
     (inp, tgt))`` in every process of ``axis_name``'s group, with its own
     rows of the batch and of the memory (dim 1), the state equal in every
-    process (see the module docstring)."""
-    return make_txl_train_step(max_grad_norm, ddp=ddp, axis_name=axis_name)
+    process (see the module docstring); ``grad_accum`` splits each
+    process's streams."""
+    return make_txl_train_step(max_grad_norm, ddp=ddp, axis_name=axis_name,
+                               grad_accum=grad_accum)

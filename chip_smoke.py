@@ -391,6 +391,43 @@ Phases, one or more lines each:
              two token streams equal and the untrained model's other, the
              LayerNorm forward 26 times a compute tick and nothing else.
 
+37. accum   — --grad-accum (run after 36): gpt2048's command (gpt_base O2
+             8 x 2048, FusedAdam, the flash kernels) at K = 4 and at 1, 3
+             steps each through the trainer: the first step's loss rtol
+             1e-5, peak memory and step time of both, the launches a step
+             (48 of each attention kernel, 104 + 104 LayerNorm, one each
+             of Adam, the L2 norm and the scale, the /K); then the first
+             step at K = 4 against its four microbatches run one by one on
+             the same weights: the optimizer's input grads within 1e-6
+             (relative L2, by kind of parameter) of theirs summed in fp32
+             and scaled by 1/4, the loss their mean; torch.profiler over
+             three K = 4 steps, as in 6.  C5's first step (transformer_xl
+             O2 32 x 192) at K = 2 the same way, and its new memory their
+             memories in stream order; its peak memory against K = 1's and
+             the launches.
+             adam_o3's command at K = 2, 10 steps: losses falling, axpby
+             twice a step (the fold of the bf16 grads into fp32 sums and
+             the mean), the scale once (the fp32 table's /K), Adam and the
+             L2 norm twice; axpby at that path's shapes in both forms
+             against its plain version.
+38. remat   — C2's command at --remat none, conv and block: the first
+             step of the same weights and batch with deterministic
+             convolutions, conv's and block's loss rtol 1e-5, grad norm
+             rtol 1e-4, every grad within 1e-4 of its tensor's largest
+             magnitude and the running statistics bitwise none's; then the
+             median step time and the peak memory of each.
+39. s2d     — resnet50's stem at 256 x 224 x 224 x 3 in bf16 through the
+             space-to-depth stem and the 7x7 convolution, one weight:
+             outputs within two bf16 ulps plus 1e-4; the forward and the
+             weight's backward of each timed.
+40. host    — --host-pipeline on c2 and c4, 5 steps each through the
+             trainer (launches): the card's first batch bitwise the
+             library's on the CPU, the C++ worker's time a batch; then the
+             loop's period (fetch, step, loss read) with host batches
+             against batches made on the card, in blocks of 12 steps in
+             turn (A, B, A, B) from one state, img/s or tokens/s, and
+             whether the host holds the card back.
+
 Then one JSON line per the port's kernel table ({"kernels": [...]}) and,
 last, {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
 before the last line; so does a machine where torch sees no CUDA device.
@@ -2659,12 +2696,16 @@ def phase_main(cli, gpt_base, counted):
     return counts
 
 
-def phase_train(train, counted, label, argv, per_step, scale=None):
+def phase_train(train, counted, label, argv, per_step, scale=None,
+                falls=True, out=None):
     """A model trained through the port's trainer: finite, falling loss
     (the mean of the last five steps below that of the first five; of the
-    last two below the first two in a run of five) and
+    last two below the first two in a run of five; not asked with
+    ``falls=False``) and
     ``per_step`` launches of each kernel a step, none of the others; with
-    ``scale``, every step's loss scale equal to it."""
+    ``scale``, every step's loss scale equal to it.  ``out``, a dict,
+    receives the step records, the median step time and the peak
+    memory."""
     path = os.path.join(ROOT, "build", f"chip_smoke_{label}.jsonl")
     args = train.build_parser().parse_args(argv + ["--metrics-jsonl", path])
     torch.cuda.reset_peak_memory_stats()
@@ -2709,12 +2750,15 @@ def phase_train(train, counted, label, argv, per_step, scale=None):
                          f"{args.steps_per_epoch})")
     if not all(math.isfinite(x) for x in losses):
         raise SystemExit(f"{label} loss is not finite: {losses}")
-    if not statistics.fmean(losses[-w:]) < statistics.fmean(losses[:w]):
+    if falls and not statistics.fmean(losses[-w:]) < statistics.fmean(
+            losses[:w]):
         raise SystemExit(f"{label} loss did not fall over {n} steps")
     if counts != want:
         raise SystemExit(f"kernel launches per step off: {counts}")
     if scale is not None and scales != [scale]:
         raise SystemExit(f"{label} loss scale moved: {scales}")
+    if out is not None:
+        out.update(steps=steps, step_ms=steady, peak_gib=peak_gib)
     return counts
 
 
@@ -4384,6 +4428,439 @@ def phase_serve_ckpt(train, cli, counted):
     return counts
 
 
+# The step options (train.py's --grad-accum, --remat, --host-pipeline and
+# the ResNet's space-to-depth stem): gpt2048 at K = 4 against 1 for
+# ACCUM_STEPS steps each; C5's first step at K = 2 against 1; C1 at O3 with
+# Adam at K = 2 (the fp32 accumulators: axpby a microbatch); C2 at each
+# remat; resnet50's stem both ways; c2 and c4 fed by the host pipeline.
+ACCUM_STEPS = 3
+ACCUM_GPT_ARGS = GPT2048_O2_ARGS + ["--steps-per-epoch", str(ACCUM_STEPS)]
+# The first step at K held against its own microbatches, run one by one
+# on the same weights outside the step: the optimizer's input, each kind of
+# parameter's grads (relative L2), within ACCUM_REF_TOL of the microbatch
+# grads summed in fp32 in order and scaled by 1 / K (the same kernels at
+# the same shapes and the same fp32 sums: bitwise where the card repeats
+# itself); the loss the mean of theirs (rtol 1e-6) and within the
+# cross-checks' rtol 1e-5 of the whole batch's; C5's new memory their
+# memories in stream order (ACCUM_REF_TOL).  Against K = 1 the bf16
+# products tile M = B / K rows otherwise, and no floor measured by a
+# perturbed run bounds that in every kind (PERF.md §6, PR 17)
+ACCUM_REF_TOL = 1e-6
+ACCUM_O3_ARGS = O3_ADAM_ARGS + ["--grad-accum", "2"]
+REMAT_STEPS = 4           # timed C2 steps a remat mode (the first warms)
+# the s2d stem against the 7x7 stem in bf16: two bf16 ulps of the larger
+# output plus 1e-4 (147-term fp32 sums in two orders, then a rounding)
+S2D_ULPS, S2D_ATOL = 2, 1e-4
+HOST_STEPS = 5            # steps of each host-fed run through the trainer
+# the A/B of the loop's period: blocks of HOST_AB_STEPS steps from one
+# state, batches made on the card (A) and by the host pipeline (B), in the
+# order A, B, A, B; each block's median over its steps after the first
+# HOST_AB_SKIP (the prefetcher makes two batches ahead while an A block
+# runs, and cuDNN times its algorithms in the first)
+HOST_AB_STEPS, HOST_AB_SKIP = 12, 4
+
+
+def _accum_counts(per_step, k, extra):
+    """A step's launches at grad_accum ``k``: the model's kernels k times,
+    the step's once, plus ``extra``."""
+    model = ("layer_norm_fwd", "layer_norm_bwd", "attn_fwd", "attn_dkdv",
+             "attn_dq")
+    out = {n: v * (k if n in model else 1) for n, v in per_step.items()}
+    for n, v in extra.items():
+        out[n] = out.get(n, 0) + v
+    return out
+
+
+def _rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _host_copy(t):
+    """A fp32 copy of ``t`` in host memory (never a view of it)."""
+    return t.detach().to("cpu", torch.float32, copy=True)
+
+
+def _accum_first_step(train, counted, label, argv, k):
+    """The first step at grad_accum ``k`` from seed 0's weights on step 0's
+    batch (Transformer-XL's memory zeros), against its microbatches run one
+    by one first (the module comment's limits).  Prints the readings;
+    returns the step's launches, whether every reading is within its limit,
+    and the peak memory of the step (GiB)."""
+    from apex_example_tpu_torch import amp
+    from apex_example_tpu_torch.engine import ordered_mean, split_batch
+    from apex_example_tpu_torch.workloads import lm_loss
+    args = train.build_parser().parse_args(argv + ["--grad-accum", str(k)])
+    state = train.build_state(args, "cuda")
+    step = train.build_step(args)
+    model, opt = state.model, state.optimizer
+    batch = train.batch_fn(args, model.vocab_size, 0, "cuda")
+    txl = train.is_txl(args)
+    mems = model.init_mems(args.batch_size) if txl else None
+    rows = args.batch_size // k
+    model.train()
+    with torch.no_grad():
+        whole = lm_loss(model(batch[0], mems)[0] if txl
+                        else model(batch[0]), batch[1])
+    ref, losses, parts = None, [], []
+    for i, (x, y) in enumerate(split_batch(batch, k)):
+        opt.zero_grad()
+        if txl:
+            logits, new = model(x, mems[:, i * rows:(i + 1) * rows])
+            parts.append(_host_copy(new))
+        else:
+            logits = model(x)
+        loss = lm_loss(logits, y)
+        del logits
+        amp.scale_loss(loss, state.scaler).backward()
+        losses.append(loss.detach())
+        grads = [_host_copy(p.grad) for p in model.parameters()]
+        ref = grads if ref is None else [a + g for a, g in zip(ref, grads)]
+    ref = [a * (1.0 / k) for a in ref]
+    ref_loss = float(ordered_mean(losses))
+    opt.zero_grad()
+    # the optimizer's input: the grads when the step first calls the
+    # optimizer (the clip or the update), after the mean and the unscale
+    taken = []
+
+    def snapshot(fn):
+        def call(*a, **kw):
+            if not taken:
+                taken.append([_host_copy(p.grad)
+                              for p in model.parameters()])
+            return fn(*a, **kw)
+        return call
+    opt.clip_grad_norm, opt.step = (snapshot(opt.clip_grad_norm),
+                                    snapshot(opt.step))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(counted)
+    if txl:
+        state, new_mems, metrics = step(state, mems, batch)
+    else:
+        state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    counts = _counts(counted)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    names = [n for n, _ in model.named_parameters()]
+    got = dict(zip(names, taken[0]))
+    want = dict(zip(names, ref))
+    kinds = _grad_differences({"cuda": got, "cpu": want, "floor": want},
+                              dict.fromkeys(names, 0), want)
+    worst = max(a for a, _, _, _ in kinds.values())
+    same = all(torch.equal(got[n], want[n]) for n in names)
+    loss = float(metrics["loss"])
+    ok = (worst <= ACCUM_REF_TOL and _rel(loss, ref_loss) <= 1e-6
+          and _rel(loss, float(whole)) <= 1e-5)
+    m_txt = ""
+    if txl:
+        new_mems, parts = _host_copy(new_mems), torch.cat(parts, 1)
+        m_err = float((new_mems - parts).norm() / parts.norm())
+        ok = ok and m_err <= ACCUM_REF_TOL
+        m_txt = (f"  the new memory against the microbatches' in stream "
+                 f"order: relative L2 {m_err:.3g} (bitwise "
+                 f"{torch.equal(new_mems, parts)})")
+    print(f"accum: {label}, the first step at K = {k} against its "
+          f"microbatches one by one: grads by kind, |d| / |g|, largest "
+          f"{worst:.3g} (limit {ACCUM_REF_TOL:g}; bitwise {same}); loss "
+          f"{loss!r}, the microbatches' mean {ref_loss!r} (rtol 1e-6), the "
+          f"whole batch's {float(whole)!r} (rtol 1e-5){m_txt}  peak memory "
+          f"{peak:.2f} GiB  {'ok' if ok else 'MISMATCH'}")
+    del state, step, model, opt, batch, mems, got, want, ref, taken
+    torch.cuda.empty_cache()
+    return counts, ok, peak
+
+
+def phase_accum(train, counted, mt, gpt2048_step, txl_step, axpby_row):
+    """--grad-accum on the card: gpt2048 at 4 against 1 through the
+    trainer (the first step's loss, peak memory, step time, launches) and
+    its first step against its microbatches one by one; C5's first step at
+    2 the same way (and its new memory), its peak memory against 1's and
+    its launches; C1
+    at O3 with Adam at 2 (axpby once a microbatch), and axpby at that
+    path's shapes against its plain version.  Returns the paths'
+    launches."""
+    t0 = time.perf_counter()
+    by_path, runs = {}, {}
+    for k in (1, 4):
+        label = f"accum_gpt2048_k{k}"
+        runs[k] = {}
+        by_path[label] = phase_train(
+            train, counted, label, ACCUM_GPT_ARGS + ["--grad-accum", str(k)],
+            _accum_counts(gpt2048_step, k,
+                          {"multi_tensor_scale": 1} if k > 1 else {}),
+            falls=False, out=runs[k])
+    first = [runs[k]["steps"][0]["loss"] for k in (1, 4)]
+    print(f"accum: gpt2048 O2 8 x 2048 through the trainer, K = 4 / 1: "
+          f"first step loss {first[1]!r} / {first[0]!r} (rel "
+          f"{_rel(first[1], first[0]):.3g}, limit 1e-5)  peak memory "
+          f"{runs[4]['peak_gib']:.2f} / {runs[1]['peak_gib']:.2f} GiB  step "
+          f"{runs[4]['step_ms']:.2f} / {runs[1]['step_ms']:.2f} ms")
+    _, ok, _ = _accum_first_step(train, counted, "gpt2048 O2 8 x 2048",
+                                 ACCUM_GPT_ARGS, 4)
+    if not (ok and _rel(first[1], first[0]) <= 1e-5):
+        raise SystemExit("gpt2048 at --grad-accum 4 is not the mean of its "
+                         "microbatches")
+    c1, _, p1 = _accum_first_step(train, counted,
+                                  "c5 transformer_xl O2 32 x 192", C5_ARGS, 1)
+    c2, ok, p2 = _accum_first_step(train, counted,
+                                   "c5 transformer_xl O2 32 x 192", C5_ARGS,
+                                   2)
+    if not ok:
+        raise SystemExit("c5 at --grad-accum 2 is not the mean of its "
+                         "microbatches")
+    want = _accum_counts(txl_step, 2, {"multi_tensor_scale": 1})
+    got = {n: v for n, v in c2.items() if v}
+    print(f"accum: c5 at K = 2: peak memory {p2:.2f} / {p1:.2f} GiB at "
+          f"K = 1; launches {got} (want {want})")
+    if got != want:
+        raise SystemExit(f"c5 at --grad-accum 2 launched {got}")
+    by_path["accum_c5"] = c2
+    by_path["accum_o3"] = phase_train(
+        train, counted, "accum_o3", ACCUM_O3_ARGS,
+        {"adam": 2, "multi_tensor_l2norm": 2, "axpby": 2,
+         "multi_tensor_scale": 1})
+    # axpby at that path's shapes: a fold (bf16 grads into fp32 sums) and
+    # the mean (fp32 sums and bf16 grads, a = b = 1 / K, into bf16)
+    args = train.build_parser().parse_args(ACCUM_O3_ARGS)
+    state = train.build_state(args, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    half = [p for p in state.optimizer.params if p.dtype != torch.float32]
+    g = [torch.randn(p.shape, device="cuda", generator=gen).to(p.dtype)
+         for p in half]
+    acc = [torch.randn(p.shape, device="cuda", generator=gen) for p in half]
+    errs = []
+    for x, y, a in ((g, acc, 1.0), (acc, g, 0.5)):
+        out = [torch.empty_like(t) for t in y]
+        mt.multi_tensor_axpby_cuda(mt.TensorTable([x, y, out]), a, a)
+        want_out = mt.multi_tensor_axpby_plain(a, x, a, y)
+        torch.cuda.synchronize()
+        err, ok = _lists_close(out, want_out)
+        errs.append(err)
+        print(f"accum: axpby at accum_o3's {len(half)} bf16 tensors, "
+              f"{'fold' if a == 1.0 else 'mean'} ({x[0].dtype} x, "
+              f"{y[0].dtype} y): max|dout| {err:.3g}  "
+              f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise SystemExit("axpby disagrees with its plain version at "
+                             "the accumulation path's shapes")
+    axpby_row["max_abs_err"] = max(axpby_row["max_abs_err"], *errs)
+    del state
+    torch.cuda.empty_cache()
+    phase_profile(train, ACCUM_GPT_ARGS + ["--grad-accum", "4"])
+    print(f"accum: took {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
+def phase_remat(train, counted, argv, per_step):
+    """C2 at --remat none, conv and block: the first step of seed 0's
+    weights on step 0's batch with deterministic convolutions (loss rtol
+    1e-5, grad norm rtol 1e-4, every grad within 1e-4 of its tensor's
+    largest magnitude against none's; the running statistics bitwise
+    equal), then REMAT_STEPS timed steps: the median step time and peak
+    memory of each.  Returns the first steps' launches."""
+    t0 = time.perf_counter()
+    ref, by_path = None, {}
+    for remat in ("none", "conv", "block"):
+        args = train.build_parser().parse_args(argv + ["--remat", remat])
+        state = train.build_state(args, "cuda")
+        step = train.build_step(args)
+        _deterministic_convolutions()
+        batch = train.batch_fn(args, 0, 0, "cuda")
+        _zero_counts(counted)
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        by_path[f"remat_{remat}"] = _counts(counted)
+        model = state.model
+        got = (float(metrics["loss"]), float(metrics["grad_norm"]),
+               {k: p.grad.detach().cpu() for k, p in
+                model.named_parameters()},
+               {k: b.detach().cpu() for k, b in model.named_buffers()})
+        _timed_convolutions()
+        times = []
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(1, REMAT_STEPS + 1):
+            batch = train.batch_fn(args, 0, i, "cuda")
+            t1 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ms = statistics.median(times[1:])
+        line = (f"remat: c2 resnet50 O2 {args.batch_size} --remat {remat}: "
+                f"step {ms:.2f} ms (median of steps 2-{REMAT_STEPS}; "
+                f"{args.batch_size / ms * 1e3:.1f} img/s)  peak memory "
+                f"{peak:.2f} GiB  first step loss {got[0]:.6f} grad norm "
+                f"{got[1]:.5f}")
+        if ref is None:
+            ref = got
+            print(line)
+        else:
+            worst = max(float((g - ref[2][k]).abs().max()) /
+                        max(float(ref[2][k].abs().max()), 1e-30)
+                        for k, g in got[2].items())
+            same = all(torch.equal(g, ref[2][k]) for k, g in got[2].items())
+            stats = all(torch.equal(b, ref[3][k]) for k, b in got[3].items())
+            ok = (_rel(got[0], ref[0]) <= 1e-5 and _rel(got[1], ref[1])
+                  <= 1e-4 and worst <= 1e-4 and stats)
+            print(f"{line}  against none: grads' largest difference "
+                  f"{worst:.3g} of their tensor's magnitude (bitwise "
+                  f"{same})  running statistics bitwise equal {stats}  "
+                  f"{'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                raise SystemExit(f"--remat {remat}'s first step is not "
+                                 f"none's")
+        if by_path[f"remat_{remat}"] != {**dict.fromkeys(counted, 0),
+                                         **per_step}:
+            raise SystemExit(f"--remat {remat} launched "
+                             f"{by_path[f'remat_{remat}']}")
+        del state, step, model, got, batch
+        torch.cuda.empty_cache()
+    print(f"remat: took {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
+def phase_s2d():
+    """resnet50's stem at 256 x 224 x 224 x 3 in bf16 through the
+    space-to-depth stem and the 7x7 convolution, the same weight: outputs
+    within S2D_ULPS bf16 ulps plus S2D_ATOL; each one's forward plus its
+    weight's backward timed on the card."""
+    from apex_example_tpu_torch.models.resnet import Conv, SpaceToDepthStem
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    plain = Conv(3, 64, 7, 2, dtype=bf16).to("cuda")
+    s2d = SpaceToDepthStem(3, 64, dtype=bf16).to("cuda")
+    with torch.no_grad():
+        plain.weight.copy_(torch.randn(plain.weight.shape, device="cuda",
+                                       generator=gen) * math.sqrt(2 / 147))
+        s2d.weight.copy_(plain.weight)
+    x = torch.randn(256, 224, 224, 3, device="cuda", generator=gen).to(bf16)
+    with torch.no_grad():
+        y0, y1 = plain(x).float(), s2d(x).float()
+    torch.cuda.synchronize()
+    limit = S2D_ULPS * (_bf16_tol(y1, y0) - FP32_TOL) + S2D_ATOL
+    err = (y1 - y0).abs()
+    ok = bool((err <= limit).all())
+    dy = torch.randn(y0.shape, device="cuda", generator=gen).to(bf16)
+    times = {}
+    for name, stem in (("7x7", plain), ("space-to-depth", s2d)):
+        times[name] = _device_ms(lambda: torch.autograd.grad(
+            stem(x), stem.weight, dy), reps=20, warmup=3)
+    print(f"s2d: resnet50's stem, 256 x 224 x 224 x 3 bf16: max|dy| "
+          f"{float(err.max()):.3g}, {int((err != 0).sum())} of "
+          f"{err.numel()} outputs not bitwise equal (limit {S2D_ULPS} bf16 "
+          f"ulps + {S2D_ATOL:g})  forward + weight "
+          f"backward: 7x7 {times['7x7']:.3f} ms, space-to-depth "
+          f"{times['space-to-depth']:.3f} ms  {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise SystemExit("the space-to-depth stem is not the 7x7 stem")
+    del x, y0, y1, dy, plain, s2d
+    torch.cuda.empty_cache()
+
+
+def _host_ms(make, n=5):
+    """Host time a batch of a native prefetcher, the card idle: the
+    median over ``n`` ``next()`` calls after the first two (the worker
+    thread makes one batch ahead, so each call waits for one batch; the
+    pinned buffers come back from PyTorch's cache from the third)."""
+    with make() as pf:
+        next(pf)
+        next(pf)
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            next(pf)
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _ab_periods(train, argv):
+    """The loop's period, ms a step (the batch's fetch, the step, the
+    loss read back as the trainer's step record reads it), of ``argv``'s
+    model with batches made on the card and with the host pipeline's, in
+    blocks A, B, A, B from one state: {"card": [ms, ms], "host": [ms,
+    ms]}."""
+    args = train.build_parser().parse_args(argv + ["--host-pipeline"])
+    state = train.build_state(args, "cuda")
+    step = train.build_step(args)
+    vocab = getattr(state.model, "vocab_size", 0)
+    src = train.BatchSource(args, vocab, "cuda", 0, 1, 0)
+    periods = {"card": [], "host": []}
+    try:
+        for block in ("card", "host", "card", "host"):
+            times = []
+            for i in range(HOST_AB_STEPS):
+                t0 = time.perf_counter()
+                batch = (src.train(i) if block == "host" else
+                         train.batch_fn(args, vocab, i, "cuda"))
+                state, metrics = step(state, batch)
+                float(metrics["loss"])
+                times.append((time.perf_counter() - t0) * 1e3)
+            periods[block].append(statistics.median(times[HOST_AB_SKIP:]))
+    finally:
+        src.close()
+    del state, step
+    torch.cuda.empty_cache()
+    return periods
+
+
+def phase_host(train, counted, c2_argv, image_step, bert_step):
+    """--host-pipeline on c2 and c4: the card's first batch bitwise the
+    one the library gives on the CPU, the C++ worker's time a batch,
+    HOST_STEPS steps through the trainer (launches), and the loop's
+    period with host batches against on-device batches, in turn from one
+    state (:func:`_ab_periods`).  Returns the paths' launches."""
+    t0 = time.perf_counter()
+    by_path = {}
+    for label, argv, per_step in (("host_c2", c2_argv, image_step),
+                                  ("host_c4", C4_ARGS, bert_step)):
+        args = train.build_parser().parse_args(
+            argv + ["--host-pipeline", "--steps-per-epoch", str(HOST_STEPS)])
+        vocab = 0 if train.is_image(args) else args.vocab_size
+        src = train.BatchSource(args, vocab, "cuda", 0, 1, 0)
+        try:
+            card = src.train(0)
+        finally:
+            src.close()
+        cpu = train.BatchSource(args, vocab, "cpu", 0, 1, 0)
+        try:
+            want = cpu.train(0)
+        finally:
+            cpu.close()
+        host_ms = _host_ms(lambda: src.producer(0))     # pinned, as trained
+        flat = lambda b: [t for part in b for t in (           # noqa: E731
+            part if isinstance(part, tuple) else (part,))]
+        same = all(torch.equal(a.cpu(), b) for a, b in zip(flat(card),
+                                                           flat(want)))
+        if not same:
+            raise SystemExit(f"{label}: the card's first batch is not the "
+                             f"library's")
+        by_path[label] = phase_train(train, counted, label,
+                                     argv + ["--host-pipeline",
+                                             "--steps-per-epoch",
+                                             str(HOST_STEPS)],
+                                     per_step, falls=False)
+        ab = _ab_periods(train, argv)
+        card_ms, host_ms_loop = (statistics.fmean(ab[b])
+                                 for b in ("card", "host"))
+        image = train.is_image(args)
+        items = args.batch_size * (1 if image else args.seq_len)
+        unit = "img/s" if image else "tokens/s"
+        print(f"host: {label}: first batch on the card bitwise the "
+              f"library's on the CPU: {same}  the C++ worker {host_ms:.2f} "
+              f"ms a batch (pinned buffers, the card idle)  the loop's "
+              f"period, blocks of {HOST_AB_STEPS} steps in turn (medians of "
+              f"steps {HOST_AB_SKIP + 1}-{HOST_AB_STEPS}): card-made "
+              f"{ab['card'][0]:.2f}, host {ab['host'][0]:.2f}, card-made "
+              f"{ab['card'][1]:.2f}, host {ab['host'][1]:.2f} ms; host "
+              f"{host_ms_loop:.2f} ms ({items / host_ms_loop * 1e3:.1f} "
+              f"{unit}) against {card_ms:.2f} ms ({items / card_ms * 1e3:.1f}"
+              f" {unit}), {host_ms_loop / card_ms:.3f} x  host-bound (host "
+              f"blocks 5% slower than both card-made blocks): "
+              f"{min(ab['host']) > 1.05 * max(ab['card'])}")
+    print(f"host: took {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this check runs on "
@@ -4562,6 +5039,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path["serve_ckpt"] = phase_serve_ckpt(train, cli, counted)
     print(f"eval, resume, serve_ckpt: took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    by_path.update(phase_accum(train, counted, mt, gpt2048_step, txl_step,
+                               next(r for r in rows if r["name"] == "axpby")))
+    by_path.update(phase_remat(train, counted, c2_args, image_step))
+    phase_s2d()
+    by_path.update(phase_host(train, counted, c2_args, image_step,
+                              bert_step))
+    print(f"accum, remat, s2d, host: the step options took "
+          f"{time.perf_counter() - t0:.1f} s")
     for row in rows:
         row["launches_by_path"] = {k: v[row["name"]]
                                    for k, v in by_path.items()}

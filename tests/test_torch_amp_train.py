@@ -32,10 +32,13 @@ num_filters 4), each test a few seconds and at most five steps.
   then the JAX optimizer fed the same grads from the same parameters leaf
   by leaf: bf16 parameters within one bf16 ulp, fp32 ones and the moments
   rtol 1e-5 (LAMB's global grad norm sums in another order).
-- The CLI trains transformer_xl_tiny at O2 under dynamic scaling and
-  bert_tiny at O3 with FusedLAMB, and their streams lint.
+- The CLI (``train.main``, in this process) trains transformer_xl_tiny at
+  O2 under dynamic scaling and bert_tiny at O3 with FusedLAMB, and their
+  streams lint.
 """
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -47,21 +50,22 @@ import numpy as np
 import pytest
 import torch
 
+from torch_jax_ref import create_state
 from apex_example_tpu import amp as jamp
 from apex_example_tpu.amp.policy import get_policy
 from apex_example_tpu.data.synthetic import lm_batch as jax_lm_batch
 from apex_example_tpu.data.synthetic import mlm_batch as jax_mlm_batch
-from apex_example_tpu.engine import create_train_state as jax_create_state
 from apex_example_tpu.engine import make_train_step as jax_make_step
 from apex_example_tpu.models.bert import bert_tiny as jax_bert_tiny
 from apex_example_tpu.models.resnet import resnet18 as jax_resnet18
 from apex_example_tpu.models.transformer_xl import \
     transformer_xl_tiny as jax_txl_tiny
+from apex_example_tpu.ops import _config as jax_ops_config
 from apex_example_tpu.optim.fused import FusedAdam as JaxAdam
 from apex_example_tpu.optim.fused import FusedLAMB as JaxLAMB
 from apex_example_tpu.workloads import make_txl_train_step as jax_txl_step
 from apex_example_tpu.workloads import mlm_loss as jax_mlm_loss
-from apex_example_tpu_torch import amp
+from apex_example_tpu_torch import amp, train
 from apex_example_tpu_torch.convert import (bert_params_from_flax,
                                             resnet_params_from_flax,
                                             txl_params_from_flax)
@@ -79,9 +83,14 @@ B, S, V, STEPS = 4, 16, 256, 5
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
+    """One torch thread; the JAX side on its kernels' XLA reference forms
+    (``ops._config.force_xla``), which compile in a third of the
+    interpreter's time (the kernels are held against the port's in
+    tests/test_torch_optim.py, test_torch_layer_norm.py and the like)."""
     before = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with jax_ops_config.force_xla(True):
+        yield
     torch.set_num_threads(before)
 
 
@@ -129,8 +138,8 @@ def test_bert_o2_lamb_with_a_key_mask_follows_jax_within_bf16_rounding():
     policy = get_policy("O2")
     jm = jax_bert_tiny(**_dtypes(jamp.module_dtypes(policy)))
     jopt = JaxLAMB(lr=5e-3, weight_decay=0.01)
-    jstate = jax_create_state(jax.random.PRNGKey(3), jm, jopt,
-                              jnp.asarray(ids[:1]), policy)
+    jstate = create_state(jax.random.PRNGKey(3), jm, jopt,
+                          jnp.asarray(ids[:1]), policy)
     init = jax.tree_util.tree_map(np.asarray, jstate.params)
     weights = bert_params_from_flax(init)
     target = (torch.from_numpy(labels), torch.from_numpy(w))
@@ -202,8 +211,8 @@ def test_txl_amp_trail_with_carried_memory_follows_jax_within_bf16_rounding(
     jmd = jamp.module_dtypes(policy)
     jm = jax_txl_tiny(**_dtypes(jmd))
     jopt = JaxAdam(lr=2e-3, weight_decay=0.01)
-    jstate = jax_create_state(jax.random.PRNGKey(6), jm, jopt,
-                              jnp.asarray(x0[:1]), policy, train_kwargs={})
+    jstate = create_state(jax.random.PRNGKey(6), jm, jopt,
+                          jnp.asarray(x0[:1]), policy, train_kwargs={})
     init = jax.tree_util.tree_map(np.asarray, jstate.params)
     weights = txl_params_from_flax(init)
     if level == "O3":
@@ -361,9 +370,9 @@ def test_dynamic_scaling_skips_a_fused_adam_txl_step_as_jax_does():
     # (~1e-9) would be normalised into a step of random sign and size ~lr
     jm = jax_txl_tiny()
     jopt = JaxAdam(lr=2e-3, eps=1e-6, weight_decay=0.01)
-    jstate = jax_create_state(jax.random.PRNGKey(6), jm, jopt,
-                              jnp.asarray(batches[0][0][:1]), policy,
-                              train_kwargs={})
+    jstate = create_state(jax.random.PRNGKey(6), jm, jopt,
+                          jnp.asarray(batches[0][0][:1]), policy,
+                          train_kwargs={})
     weights = txl_params_from_flax(jax.tree_util.tree_map(np.asarray,
                                                           jstate.params))
     ppolicy, scaler = amp.initialize("O0", loss_scale="dynamic")
@@ -387,8 +396,8 @@ def test_dynamic_scaling_skips_a_fused_lamb_bert_step_as_jax_does():
     policy = get_policy("O0", loss_scale="dynamic")
     jm = jax_bert_tiny()
     jopt = JaxLAMB(lr=5e-3, weight_decay=0.01)
-    jstate = jax_create_state(jax.random.PRNGKey(3), jm, jopt,
-                              jnp.asarray(batches[0][0][:1]), policy)
+    jstate = create_state(jax.random.PRNGKey(3), jm, jopt,
+                          jnp.asarray(batches[0][0][:1]), policy)
     weights = bert_params_from_flax(jax.tree_util.tree_map(np.asarray,
                                                            jstate.params))
     ppolicy, scaler = amp.initialize("O0", loss_scale="dynamic")
@@ -459,7 +468,11 @@ def test_resnet18_o3_adam_and_lamb_update_leaf_by_leaf_as_jax(opt):
     jparams = _to_flax(template["params"], named)
     jopt = jcls(lr=1e-3, weight_decay=1e-4)
     jstate = jopt.init(jparams)
-    japply = jax.jit(jopt.apply)
+    # the Pallas kernels themselves (interpreted): the port's Adam and
+    # LAMB take their arithmetic, which the XLA forms round elsewhere
+    with jax_ops_config.force_xla(False):
+        japply = jax.jit(jopt.apply).lower(jparams, jstate,
+                                           jparams).compile()
     gen = torch.Generator().manual_seed(0)
     for _ in range(2):
         x = torch.randn(B, IMG_SIZE, IMG_SIZE, 3, generator=gen)
@@ -492,15 +505,15 @@ def test_resnet18_o3_adam_and_lamb_update_leaf_by_leaf_as_jax(opt):
     ["--arch", "bert_tiny", "--opt", "lamb", "--opt-level", "O3"]])
 def test_lm_cli_at_amp_levels_lints(tmp_path, argv):
     stream = tmp_path / "lm.jsonl"
-    proc = subprocess.run(
-        [sys.executable, "-m", "apex_example_tpu_torch.train", "--device",
-         "cpu", "--batch-size", "4", "--seq-len", "16", "--lr", "1e-3",
-         "--steps-per-epoch", "3", "--print-freq", "1", "--metrics-jsonl",
-         str(stream), *argv], cwd=REPO, capture_output=True, text=True,
-        timeout=300)
-    assert proc.returncode == 0, proc.stderr
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):       # train.main in-process
+        code = train.main(
+            ["--device", "cpu", "--batch-size", "4", "--seq-len", "16",
+             "--lr", "1e-3", "--steps-per-epoch", "3", "--print-freq", "1",
+             "--metrics-jsonl", str(stream), *argv])
+    assert code == 0
     level = argv[argv.index("--opt-level") + 1]
-    assert f"opt-level {level} (compute bfloat16" in proc.stdout
+    assert f"opt-level {level} (compute bfloat16" in out.getvalue()
     lint = subprocess.run(
         [sys.executable, "tools/metrics_lint.py", str(stream),
          "--require-summary"], cwd=REPO, capture_output=True, text=True,

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_jax_ref import flax_init
 from apex_example_tpu.models.bert import bert_tiny as jax_bert_tiny
 from apex_example_tpu.ops.xentropy import \
     softmax_cross_entropy as jax_xent
@@ -53,8 +54,8 @@ def _one_torch_thread():
 @pytest.fixture(scope="module")
 def converted():
     jm = jax_bert_tiny()
-    params = jm.init(jax.random.PRNGKey(2),
-                     jnp.zeros((1, 8), jnp.int32))["params"]
+    params = flax_init(jm, jax.random.PRNGKey(2),
+                       jnp.zeros((1, 8), jnp.int32))["params"]
     tree = jax.tree_util.tree_map(np.asarray, params)
     pm = bert_tiny(device="cpu")
     pm.load_state_dict(bert_params_from_flax(tree))     # strict: every name
@@ -86,9 +87,9 @@ def test_convert_loads_every_tensor_and_ties_the_decoder(converted):
 def test_logits_match(converted, with_mask):
     jm, params, pm = converted
     ids, _, _, mask = _batch(0)
-    want = jm.apply({"params": params}, jnp.asarray(ids),
-                    attention_mask=jnp.asarray(mask) if with_mask else None,
-                    train=False)
+    want = jax.jit(jm.apply, static_argnames="train")(
+        {"params": params}, jnp.asarray(ids),
+        attention_mask=jnp.asarray(mask) if with_mask else None, train=False)
     with torch.no_grad():
         got = pm(torch.from_numpy(ids),
                  torch.from_numpy(mask) if with_mask else None)
@@ -121,7 +122,7 @@ def test_mlm_loss_and_every_gradient_match_jax_grad(converted):
         return jax_mlm_loss(logits, (jnp.asarray(labels),
                                      jnp.asarray(weights)))
 
-    want_loss, want_grads = jax.value_and_grad(loss_fn)(params)
+    want_loss, want_grads = jax.jit(jax.value_and_grad(loss_fn))(params)
     want = bert_params_from_flax(jax.tree_util.tree_map(np.asarray,
                                                         want_grads))
     pm.zero_grad(set_to_none=True)
@@ -196,8 +197,8 @@ def test_bert_base_has_201_tensors_and_109_5m_elements():
 
 def test_fused_attention_with_a_mask_matches_jax():
     jm = jax_bert_tiny(fused_attention=True)
-    params = jm.init(jax.random.PRNGKey(5),
-                     jnp.zeros((1, 8), jnp.int32))["params"]
+    params = flax_init(jm, jax.random.PRNGKey(5),
+                       jnp.zeros((1, 8), jnp.int32))["params"]
     pm = bert_tiny(device="cpu", fused_attention=True)
     pm.load_state_dict(bert_params_from_flax(
         jax.tree_util.tree_map(np.asarray, params)))

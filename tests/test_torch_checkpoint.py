@@ -18,7 +18,10 @@ on the CPU at tiny sizes.
   same EVAL line); bert_tiny with NovoGrad; transformer_xl_tiny, whose
   memory restarts cold on a resume, against the unbroken run with its
   memory reset at the same step.  The same 4-step runs with
-  ``--async-checkpoint`` (bert_tiny, LAMB).
+  ``--async-checkpoint`` (bert_tiny, LAMB); with ``--host-pipeline
+  --grad-accum 2`` (bert_tiny, LAMB: the native prefetcher restarts at the
+  restored step); and a ResNet-18 with ``--host-pipeline --grad-accum 2
+  --remat block --eval`` (the same EVAL line from the one-shot stream).
 - A restore copies in place: the optimizer's parameters stay the model's,
   every ``data_ptr()`` of parameters, grads and moments and every device
   table pointer (ops/multi_tensor.TensorTable) stays as it was.
@@ -79,18 +82,18 @@ def _run(monkeypatch, argv, stop_at, overflow_at=None, reset_mems_at=None):
     ``overflow_at``'s scaled loss is multiplied by 1e38; the memory is
     reset to zeros before step ``reset_mems_at``."""
     states = []
-    build_state, build_step, batch_fn = (train.build_state, train.build_step,
-                                         train.batch_fn)
+    build_state, build_step = train.build_state, train.build_step
+    train_batch = train.BatchSource.train
     scale_loss = amp.scale_loss
 
     def keep_state(args, device):
         states.append(build_state(args, device))
         return states[-1]
 
-    def stopping(args, vocab, step, *rest):
+    def stopping(source, step):
         if step == stop_at:
             raise _Stop
-        return batch_fn(args, vocab, step, *rest)
+        return train_batch(source, step)
 
     def drilled(args):
         step_fn = build_step(args)
@@ -109,7 +112,7 @@ def _run(monkeypatch, argv, stop_at, overflow_at=None, reset_mems_at=None):
     out = io.StringIO()
     with monkeypatch.context() as m:
         m.setattr(train, "build_state", keep_state)
-        m.setattr(train, "batch_fn", stopping)
+        m.setattr(train.BatchSource, "train", stopping)
         m.setattr(train, "build_step", drilled)
         with contextlib.redirect_stdout(out), pytest.raises(_Stop):
             train.main(argv)
@@ -146,6 +149,13 @@ RESUME_CASES = {
                               "adam", "--lr", "1e-2"], {}),
     "bert_lamb_async": (["--arch", "bert_tiny", "--opt", "lamb", "--lr",
                          "1e-2", "--async-checkpoint"], {}),
+    "bert_host_pipeline_accum": (["--arch", "bert_tiny", "--opt", "lamb",
+                                  "--lr", "1e-2", "--host-pipeline",
+                                  "--grad-accum", "2"], {}),
+    "resnet_host_pipeline_accum_remat_eval": (
+        ["--arch", "resnet18", "--opt", "sgd", "--lr", "0.05",
+         "--host-pipeline", "--grad-accum", "2", "--remat", "block",
+         "--eval", "--eval-batches", "1"], {}),
 }
 
 

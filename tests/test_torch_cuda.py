@@ -1498,3 +1498,93 @@ def test_distributed_fused_adam_across_two_processes_on_the_card(card_ranks):
     for a, b in zip(got[0]["params"][1], got[0]["params"][0]):
         np.testing.assert_array_equal(a, b)              # skipped
     assert [g["launches"] for g in got] == [3, 3]
+
+
+# ------------------------------------------------------- the step options
+
+
+@pytest.mark.cuda
+def test_grad_accumulator_on_the_card_is_the_cpus(cuda_device):
+    """engine.GradAccumulator at K = 4 over fp32 and bf16 grads: the scale
+    kernel (1/4) and the axpby kernel (folds, then the mean) bitwise the
+    CPU's plain versions (products by 1 and powers of two are exact)."""
+    from apex_example_tpu_torch.engine import GradAccumulator
+    rs = np.random.RandomState(4)
+    shapes = [(65537,), (33, 7), (513, 129)]
+    dtypes = [torch.float32, torch.bfloat16, torch.bfloat16]
+    grads = [[rs.randn(*s).astype(np.float32) for s in shapes]
+             for _ in range(4)]
+    out = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        ps = [torch.nn.Parameter(torch.zeros(s, dtype=dt, device=dev))
+              for s, dt in zip(shapes, dtypes)]
+        opt = FusedSGD(ps, lr=0.1)
+        acc = GradAccumulator(opt, 4)
+        launches = (mt.multi_tensor_axpby_cuda.launches,
+                    mt.multi_tensor_scale_cuda.launches)
+        opt.zero_grad()
+        acc.begin()
+        for i, mb in enumerate(grads):
+            with torch.no_grad():
+                for p, g in zip(ps, mb):
+                    p.grad += torch.from_numpy(g).to(dev, p.dtype)
+            if i < 3:
+                acc.fold()
+        acc.finish()
+        out[dev.type] = [p.grad.cpu() for p in ps]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert (mt.multi_tensor_axpby_cuda.launches - launches[0],
+                    mt.multi_tensor_scale_cuda.launches - launches[1]) == \
+                (4, 1)          # 3 folds and the mean of the bf16 table
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_remat_on_the_card_keeps_grads_and_statistics(cuda_device):
+    """resnet18 (8 filters, 32 px) at --remat conv and block against none
+    on the card, cuDNN's deterministic convolutions: grads and running
+    statistics bitwise equal."""
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(8, 32, 32, 3, generator=gen).to(cuda_device)
+    y = torch.randint(0, 10, (8,), generator=gen).to(cuda_device)
+    cudnn = torch.backends.cudnn
+    before = cudnn.benchmark, cudnn.deterministic
+    cudnn.benchmark, cudnn.deterministic = False, True
+    try:
+        runs = {}
+        for remat in ("none", "conv", "block"):
+            m = resnet18(num_classes=10, num_filters=8, remat=remat,
+                         device=cuda_device)
+            torch.nn.functional.cross_entropy(m(x), y).backward()
+            runs[remat] = ({k: v.cpu() for k, v in m.state_dict().items()},
+                           [p.grad.cpu() for p in m.parameters()])
+    finally:
+        cudnn.benchmark, cudnn.deterministic = before
+    for remat in ("conv", "block"):
+        sd, grads = runs[remat]
+        assert all(torch.equal(sd[k], v) for k, v in runs["none"][0].items())
+        assert all(torch.equal(a, b) for a, b in zip(grads, runs["none"][1]))
+
+
+@pytest.mark.cuda
+def test_host_pipeline_batches_reach_the_card_bitwise(cuda_device):
+    """--host-pipeline's batches (pinned, fresh buffers, non_blocking
+    copies), five in a row without a sync, equal the CPU's."""
+    from argparse import Namespace
+    from apex_example_tpu_torch import train
+    args = Namespace(arch="resnet18", dataset="cifar10", batch_size=64,
+                     seed=3, host_pipeline=True)
+    card = train.BatchSource(args, 0, cuda_device, 0, 1, 2)
+    cpu = train.BatchSource(args, 0, "cpu", 0, 1, 2)
+    try:
+        got = [card.train(2 + i) for i in range(5)]
+        want = [cpu.train(2 + i) for i in range(5)]
+        torch.cuda.synchronize()
+    finally:
+        card.close()
+        cpu.close()
+    for (gx, gy), (wx, wy) in zip(got, want):
+        assert gx.is_cuda and torch.equal(gx.cpu(), wx)
+        assert torch.equal(gy.cpu(), wy)

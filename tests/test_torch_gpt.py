@@ -16,12 +16,15 @@ parameters (convert.gpt_params_from_flax of a flax init), on the CPU.
     trees whose position table was widened to 2048.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from torch_jax_ref import flax_init
 from apex_example_tpu.models.bert import _resolve_fused_attention
 from apex_example_tpu.models.gpt import gpt_tiny as jax_gpt_tiny
 from apex_example_tpu.models.gpt import sample_tokens as jax_sample_tokens
@@ -32,6 +35,9 @@ from apex_example_tpu_torch.models.gpt import (gpt_tiny, sample_tokens,
                                                topk_filter)
 
 STEP_TOL = 1e-5
+# the JAX sampler as the serving engine runs it: one compiled program for
+# every temperature and top-k (both enter as traced values)
+jax_sample_tokens = jax.jit(jax_sample_tokens)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -48,8 +54,8 @@ def _one_torch_thread():
 @pytest.fixture(scope="module")
 def converted():
     jm = jax_gpt_tiny()
-    params = jm.init(jax.random.PRNGKey(1),
-                     jnp.zeros((1, 4), jnp.int32))["params"]
+    params = flax_init(jm, jax.random.PRNGKey(1),
+                       jnp.zeros((1, 4), jnp.int32))["params"]
     tree = jax.tree_util.tree_map(np.asarray, params)
     pm = gpt_tiny(device="cpu")
     pm.load_state_dict(gpt_params_from_flax(tree))     # strict: every name
@@ -69,8 +75,8 @@ def test_convert_transposes_dense_kernels(converted):
 def test_full_causal_forward_matches(converted):
     jm, params, _, pm = converted
     ids = np.random.RandomState(0).randint(0, jm.vocab_size, size=(2, 12))
-    want = jm.apply({"params": params}, jnp.asarray(ids, jnp.int32),
-                    train=False)
+    want = jax.jit(jm.apply, static_argnames="train")(
+        {"params": params}, jnp.asarray(ids, jnp.int32), train=False)
     with torch.no_grad():
         got = pm(torch.from_numpy(ids))
     assert got.dtype == torch.float32
@@ -111,14 +117,15 @@ def test_paged_slot_decode_steps_match(converted):
     arenas = [(torch.zeros(NB, BS, pm.num_heads, hd),
                torch.zeros(NB, BS, pm.num_heads, hd))
               for _ in range(pm.num_layers)]
+    apply = jax.jit(functools.partial(dec.apply, train=False,
+                                      mutable=["cache"]))
     for tok, table, fill, n_new, cow_src, cow_dst in TICKS:
         host = [np.asarray(a, np.int32) for a in
                 (table, fill, n_new, cow_src, cow_dst)]
         paged = dict(zip(("block_table", "fill", "n_new", "cow_src",
                           "cow_dst"), map(jnp.asarray, host)))
-        want, mut = dec.apply({"params": params, "cache": cache},
-                              jnp.asarray(tok, jnp.int32), train=False,
-                              paged=paged, mutable=["cache"])
+        want, mut = apply({"params": params, "cache": cache},
+                          jnp.asarray(tok, jnp.int32), paged=paged)
         cache = mut["cache"]
         step = paged_step(arenas, tok, *host, device="cpu")
         with torch.no_grad():
@@ -200,8 +207,8 @@ def test_fused_attention_model_matches_jax_logits_and_grads():
     the plain version of its kernels): logits and every gradient of the
     mean next-token loss, atol = rtol 1e-4."""
     jm = jax_gpt_tiny(max_position=256, fused_attention=True)
-    params = jm.init(jax.random.PRNGKey(3),
-                     jnp.zeros((1, 8), jnp.int32))["params"]
+    params = flax_init(jm, jax.random.PRNGKey(3),
+                       jnp.zeros((1, 8), jnp.int32))["params"]
     tree = jax.tree_util.tree_map(np.asarray, params)
     pm = gpt_tiny(device="cpu", max_position=256, fused_attention=True)
     pm.load_state_dict(gpt_params_from_flax(tree))
@@ -217,8 +224,8 @@ def test_fused_attention_model_matches_jax_logits_and_grads():
                                      -1)[..., 0]
         return jnp.mean(lse - picked), logits
 
-    (_, want_logits), want_grads = jax.value_and_grad(
-        loss_fn, has_aux=True)(params)
+    (_, want_logits), want_grads = jax.jit(jax.value_and_grad(
+        loss_fn, has_aux=True))(params)
     logits = pm(torch.from_numpy(ids))
     torch.nn.functional.cross_entropy(logits.reshape(-1, 256),
                                       torch.from_numpy(tgt).reshape(-1)
@@ -261,8 +268,8 @@ def test_o3_dtypes_forward_matches_jax():
     kw = dict(dtype=jnp.bfloat16, param_dtype=jnp.bfloat16,
               softmax_dtype=jnp.bfloat16)
     jm = jax_gpt_tiny(**kw)
-    params = jm.init(jax.random.PRNGKey(5),
-                     jnp.zeros((1, 8), jnp.int32))["params"]
+    params = flax_init(jm, jax.random.PRNGKey(5),
+                       jnp.zeros((1, 8), jnp.int32))["params"]
     tree = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32),
                                   params)
     pm = gpt_tiny(device="cpu", dtype=torch.bfloat16,
@@ -274,7 +281,8 @@ def test_o3_dtypes_forward_matches_jax():
     assert pm.final_ln.scale.dtype == pm.lm_bias.dtype == torch.float32
     assert not pm.layers[0].attention.uses_kernel(4096)  # half softmax
     ids = np.random.RandomState(6).randint(0, 256, size=(2, 16))
-    want = jm.apply({"params": params}, jnp.asarray(ids, jnp.int32))
+    want = jax.jit(jm.apply)({"params": params},
+                             jnp.asarray(ids, jnp.int32))
     with torch.no_grad():
         got = pm(torch.from_numpy(ids))
     assert got.dtype == torch.float32
@@ -293,9 +301,12 @@ def test_convert_loads_a_tree_widened_to_2048(arch):
     jax_cls, port_cls, convert = {
         "gpt": (jax_gpt_tiny, gpt_tiny, gpt_params_from_flax),
         "bert": (jax_bert_tiny, bert_tiny, bert_params_from_flax)}[arch]
-    params = jax_cls(max_position=2048).init(
-        jax.random.PRNGKey(7), jnp.zeros((1, 8), jnp.int32))["params"]
-    tree = jax.tree_util.tree_map(np.asarray, params)
+    shapes = jax.eval_shape(jax_cls(max_position=2048).init,
+                            jax.random.PRNGKey(7),
+                            jnp.zeros((1, 8), jnp.int32))["params"]
+    rs = np.random.RandomState(7)          # any values: the map is checked
+    tree = jax.tree_util.tree_map(
+        lambda a: rs.randn(*a.shape).astype(np.float32), shapes)
     pm = port_cls(device="cpu", max_position=2048)
     pm.load_state_dict(convert(tree))
     table = pm.position_embeddings.weight.detach().numpy()

@@ -9,7 +9,8 @@ interpret mode, so ``_sqsum_leaf``, ``multi_tensor_scale``,
 ``multi_tensor_axpby`` run the Pallas ``_sqsum_kernel``, ``_scale_kernel``,
 ``_adam_kernel``, ``_lamb1_kernel``, ``_lamb2_kernel``, ``_sgd_kernel``,
 ``_novograd_kernel``, ``_adagrad_kernel`` and ``_axpby_kernel`` through the
-interpreter.  Inputs
+interpreter; each multi-step trail jits the JAX optimizer's ``apply`` once
+(the interpreter traces its kernels once, not at every step).  Inputs
 come from numpy with a fixed seed and go to both sides.  Tolerances: sums
 of squares and norms rtol 1e-5 (fp32 sums in another order); the scale's
 outputs exactly (one fp32 product each, then the same rounding); u, m, v
@@ -145,14 +146,15 @@ def test_fused_lamb_three_steps_match_jax(grad_scale, clips):
     jopt = JaxLAMB(lr=jlr, weight_decay=0.01)
     jparams = {k: jnp.asarray(a) for k, a in params.items()}
     jstate = jopt.init(jparams)
+    japply = jax.jit(jopt.apply)     # traced once
     ps, popt = _port_lamb(params, plr)
     for step in range(3):
         grads = _arrays(10 + step, scale=grad_scale)
         gnorm = float(np.sqrt(sum((a.astype(np.float64) ** 2).sum()
                                   for a in grads.values())))
         assert (gnorm > popt.max_grad_norm) == clips
-        jparams, jstate = jopt.apply({k: jnp.asarray(a) for k, a in
-                                      grads.items()}, jstate, jparams)
+        jparams, jstate = japply({k: jnp.asarray(a) for k, a in
+                                  grads.items()}, jstate, jparams)
         popt.zero_grad()
         for p, a in zip(ps, grads.values()):
             p.grad.add_(torch.from_numpy(a))
@@ -195,13 +197,14 @@ def test_fused_adam_and_lamb_skip_a_flagged_step_as_jax_selects(name):
                 weight_decay=0.01)
     jparams = {k: jnp.asarray(a) for k, a in params.items()}
     jstate = jopt.init(jparams)
+    japply = jax.jit(jopt.apply)     # traced once
     ps, popt = make(params, build_schedule("poly", 2e-2, 6, warmup_steps=2))
     state = lambda: [t.detach().clone() for t in                # noqa: E731
                      ps + popt.mu + popt.nu]
     for step in range(3):
         grads = _arrays(50 + step, scale=0.1)
-        jparams, jstate = jopt.apply({k: jnp.asarray(a) for k, a in
-                                      grads.items()}, jstate, jparams)
+        jparams, jstate = japply({k: jnp.asarray(a) for k, a in
+                                  grads.items()}, jstate, jparams)
         popt.zero_grad()
         for p, a in zip(ps, grads.values()):
             p.grad.add_(torch.from_numpy(a))
@@ -236,6 +239,7 @@ def test_fused_adam_and_lamb_take_mixed_dtypes_as_jax_leaf_by_leaf(name):
     jopt = jcls(lr=1e-2, weight_decay=0.01)
     jparams = {k: cast(k, a) for k, a in params.items()}
     jstate = jopt.init(jparams)
+    japply = jax.jit(jopt.apply)     # traced once
     ps = [torch.nn.Parameter(torch.from_numpy(a.copy()).to(
         torch.bfloat16 if k in half else torch.float32))
         for k, a in params.items()]
@@ -244,8 +248,8 @@ def test_fused_adam_and_lamb_take_mixed_dtypes_as_jax_leaf_by_leaf(name):
     assert popt.groups == [[0, 3], [1, 2]]
     for step in range(3):
         grads = _arrays(60 + step, scale=0.5)
-        jparams, jstate = jopt.apply({k: cast(k, a) for k, a in
-                                      grads.items()}, jstate, jparams)
+        jparams, jstate = japply({k: cast(k, a) for k, a in
+                                  grads.items()}, jstate, jparams)
         popt.zero_grad()
         for p, (k, a) in zip(ps, grads.items()):
             p.grad.copy_(torch.from_numpy(a))
@@ -416,14 +420,15 @@ def test_fused_adam_three_steps_match_jax(adam_w_mode):
     jopt = JaxAdam(lr=jlr, weight_decay=0.05, adam_w_mode=adam_w_mode)
     jparams = {k: jnp.asarray(a) for k, a in params.items()}
     jstate = jopt.init(jparams)
+    japply = jax.jit(jopt.apply)     # traced once
     ps = [torch.nn.Parameter(torch.from_numpy(a.copy()))
           for a in params.values()]
     popt = fused.FusedAdam(ps, lr=plr, weight_decay=0.05,
                            adam_w_mode=adam_w_mode)
     for step in range(3):
         grads = _arrays(40 + step, scale=0.1)
-        jparams, jstate = jopt.apply({k: jnp.asarray(a) for k, a in
-                                      grads.items()}, jstate, jparams)
+        jparams, jstate = japply({k: jnp.asarray(a) for k, a in
+                                  grads.items()}, jstate, jparams)
         popt.zero_grad()
         for p, a in zip(ps, grads.values()):
             p.grad.add_(torch.from_numpy(a))
@@ -690,14 +695,15 @@ def test_fused_sgd_five_steps_of_a_schedule_match_jax():
                   weight_decay=1e-4, nesterov=True)
     jparams = {k: jnp.asarray(a) for k, a in params.items()}
     jstate = jopt.init(jparams)
+    japply = jax.jit(jopt.apply)     # traced once
     ps = [torch.nn.Parameter(torch.from_numpy(a.copy()))
           for a in params.values()]
     popt = fused.FusedSGD(ps, lr=build_schedule("step", 0.1, 5, **kw),
                           momentum=0.9, weight_decay=1e-4, nesterov=True)
     for step in range(5):
         grads = _arrays(40 + step, scale=0.1)
-        jparams, jstate = jopt.apply({k: jnp.asarray(a) for k, a in
-                                      grads.items()}, jstate, jparams)
+        jparams, jstate = japply({k: jnp.asarray(a) for k, a in
+                                  grads.items()}, jstate, jparams)
         popt.zero_grad()
         for p, a in zip(ps, grads.values()):
             p.grad.add_(torch.from_numpy(a))
@@ -954,11 +960,12 @@ def _trail(jopt, ps, popt, jparams, jstate, steps, seed, flags=()):
     """``steps`` steps of both sides on the same grads; the step numbered
     in ``flags`` overflows: JAX's state is kept as the engine's
     ``select_tree`` keeps it, the port's step takes the noop flag."""
+    japply = jax.jit(jopt.apply)     # traced once
     for step in range(steps):
         grads = _arrays(seed + step, scale=0.1)
         skip = step in flags
-        new_p, new_s = jopt.apply({k: jnp.asarray(a) for k, a in
-                                   grads.items()}, jstate, jparams)
+        new_p, new_s = japply({k: jnp.asarray(a) for k, a in
+                               grads.items()}, jstate, jparams)
         if not skip:
             jparams, jstate = new_p, new_s
         popt.zero_grad()
@@ -987,10 +994,11 @@ def test_fused_novograd_five_steps_match_jax(case):
     jopt, ps, popt = _novograd_pair(NOVOGRAD_CASES[case], params)
     jparams = {k: jnp.asarray(a) for k, a in params.items()}
     jstate = jopt.init(jparams)
+    japply = jax.jit(jopt.apply)     # traced once
     for step in range(5):
         grads = _arrays(50 + step, scale=0.1)
-        jparams, jstate = jopt.apply({k: jnp.asarray(a) for k, a in
-                                      grads.items()}, jstate, jparams)
+        jparams, jstate = japply({k: jnp.asarray(a) for k, a in
+                                  grads.items()}, jstate, jparams)
         popt.zero_grad()
         for p, a in zip(ps, grads.values()):
             p.grad.add_(torch.from_numpy(a))
@@ -1041,10 +1049,11 @@ def test_trail_from_a_converted_jax_state_matches_jax(name):
         popt.lr = 0.05
     jparams = {k: jnp.asarray(a) for k, a in params.items()}
     jstate = jopt.init(jparams)
+    japply = jax.jit(jopt.apply)     # traced once
     for step in range(2):
         grads = {k: jnp.asarray(a) for k, a in
                  _arrays(70 + step, scale=0.1).items()}
-        jparams, jstate = jopt.apply(grads, jstate, jparams)
+        jparams, jstate = japply(grads, jstate, jparams)
     order = lambda tree: [tree[k] for k in params]          # noqa: E731
     numpy_state = {f: jax.tree_util.tree_map(np.asarray, v)
                    for f, v in jstate._asdict().items()}

@@ -32,7 +32,10 @@ against the port's in tests/test_torch_optim.py and the like):
   against the whole batch (LARC's step against JAX's alone): losses,
   grad norms and the parameters after the trail rtol 1e-4, atol 1e-4
   (fp32, sums in another order, compounding); both ranks' parameters
-  equal bit for bit;
+  equal bit for bit; gpt_tiny's and transformer_xl_tiny's trails at
+  ``grad_accum=2`` (each rank's rows in 2 microbatches, one all-reduce a
+  step) against one process at ``grad_accum=2`` on the whole batch,
+  within the same limits, the memory's rows too;
 - the data-parallel step in a group of one process against the plain
   step, at O0 and O2: equal bit for bit;
 - the CLI under torchrun at world 2 on the CPU (``--sync_bn``): exit 0,
@@ -105,7 +108,8 @@ TRAIL_TOL = 1e-4
 IMG, IMG_B, IMG_STEPS = 16, 8, 2
 LM_B, LM_S, LM_STEPS, V = 4, 16, 2, 256
 CASES = ["syncbn_composite", "syncbn_fused", "allreduce", "ddp_resnet",
-         "ddp_resnet_larc", "ddp_gpt", "ddp_txl", "zero_resume"]
+         "ddp_resnet_larc", "ddp_gpt", "ddp_txl", "ddp_accum_gpt",
+         "ddp_accum_txl", "zero_resume"]
 
 
 def flax_numpy(tree_fn, seed, he=False):
@@ -338,17 +342,19 @@ def _full_resnet(spec, larc):
                        spec["img_batches"])[:2]
 
 
-def _full_lm(spec, txl):
+def _full_lm(spec, txl, grad_accum=1):
     build = transformer_xl_tiny if txl else gpt_tiny
     model = build(**cases.LM, device="cpu")
     model.load_state_dict({k: torch.from_numpy(v) for k, v in
                            spec["txl_sd" if txl else "gpt_sd"].items()})
     opt = FusedAdam(model.parameters(), **cases.ADAM)
     if txl:
-        return _full_trail(model, opt, make_txl_train_step(0.25),
-                           spec["lm_batches"], mems=model.init_mems(LM_B))
+        return _full_trail(model, opt, make_txl_train_step(
+            0.25, grad_accum=grad_accum), spec["lm_batches"],
+            mems=model.init_mems(LM_B))
     return _full_trail(model, opt, make_train_step(
-        lm_loss, compute_accuracy=False), spec["lm_batches"])
+        lm_loss, compute_accuracy=False, grad_accum=grad_accum),
+        spec["lm_batches"])
 
 
 @pytest.fixture(scope="module")
@@ -386,6 +392,9 @@ def run(tmp_path_factory):
             ref["full"][name] = _full_resnet(spec, larc)
         ref["full"]["ddp_gpt"] = _full_lm(spec, txl=False)
         ref["full"]["ddp_txl"] = _full_lm(spec, txl=True)
+        for txl in (False, True):
+            ref["full"]["ddp_accum_txl" if txl else "ddp_accum_gpt"] = \
+                _full_lm(spec, txl, grad_accum=2)
         results = ranks.results()
         out, _ = cli.communicate(timeout=240)
     finally:
@@ -485,6 +494,29 @@ def test_ddp_trail_matches_jax_and_the_whole_batch(run, name):
             for side in ("jax", "full"):
                 _close(mems, ref[side][name][2][step], TRAIL_TOL,
                        f"memory step {step} vs {side}")
+
+
+@pytest.mark.parametrize("name", ["ddp_accum_gpt", "ddp_accum_txl"])
+def test_ddp_grad_accum_equals_one_process_at_k_2(run, name):
+    """Each rank's 2 rows in 2 microbatches, the grads all-reduced once on
+    their mean, against one process taking the whole batch in 2: the
+    same trail (fp32 sums in another order), and the memory's rows."""
+    _, ref, results, _ = run
+    got = results[0][name]
+    for key, value in got["sd"].items():
+        np.testing.assert_array_equal(value, results[1][name]["sd"][key],
+                                      err_msg=key)
+    metrics, sd, mems = ref["full"][name]
+    for step, (g, w) in enumerate(zip(got["metrics"], metrics)):
+        for key in ("loss", "grad_norm", "ppl"):
+            if key in w:
+                _close(g[key], w[key], TRAIL_TOL, f"{name} {step} {key}")
+    for key, value in sd.items():
+        _close(got["sd"][key], value, TRAIL_TOL, f"{name} {key}")
+    for step, want in enumerate(mems):
+        _close(np.concatenate([r[name]["mems"][step] for r in results],
+                              axis=1), want, TRAIL_TOL,
+               f"{name} memory step {step}")
 
 
 def test_torchrun_cli_at_world_2(run):
@@ -599,6 +631,7 @@ def _jax_args(**kw):
 
 
 @pytest.mark.parametrize("argv,jax_kw", [
+    (["--zero", "--grad-accum", "2"], dict(grad_accum=2)),
     (["--zero", "--larc"], dict(larc=True)),
     (["--zero", "--opt", "sgd"], dict(opt="sgd")),
     (["--zero", "--gradient-predivide-factor", "2"],

@@ -254,11 +254,22 @@ def test_random_init_follows_flax_distributions():
     assert not pm.fc.bias.any()
 
 
-@pytest.mark.parametrize("kw", [dict(remat="conv"),
-                                dict(stem_space_to_depth=True)])
-def test_options_not_ported_yet_are_refused(kw):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        pr.resnet18(num_classes=CLASSES, num_filters=4, device="cpu", **kw)
+@pytest.mark.parametrize("case", ["unknown_remat", "odd_input_stem"])
+def test_remat_refuses_unknown_values_and_the_stem_falls_back_on_odd_input(
+        case):
+    if case == "unknown_remat":            # JAX's ValueError (:211-213)
+        with pytest.raises(ValueError, match="remat must be none|conv|block"):
+            pr.resnet18(num_classes=CLASSES, num_filters=4, device="cpu",
+                        remat="checkpoint")
+        return
+    kw = dict(num_classes=CLASSES, num_filters=4, device="cpu")
+    plain = pr.resnet18(**kw)
+    s2d = pr.resnet18(stem_space_to_depth=True, **kw)
+    s2d.load_state_dict(plain.state_dict())
+    x = torch.randn(2, 31, 33, 3)         # odd: the 7x7 convolution
+    with torch.no_grad():
+        assert torch.equal(s2d.conv_init(x), plain.conv_init(x))
+        assert s2d(x).shape == (2, CLASSES)
 
 
 @pytest.mark.parametrize("level", ["O2", "O3"])

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_jax_ref import flax_init
 from apex_example_tpu.models.gpt import gpt_tiny as jax_gpt_tiny
 from apex_example_tpu.serve import BlockPool as JaxBlockPool
 from apex_example_tpu.serve import Request as JaxRequest
@@ -71,8 +72,8 @@ def _load_tool(name):
 @pytest.fixture(scope="module")
 def models():
     jm = jax_gpt_tiny()
-    params = jm.init(jax.random.PRNGKey(1),
-                     jnp.zeros((1, 4), jnp.int32))["params"]
+    params = flax_init(jm, jax.random.PRNGKey(1),
+                       jnp.zeros((1, 4), jnp.int32))["params"]
     pm = gpt_tiny(device="cpu")
     pm.load_state_dict(gpt_params_from_flax(
         jax.tree_util.tree_map(np.asarray, params)))

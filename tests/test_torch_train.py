@@ -7,23 +7,28 @@ under dynamic loss scaling, and its eval step.
 
 - 5-step loss trails: identical initial weights (the flax init, converted)
   and identical batches (the JAX ``mlm_batch`` / ``lm_batch``, as numpy)
-  through the JAX ``make_train_step`` / ``make_txl_train_step`` (their
-  Pallas LayerNorm, L2-norm, scale, LAMB and Adam kernels through the
-  interpreter, tests/conftest.py) and through the port's steps.  Losses
+  through the JAX ``make_train_step`` / ``make_txl_train_step`` (the XLA
+  reference forms of their LayerNorm, L2-norm, scale, LAMB and Adam
+  kernels, ``ops._config.force_xla``, which compile in a third of the
+  interpreter's time; tests/test_torch_optim.py and the like hold the
+  kernels themselves; Transformer-XL's Adam on its Pallas kernel) and
+  through the port's steps.  Losses
   and grad norms rtol 1e-4, parameters after 5 steps rtol and atol 1e-4:
   fp32 on both sides, sums in another order, compounding over five steps.
 - The CLI: ``python -m apex_example_tpu_torch.train --device cpu`` exits 0
-  for bert_tiny, gpt_tiny and transformer_xl_tiny, and its
+  for bert_tiny, and ``train.main`` (what that command runs) returns 0
+  in this process for gpt_tiny and transformer_xl_tiny; each
   ``--metrics-jsonl`` stream passes ``tools/metrics_lint.py
   --require-summary`` (the Transformer-XL stream carries ``ppl``); without
   ``--device`` it raises where torch sees no CUDA; the flags of paths not
-  ported (``--remat``, ``--grad-accum``, ``--context-parallel``,
-  ``--tensor-parallel``, and beside O1 or ``--loss-scale``, which the LM
-  archs take, ``--host-pipeline`` and ``--tensorboard``) are rejected by
-  argparse.  The reference's launcher flags (``--local_rank`` and
-  ``--local-rank``, ``--workers``, ``--deterministic``, ``--num-devices
-  1``, ``--metrics-all-ranks``) are accepted, recorded in the run_header,
-  and leave the three-step loss trail as it is; ``--num-devices 2`` in one
+  ported (``--pipeline-parallel``, ``--inject-fault``,
+  ``--context-parallel``, ``--tensor-parallel``, and beside O1 or
+  ``--loss-scale``, which the LM archs take, ``--numerics-check``,
+  ``--preempt-grace`` and ``--tensorboard``) are rejected by argparse.
+  The reference's launcher flags (``--local_rank`` and ``--local-rank``,
+  ``--workers``, ``--deterministic``, ``--num-devices 1``,
+  ``--metrics-all-ranks``) are accepted, recorded in the run_header, and
+  leave the three-step loss trail as it is; ``--num-devices 2`` in one
   process is refused.
 - ResNet-18 (num_filters 4, the CIFAR stem, 16 px, batch 4) with
   FusedSGD: the same weights (numpy, in flax's tree, converted) and the
@@ -40,14 +45,15 @@ under dynamic loss scaling, and its eval step.
   equal.  The CLI trains ResNet-18 under O2 with dynamic scaling and
   ``--eval`` and its stream lints.
 - gpt_tiny through the flash-attention route (``--fused-attention``):
-  three steps at S = 256 against JAX's step with its Pallas kernels
-  (interpreted), rtol 1e-4 as above; at amp O2 (bf16 over fp32 masters)
+  three steps at S = 256 against JAX's step with the model's Pallas
+  kernels (interpreted; Adam on its XLA form), rtol 1e-4 as above; at amp
+  O2 (bf16 over fp32 masters)
   at S = 128, held as ResNet-18's O2 (each tensor of the first grads no
   more than twice as far from fp32 as JAX's, the key biases, whose exact
   gradient is zero, aside; three steps' losses rtol 2e-2).  The CLI runs
   ``--fused-attention`` at O0 and O2 and its stream lints; it refuses
   ``--fused-attention`` at O3 and for transformer_xl and the image archs;
-  argparse rejects ``--grad-accum`` and ``--host-pipeline`` beside
+  argparse rejects ``--numerics-check`` and ``--preempt-grace`` beside
   ``--fused-attention`` and O2.
 - ``train.main`` with ``--opt novograd`` (bert_tiny) and ``--opt
   adagrad`` (ResNet-18, num_filters 4): three steps on the CPU from the
@@ -74,12 +80,12 @@ import numpy as np
 import pytest
 import torch
 
+from torch_jax_ref import KernelScope, create_state
 from apex_example_tpu import amp as jamp
 from apex_example_tpu.amp.policy import get_policy
 from apex_example_tpu.data.synthetic import image_batch as jax_image_batch
 from apex_example_tpu.data.synthetic import lm_batch as jax_lm_batch
 from apex_example_tpu.data.synthetic import mlm_batch as jax_mlm_batch
-from apex_example_tpu.engine import create_train_state as jax_create_state
 from apex_example_tpu.engine import TrainState as JaxTrainState
 from apex_example_tpu.engine import cross_entropy_loss as jax_cross_entropy
 from apex_example_tpu.engine import make_eval_step as jax_make_eval_step
@@ -97,6 +103,7 @@ from apex_example_tpu.optim.fused import FusedSGD as JaxSGD
 from apex_example_tpu.optim.schedules import \
     build_schedule as jax_build_schedule
 from apex_example_tpu.utils.meters import Throughput as JaxThroughput
+from apex_example_tpu.ops import _config as jax_ops_config
 from apex_example_tpu.workloads import lm_loss as jax_lm_loss
 from apex_example_tpu.workloads import make_txl_train_step as jax_txl_step
 from apex_example_tpu.workloads import mlm_loss as jax_mlm_loss
@@ -129,10 +136,24 @@ B, S, V, STEPS = 4, 16, 256, 5
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
+    """One torch thread; the JAX steps on their kernels' XLA reference
+    forms (``ops._config.force_xla``).  The flash-attention trails take
+    the model's Pallas kernels (``pallas_kernels``) beside the optimizer's
+    XLA form; Transformer-XL's trail takes the Pallas Adam kernel, whose
+    rounding its steps of about lr on grads of rounding size follow
+    (``KernelScope``)."""
     before = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with jax_ops_config.force_xla(True):
+        yield
     torch.set_num_threads(before)
+
+
+@pytest.fixture
+def pallas_kernels():
+    """The JAX side through its Pallas kernels, interpreted."""
+    with jax_ops_config.force_xla(False):
+        yield
 
 
 def test_five_step_loss_trail_matches_jax():
@@ -145,8 +166,8 @@ def test_five_step_loss_trail_matches_jax():
     jm = jax_bert_tiny()
     jopt = JaxLAMB(lr=jax_build_schedule(**schedule), weight_decay=0.01)
     policy = get_policy("O0")
-    jstate = jax_create_state(jax.random.PRNGKey(3), jm, jopt,
-                              jnp.asarray(batches[0][0][:1]), policy)
+    jstate = create_state(jax.random.PRNGKey(3), jm, jopt,
+                          jnp.asarray(batches[0][0][:1]), policy)
     init = jax.tree_util.tree_map(np.asarray, jstate.params)
     jstep = jax.jit(jax_make_step(jm, jopt, policy, loss_fn=jax_mlm_loss,
                                   compute_accuracy=False))
@@ -220,8 +241,8 @@ def test_gpt_five_step_adam_trail_matches_jax():
     jopt = JaxAdam(lr=jax_build_schedule(**ADAM), eps=1e-6,
                    weight_decay=0.01)
     policy = get_policy("O0")
-    jstate = jax_create_state(jax.random.PRNGKey(4), jm, jopt,
-                              jnp.asarray(batches[0][0][:1]), policy)
+    jstate = create_state(jax.random.PRNGKey(4), jm, jopt,
+                          jnp.asarray(batches[0][0][:1]), policy)
     init = jax.tree_util.tree_map(np.asarray, jstate.params)
     jstep = jax.jit(jax_make_step(jm, jopt, policy, loss_fn=jax_lm_loss,
                                   compute_accuracy=False))
@@ -248,11 +269,12 @@ def test_txl_five_step_trail_with_carried_memory_matches_jax():
     jm = jax_txl_tiny()
     jopt = JaxAdam(lr=jax_build_schedule(**ADAM), weight_decay=0.01)
     policy = get_policy("O0")
-    jstate = jax_create_state(jax.random.PRNGKey(6), jm, jopt,
-                              jnp.asarray(batches[0][0][:1]), policy,
-                              train_kwargs={})
+    jstate = create_state(jax.random.PRNGKey(6), jm, jopt,
+                          jnp.asarray(batches[0][0][:1]), policy,
+                          train_kwargs={})
     init = jax.tree_util.tree_map(np.asarray, jstate.params)
-    jstep = jax.jit(jax_txl_step(jm, jopt, policy, max_grad_norm=0.25))
+    jstep = jax.jit(jax_txl_step(jm, KernelScope(jopt, xla=False), policy,
+                                 max_grad_norm=0.25))
     jmems = jm.init_mems(B)
 
     pm = transformer_xl_tiny(device="cpu")
@@ -301,8 +323,8 @@ def _gpt_pair(level, seq, fused, batch, lr=2e-3):
                       dtype=jmd.compute, param_dtype=jmd.param,
                       ln_dtype=jmd.ln_io, softmax_dtype=jmd.softmax)
     jopt = JaxAdam(lr=lr, eps=1e-6, weight_decay=0.01)
-    jstate = jax_create_state(jax.random.PRNGKey(4), jm, jopt,
-                              jnp.asarray(batch[:1]), policy)
+    jstate = create_state(jax.random.PRNGKey(4), jm, jopt,
+                          jnp.asarray(batch[:1]), policy)
     init = jax.tree_util.tree_map(np.asarray, jstate.params)
     ppolicy, scaler = amp.initialize(level)
     md = amp.module_dtypes(ppolicy)
@@ -317,6 +339,7 @@ def _gpt_pair(level, seq, fused, batch, lr=2e-3):
     return jm, jopt, policy, jstate, init, pm, pstate
 
 
+@pytest.mark.usefixtures("pallas_kernels")
 def test_gpt_fused_attention_trail_matches_jax():
     """Three steps of gpt_tiny with ``--fused-attention`` at S = 256: the
     JAX step runs the Pallas flash kernels (interpreted), the port's the
@@ -326,7 +349,8 @@ def test_gpt_fused_attention_trail_matches_jax():
     jm, jopt, policy, jstate, init, pm, pstate = _gpt_pair(
         "O0", 256, True, batches[0][0])
     assert pm.layers[0].attention.uses_kernel(256)
-    jstep = jax.jit(jax_make_step(jm, jopt, policy, loss_fn=jax_lm_loss,
+    jstep = jax.jit(jax_make_step(jm, KernelScope(jopt, xla=True), policy,
+                                  loss_fn=jax_lm_loss,
                                   compute_accuracy=False))
     pstep = make_train_step(lm_loss)
     for x, y in batches:
@@ -339,6 +363,7 @@ def test_gpt_fused_attention_trail_matches_jax():
     _assert_params_follow(pm, jstate.params, init, gpt_params_from_flax)
 
 
+@pytest.mark.usefixtures("pallas_kernels")
 def test_gpt_o2_fused_trail_follows_jax_within_bf16_rounding():
     """amp O2 (bf16 dense layers, embeddings, LayerNorm I/O and flash
     attention over fp32 masters) held as ResNet-18's O2 is: each tensor of
@@ -368,7 +393,8 @@ def test_gpt_o2_fused_trail_follows_jax_within_bf16_rounding():
         assert rel(p.grad, g32[name]) <= 2 * rel(j16[name], g32[name]) \
             + 1e-3, name
     pm.zero_grad(set_to_none=False)
-    jstep = jax.jit(jax_make_step(jm, jopt, policy, loss_fn=jax_lm_loss,
+    jstep = jax.jit(jax_make_step(jm, KernelScope(jopt, xla=True), policy,
+                                  loss_fn=jax_lm_loss,
                                   compute_accuracy=False))
     pstep = make_train_step(lm_loss)
     for x, y in batches:
@@ -392,8 +418,22 @@ def test_step_records_carry_ppl(tmp_path):
                                    "scale": 1.0, "grads_finite": 1.0})
     emitter.close()
     np.testing.assert_allclose(rec["ppl"], np.exp(2.0), rtol=1e-6)
+    _lint(path)
+
+
+def _main(argv):
+    """``train.main(argv)`` in this process, which is what ``python -m
+    apex_example_tpu_torch.train`` runs (test_cli_runs_on_the_cpu_and_its_
+    stream_lints takes that route itself): its exit code and stdout."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = train.main(argv)
+    return code, out.getvalue()
+
+
+def _lint(stream):
     lint = subprocess.run(
-        [sys.executable, "tools/metrics_lint.py", str(path),
+        [sys.executable, "tools/metrics_lint.py", str(stream),
          "--require-summary"], cwd=REPO, capture_output=True, text=True,
         timeout=120)
     assert lint.returncode == 0, lint.stdout + lint.stderr
@@ -401,22 +441,16 @@ def test_step_records_carry_ppl(tmp_path):
 
 def _run_cli(tmp_path, arch, *extra):
     stream = tmp_path / f"{arch}.jsonl"
-    proc = subprocess.run(
-        [sys.executable, "-m", "apex_example_tpu_torch.train", "--device",
-         "cpu", "--arch", arch, "--batch-size", "4", "--seq-len", "16",
-         "--steps-per-epoch", "3", "--print-freq", "1",
-         "--metrics-jsonl", str(stream), *extra],
-        cwd=REPO, capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr
-    lint = subprocess.run(
-        [sys.executable, "tools/metrics_lint.py", str(stream),
-         "--require-summary"], cwd=REPO, capture_output=True, text=True,
-        timeout=120)
-    assert lint.returncode == 0, lint.stdout + lint.stderr
-    lines = [ln for ln in proc.stdout.splitlines()
+    code, stdout = _main(
+        ["--device", "cpu", "--arch", arch, "--batch-size", "4",
+         "--seq-len", "16", "--steps-per-epoch", "3", "--print-freq", "1",
+         "--metrics-jsonl", str(stream), *extra])
+    assert code == 0
+    _lint(stream)
+    lines = [ln for ln in stdout.splitlines()
              if ln.startswith("epoch 0 step ")]
     records = [json.loads(ln) for ln in stream.read_text().splitlines()]
-    return proc.stdout, lines, records
+    return stdout, lines, records
 
 
 @pytest.mark.parametrize("arch", ["gpt_tiny", "transformer_xl_tiny"])
@@ -461,9 +495,9 @@ def test_gpt_cli_with_fused_attention_lints(tmp_path, level):
      "BERT/GPT archs only"),
     (["--arch", "resnet18", "--fused-attention"], "BERT/GPT archs only"),
     (["--arch", "gpt_tiny", "--fused-attention", "--opt-level", "O2",
-      "--loss-scale", "dynamic", "--grad-accum", "2"], "^2$"),
+      "--loss-scale", "dynamic", "--numerics-check", "warn"], "^2$"),
     (["--arch", "transformer_xl_tiny", "--opt-level", "O2",
-      "--host-pipeline"], "^2$")])
+      "--preempt-grace", "30"], "^2$")])
 def test_fused_attention_and_amp_refusals(argv, match):
     with pytest.raises(SystemExit, match=match):
         train.main(["--device", "cpu"] + argv)
@@ -483,11 +517,7 @@ def test_cli_runs_on_the_cpu_and_its_stream_lints(tmp_path):
              if ln.startswith("epoch 0 step ")]
     assert len(lines) == 3 and lines[-1].startswith("epoch 0 step 3/3 loss")
     assert lines[-1].endswith("scale 1")
-    lint = subprocess.run(
-        [sys.executable, "tools/metrics_lint.py", str(stream),
-         "--require-summary"], cwd=REPO, capture_output=True, text=True,
-        timeout=120)
-    assert lint.returncode == 0, lint.stdout + lint.stderr
+    _lint(stream)
     records = [json.loads(ln) for ln in stream.read_text().splitlines()]
     assert records[0]["platform"] == "cpu"
     steps = [r for r in records if r["record"] == "step"]
@@ -504,7 +534,8 @@ def test_cli_defaults_to_cuda_and_raises_without_it(monkeypatch):
         train.main(["--arch", "bert_tiny", "--steps-per-epoch", "1"])
 
 
-@pytest.mark.parametrize("argv", [["--remat", "conv"], ["--grad-accum", "2"],
+@pytest.mark.parametrize("argv", [["--pipeline-parallel", "2"],
+                                  ["--inject-fault", "sigterm@2"],
                                   ["--context-parallel", "2"],
                                   ["--tensor-parallel", "2"]])
 def test_flags_of_other_paths_are_rejected(argv):
@@ -764,27 +795,21 @@ def test_dynamic_scaling_skips_an_overflow_step_as_jax_does():
 
 def test_image_cli_runs_o2_dynamic_with_eval_and_its_stream_lints(tmp_path):
     stream = tmp_path / "resnet.jsonl"
-    proc = subprocess.run(
-        [sys.executable, "-m", "apex_example_tpu_torch.train", "--device",
-         "cpu", "--arch", "resnet18", "--dataset", "cifar10",
+    code, stdout = _main(
+        ["--device", "cpu", "--arch", "resnet18", "--dataset", "cifar10",
          "--opt-level", "O2", "--loss-scale", "dynamic", "--eval",
          "--eval-batches", "2", "--batch-size", "4", "--steps-per-epoch",
          "3", "--print-freq", "1", "--lr", "0.01", "--metrics-jsonl",
-         str(stream)], cwd=REPO, capture_output=True, text=True,
-        timeout=300)
-    assert proc.returncode == 0, proc.stderr
-    lines = proc.stdout.splitlines()
+         str(stream)])
+    assert code == 0
+    lines = stdout.splitlines()
     steps = [ln for ln in lines if ln.startswith("epoch 0 step ")]
     assert len(steps) == 3 and all(" top1 " in ln and " img/s scale 65536"
                                    in ln for ln in steps)
     assert any(ln.startswith("epoch 0 EVAL loss ") and ln.endswith(
         "(2 batches)") for ln in lines)
-    assert "opt-level O2 (compute bfloat16" in proc.stdout
-    lint = subprocess.run(
-        [sys.executable, "tools/metrics_lint.py", str(stream),
-         "--require-summary"], cwd=REPO, capture_output=True, text=True,
-        timeout=120)
-    assert lint.returncode == 0, lint.stdout + lint.stderr
+    assert "opt-level O2 (compute bfloat16" in stdout
+    _lint(stream)
     records = [json.loads(ln) for ln in stream.read_text().splitlines()]
     recs = [r for r in records if r["record"] == "step"]
     assert [r["step"] for r in recs] == [1, 2, 3]
@@ -793,9 +818,10 @@ def test_image_cli_runs_o2_dynamic_with_eval_and_its_stream_lints(tmp_path):
     assert records[-1]["record"] == "run_summary"
 
 
-@pytest.mark.parametrize("argv", [["--opt-level", "O1", "--grad-accum", "2"],
+@pytest.mark.parametrize("argv", [["--opt-level", "O1", "--numerics-check",
+                                   "warn"],
                                   ["--loss-scale", "dynamic",
-                                   "--host-pipeline"],
+                                   "--preempt-grace", "30"],
                                   ["--tensorboard", "tb"]])
 def test_lm_archs_refuse_amp_and_eval_until_their_slice(argv):
     with pytest.raises(SystemExit) as exc:
@@ -890,8 +916,8 @@ def test_main_novograd_bert_tiny_follows_jax(monkeypatch, tmp_path):
     jm = jax_bert_tiny()
     jopt = JaxNovoGrad(lr=0.05, weight_decay=0.01)
     policy = get_policy("O0")
-    jstate = jax_create_state(jax.random.PRNGKey(4), jm, jopt,
-                              batches[0][0][:1], policy)
+    jstate = create_state(jax.random.PRNGKey(4), jm, jopt,
+                          batches[0][0][:1], policy)
     weights = bert_params_from_flax(
         jax.tree_util.tree_map(np.asarray, jstate.params))
 

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_jax_ref import flax_init
 from apex_example_tpu.models.transformer_xl import rel_shift as jax_rel_shift
 from apex_example_tpu.models.transformer_xl import \
     transformer_xl_tiny as jax_txl_tiny
@@ -46,7 +47,8 @@ def _one_torch_thread():
 @pytest.fixture(scope="module")
 def converted():
     jm = jax_txl_tiny()
-    params = jm.init(jax.random.PRNGKey(5), jnp.zeros((1, 8), jnp.int32))
+    params = flax_init(jm, jax.random.PRNGKey(5),
+                       jnp.zeros((1, 8), jnp.int32))
     tree = jax.tree_util.tree_map(np.array, params["params"])
     rs = np.random.RandomState(11)
     for i in range(jm.num_layers):
@@ -117,14 +119,14 @@ def test_gradients_match_jax(converted):
     jm, jparams, _, pm = converted
     ids = [_ids(s, 2, 24) for s in (3, 4)]
     tgt = _ids(5, 2, 24)
-    mems = jm.apply({"params": jparams}, jnp.asarray(ids[0]))[1]
+    mems = jax.jit(jm.apply)({"params": jparams}, jnp.asarray(ids[0]))[1]
 
     def loss_fn(params):
         logits, _ = jm.apply({"params": params}, jnp.asarray(ids[1]),
                              mems=mems)
         return jax_lm_loss(logits, jnp.asarray(tgt))
 
-    jloss, jgrads = jax.value_and_grad(loss_fn)(jparams)
+    jloss, jgrads = jax.jit(jax.value_and_grad(loss_fn))(jparams)
     with torch.no_grad():
         _, pmems = pm(torch.from_numpy(ids[0]))
     pm.zero_grad(set_to_none=True)

@@ -260,14 +260,30 @@ def case_ddp_gpt(spec, rank, world):
     return _trail(step, state, spec["lm_batches"], rank, world)
 
 
-def case_ddp_txl(spec, rank, world):
+def case_ddp_txl(spec, rank, world, grad_accum=1):
     model = transformer_xl_tiny(**LM, device="cpu")
     model.load_state_dict({k: _t(v) for k, v in spec["txl_sd"].items()})
     state = create_train_state(model, FusedAdam(model.parameters(), **ADAM))
-    step = make_sharded_txl_train_step(DATA_AXIS, max_grad_norm=0.25)
+    step = make_sharded_txl_train_step(DATA_AXIS, max_grad_norm=0.25,
+                                       grad_accum=grad_accum)
     b = spec["lm_batches"][0][0].shape[0]
     return _trail(step, state, spec["lm_batches"], rank, world,
                   mems=model.init_mems(b // world))
+
+
+def case_ddp_accum_gpt(spec, rank, world):
+    """gpt_tiny's DDP trail with each rank's rows in 2 microbatches."""
+    model = gpt_tiny(**LM, device="cpu")
+    model.load_state_dict({k: _t(v) for k, v in spec["gpt_sd"].items()})
+    state = create_train_state(model, FusedAdam(model.parameters(), **ADAM))
+    step = make_sharded_train_step(DATA_AXIS, loss_fn=lm_loss,
+                                   compute_accuracy=False, grad_accum=2)
+    return _trail(step, state, spec["lm_batches"], rank, world)
+
+
+def case_ddp_accum_txl(spec, rank, world):
+    """transformer_xl_tiny's, each rank's streams in 2 groups."""
+    return case_ddp_txl(spec, rank, world, grad_accum=2)
 
 
 def _zero(spec, rank, world, loss_scale, level="O0", half=None):
