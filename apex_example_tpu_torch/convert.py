@@ -31,6 +31,12 @@ flat ``mu`` and ``nu`` of the JAX package's ``ZeroAdamState`` (the leaves
 of the params tree flattened in ``tree_leaves`` order, sorted keys) onto
 the port's DistributedFusedAdam order (``parameters()`` order, each in
 the port's layout), padded as the port pads them.
+
+``flax_module_name(name)`` goes the other way for a name alone: the top
+level key of the flax tree that holds the port's parameter ``name``
+(``layers.3.attention.query.weight`` -> ``layer_3``; ``mlm_bias``,
+``word_emb.weight``, ``Bottleneck_3.conv1.weight`` -> their first part),
+the module names of ``--numerics-check``'s records (obs/numerics.py).
 """
 
 from __future__ import annotations
@@ -43,6 +49,14 @@ import torch
 _DENSE = ("attention/query", "attention/key", "attention/value",
           "attention/output", "intermediate", "output")
 _NORMS = ("attention_ln", "output_ln")
+
+
+def flax_module_name(name: str) -> str:
+    """The flax tree's top-level key of the port's parameter ``name``."""
+    head, _, rest = name.partition(".")
+    if head == "layers":
+        return f"layer_{rest.partition('.')[0]}"
+    return head
 
 
 def _tensor(a) -> torch.Tensor:

@@ -47,6 +47,14 @@ JAX's are) and top-1 the mean of their top-1s, each summed in microbatch
 order.  BatchNorm running statistics update on every microbatch's
 forward.
 
+Phases.  The step's phases run inside
+``torch.profiler.record_function`` ranges named as JAX's
+``jax.named_scope`` phases (obs/spans.py ``device_span``): ``fwd_bwd``,
+``grad_allreduce`` (data parallel), ``unscale_check`` and ``optimizer``,
+so a torch.profiler trace of a step carries JAX's phase names.  The
+unscaled grads stay in ``.grad`` until the next step zeroes them, which
+is where ``--numerics-check`` reads them (obs/numerics.py).
+
 The JAX state is an immutable pytree that each step replaces; here the
 model, optimizer and scaler update in place and the step returns the same
 ``TrainState`` with its counter advanced.  The grads are zeroed in place
@@ -68,6 +76,7 @@ from apex_example_tpu_torch.amp.scaler import ScalerState
 from apex_example_tpu_torch.ops.multi_tensor import (
     TensorTable, multi_tensor_axpby_cuda, multi_tensor_axpby_plain,
     multi_tensor_scale_cuda, multi_tensor_scale_plain)
+from apex_example_tpu_torch.obs.spans import device_span
 from apex_example_tpu_torch.ops.xentropy import softmax_cross_entropy
 from apex_example_tpu_torch.parallel.distributed import (
     DDPConfig, allreduce_grads, reduce_mean, replicate_mean)
@@ -249,32 +258,36 @@ def make_train_step(loss_fn: Callable = cross_entropy_loss,
         with_top1 = compute_accuracy and torch.is_tensor(y)
         state.model.train()
         opt.zero_grad()
-        if grad_accum == 1:
-            loss, top1 = forward_backward(state, x, y, with_top1)
-        else:
-            acc = accumulator(opt)
-            acc.begin()
-            losses, top1s = [], []
-            for i, (x_mb, y_mb) in enumerate(split_batch((x, y),
-                                                         grad_accum)):
-                loss_mb, top1_mb = forward_backward(state, x_mb, y_mb,
-                                                    with_top1)
-                losses.append(loss_mb)
-                top1s.append(top1_mb)
-                if i + 1 < grad_accum:
-                    acc.fold()
-            acc.finish()
-            loss = ordered_mean(losses)
-            top1 = ordered_mean(top1s) if with_top1 else None
+        with device_span("fwd_bwd"):
+            if grad_accum == 1:
+                loss, top1 = forward_backward(state, x, y, with_top1)
+            else:
+                acc = accumulator(opt)
+                acc.begin()
+                losses, top1s = [], []
+                for i, (x_mb, y_mb) in enumerate(split_batch((x, y),
+                                                             grad_accum)):
+                    loss_mb, top1_mb = forward_backward(state, x_mb, y_mb,
+                                                        with_top1)
+                    losses.append(loss_mb)
+                    top1s.append(top1_mb)
+                    if i + 1 < grad_accum:
+                        acc.fold()
+                acc.finish()
+                loss = ordered_mean(losses)
+                top1 = ordered_mean(top1s) if with_top1 else None
         if axis_name is not None:
-            # the scaled grads, as the reference's backward hooks reduce
-            allreduce_grads(opt.grads, ddp, axis_name)
-            loss = reduce_mean(loss, axis_name)
-        found_inf = amp.unscale_grads(opt, scaler)
-        if found_inf is None:
-            grad_norm = opt.step()
-        else:
-            grad_norm = opt.step(noop_flag=found_inf)
+            with device_span("grad_allreduce"):
+                # the scaled grads, as the reference's backward hooks reduce
+                allreduce_grads(opt.grads, ddp, axis_name)
+                loss = reduce_mean(loss, axis_name)
+        with device_span("unscale_check"):
+            found_inf = amp.unscale_grads(opt, scaler)
+        with device_span("optimizer"):
+            if found_inf is None:
+                grad_norm = opt.step()
+            else:
+                grad_norm = opt.step(noop_flag=found_inf)
         if grad_norm is None:
             grad_norm = opt.grad_norm()
         state.scaler = amp.update_scaler(scaler, found_inf)

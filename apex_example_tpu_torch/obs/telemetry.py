@@ -1,8 +1,10 @@
 """Per-step telemetry of the training loop: port of ``TelemetryEmitter``
 (:58) of apex_example_tpu/obs/telemetry.py.
 
-Writes ``run_header`` (:99), one ``step`` record per step (:119) and a
-closing ``run_summary`` (:170) to the port's JsonlSink, with schema 18 and
+Writes ``run_header`` (:99), one ``step`` record per step (:119), a
+``preemption`` record on the grace path (:204) and a closing
+``run_summary`` (:170; ``abort`` :233 marks it ``aborted`` on the crash
+path) to the port's JsonlSink, with schema 18 and
 only fields that apex_example_tpu/obs/schema.py declares, so
 tools/metrics_lint.py and tools/telemetry_report.py read the stream as
 they read the JAX package's.  ``platform`` is "gpu" or "cpu";
@@ -12,6 +14,12 @@ Fetching the step's metrics to Python floats waits for the device, so
 ``step_time_ms``, measured after the fetch, covers the device's work.
 The first step's time includes one-off work (the kernels' build and load,
 the allocator's growth); ``compile_est_ms`` is its excess over the median.
+
+Observers (``add_observer``: the flight recorder's ring, the stall
+watchdog's heartbeat, the numerics monitor) see each step record and the
+step's raw metrics after the record is written, so the loops stay one
+``on_step`` call.  The registry's ``span.*`` histograms (obs/spans.py)
+go into the run_summary's ``spans``.
 """
 
 from __future__ import annotations
@@ -23,7 +31,8 @@ from typing import Any, Dict, List, Optional
 import torch
 import torch.distributed as dist
 
-from apex_example_tpu_torch.obs.metrics import SCHEMA_VERSION, JsonlSink
+from apex_example_tpu_torch.obs.metrics import (SCHEMA_VERSION, JsonlSink,
+                                                MetricsRegistry)
 
 # torch.cuda.memory_stats keys -> the JAX stream's memory keys
 _MEMORY_KEYS = {"allocated_bytes.all.current": "bytes_in_use",
@@ -55,12 +64,15 @@ def _scalar_metrics(metrics: Dict[str, Any]) -> Dict[str, float]:
 
 
 class TelemetryEmitter:
-    """run_header / step / run_summary records to a JsonlSink."""
+    """run_header / step / preemption / run_summary records to a
+    JsonlSink, and the step's counters and gauges in ``registry``."""
 
     def __init__(self, sink: JsonlSink, device: torch.device,
+                 registry: Optional[MetricsRegistry] = None,
                  memory_every: int = 10):
         self.sink = sink
-        self.device = device
+        self.device = torch.device(device)
+        self.registry = registry or MetricsRegistry()
         self.memory_every = memory_every
         self.run_id = uuid.uuid4().hex[:12]
         self._step_times_ms: List[float] = []
@@ -69,6 +81,11 @@ class TelemetryEmitter:
         self._items = 0
         self._t_run0 = time.perf_counter()
         self._closed = False
+        self._observers: List = []
+
+    def add_observer(self, callback) -> None:
+        """``callback(record, metrics)`` after every step record."""
+        self._observers.append(callback)
 
     def run_header(self, config: Dict[str, Any],
                    argv: Optional[list] = None, **extra) -> Dict[str, Any]:
@@ -122,7 +139,17 @@ class TelemetryEmitter:
             mem = device_memory_stats(self.device)
             if mem:
                 rec["memory"] = mem
+        reg = self.registry
+        reg.counter("steps").inc()
+        reg.counter("items").inc(items)
+        reg.histogram("step_time_ms").observe(elapsed_ms)
+        reg.gauge("loss").set(rec["loss"])
+        reg.gauge("scale").set(rec["scale"])
+        if "grad_norm" in rec:
+            reg.gauge("grad_norm").set(rec["grad_norm"])
         self.sink.write(rec)
+        for callback in self._observers:
+            callback(rec, metrics)
         return rec
 
     def summary(self) -> Dict[str, Any]:
@@ -142,6 +169,31 @@ class TelemetryEmitter:
                 rec["compile_est_ms"] = round(max(first - steady, 0.0), 3)
             wall_s = time.perf_counter() - self._t_run0
             rec["items_per_sec"] = round(self._items / max(wall_s, 1e-9), 1)
+        span_hists = {name: summ
+                      for name, summ in self.registry.snapshot().items()
+                      if name.startswith("span.") and isinstance(summ, dict)}
+        if span_hists:
+            rec["spans"] = span_hists
+        return rec
+
+    def preemption(self, signal_name: str, *, step: int,
+                   checkpoint_step: Optional[int] = None,
+                   saved: bool = False) -> Dict[str, Any]:
+        """The graceful-preemption record, written before the normal
+        close: the stream reads header, steps, preemption, run_summary,
+        and the summary stays un-aborted (a preempted run is resumable,
+        not broken)."""
+        rec: Dict[str, Any] = {
+            "record": "preemption",
+            "time": time.time(),
+            "run_id": self.run_id,
+            "signal": str(signal_name),
+            "step": int(step),
+            "saved": bool(saved),
+        }
+        if checkpoint_step is not None:
+            rec["checkpoint_step"] = int(checkpoint_step)
+        self.sink.write(rec)
         return rec
 
     def close(self) -> None:
@@ -150,4 +202,16 @@ class TelemetryEmitter:
         self._closed = True
         if self._steps:
             self.sink.write(self.summary())
+        self.sink.close()
+
+    def abort(self, reason: str) -> None:
+        """The crash path's close (obs/flight.py): the run summary, even at
+        0 steps, marked ``aborted`` with its reason."""
+        if self._closed:
+            return
+        self._closed = True
+        rec = self.summary()
+        rec["aborted"] = True
+        rec["abort_reason"] = reason
+        self.sink.write(rec)
         self.sink.close()

@@ -49,6 +49,7 @@ import torch
 import torch.distributed as dist
 
 from apex_example_tpu_torch import amp
+from apex_example_tpu_torch.obs.spans import device_span
 from apex_example_tpu_torch.ops.fused_optim import (adam_cuda,
                                                     adam_update_plain)
 from apex_example_tpu_torch.ops.multi_tensor import (
@@ -254,7 +255,8 @@ def make_zero_train_step(loss_fn: Optional[Callable] = None,
     and stepped by the sharded optimizer; the loss and top-1 are averaged
     over the group, and so are the model's running statistics.  Metrics
     as engine.make_train_step's; ``grad_norm`` is the summed grads' (the
-    JAX ZeRO step's)."""
+    JAX ZeRO step's).  The phases run in ``record_function`` ranges named
+    as the engine step's (obs/spans.py)."""
     from apex_example_tpu_torch.engine import batch_top1, cross_entropy_loss
     loss_fn = loss_fn or cross_entropy_loss
 
@@ -264,13 +266,17 @@ def make_zero_train_step(loss_fn: Optional[Callable] = None,
         axis = opt.axis_name
         state.model.train()
         opt.zero_grad()
-        logits = state.model(x)
-        loss = loss_fn(logits, y)
-        amp.scale_loss(loss, scaler).backward()
-        opt.reduce_grads()
-        found_inf = amp.unscale_grads(opt, scaler)
+        with device_span("fwd_bwd"):
+            logits = state.model(x)
+            loss = loss_fn(logits, y)
+            amp.scale_loss(loss, scaler).backward()
+        with device_span("grad_allreduce"):
+            opt.reduce_grads()
+        with device_span("unscale_check"):
+            found_inf = amp.unscale_grads(opt, scaler)
         grad_norm = opt.grad_norm()
-        opt.step(noop_flag=found_inf)
+        with device_span("optimizer"):
+            opt.step(noop_flag=found_inf)
         state.scaler = amp.update_scaler(scaler, found_inf)
         state.step += 1
         metrics = {"loss": reduce_mean(loss, axis),

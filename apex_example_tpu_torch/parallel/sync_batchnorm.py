@@ -7,7 +7,9 @@ the normalization, the unbiased estimate in ``var``, ``momentum`` the
 weight of the new statistic.  The moments are one pass centred on the
 running mean ``c`` (:106), accumulated in fp32 whatever the input dtype:
 exact for any constant shift, and free of cancellation while ``c`` tracks
-the batch mean.
+the batch mean.  A non-finite running mean (a NaN batch's average, which
+the JAX module keeps as well) centres on 0, so the next batch's
+statistics are its own and finite, as JAX's are.
 
 Dtypes: ``dtype`` is the I/O dtype (None: the input's), ``stats_dtype``
 that of the normalization arithmetic (None: fp32; ``keep_batchnorm_fp32``),
@@ -105,7 +107,12 @@ class SyncBatchNorm(nn.Module):
             return (y + bias.to(md)).to(out_dtype)
 
         replay = self.replay_centre is not None
-        c = self.replay_centre if replay else self.mean.float()
+        # A non-finite running mean (after a NaN batch) centres on 0: the
+        # moments stay those of this batch, as the JAX module's, which
+        # never reads the running mean in training.
+        c = torch.nan_to_num(self.replay_centre if replay
+                             else self.mean.float(), nan=0.0, posinf=0.0,
+                             neginf=0.0)
         axis = self.axis_name
         n_local = x.numel() // x.shape[-1]
         n = n_local * (axis_size(axis) if axis is not None else 1)

@@ -63,8 +63,8 @@ dynamic`` skips an overflow step on the card through every optimizer's
 noop flag.  ``--fused-attention`` stays refused at O3 and for the other
 archs (train.py :699-709).  Entry points run on the card unless
 ``--device cpu`` is given, and raise when CUDA is asked for and absent.
-The flags of paths not ported yet (model parallelism, diagnostics,
-resilience) are absent, so argparse rejects them.
+The flags of paths not ported yet (model parallelism, ``--cost-model``)
+are absent, so argparse rejects them.
 
 Step options (train.py :200-208, :308-309), on every path:
 ``--grad-accum K`` runs K microbatches of ``batch // K`` rows (of each
@@ -144,6 +144,45 @@ one process.  Only rank 0 prints and writes ``--metrics-jsonl``:
         -m apex_example_tpu_torch.train --device cpu --arch resnet18 \
         --sync_bn --batch-size 8 --steps-per-epoch 2
 
+Diagnostics (train.py :250-302, :354-446; obs/), on every path, all
+writing to the ``--metrics-jsonl`` stream they require: ``--trace``
+writes the loop's host spans (``data``, ``step``, ``checkpoint``) as
+``trace_event`` records (tools/trace_export.py renders them);
+``--profile-window N:M`` traces steps N..M, ``--prof`` the whole run,
+with torch.profiler (the host's operators, CUDA's activity on the card,
+the step's ``fwd_bwd`` / ``grad_allreduce`` / ``unscale_check`` /
+``optimizer`` ranges inside the loop's ``step`` range), as Chrome traces
+in ``build/trace/`` at the root of the checkout;
+``--flight-recorder`` writes a ``crash_dump`` and an aborted run_summary
+on a crash, SIGTERM or SIGINT; ``--stall-timeout S`` a ``stall`` record
+with every thread's stack when no step completes in S seconds
+(``--stall-trace``: a one-shot trace from the stall to the step that
+recovers); ``--numerics-check overflow|always`` an ``overflow_event``
+naming the modules whose grads were not finite (read from the grads the
+engine's step leaves, image and BERT/GPT; ``--zero`` and transformer_xl
+refuse it, as in JAX);
+``--tick-profile`` decomposes each image step into data_wait, dispatch,
+device (a ``torch.cuda.synchronize`` inserted only then), telemetry and
+checkpoint (``tick_profile`` records every ``--tick-profile-every``
+steps, an ``overhead_summary`` at the end; the LM loops are not
+decomposed, as in JAX); ``--tensorboard DIR`` writes the printed scalars
+as a TensorBoard event file from rank 0 (obs/metrics.py, without the
+tensorboard package).  ``--prof-server`` exits: it is JAX's live
+profiling server, which torch.profiler has no counterpart of here.
+
+Resilience (train.py :303-316, :514-557; resilience/):
+``--preempt-grace`` turns SIGTERM or SIGUSR1 into a save at the next step
+boundary (the pending async write joined, the checkpoint and its sidecar
+written, or the sidecar refreshed where the step is on disk already), a
+``preemption`` record and exit 75, which ``tools/supervise.py`` restarts
+with ``--resume``; ``--inject-fault crash|sigterm|hang|nan@STEP`` fires a
+drill at a 1-based global step (a resumed run past it never fires it):
+
+    python tools/supervise.py --max-restarts 2 -- \
+        python -m apex_example_tpu_torch.train --arch bert_base \
+        --opt lamb --checkpoint-dir ck --preempt-grace \
+        --metrics-jsonl out.jsonl --inject-fault sigterm@50
+
 Each printed step is train.py's line: ``epoch E step i/N loss L (avg)
 top1 T (avg) R img/s scale S`` for images (:895-899), ``epoch E step i/N
 loss L (avg) [ppl P ]R tok/s scale S`` for LMs (:1747-1752); after each
@@ -162,7 +201,7 @@ import math
 import random
 import sys
 import time
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -181,9 +220,19 @@ from apex_example_tpu_torch.models.gpt import gpt_base, gpt_tiny
 from apex_example_tpu_torch.models.resnet import ARCHS as IMAGE_ARCHS
 from apex_example_tpu_torch.models.transformer_xl import (
     transformer_xl_base, transformer_xl_tiny)
+from apex_example_tpu_torch.obs import profiler as profiler_lib
+from apex_example_tpu_torch.obs import spans as spans_lib
+from apex_example_tpu_torch.obs import trace as trace_lib
+from apex_example_tpu_torch.obs.flight import FlightRecorder
 from apex_example_tpu_torch.obs.logging import rank_print
-from apex_example_tpu_torch.obs.metrics import JsonlSink
+from apex_example_tpu_torch.obs.metrics import (EventFileWriter, JsonlSink,
+                                                MetricsRegistry,
+                                                TensorBoardAdapter)
+from apex_example_tpu_torch.obs.numerics import NumericsMonitor
+from apex_example_tpu_torch.obs.spans import span
 from apex_example_tpu_torch.obs.telemetry import TelemetryEmitter
+from apex_example_tpu_torch.obs.tickprof import TickProfiler
+from apex_example_tpu_torch.obs.watchdog import StallWatchdog
 from apex_example_tpu_torch.optim.distributed import (DistributedFusedAdam,
                                                       make_zero_train_step)
 from apex_example_tpu_torch.optim.fused import (FusedAdagrad, FusedAdam,
@@ -195,6 +244,8 @@ from apex_example_tpu_torch.parallel.larc import LARC
 from apex_example_tpu_torch.parallel.launch import (
     local_device, maybe_initialize_distributed)
 from apex_example_tpu_torch.parallel.mesh import DATA_AXIS
+from apex_example_tpu_torch.resilience import (EX_TEMPFAIL, FaultPlan,
+                                               PreemptionHandler)
 from apex_example_tpu_torch.utils.checkpoint import CheckpointManager
 from apex_example_tpu_torch.utils.meters import AverageMeter, Throughput
 from apex_example_tpu_torch.workloads import (lm_loss, make_bert_eval_step,
@@ -318,6 +369,66 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--metrics-all-ranks", action="store_true",
                    help="with --metrics-jsonl: every process writes its "
                         "own file (PATH.rank<K> for K > 0)")
+    # diagnostics (obs/), each writing to the --metrics-jsonl stream
+    p.add_argument("--profile-window", default="", metavar="N:M",
+                   help="trace run-relative steps N..M (1-based, inclusive) "
+                        "with torch.profiler instead of --prof's whole run")
+    p.add_argument("--trace", action="store_true",
+                   help="with --metrics-jsonl: trace_event records for "
+                        "every host span (data / step / checkpoint), "
+                        "exportable with tools/trace_export.py")
+    p.add_argument("--tick-profile", action="store_true",
+                   help="with --metrics-jsonl: decompose each image step "
+                        "into data_wait / dispatch / device (a "
+                        "torch.cuda.synchronize inserted only then) / "
+                        "telemetry / checkpoint: tick_profile records and "
+                        "an overhead_summary (LM loops are not decomposed)")
+    p.add_argument("--tick-profile-every", type=int, default=16,
+                   metavar="N",
+                   help="emit a tick_profile record every N steps "
+                        "(the overhead_summary folds every step)")
+    p.add_argument("--flight-recorder", action="store_true",
+                   help="with --metrics-jsonl: on a crash, SIGTERM or "
+                        "SIGINT write a crash_dump (the last K step "
+                        "records) and an aborted run summary")
+    p.add_argument("--flight-recorder-keep", type=int, default=64,
+                   metavar="K",
+                   help="step records the flight recorder's ring keeps")
+    p.add_argument("--stall-timeout", type=float, default=0.0, metavar="S",
+                   help="with --metrics-jsonl: when no step completes for "
+                        "S seconds, a 'stall' record with every thread's "
+                        "stack (0: off; S covers the first step's kernel "
+                        "build too)")
+    p.add_argument("--stall-trace", action="store_true",
+                   help="with --stall-timeout: on the first stall, a "
+                        "one-shot torch.profiler trace from the stall to "
+                        "the step that recovers")
+    p.add_argument("--numerics-check", default="off",
+                   choices=["off", "overflow", "always"],
+                   help="per-module non-finite counts and grad norms of "
+                        "the step's grads as 'overflow_event' records "
+                        "naming the offending modules ('overflow': on "
+                        "overflow steps only; 'always': every step; "
+                        "requires --metrics-jsonl)")
+    p.add_argument("--tensorboard", default="", metavar="DIR",
+                   help="write the printed scalars to this TensorBoard "
+                        "logdir (rank 0)")
+    p.add_argument("--prof", action="store_true",
+                   help="trace the whole run with torch.profiler")
+    p.add_argument("--prof-server", type=int, default=0, metavar="PORT",
+                   help="JAX's live profiling server: not portable, the "
+                        "trainer exits with the reason")
+    # resilience (resilience/; tools/supervise.py restarts on exit 75)
+    p.add_argument("--preempt-grace", action="store_true",
+                   help="on SIGTERM/SIGUSR1, at the next step boundary: "
+                        "join pending checkpoint IO, save a final "
+                        "checkpoint (with --checkpoint-dir), write a "
+                        "'preemption' record and exit 75 (EX_TEMPFAIL) "
+                        "for a supervisor to restart")
+    p.add_argument("--inject-fault", default="", metavar="KIND@STEP",
+                   help="fault drill at a 1-based global step: crash | "
+                        "sigterm | hang | nan; a resumed run past STEP "
+                        "never fires it")
     # the reference's command line (torch.distributed.launch passes
     # --local_rank, or --local-rank from torch 2.0); recorded, no effect
     p.add_argument("--local_rank", "--local-rank", type=int, default=0,
@@ -508,28 +619,69 @@ class BatchSource:
             self.prefetcher.close()
 
 
+PROF_SERVER_REASON = (
+    "--prof-server starts JAX's live profiling server "
+    "(jax.profiler.start_server), which tensorboard's profile plugin "
+    "captures from while the run goes on; torch.profiler has no such "
+    "server without a profiling daemon on the machine, so the port does "
+    "not take it: trace with --prof (the whole run) or --profile-window "
+    "N:M (steps N..M) instead")
+
+
 def check_args(args) -> None:
-    """What the parser cannot say: sizes, and the flags a path does not
-    take yet."""
+    """What the parser cannot say: sizes, and the JAX trainer's refusals
+    (train.py :630-709), with its messages, in its order."""
     for flag in ("epochs", "steps_per_epoch", "batch_size", "seq_len",
                  "print_freq", "eval_batches"):
         if getattr(args, flag) < 1:
             raise SystemExit(f"--{flag.replace('_', '-')} must be >= 1")
-    if args.fused_attention and not args.arch.startswith(("bert", "gpt")):
-        raise SystemExit("--fused-attention is wired for the BERT/GPT "
-                         "archs only")
-    if args.fused_attention and args.opt_level == "O3":
-        raise SystemExit("--fused-attention requires fp32 softmax "
-                         "(opt levels O0-O2); O3 runs softmax half")
+    if args.grad_accum > 1 and args.batch_size % args.grad_accum:
+        raise SystemExit(f"--batch-size {args.batch_size} not divisible by "
+                         f"--grad-accum {args.grad_accum}")
+    if args.prof and args.profile_window:
+        raise SystemExit("--prof traces the whole run; pick it or "
+                         "--profile-window N:M, not both")
+    if (args.flight_recorder or args.stall_timeout > 0
+            or args.numerics_check != "off") and not args.metrics_jsonl:
+        raise SystemExit("--flight-recorder/--stall-timeout/"
+                         "--numerics-check write to the telemetry sink; "
+                         "add --metrics-jsonl PATH")
+    if args.trace and not args.metrics_jsonl:
+        raise SystemExit("--trace emits trace_event records to the "
+                         "telemetry sink; add --metrics-jsonl PATH")
+    if args.stall_trace and args.stall_timeout <= 0:
+        raise SystemExit("--stall-trace arms on a stall; it needs "
+                         "--stall-timeout S")
     if args.save_every_steps < 0:
         raise SystemExit(f"--save-every-steps {args.save_every_steps} "
                          "must be >= 0")
     if args.save_every_steps and not args.checkpoint_dir:
         raise SystemExit("--save-every-steps writes through "
                          "--checkpoint-dir; add it")
-    if args.grad_accum > 1 and args.batch_size % args.grad_accum:
-        raise SystemExit(f"--batch-size {args.batch_size} not divisible by "
-                         f"--grad-accum {args.grad_accum}")
+    if args.inject_fault:
+        try:
+            FaultPlan.parse(args.inject_fault)
+        except ValueError as e:
+            raise SystemExit(str(e))
+    if args.numerics_check != "off" and (args.zero or is_txl(args)):
+        raise SystemExit("--numerics-check rides the shared engine step's "
+                         "finite-check pass (engine.make_train_step); the "
+                         "--zero/--pipeline-parallel/--context-parallel/"
+                         "--moe-experts and transformer_xl steps own their "
+                         "own grad pipelines and are not wired yet")
+    if args.profile_window:
+        try:
+            profiler_lib.parse_window(args.profile_window)
+        except ValueError as e:
+            raise SystemExit(str(e))
+    if args.prof_server:
+        raise SystemExit(PROF_SERVER_REASON)
+    if args.fused_attention and not args.arch.startswith(("bert", "gpt")):
+        raise SystemExit("--fused-attention is wired for the BERT/GPT "
+                         "archs only")
+    if args.fused_attention and args.opt_level == "O3":
+        raise SystemExit("--fused-attention requires fp32 softmax "
+                         "(opt levels O0-O2); O3 runs softmax half")
 
 
 def check_parallel_args(args, world: int) -> None:
@@ -736,15 +888,151 @@ def attention_route(args, model) -> str:
     return "einsum"
 
 
-def _emitter(args, device):
+def make_writer(args):
+    """The ``--tensorboard`` writer (rank 0 only, as in JAX): the port's
+    standard-library event file (obs/metrics.py)."""
+    if not args.tensorboard or (dist.is_initialized()
+                                and dist.get_rank() != 0):
+        return None
+    return EventFileWriter(args.tensorboard)
+
+
+def make_telemetry(args, device, state):
+    """The flag-gated observability of both loops (train.py :354): the
+    step emitter (``--metrics-jsonl``), the profiler window
+    (``--profile-window``), the span registry and tracer (``--trace``), and
+    the diagnostics riding the emitter as observers (``--flight-recorder``,
+    ``--stall-timeout``, ``--numerics-check``).  A process that writes no
+    stream (rank > 0 without ``--metrics-all-ranks``) gets no emitter and
+    no diagnostics.  The numerics monitor reads ``state``'s grads.
+    Returns (emitter, window, recorder, watchdog)."""
+    emitter = recorder = watchdog = None
+    trace_lib.set_default(None)          # a stale one from an earlier run
+    sink = (JsonlSink(args.metrics_jsonl, all_ranks=args.metrics_all_ranks)
+            if args.metrics_jsonl else None)
+    if sink is not None and sink.active:
+        registry = MetricsRegistry()
+        spans_lib.set_default_registry(registry)
+        emitter = TelemetryEmitter(sink, device, registry=registry)
+        emitter.run_header(config=vars(args), argv=sys.argv[1:],
+                           arch=args.arch)
+        if args.trace:
+            trace_lib.set_default(trace_lib.Tracer(sink,
+                                                   run_id=emitter.run_id))
+        if args.flight_recorder:
+            recorder = FlightRecorder(emitter, config=vars(args),
+                                      keep=args.flight_recorder_keep)
+            recorder.install()
+            emitter.add_observer(recorder.on_record)
+        if args.stall_timeout > 0:
+            watchdog = StallWatchdog(
+                sink, deadline_s=args.stall_timeout, run_id=emitter.run_id,
+                trace_dir=(profiler_lib.DEFAULT_TRACE_DIR
+                           if args.stall_trace else None), device=device)
+            watchdog.start()
+            emitter.add_observer(watchdog.on_record)
+        if args.numerics_check != "off":
+            monitor = NumericsMonitor(sink, state, mode=args.numerics_check,
+                                      run_id=emitter.run_id)
+            emitter.add_observer(monitor.on_record)
+    window = profiler_lib.make_profiler_window(args.profile_window or None,
+                                               device=device)
+    return emitter, window, recorder, watchdog
+
+
+def make_tickprof(args, emitter) -> Optional[TickProfiler]:
+    """``--tick-profile`` (train.py :408): the step decomposition, on the
+    emitter's sink and run id; None where the flag is off or this process
+    writes no stream."""
+    if not args.tick_profile:
+        return None
     if not args.metrics_jsonl:
+        raise SystemExit("--tick-profile requires --metrics-jsonl (the "
+                         "tick_profile/overhead_summary records ride "
+                         "the metrics stream)")
+    if args.tick_profile_every < 1:
+        raise SystemExit(f"--tick-profile-every must be >= 1, got "
+                         f"{args.tick_profile_every}")
+    if emitter is None:
         return None
-    sink = JsonlSink(args.metrics_jsonl, all_ranks=args.metrics_all_ranks)
-    if not sink.active:
-        return None
-    emitter = TelemetryEmitter(sink, device)
-    emitter.run_header(config=vars(args), argv=sys.argv[1:], arch=args.arch)
-    return emitter
+    return TickProfiler(sample_every=args.tick_profile_every,
+                        emit=emitter.sink.write, run_id=emitter.run_id)
+
+
+def close_telemetry(emitter, window, recorder=None, watchdog=None) -> None:
+    """make_telemetry's counterpart in the loops' ``finally`` (train.py
+    :432): stop an open window, disarm the watchdog, write the
+    run_summary, unbind the registry and tracer.  While an exception
+    unwinds it goes through the flight recorder instead: a crash_dump and
+    an aborted summary."""
+    if window is not None:
+        window.close()
+    if watchdog is not None:
+        watchdog.close()
+    exc = sys.exc_info()
+    if recorder is not None and exc[0] is not None \
+            and not issubclass(exc[0], SystemExit):
+        recorder.crash_dump(f"exception:{exc[0].__name__}", exc_info=exc)
+    if recorder is not None:
+        recorder.close()
+    if emitter is not None:
+        emitter.close()
+    spans_lib.set_default_registry(None)
+    trace_lib.set_default(None)
+
+
+def make_resilience(args, recorder) -> Tuple[Optional[PreemptionHandler],
+                                             Optional[FaultPlan]]:
+    """The ``--preempt-grace`` handler and the ``--inject-fault`` plan
+    (train.py :458), made after make_telemetry so the handler takes
+    SIGTERM over from the flight recorder."""
+    preempt = fault = None
+    if args.preempt_grace:
+        preempt = PreemptionHandler(recorder=recorder)
+        preempt.install()
+    if args.inject_fault:
+        fault = FaultPlan.parse(args.inject_fault)
+    return preempt, fault
+
+
+def stop_prof(prof, device) -> None:
+    """Stop ``--prof``'s whole-run trace and write it."""
+    path = profiler_lib.stop_trace(prof, profiler_lib.DEFAULT_TRACE_DIR,
+                                   "run", device)
+    rank_print(f"profile written to {path}")
+
+
+def graceful_preempt_exit(args, mgr, state, preempt, emitter,
+                          global_step: int, last_saved=None, prof=None,
+                          device=None) -> int:
+    """The grace sequence at a step boundary (train.py :514): join a
+    pending async write, save the checkpoint with its sidecar (or refresh
+    the sidecar where this step is on disk already), write the
+    ``preemption`` record and return EX_TEMPFAIL (75).  The caller's
+    ``finally`` then closes the stream with an un-aborted run_summary."""
+    if prof is not None:
+        stop_prof(prof, device)
+    ckstep = None
+    if mgr is not None:
+        mgr.wait_until_finished()
+        if last_saved != state.step:
+            mgr.save(state, wait=True,
+                     host_state=host_loop_state(args, global_step))
+        elif mgr.writer:
+            mgr.save_host_state(state.step,
+                                host_loop_state(args, global_step))
+        # the run's outcome, the same in every process (rank 0 writes)
+        ckstep = int(state.step)
+        rank_print(f"preempted by {preempt.signal_name}: saved checkpoint "
+                   f"at step {ckstep}; exiting {EX_TEMPFAIL} (resumable)")
+    else:
+        rank_print(f"preempted by {preempt.signal_name}: no "
+                   f"--checkpoint-dir, nothing saved; exiting "
+                   f"{EX_TEMPFAIL}")
+    if emitter is not None:
+        emitter.preemption(preempt.signal_name, step=int(global_step),
+                           checkpoint_step=ckstep, saved=ckstep is not None)
+    return EX_TEMPFAIL
 
 
 def run_image(args, device, rank: int = 0, world: int = 1) -> int:
@@ -758,29 +1046,52 @@ def run_image(args, device, rank: int = 0, world: int = 1) -> int:
           f"{len(state.optimizer.params)} tensors, dataset {args.dataset}, "
           f"device {device}, opt {args.opt}, {_policy_text(state.policy)}, "
           f"params from random init (seed {args.seed})")
-    start_epoch, start_i = resume(args, state)
     mgr = CheckpointManager(args.checkpoint_dir) if args.checkpoint_dir \
         else None
-
-    emitter = _emitter(args, device)
-    global_step = state.step
-    batches = BatchSource(args, 0, device, rank, world, global_step)
-    last_saved = None
+    tb = TensorBoardAdapter(make_writer(args))
+    emitter, window, recorder, watchdog = make_telemetry(args, device, state)
+    preempt = batches = prof = None
+    cuda = torch.device(device).type == "cuda"
     try:
+        tickprof = make_tickprof(args, emitter)
+        preempt, fault = make_resilience(args, recorder)
+        start_epoch, start_i = resume(args, state)
+        if args.prof:
+            prof = profiler_lib.start_trace(device)
+        global_step = state.step
+        batches = BatchSource(args, 0, device, rank, world, global_step)
+        run_step, last_saved = 0, None
         for epoch in range(start_epoch, args.epochs):
             losses, top1s = AverageMeter("loss"), AverageMeter("top1")
             thr = Throughput(warmup_steps=2)
             for i in range(start_i if epoch == start_epoch else 0,
                            args.steps_per_epoch):
-                batch = batches.train(global_step)
-                t0 = time.perf_counter()
-                state, metrics = step_fn(state, batch)
-                global_step += 1
-                if emitter is not None:
-                    emitter.on_step(global_step=global_step, epoch=epoch,
-                                    metrics=metrics, items=args.batch_size,
-                                    t_start=t0)
+                run_step += 1
+                t_tick = time.perf_counter()
+                if window is not None:
+                    window.on_step_start(run_step)
+                with span("data"):
+                    batch = batches.train(global_step)
+                if fault is not None:
+                    batch = fault.maybe_poison(global_step + 1, batch)
+                t_data = t0 = time.perf_counter()
+                with span("step", device=True):
+                    state, metrics = step_fn(state, batch)
+                    global_step += 1
+                    if tickprof is not None:
+                        # the dispatch/device boundary: the step has
+                        # queued its kernels; wait for the card here
+                        t_enqueue = time.perf_counter()
+                        if cuda:
+                            torch.cuda.synchronize(device)
+                        t_device = time.perf_counter()
+                    if emitter is not None:
+                        emitter.on_step(global_step=global_step, epoch=epoch,
+                                        metrics=metrics,
+                                        items=args.batch_size, t_start=t0)
                 thr.step(args.batch_size)
+                if window is not None:
+                    window.on_step_end(run_step)
                 if (i + 1) % args.print_freq == 0 \
                         or i + 1 == args.steps_per_epoch:
                     losses.update(float(metrics["loss"]))
@@ -789,10 +1100,31 @@ def run_image(args, device, rank: int = 0, world: int = 1) -> int:
                                f"{args.steps_per_epoch} {losses} {top1s} "
                                f"{thr.rate:.1f} img/s "
                                f"scale {float(metrics['scale']):.0f}")
+                    tb.scalars({"train/loss": losses.val,
+                                "train/top1": top1s.val,
+                                "train/img_per_sec": thr.rate}, global_step)
+                t_tel = time.perf_counter()
                 if args.save_every_steps and mgr is not None \
                         and global_step % args.save_every_steps == 0:
-                    last_saved = save_checkpoint(args, mgr, state,
-                                                 global_step)
+                    with span("checkpoint"):
+                        last_saved = save_checkpoint(args, mgr, state,
+                                                     global_step)
+                if tickprof is not None:
+                    # contiguous boundaries: the phases sum to the wall
+                    t_end = time.perf_counter()
+                    tickprof.observe_tick(
+                        t_tick, (t_end - t_tick) * 1e3,
+                        data_wait=(t_data - t_tick) * 1e3,
+                        dispatch=(t_enqueue - t_data) * 1e3,
+                        device=(t_device - t_enqueue) * 1e3,
+                        telemetry=(t_tel - t_device) * 1e3,
+                        checkpoint=(t_end - t_tel) * 1e3)
+                if fault is not None:
+                    fault.maybe_fire(global_step)
+                if preempt is not None and preempt.preempted:
+                    break
+            if preempt is not None and preempt.preempted:
+                break
             if eval_fn is not None:
                 el, e1, e5 = (AverageMeter("loss"), AverageMeter("top1"),
                               AverageMeter("top5"))
@@ -805,22 +1137,40 @@ def run_image(args, device, rank: int = 0, world: int = 1) -> int:
                 rank_print(f"epoch {epoch} EVAL loss {el.avg:.4f} "
                            f"top1 {e1.avg:.2f} top5 {e5.avg:.2f} "
                            f"({args.eval_batches} batches)")
+                tb.scalars({"eval/loss": el.avg, "eval/top1": e1.avg,
+                            "eval/top5": e5.avg}, global_step)
             if mgr is not None and last_saved != state.step:
-                last_saved = save_checkpoint(args, mgr, state, global_step)
+                with span("checkpoint"):
+                    last_saved = save_checkpoint(args, mgr, state,
+                                                 global_step)
+            if preempt is not None and preempt.preempted:
+                break            # a signal during eval or the save
+        if preempt is not None and preempt.preempted:
+            return graceful_preempt_exit(args, mgr, state, preempt, emitter,
+                                         global_step, last_saved, prof,
+                                         device)
+        if tickprof is not None and tickprof.ticks:
+            emitter.sink.write(tickprof.summary_record())
     finally:
-        batches.close()
-        if emitter is not None:
-            emitter.close()
+        if preempt is not None:
+            preempt.close()
+        close_telemetry(emitter, window, recorder, watchdog)
+        if batches is not None:
+            batches.close()
+        tb.close()
         if mgr is not None:
             mgr.wait_until_finished()
+    if prof is not None:
+        stop_prof(prof, device)
     return 0
 
 
-def lm_eval(args, eval_fn, state, epoch: int, batches) -> None:
+def lm_eval(args, eval_fn, state, epoch: int, batches) -> Tuple[float,
+                                                                 tuple]:
     """The LM eval pass after ``epoch`` (:1772-1798): ``--eval-batches``
     held-out batches, Transformer-XL's memory fresh and carried across
     them; prints the loss and BERT's masked accuracy or the perplexity
-    exp(mean loss)."""
+    exp(mean loss), and returns (loss, (metric name, value))."""
     model = state.model
     el, acc = AverageMeter("loss"), AverageMeter("masked_acc")
     mems = model.init_mems(args.batch_size) if is_txl(args) else None
@@ -837,6 +1187,7 @@ def lm_eval(args, eval_fn, state, epoch: int, batches) -> None:
               else ("ppl", math.exp(el.avg)))
     rank_print(f"epoch {epoch} EVAL loss {el.avg:.4f} {metric[0]} "
                f"{metric[1]:.2f} ({args.eval_batches} batches)")
+    return el.avg, metric
 
 
 def run_lm(args, device, rank: int = 0, world: int = 1) -> int:
@@ -855,34 +1206,50 @@ def run_lm(args, device, rank: int = 0, world: int = 1) -> int:
           f"{args.opt}, {_policy_text(state.policy, lm=True)}, attention "
           f"{attention_route(args, model)}, params from random init (seed "
           f"{args.seed})")
-    start_epoch, start_i = resume(args, state)
     mgr = CheckpointManager(args.checkpoint_dir) if args.checkpoint_dir \
         else None
-
-    emitter = _emitter(args, device)
+    tb = TensorBoardAdapter(make_writer(args))
+    emitter, window, recorder, watchdog = make_telemetry(args, device, state)
+    if args.tick_profile:
+        rank_print("WARNING: --tick-profile instruments the image loop "
+                   "only; LM steps are not decomposed")
+    preempt = batches = prof = None
     tokens = args.batch_size * args.seq_len
-    global_step = state.step
-    batches = BatchSource(args, model.vocab_size, device, rank, world,
-                          global_step)
-    last_saved = None
     try:
+        preempt, fault = make_resilience(args, recorder)
+        start_epoch, start_i = resume(args, state)
+        if args.prof:
+            prof = profiler_lib.start_trace(device)
+        global_step = state.step
+        batches = BatchSource(args, model.vocab_size, device, rank, world,
+                              global_step)
+        run_step, last_saved = 0, None
         for epoch in range(start_epoch, args.epochs):
             losses = AverageMeter("loss")
             thr = Throughput(warmup_steps=2)
             for i in range(start_i if epoch == start_epoch else 0,
                            args.steps_per_epoch):
-                batch = batches.train(global_step)
+                run_step += 1
+                if window is not None:
+                    window.on_step_start(run_step)
+                with span("data"):
+                    batch = batches.train(global_step)
+                if fault is not None:
+                    batch = fault.maybe_poison(global_step + 1, batch)
                 t0 = time.perf_counter()
-                if mems is None:
-                    state, metrics = step_fn(state, batch)
-                else:
-                    state, mems, metrics = step_fn(state, mems, batch)
-                global_step += 1
-                if emitter is not None:
-                    emitter.on_step(global_step=global_step, epoch=epoch,
-                                    metrics=metrics, items=tokens,
-                                    t_start=t0)
+                with span("step", device=True):
+                    if mems is None:
+                        state, metrics = step_fn(state, batch)
+                    else:
+                        state, mems, metrics = step_fn(state, mems, batch)
+                    global_step += 1
+                    if emitter is not None:
+                        emitter.on_step(global_step=global_step, epoch=epoch,
+                                        metrics=metrics, items=tokens,
+                                        t_start=t0)
                 thr.step(tokens)
+                if window is not None:
+                    window.on_step_end(run_step)
                 if (i + 1) % args.print_freq == 0 \
                         or i + 1 == args.steps_per_epoch:
                     losses.update(float(metrics["loss"]))
@@ -892,20 +1259,45 @@ def run_lm(args, device, rank: int = 0, world: int = 1) -> int:
                                f"{args.steps_per_epoch} {losses} {extra}"
                                f"{thr.rate:.0f} tok/s "
                                f"scale {float(metrics['scale']):.0f}")
+                    tb.scalars({"train/loss": losses.val,
+                                "train/tok_per_sec": thr.rate}, global_step)
                 if args.save_every_steps and mgr is not None \
                         and global_step % args.save_every_steps == 0:
+                    with span("checkpoint"):
+                        last_saved = save_checkpoint(args, mgr, state,
+                                                     global_step)
+                if fault is not None:
+                    fault.maybe_fire(global_step)
+                if preempt is not None and preempt.preempted:
+                    break
+            if preempt is not None and preempt.preempted:
+                break
+            if eval_fn is not None:
+                loss, (name, value) = lm_eval(args, eval_fn, state, epoch,
+                                              batches)
+                tb.scalars({"eval/loss": loss, f"eval/{name}": value},
+                           global_step)
+            if mgr is not None and last_saved != state.step:
+                with span("checkpoint"):
                     last_saved = save_checkpoint(args, mgr, state,
                                                  global_step)
-            if eval_fn is not None:
-                lm_eval(args, eval_fn, state, epoch, batches)
-            if mgr is not None and last_saved != state.step:
-                last_saved = save_checkpoint(args, mgr, state, global_step)
+            if preempt is not None and preempt.preempted:
+                break            # a signal during eval or the save
+        if preempt is not None and preempt.preempted:
+            return graceful_preempt_exit(args, mgr, state, preempt, emitter,
+                                         global_step, last_saved, prof,
+                                         device)
     finally:
-        batches.close()
-        if emitter is not None:
-            emitter.close()
+        if preempt is not None:
+            preempt.close()
+        close_telemetry(emitter, window, recorder, watchdog)
+        if batches is not None:
+            batches.close()
+        tb.close()
         if mgr is not None:
             mgr.wait_until_finished()
+    if prof is not None:
+        stop_prof(prof, device)
     return 0
 
 

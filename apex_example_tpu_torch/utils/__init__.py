@@ -1,1 +1,1 @@
-"""Utilities of the port (training-loop meters)."""
+"""Utilities of the port (training-loop meters, checkpoints, FLOPs)."""

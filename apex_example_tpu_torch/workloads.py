@@ -33,6 +33,11 @@ the parameters' dtype (engine.GradAccumulator), and the loss the mean of
 their losses; then the unscale, the clip and the step run once, on the
 mean.
 
+The phases (forward and backward, all-reduce, unscale, clip and step) run
+in ``record_function`` ranges named as the engine step's (obs/spans.py
+``device_span``: ``fwd_bwd``, ``grad_allreduce``, ``unscale_check``,
+``optimizer``).
+
 The data-parallel step (``make_sharded_txl_train_step``) runs that step
 in every process of a group on its rows of the batch and its rows of the
 memory (the memory splits on its batch axis, dim 1 of (layers, B, mem,
@@ -59,6 +64,7 @@ import torch
 from apex_example_tpu_torch import amp
 from apex_example_tpu_torch.engine import (accumulator_cache, ordered_mean,
                                            split_batch)
+from apex_example_tpu_torch.obs.spans import device_span
 from apex_example_tpu_torch.ops.xentropy import softmax_cross_entropy
 from apex_example_tpu_torch.parallel.distributed import (DDPConfig,
                                                          allreduce_grads,
@@ -108,33 +114,38 @@ def make_txl_train_step(max_grad_norm: float = 0.25,
         opt, scaler = state.optimizer, state.scaler
         state.model.train()
         opt.zero_grad()
-        if grad_accum == 1:
-            loss, new_mems = forward_backward(state, mems, inp, tgt)
-        else:
-            acc = accumulator(opt)
-            acc.begin()
-            rows = inp.shape[0] // grad_accum
-            losses, parts = [], []
-            for i, (inp_mb, tgt_mb) in enumerate(
-                    split_batch((inp, tgt), grad_accum)):
-                loss_mb, mems_mb = forward_backward(
-                    state, mems[:, i * rows:(i + 1) * rows], inp_mb, tgt_mb)
-                losses.append(loss_mb)
-                parts.append(mems_mb)
-                if i + 1 < grad_accum:
-                    acc.fold()
-            acc.finish()
-            loss = ordered_mean(losses)
-            new_mems = torch.cat(parts, dim=1)
+        with device_span("fwd_bwd"):
+            if grad_accum == 1:
+                loss, new_mems = forward_backward(state, mems, inp, tgt)
+            else:
+                acc = accumulator(opt)
+                acc.begin()
+                rows = inp.shape[0] // grad_accum
+                losses, parts = [], []
+                for i, (inp_mb, tgt_mb) in enumerate(
+                        split_batch((inp, tgt), grad_accum)):
+                    loss_mb, mems_mb = forward_backward(
+                        state, mems[:, i * rows:(i + 1) * rows], inp_mb,
+                        tgt_mb)
+                    losses.append(loss_mb)
+                    parts.append(mems_mb)
+                    if i + 1 < grad_accum:
+                        acc.fold()
+                acc.finish()
+                loss = ordered_mean(losses)
+                new_mems = torch.cat(parts, dim=1)
         if axis_name is not None:
-            allreduce_grads(opt.grads, ddp, axis_name)
-            loss = reduce_mean(loss, axis_name)
-        found_inf = amp.unscale_grads(opt, scaler)
-        grad_norm = opt.clip_grad_norm(max_grad_norm)
-        if found_inf is None:
-            opt.step()
-        else:
-            opt.step(noop_flag=found_inf)
+            with device_span("grad_allreduce"):
+                allreduce_grads(opt.grads, ddp, axis_name)
+                loss = reduce_mean(loss, axis_name)
+        with device_span("unscale_check"):
+            found_inf = amp.unscale_grads(opt, scaler)
+        with device_span("optimizer"):
+            grad_norm = opt.clip_grad_norm(max_grad_norm)
+            if found_inf is None:
+                opt.step()
+            else:
+                opt.step(noop_flag=found_inf)
         state.scaler = amp.update_scaler(scaler, found_inf)
         state.step += 1
         metrics = {"loss": loss, "grad_norm": grad_norm,

@@ -427,6 +427,38 @@ Phases, one or more lines each:
              against batches made on the card, in blocks of 12 steps in
              turn (A, B, A, B) from one state, img/s or tokens/s, and
              whether the host holds the card back.
+41. diag    — the trainer's diagnostics and resilience: (a) C2 (c2's
+             command, --loss-scale dynamic) 6 steps with --tick-profile
+             (every step), --trace, --profile-window 2:3,
+             --numerics-check overflow, --inject-fault nan@4,
+             --flight-recorder and --stall-timeout 120: one
+             overflow_event, at step 4, naming modules; step 4 skipped
+             (grads_finite 0) with the scale halved, steps 5-6 finite;
+             no crash_dump or stall; each step's tick phases with a
+             device phase above 0, summing to its wall within 1%; the
+             host spans data and step in turn; the window's Chrome trace
+             with the SGD kernel's 2 launches and the step's fwd_bwd,
+             unscale_check and optimizer ranges, 2 each, inside its 2
+             step ranges.  (b) c4 with --async-checkpoint 5 steps, then
+             with --preempt-grace --inject-fault sigterm@3: exit 75, a
+             preemption record (saved, checkpoint_step 3), an un-aborted
+             summary; --resume runs steps 4-5: the losses and every leaf
+             of the final state bitwise the unbroken run's, c4's launches
+             a resumed step.  (c) C1 with --flight-recorder and
+             --inject-fault crash@2: a crash_dump whose env names the card
+             and whose memory is torch.cuda's, an aborted summary; a hang
+             of DIAG_HANG_S at step 2 under --stall-timeout 1
+             --stall-trace: one stall record naming the hang, and a trace
+             from the stall to the recovery holding SGD launches.  Then
+             the trainer's own loop on c2 and c4 with --numerics-check
+             overflow, with --tick-profile and with neither, run in turn
+             (off, numerics, tick, ..., off: 1 round of 6-step runs on
+             c2, 4 rounds of 8-step runs on c4, whose LM loop the flag
+             does not decompose, as in JAX), each arm's period against
+             the off runs on either side (a numerics run writes an
+             overflow_event for each step that overflowed and no other).
+             The c2, c4, c5 and gpt2048 lines carry MFU (utils/flops,
+             the card's bf16 peak).
 
 Then one JSON line per the port's kernel table ({"kernels": [...]}) and,
 last, {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
@@ -2697,11 +2729,12 @@ def phase_main(cli, gpt_base, counted):
 
 
 def phase_train(train, counted, label, argv, per_step, scale=None,
-                falls=True, out=None):
+                falls=True, out=None, nan_steps=()):
     """A model trained through the port's trainer: finite, falling loss
     (the mean of the last five steps below that of the first five; of the
     last two below the first two in a run of five; not asked with
-    ``falls=False``) and
+    ``falls=False``; a step of ``nan_steps``, 1-based, may have a NaN
+    loss) and
     ``per_step`` launches of each kernel a step, none of the others; with
     ``scale``, every step's loss scale equal to it.  ``out``, a dict,
     receives the step records, the median step time and the peak
@@ -2748,7 +2781,8 @@ def phase_train(train, counted, label, argv, per_step, scale=None,
     if rc != 0 or n != args.steps_per_epoch:
         raise SystemExit(f"{label} run: rc {rc}, {n} step records (want "
                          f"{args.steps_per_epoch})")
-    if not all(math.isfinite(x) for x in losses):
+    if not all(math.isfinite(x) for i, x in enumerate(losses)
+               if i + 1 not in nan_steps):
         raise SystemExit(f"{label} loss is not finite: {losses}")
     if falls and not statistics.fmean(losses[-w:]) < statistics.fmean(
             losses[:w]):
@@ -2762,18 +2796,20 @@ def phase_train(train, counted, label, argv, per_step, scale=None,
     return counts
 
 
-def phase_c2(train, counted, per_step):
+def phase_c2(train, counted, per_step, out=None):
     """C2 through the trainer at batch 256, or at 128 where 256 runs out of
     device memory (printed as a cut).  Returns the counts and the argv."""
     argv = list(C2_ARGS)
     try:
-        return phase_train(train, counted, "c2", argv, per_step), argv
+        return phase_train(train, counted, "c2", argv, per_step,
+                           out=out), argv
     except torch.cuda.OutOfMemoryError as exc:
         print(f"c2: batch 256 does not fit in the card's memory ({exc}); "
               f"CUT: halved to 128")
     torch.cuda.empty_cache()
     argv[argv.index("--batch-size") + 1] = "128"
-    return phase_train(train, counted, "c2", argv, per_step), argv
+    return phase_train(train, counted, "c2", argv, per_step,
+                       out=out), argv
 
 
 def _loss(train, args, model, batch, mems):
@@ -3010,17 +3046,42 @@ def _group(name):
     return "other elementwise"
 
 
-def phase_profile(train, argv, steps=3):
+def _mfu_line(train, label, args, model, step_ms):
+    """``label``'s model FLOPs utilisation at ``step_ms`` a step, from
+    utils/flops (the card's peak for the run's product dtype)."""
+    from apex_example_tpu_torch.utils import flops
+    if train.is_image(args):
+        spec = train.DATASETS[args.dataset]
+        per_item = flops.resnet_train_flops_per_image(
+            args.arch, spec["image_size"], spec["num_classes"])
+        items, unit = args.batch_size, "image"
+    else:
+        per_item = flops.model_train_flops_per_token(model, args.seq_len)
+        items, unit = args.batch_size * args.seq_len, "token"
+    dtype = torch.float32 if args.opt_level == "O0" else torch.bfloat16
+    peak = flops.device_peak_flops(dtype)
+    rate = items / step_ms * 1e3
+    print(f"{label}: MFU {flops.mfu_pct(rate, per_item, peak):.2f}% of the "
+          f"card's {str(dtype).replace('torch.', '')} peak "
+          f"({peak / 1e12:.1f} TFLOP/s): {per_item / 1e9:.4f} GFLOP a "
+          f"trained {unit}, {per_item * items / 1e12:.3f} TFLOP a step at "
+          f"{step_ms:.2f} ms (utils/flops)")
+
+
+def phase_profile(train, argv, steps=3, mfu=None):
     """torch.profiler over a few train steps of the model ``argv`` names:
     device time by kernel group, and the share of the window the device sat
-    idle.  Returns the device busy time a step (ms), None without device
-    events."""
+    idle.  With ``mfu`` (label, step ms of the trainer's run), that run's
+    MFU first.  Returns the device busy time a step (ms), None without
+    device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     args = train.build_parser().parse_args(argv)
     state = train.build_state(args, "cuda")
     model = state.model
+    if mfu is not None:
+        _mfu_line(train, mfu[0], args, model, mfu[1])
     step_fn, mems = _step_fn(train, args, model)
     batches = [train.batch_fn(args, getattr(model, "vocab_size", 0), i,
                               "cuda") for i in range(steps + 2)]
@@ -4861,6 +4922,335 @@ def phase_host(train, counted, c2_argv, image_step, bert_step):
     return by_path
 
 
+DIAG_STEPS = 6            # diag (a): c2's steps, the NaN batch at 4
+DIAG_HANG_S = 2.0         # diag (c): the hang, under --stall-timeout 1
+# the in-turn cost of --numerics-check and --tick-profile through the
+# trainer: (steps a run, rounds) for c2 and for c4, whose host-bound
+# periods spread more between runs, so it takes more rounds; the first
+# DIAG_AB_SKIP gaps between step records are left out of a run's median
+DIAG_AB_C2, DIAG_AB_C4 = (6, 1), (8, 4)
+DIAG_AB_SKIP = 1
+
+
+def _chrome_events(trace_dir, pattern):
+    """The ph "X" events of the one Chrome trace in ``trace_dir`` whose
+    name matches ``pattern``."""
+    import glob
+    paths = glob.glob(os.path.join(trace_dir, pattern))
+    if len(paths) != 1:
+        raise SystemExit(f"diag: {len(paths)} traces {pattern} in "
+                         f"{trace_dir} (want 1)")
+    with open(paths[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    return [e for e in events if e.get("ph") == "X"], paths[0]
+
+
+def _diag_c2(train, counted, c2_argv, image_step, trace_dir):
+    """(a): C2 with every diagnostic armed and a NaN batch at step 4."""
+    from apex_example_tpu_torch.obs.metrics import read_jsonl
+    label = "diag_c2"
+    argv = c2_argv + [
+        "--loss-scale", "dynamic", "--steps-per-epoch", str(DIAG_STEPS),
+        "--tick-profile", "--tick-profile-every", "1", "--trace",
+        "--profile-window", "2:3", "--numerics-check", "overflow",
+        "--inject-fault", "nan@4", "--flight-recorder", "--stall-timeout",
+        "120"]
+    counts = phase_train(train, counted, label, argv,
+                         dict(image_step, multi_tensor_scale=1), falls=False,
+                         nan_steps=(4,))
+    records = read_jsonl(os.path.join(ROOT, "build",
+                                      f"chip_smoke_{label}.jsonl"))
+    kinds = [r["record"] for r in records]
+    steps = [r for r in records if r["record"] == "step"]
+    events = [r for r in records if r["record"] == "overflow_event"]
+    if "crash_dump" in kinds or "stall" in kinds:
+        raise SystemExit(f"diag: a clean c2 run wrote {kinds}")
+    if [e["step"] for e in events] != [4] or not events[0]["modules"]:
+        raise SystemExit(f"diag: overflow events {events} (want one, at "
+                         f"step 4, naming modules)")
+    s3, s4 = steps[2], steps[3]
+    if s4["grads_finite"] != 0.0 or s4["scale"] != s3["scale"] / 2:
+        raise SystemExit(f"diag: step 4 not skipped: {s4}")
+    if not all(math.isfinite(s["loss"]) and s["grads_finite"] == 1.0
+               for s in steps[4:]):
+        raise SystemExit(f"diag: c2 did not recover after the NaN batch: "
+                         f"{steps[4:]}")
+    ticks = [r for r in records if r["record"] == "tick_profile"]
+    summary = next(r for r in records if r["record"] == "overhead_summary")
+    total = sum(p["total_ms"] for p in summary["phases"].values())
+    if len(ticks) != DIAG_STEPS or not all(
+            t["phases"]["device"] > 0 and abs(sum(t["phases"].values())
+                                              - t["wall_ms"])
+            <= 0.01 * t["wall_ms"] for t in ticks) \
+            or abs(total - summary["wall_ms"]) > 0.01 * summary["wall_ms"]:
+        raise SystemExit(f"diag: the tick phases do not sum to the wall "
+                         f"or the device phase is 0: {ticks}")
+    spans = [r for r in records if r["record"] == "trace_event"]
+    if [e["name"] for e in spans] != ["data", "step"] * DIAG_STEPS \
+            or any("parent_id" in e for e in spans) \
+            or any(a["ts"] + a["dur"] > b["ts"]
+                   for a, b in zip(spans, spans[1:])):
+        raise SystemExit(f"diag: the host spans are not data, step in "
+                         f"turn: {[e['name'] for e in spans]}")
+    xs, path = _chrome_events(trace_dir, "window_2_3.*.pt.trace.json")
+    sgd = [e for e in xs if e.get("cat") == "kernel"
+           and "sgd_chunks" in e["name"]]
+    ranges = {name: [e for e in xs if e.get("cat") == "user_annotation"
+                     and e["name"] == name]
+              for name in ("step", "fwd_bwd", "unscale_check", "optimizer")}
+    nested = all(any(s["ts"] <= e["ts"] and e["ts"] + e["dur"]
+                     <= s["ts"] + s["dur"] for s in ranges["step"])
+                 for name in ("fwd_bwd", "unscale_check", "optimizer")
+                 for e in ranges[name])
+    phases = {p: statistics.median(t["phases"][p] for t in ticks[1:])
+              for p in ticks[0]["phases"]}
+    print(f"diag: c2 with --tick-profile --trace --profile-window 2:3 "
+          f"--numerics-check overflow --inject-fault nan@4 "
+          f"--flight-recorder --stall-timeout 120: one overflow_event at "
+          f"step 4 naming {len(events[0]['modules'])} modules "
+          f"({', '.join(events[0]['modules'][:4])}, ...), the step "
+          f"skipped (grads_finite 0), scale {s3['scale']:.0f} -> "
+          f"{s4['scale']:.0f}, steps 5-{DIAG_STEPS} finite; no crash_dump "
+          f"or stall; spans data, step x {DIAG_STEPS}")
+    print(f"diag: c2 tick phases, medians of steps 2-{DIAG_STEPS} (ms): "
+          + "  ".join(f"{p} {v:.3f}" for p, v in phases.items())
+          + f"; over the run host_gap_ms {summary['host_gap_ms']:.3f} of "
+          f"wall {summary['wall_ms']:.3f}, host_overhead_frac "
+          f"{summary['host_overhead_frac']:.4f}, device_ms "
+          f"{summary['device_ms']:.3f}")
+    print(f"diag: c2 window trace {os.path.basename(path)}: {len(xs)} "
+          f"events, {len(sgd)} SGD kernel launches (want 2), ranges "
+          + ", ".join(f"{k} {len(v)}" for k, v in ranges.items())
+          + f" (want 2 each), the phases inside step: {nested}")
+    if len(sgd) != 2 or any(len(v) != 2 for v in ranges.values()) \
+            or not nested:
+        raise SystemExit("diag: the window trace lacks the SGD launches or "
+                         "the phase ranges")
+    return counts
+
+
+def _diag_c4(train, counted, bert_step):
+    """(b): c4 preempted at step 3 under --preempt-grace with an async
+    save, then resumed: bitwise the unbroken run."""
+    import shutil
+    from apex_example_tpu_torch.obs.metrics import read_jsonl
+    ck = os.path.join(ROOT, "build", "chip_smoke_diag_ck")
+    shutil.rmtree(ck, ignore_errors=True)
+    argv = C4_ARGS + ["--steps-per-epoch", "5", "--async-checkpoint"]
+    paths = {k: os.path.join(ROOT, "build", f"chip_smoke_diag_c4_{k}.jsonl")
+             for k in ("full", "pre", "res")}
+    kept = []
+    build_state = train.build_state
+
+    def keep(args, device):
+        kept.append(build_state(args, device))
+        return kept[-1]
+
+    def run(extra, key):
+        rc = train.run_train(train.build_parser().parse_args(
+            argv + extra + ["--metrics-jsonl", paths[key]]))
+        return rc, read_jsonl(paths[key])
+
+    train.build_state = keep
+    try:
+        rc_full, full = run([], "full")
+        want = _state_leaves(kept.pop())
+        torch.cuda.empty_cache()
+        rc_pre, pre = run(["--preempt-grace", "--inject-fault", "sigterm@3",
+                           "--checkpoint-dir", ck], "pre")
+        kept.clear()
+        torch.cuda.empty_cache()
+        _zero_counts(counted)
+        rc_res, res = run(["--resume", ck], "res")
+        counts = _counts(counted)
+        got = _state_leaves(kept.pop())
+    finally:
+        train.build_state = build_state
+    losses = lambda recs: {r["step"]: r["loss"]             # noqa: E731
+                           for r in recs if r["record"] == "step"}
+    preempt = [r for r in pre if r["record"] == "preemption"]
+    trail = {**losses(pre), **losses(res)}
+    bad = _unequal(got, want)
+    want_counts = dict.fromkeys(counted, 0)
+    want_counts.update({k: 2 * v for k, v in bert_step.items()})
+    print(f"diag: c4 --preempt-grace --inject-fault sigterm@3 "
+          f"--async-checkpoint: rc {rc_pre} (want 75), {preempt}; the run "
+          f"summary aborted: {pre[-1].get('aborted', False)}; --resume: rc "
+          f"{rc_res}, steps {sorted(losses(res))}; the trail bitwise the "
+          f"unbroken 5 steps': {trail == losses(full)}; {len(want)} leaves "
+          f"of the final state, {len(bad)} unequal; the resumed steps' "
+          f"launches {counts == want_counts}")
+    if rc_full != 0 or rc_pre != 75 or rc_res != 0 or len(preempt) != 1 \
+            or not preempt[0]["saved"] \
+            or preempt[0].get("checkpoint_step") != 3 \
+            or pre[-1]["record"] != "run_summary" or "aborted" in pre[-1]:
+        raise SystemExit("diag: the c4 grace exit is not the contract's")
+    if trail != losses(full) or sorted(trail) != [1, 2, 3, 4, 5] or bad:
+        raise SystemExit(f"diag: the resumed c4 trail differs: {bad[:5]}")
+    if counts != want_counts:
+        raise SystemExit(f"diag: resumed c4 launches {counts}")
+    shutil.rmtree(ck, ignore_errors=True)
+    return counts
+
+
+def _diag_c1(train, trace_dir):
+    """(c): a crash under --flight-recorder and a hang under
+    --stall-timeout 1 --stall-trace, on C1."""
+    from apex_example_tpu_torch.obs.metrics import read_jsonl
+    from apex_example_tpu_torch.resilience import faults
+    crash = os.path.join(ROOT, "build", "chip_smoke_diag_crash.jsonl")
+    try:
+        train.run_train(train.build_parser().parse_args(
+            C1_ARGS + ["--steps-per-epoch", "3", "--flight-recorder",
+                       "--inject-fault", "crash@2", "--metrics-jsonl",
+                       crash]))
+        raise SystemExit("diag: crash@2 did not raise")
+    except faults.FaultInjected:
+        pass
+    records = read_jsonl(crash)
+    dump = next(r for r in records if r["record"] == "crash_dump")
+    mem = dump.get("memory", {})
+    ok = (dump["env"].get("device") == torch.cuda.get_device_name(0)
+          and dump.get("step") == 2 and mem.get("bytes_in_use", 0) > 0
+          and mem.get("bytes_limit") == torch.cuda.get_device_properties(
+              0).total_memory and "FaultInjected" in dump["traceback"]
+          and records[-1].get("aborted") is True)
+    print(f"diag: crash@2 under --flight-recorder: crash_dump env "
+          f"{ {k: dump['env'].get(k) for k in ('torch', 'cuda', 'device')} }"
+          f", memory {mem}, last steps "
+          f"{[r['step'] for r in dump.get('last_steps', [])]}, the summary "
+          f"aborted: {records[-1].get('aborted')}: {ok}")
+    if not ok:
+        raise SystemExit("diag: the crash dump is not the contract's")
+    hang = os.path.join(ROOT, "build", "chip_smoke_diag_hang.jsonl")
+    before, faults.HANG_SECONDS = faults.HANG_SECONDS, DIAG_HANG_S
+    try:
+        rc = train.run_train(train.build_parser().parse_args(
+            C1_ARGS + ["--steps-per-epoch", "4", "--inject-fault", "hang@2",
+                       "--stall-timeout", "1", "--stall-trace",
+                       "--metrics-jsonl", hang]))
+    finally:
+        faults.HANG_SECONDS = before
+    records = read_jsonl(hang)
+    stalls = [r for r in records if r["record"] == "stall"]
+    xs, path = _chrome_events(trace_dir, "stall.*.pt.trace.json")
+    kernels = [e for e in xs if e.get("cat") == "kernel"]
+    sgd = [e for e in kernels if "sgd_chunks" in e["name"]]
+    print(f"diag: hang@2 ({DIAG_HANG_S:g} s) under --stall-timeout 1 "
+          f"--stall-trace: rc {rc}, {len(stalls)} stall record(s) at step "
+          f"{[r['step'] for r in stalls]}, "
+          f"{[r['seconds_since_step'] for r in stalls]} s since the step, "
+          f"the stacks name the hang: "
+          f"{all('maybe_fire' in r['thread_stacks'] for r in stalls)}; "
+          f"trace {os.path.basename(path)}: {len(kernels)} kernels, "
+          f"{len(sgd)} SGD launches of the steps that recovered")
+    if rc != 0 or len(stalls) != 1 or stalls[0]["step"] != 2 \
+            or "maybe_fire" not in stalls[0]["thread_stacks"] or not sgd:
+        raise SystemExit("diag: the stall is not the contract's")
+
+
+DIAG_ARMS = {"off": [],
+             "numerics": ["--numerics-check", "overflow"],
+             "tick": ["--tick-profile", "--tick-profile-every", "1"]}
+
+
+def _diag_ab(train, label, argv, steps, rounds):
+    """The cost of --numerics-check overflow and of --tick-profile on
+    ``argv``'s cell, timed through the trainer's own loop: ``rounds``
+    rounds of trainer runs in turn (off, numerics, tick; a last off run
+    closes them), each ``steps`` steps from the seed's state under
+    --loss-scale dynamic and --metrics-jsonl, the flag alone differing.
+    The LM loop is not decomposed (as in JAX), so on an LM cell the tick
+    arm times the flag doing nothing.  A run's period is the median gap
+    between its step records' times (the loop's whole tick: the batch,
+    the step, its record and the observers) after the first DIAG_AB_SKIP
+    gaps.  An arm's cost in a
+    round is its period over the mean of the off runs on either side, less
+    1.  A numerics run writes one overflow_event for each step whose grads
+    were not finite and no other; a tick run on an image cell its
+    overhead_summary.  Returns {arm: [cost a round]}."""
+    from apex_example_tpu_torch.obs.metrics import read_jsonl
+    path = os.path.join(ROOT, "build", f"chip_smoke_diag_ab_{label}.jsonl")
+    base = argv + ["--loss-scale", "dynamic", "--steps-per-epoch",
+                   str(steps), "--print-freq", str(steps),
+                   "--metrics-jsonl", path]
+    image = train.is_image(train.build_parser().parse_args(base))
+    periods = {arm: [] for arm in DIAG_ARMS}
+    skipped = 0
+    for arm in [*DIAG_ARMS] * rounds + ["off"]:
+        if os.path.exists(path):
+            os.remove(path)
+        rc = train.run_train(train.build_parser().parse_args(
+            base + DIAG_ARMS[arm]))
+        records = read_jsonl(path)
+        steps_ = [r for r in records if r["record"] == "step"]
+        kinds = [r["record"] for r in records]
+        overflowed = [r["step"] for r in steps_ if r["grads_finite"] < 1]
+        events = [r["step"] for r in records
+                  if r["record"] == "overflow_event"]
+        if rc != 0 or len(steps_) != steps \
+                or events != (overflowed if arm == "numerics" else []) \
+                or (arm == "tick" and image) != ("overhead_summary"
+                                                 in kinds):
+            raise SystemExit(f"diag: {label} {arm} run: rc {rc}, "
+                             f"{len(steps_)} steps, overflowed {overflowed},"
+                             f" overflow_events {events}, records "
+                             f"{set(kinds)}")
+        skipped += len(overflowed)
+        times = [r["time"] for r in steps_]
+        gaps = [(b - a) * 1e3 for a, b in zip(times, times[1:])]
+        periods[arm].append(statistics.median(gaps[DIAG_AB_SKIP:]))
+        torch.cuda.empty_cache()
+    off = periods["off"]
+    cost = {arm: [t / ((off[i] + off[i + 1]) / 2) - 1
+                  for i, t in enumerate(periods[arm])]
+            for arm in ("numerics", "tick")}
+    print(f"diag: {label}, the trainer's loop in turn, {rounds} round(s) "
+          f"of runs off, numerics, tick and a closing off, {steps} steps "
+          f"each (median of the step records' gaps {DIAG_AB_SKIP + 1}-"
+          f"{steps - 1}; ms a step): "
+          + "  ".join(f"{arm} " + " / ".join(f"{t:.2f}" for t in v)
+                      for arm, v in periods.items())
+          + "; cost a round against the off runs either side: "
+          + "  ".join(f"{arm} " + " / ".join(f"{c:+.2%}" for c in v)
+                      + f" (median {statistics.median(v):+.2%})"
+                      for arm, v in cost.items())
+          + f"; the off runs' spread {min(off):.2f}-{max(off):.2f} ms "
+          f"({max(off) / min(off) - 1:.2%}); {skipped} steps overflowed"
+          + ("" if image else "; --tick-profile does not decompose the LM "
+             "loop (as in JAX)"))
+    return cost
+
+
+def phase_diag(train, counted, c2_argv, image_step, bert_step):
+    """The trainer's diagnostics and resilience on the card: (a) C2 with
+    them armed and a NaN batch, (b) c4 preempted and resumed, (c) a crash
+    and a hang on C1; then the in-turn cost of --numerics-check overflow
+    and --tick-profile on c2 and c4.  Returns the paths' launches."""
+    import shutil
+    from apex_example_tpu_torch.obs import profiler
+    t0 = time.perf_counter()
+    trace_dir = os.path.join(ROOT, "build", "chip_smoke_trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    before, profiler.DEFAULT_TRACE_DIR = profiler.DEFAULT_TRACE_DIR, \
+        trace_dir
+    try:
+        by_path = {"diag_c2": _diag_c2(train, counted, c2_argv, image_step,
+                                       trace_dir)}
+        torch.cuda.empty_cache()
+        by_path["diag_c4"] = _diag_c4(train, counted, bert_step)
+        torch.cuda.empty_cache()
+        _diag_c1(train, trace_dir)
+        torch.cuda.empty_cache()
+        _diag_ab(train, "c2", c2_argv, *DIAG_AB_C2)
+        _diag_ab(train, "c4", C4_ARGS, *DIAG_AB_C4)
+    finally:
+        profiler.DEFAULT_TRACE_DIR = before
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    print(f"diag: took {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this check runs on "
@@ -4927,15 +5317,18 @@ def main() -> int:
     by_path["gpt"] = phase_train(train, counted, "gpt", GPT_ARGS, gpt_step)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    gpt2048_run = {}
     by_path["gpt2048"] = phase_train(train, counted, "gpt2048",
-                                     GPT2048_O2_ARGS, gpt2048_step)
+                                     GPT2048_O2_ARGS, gpt2048_step,
+                                     out=gpt2048_run)
     torch.cuda.empty_cache()
     by_path["gpt2048_o0"] = phase_train(train, counted, "gpt2048_o0",
                                         GPT2048_O0_ARGS, gpt2048_step)
     torch.cuda.empty_cache()
     phase_route_cross_check(counted, lm_batch)
     phase_route_times(train, counted)
-    phase_profile(train, GPT2048_O2_ARGS)
+    phase_profile(train, GPT2048_O2_ARGS,
+                  mfu=("gpt2048", gpt2048_run["step_ms"]))
     torch.cuda.empty_cache()
     phase_profile(train, GPT2048_O0_ARGS)
     torch.cuda.empty_cache()
@@ -4949,7 +5342,9 @@ def main() -> int:
     rows += [phase_novograd(fo, mt), phase_adagrad(fo, mt, resnet50),
              phase_axpby(mt)]
     torch.cuda.empty_cache()
-    by_path["c2"], c2_args = phase_c2(train, counted, image_step)
+    c2_run = {}
+    by_path["c2"], c2_args = phase_c2(train, counted, image_step,
+                                      out=c2_run)
     torch.cuda.empty_cache()
     by_path["c1"] = phase_train(train, counted, "c1", C1_ARGS, image_step)
     by_path["dynamic"] = phase_train(
@@ -4962,7 +5357,7 @@ def main() -> int:
     phase_cross_check(train, counted, "c2", C2_CROSS_ARGS,
                       (imgs.numpy(), labels.numpy()), image_step,
                       flip_lr=0.1)
-    busy_ms = phase_profile(train, c2_args)
+    busy_ms = phase_profile(train, c2_args, mfu=("c2", c2_run["step_ms"]))
     if busy_ms is not None:
         phase_bn_share(train, c2_args, SyncBatchNorm, busy_ms)
     t0 = time.perf_counter()
@@ -4992,12 +5387,15 @@ def main() -> int:
     print(f"novograd, adagrad: their training phases took "
           f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    by_path["c4"] = phase_train(train, counted, "c4", C4_ARGS, bert_step)
+    c4_run, c5_run = {}, {}
+    by_path["c4"] = phase_train(train, counted, "c4", C4_ARGS, bert_step,
+                                out=c4_run)
     torch.cuda.empty_cache()
-    by_path["c5"] = phase_train(train, counted, "c5", C5_ARGS, txl_step)
+    by_path["c5"] = phase_train(train, counted, "c5", C5_ARGS, txl_step,
+                                out=c5_run)
     torch.cuda.empty_cache()
-    phase_profile(train, C4_ARGS)
-    phase_profile(train, C5_ARGS)
+    phase_profile(train, C4_ARGS, mfu=("c4", c4_run["step_ms"]))
+    phase_profile(train, C5_ARGS, mfu=("c5", c5_run["step_ms"]))
     phase_o2_first_step(train, "c4", TRAIN_ARGS, mlm_batch(
         0, batch_size=2, seq_len=128, vocab_size=30522, mask_token_id=30521,
         seed=0))
@@ -5049,6 +5447,9 @@ def main() -> int:
                               bert_step))
     print(f"accum, remat, s2d, host: the step options took "
           f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    by_path.update(phase_diag(train, counted, c2_args, image_step,
+                              bert_step))
     for row in rows:
         row["launches_by_path"] = {k: v[row["name"]]
                                    for k, v in by_path.items()}

@@ -44,7 +44,11 @@ repeatable.  Across two processes on cuda:0 in a gloo group
 (tests/torch_dist_cases.py): SyncBatchNorm in both branches against one
 process with the whole batch on the card, 1e-5 (fp32 sums in another
 order), and DistributedFusedAdam against FusedAdam with the mean grads,
-rtol 1e-5 plus 1e-6 of each tensor's largest magnitude.
+rtol 1e-5 plus 1e-6 of each tensor's largest magnitude.  The trainer's
+diagnostics: the standard-library CRC-32C of the --tensorboard writer on
+its check value; --numerics-check's per-module stats of grads on the
+card with planted infs and NaNs against the CPU's, counts exact, norms
+rtol 1e-5 (fp32 sums in another order).
 """
 
 import numpy as np
@@ -1588,3 +1592,42 @@ def test_host_pipeline_batches_reach_the_card_bitwise(cuda_device):
     for (gx, gy), (wx, wy) in zip(got, want):
         assert gx.is_cuda and torch.equal(gx.cpu(), wx)
         assert torch.equal(gy.cpu(), wy)
+
+
+@pytest.mark.cuda
+def test_crc32c_of_the_event_file_writer(cuda_device):
+    """The standard-library CRC-32C that frames --tensorboard's records,
+    on its check value and an empty input, where the trainer runs."""
+    from apex_example_tpu_torch.obs import metrics
+    assert metrics.crc32c(b"123456789") == 0xE3069283
+    assert metrics.crc32c(b"") == 0
+    assert metrics.masked_crc32c(b"") == 0xA282EAD8
+
+
+@pytest.mark.cuda
+def test_numerics_stats_on_the_card_match_the_cpu(cuda_device):
+    """--numerics-check's per-module stats of fp32 and bf16 grads with
+    planted infs and NaNs: counts exact, norms rtol 1e-5 (fp32 sums in
+    another order, as the L2 norms above)."""
+    from apex_example_tpu_torch.obs.numerics import module_grad_stats
+    gen = torch.Generator().manual_seed(0)
+    grads = [("layer_0", torch.randn(300, 77, generator=gen)),
+             ("layer_0", torch.randn(65537, generator=gen)),
+             ("fc", torch.randn(10, 64, generator=gen).bfloat16()),
+             ("word_embeddings", torch.randn(4096, 64, generator=gen)),
+             ("fc", torch.randn(10, generator=gen))]
+    grads[0][1][3, 5] = float("inf")
+    grads[1][1][:7] = float("nan")
+    grads[2][1][1, 1] = -float("inf")
+    want = module_grad_stats(grads)
+    on_card = [(n, g.to(cuda_device)) for n, g in grads]
+    allocs = torch.cuda.memory_stats(cuda_device)["allocation.all.allocated"]
+    got = module_grad_stats(on_card)
+    assert torch.cuda.memory_stats(cuda_device)[      # reduced on the card
+        "allocation.all.allocated"] > allocs
+    assert list(got) == ["layer_0", "fc", "word_embeddings"]
+    for name, s in want.items():
+        assert got[name]["nonfinite"] == s["nonfinite"]
+        np.testing.assert_allclose(got[name]["grad_norm"], s["grad_norm"],
+                                   rtol=1e-5)
+    assert [got[n]["nonfinite"] for n in got] == [8, 1, 0]

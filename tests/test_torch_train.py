@@ -21,10 +21,11 @@ under dynamic loss scaling, and its eval step.
   ``--metrics-jsonl`` stream passes ``tools/metrics_lint.py
   --require-summary`` (the Transformer-XL stream carries ``ppl``); without
   ``--device`` it raises where torch sees no CUDA; the flags of paths not
-  ported (``--pipeline-parallel``, ``--inject-fault``,
-  ``--context-parallel``, ``--tensor-parallel``, and beside O1 or
-  ``--loss-scale``, which the LM archs take, ``--numerics-check``,
-  ``--preempt-grace`` and ``--tensorboard``) are rejected by argparse.
+  ported (``--pipeline-parallel``, ``--cost-model``,
+  ``--context-parallel``, ``--tensor-parallel``, and beside ``--loss-scale``,
+  which the LM archs take, ``--moe-experts``) and bad values of ported
+  flags (``--numerics-check warn``, ``--preempt-grace 30``) are rejected
+  by argparse.
   The reference's launcher flags (``--local_rank`` and ``--local-rank``,
   ``--workers``, ``--deterministic``, ``--num-devices 1``,
   ``--metrics-all-ranks``) are accepted, recorded in the run_header, and
@@ -52,9 +53,10 @@ under dynamic loss scaling, and its eval step.
   more than twice as far from fp32 as JAX's, the key biases, whose exact
   gradient is zero, aside; three steps' losses rtol 2e-2).  The CLI runs
   ``--fused-attention`` at O0 and O2 and its stream lints; it refuses
-  ``--fused-attention`` at O3 and for transformer_xl and the image archs;
-  argparse rejects ``--numerics-check`` and ``--preempt-grace`` beside
-  ``--fused-attention`` and O2.
+  ``--fused-attention`` at O3 and for transformer_xl and the image archs,
+  and ``--numerics-check`` beside ``--fused-attention`` and O2 for
+  transformer_xl (JAX's refusal and message); argparse rejects a bad
+  ``--numerics-check`` mode and a value given to ``--preempt-grace``.
 - ``train.main`` with ``--opt novograd`` (bert_tiny) and ``--opt
   adagrad`` (ResNet-18, num_filters 4): three steps on the CPU from the
   flax init, converted, against the JAX ``make_train_step`` with the JAX
@@ -497,7 +499,11 @@ def test_gpt_cli_with_fused_attention_lints(tmp_path, level):
     (["--arch", "gpt_tiny", "--fused-attention", "--opt-level", "O2",
       "--loss-scale", "dynamic", "--numerics-check", "warn"], "^2$"),
     (["--arch", "transformer_xl_tiny", "--opt-level", "O2",
-      "--preempt-grace", "30"], "^2$")])
+      "--preempt-grace", "30"], "^2$"),
+    (["--arch", "transformer_xl_tiny", "--opt-level", "O2",
+      "--loss-scale", "dynamic", "--numerics-check", "overflow",
+      "--metrics-jsonl", "x.jsonl"],
+     "transformer_xl steps own their own grad pipelines")])
 def test_fused_attention_and_amp_refusals(argv, match):
     with pytest.raises(SystemExit, match=match):
         train.main(["--device", "cpu"] + argv)
@@ -535,7 +541,7 @@ def test_cli_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [["--pipeline-parallel", "2"],
-                                  ["--inject-fault", "sigterm@2"],
+                                  ["--cost-model"],
                                   ["--context-parallel", "2"],
                                   ["--tensor-parallel", "2"]])
 def test_flags_of_other_paths_are_rejected(argv):
@@ -822,7 +828,7 @@ def test_image_cli_runs_o2_dynamic_with_eval_and_its_stream_lints(tmp_path):
                                    "warn"],
                                   ["--loss-scale", "dynamic",
                                    "--preempt-grace", "30"],
-                                  ["--tensorboard", "tb"]])
+                                  ["--moe-experts", "2"]])
 def test_lm_archs_refuse_amp_and_eval_until_their_slice(argv):
     with pytest.raises(SystemExit) as exc:
         train.main(["--device", "cpu", "--arch", "bert_tiny"] + argv)
